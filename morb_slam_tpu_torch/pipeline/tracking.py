@@ -1,0 +1,844 @@
+"""The frame-rate tracking state machine, monocular (counterpart of the
+monocular part of `morb_slam_tpu/pipeline/tracking.py`).
+
+Per frame, `track_step` runs extraction (K1, K2, the pyramid and blur) and
+`track_frame` (motion-model search, pose optimization, local-map search,
+pose optimization; K3 inside every search) on the tracker's device. The
+host keeps the state machine and the keyframe decisions, which lag
+`pipeline_depth` frames behind the dispatched work: each frame's decision
+scalars are copied to the host asynchronously when the frame is dispatched
+and read when its decision is due, so the host never waits on frames it
+has dispatched since.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import cameras, frontend, lie, matching
+from ..mapstate import state as ms
+from ..ops import hamming
+from ..optim import pose_opt
+from ..solvers import two_view
+from ..tensor_ops import add_at, mask_first, put, put2, topk
+from . import local_mapping
+
+MAX_LOCAL_LM = 4096
+LOCAL_KFS = 10
+
+
+@dataclass(frozen=True)
+class TrackerConfig:
+    width: int
+    height: int
+    focal: float
+    n_feat: int = 1200
+    max_kf: int = 512
+    max_lm: int = 32768
+    scale: float = 1.2
+    n_levels: int = 8
+    min_init_matches: int = 100
+    min_init_points: int = 50
+    min_track_points: int = 10
+    min_local_points: int = 30
+    # KF trigger c2: local-map inliers below this fraction of the inliers
+    # at the last keyframe insertion
+    kf_ref_ratio: float = 0.95
+    max_kf_interval: int = 12
+    min_kf_interval: int = 3
+    # fraction of the measured inter-frame rotation carried into the
+    # constant-velocity prediction (0: translation only)
+    vel_rot_damp: float = 0.0
+    baseline: float = 0.0      # 0 = monocular (the only mode of this port)
+    ts_jump: float = 1.0       # seconds; a larger gap starts a fresh map
+    # frames a dispatched frame's host decision may lag behind
+    pipeline_depth: int = 2
+
+    @property
+    def orb(self):
+        return frontend.OrbConfig(n_features=self.n_feat,
+                                  n_levels=self.n_levels, scale=self.scale)
+
+    @property
+    def lm_cfg(self):
+        return local_mapping.LocalMapConfig(
+            focal=self.focal, scale=self.scale, n_levels=self.n_levels,
+            baseline=self.baseline)
+
+
+class FrameData(NamedTuple):
+    uv: torch.Tensor        # (F, 2) undistorted pixel coords
+    xn: torch.Tensor        # (F, 2) normalized camera coords
+    octave: torch.Tensor
+    angle: torch.Tensor
+    desc: torch.Tensor      # (F, 8) int32
+    valid: torch.Tensor
+    ur: torch.Tensor        # (F,) normalized right-u (NaN = mono)
+    depth: torch.Tensor     # (F,) depth (-1 = none)
+
+
+class TrackOutput(NamedTuple):
+    R: torch.Tensor
+    t: torch.Tensor
+    feat_lm: torch.Tensor   # (F,) final landmark association
+    n_mm: torch.Tensor      # matches of the motion-model stage
+    n_inl: torch.Tensor     # final local-map inliers
+    m: ms.MapState          # map with updated visible / found counters
+    ref_kf: torch.Tensor    # new reference keyframe id
+
+
+def _info_of(cfg: TrackerConfig, octave):
+    inv_sig2 = cfg.lm_cfg.sigma2_inv(octave.device)
+    return (cfg.focal ** 2) * inv_sig2[torch.clamp(octave, 0,
+                                                   cfg.n_levels - 1).long()]
+
+
+# ---------------------------------------------------------------------------
+# per-frame stages
+# ---------------------------------------------------------------------------
+
+def extract_frame(img, cam: cameras.Camera, cfg: TrackerConfig) -> FrameData:
+    img = img.to(torch.float32)
+    feats = frontend.extract_orb(img, cfg.orb)
+    uv = cameras.undistort_points(cam, feats.uv)
+    xn = cameras.unproject(cam, uv)[:, :2]
+    F = uv.shape[0]
+    return FrameData(uv=uv, xn=xn, octave=feats.octave, angle=feats.angle,
+                     desc=feats.desc, valid=feats.valid,
+                     ur=torch.full((F,), float("nan"), device=uv.device),
+                     depth=torch.full((F,), -1.0, device=uv.device))
+
+
+def track_frame(m: ms.MapState, fr: FrameData, last: FrameData,
+                last_feat_lm, R_last, t_last, vel_R, vel_t, ref_kf,
+                cam: cameras.Camera, cfg: TrackerConfig) -> TrackOutput:
+    """Motion-model matching + pose optimization + local-map search + pose
+    optimization."""
+    K, F = m.kf_feat_lm.shape
+    L = m.lm_valid.shape[0]
+    dev = fr.uv.device
+    info = _info_of(cfg, fr.octave)
+
+    # ---- stage 1: motion model + last-frame matching
+    R_pred, t_pred = lie.se3_mul(vel_R, vel_t, R_last, t_last)
+    last_lm = torch.where(last.valid, last_feat_lm,
+                          torch.full_like(last_feat_lm, -1))
+    lm_idx = torch.clamp(last_lm, min=0).long()
+    lm_ok = (last_lm >= 0) & m.lm_valid[lm_idx]
+    Xc = lie.se3_apply(R_pred, t_pred, m.lm_pos[lm_idx])
+    proj = cameras.project(cam, Xc)
+    proj = torch.where((lm_ok & (Xc[:, 2] > 0.1))[:, None], proj,
+                       torch.full_like(proj, float("nan")))
+    cur_lm = matching.search_last_frame(
+        last.uv, last.desc, last_lm, last.valid,
+        fr.uv, fr.octave, fr.desc, fr.valid,
+        proj, last.octave, radius_px=8.0, scale=cfg.scale,
+        last_angle=last.angle, cur_angle=fr.angle)
+    n_mm = torch.sum(cur_lm >= 0)
+    lm_i = torch.clamp(cur_lm, min=0).long()
+    res1 = pose_opt.optimize_pose(
+        R_pred, t_pred, m.lm_pos[lm_i], fr.xn, info,
+        (cur_lm >= 0) & m.lm_valid[lm_i], obs_ur=fr.ur,
+        baseline=cfg.baseline, n_rounds=2, n_iters=8)
+    cur_lm = torch.where(res1.inliers, cur_lm, torch.full_like(cur_lm, -1))
+
+    # ---- stage 2: local map
+    match_mask = torch.zeros(L + 1, dtype=torch.bool, device=dev)
+    match_mask = put(match_mask, torch.where(cur_lm >= 0, cur_lm,
+                                             torch.full_like(cur_lm, L)),
+                     True)
+    slot_lm = torch.where(m.kf_feat_lm >= 0, m.kf_feat_lm,
+                          torch.full_like(m.kf_feat_lm, L)).long()
+    votes = torch.sum(torch.cat([match_mask[:L], match_mask[:1] & False])
+                      [slot_lm] & m.kf_feat_valid, dim=1,
+                      dtype=torch.int32) * m.kf_valid
+    match_mask = match_mask[:L]
+    new_ref = torch.argmax(votes)
+    new_ref = torch.where(votes[new_ref] > 0, new_ref, ref_kf)
+    top_kfs = topk(votes, min(LOCAL_KFS, K))[1]
+    lm_in = torch.zeros(L + 1, dtype=torch.bool, device=dev)
+    lm_in[torch.where(m.kf_feat_valid[top_kfs], slot_lm[top_kfs],
+                      torch.full_like(slot_lm[top_kfs], L)).reshape(-1)] = True
+    lm_in = lm_in[:L] & m.lm_valid
+    lm_sel = mask_first(lm_in, min(MAX_LOCAL_LM, L))
+    lm_sel_ok = lm_in[lm_sel] & ~match_mask[lm_sel]
+    # every feature is searched against the local map: the multi-view
+    # landmarks may overrule a stage-1 association
+    proj_m = matching.search_by_projection(
+        m.lm_pos[lm_sel], m.lm_normal[lm_sel], m.lm_dist_max[lm_sel],
+        m.lm_desc[lm_sel], lm_in[lm_sel],
+        res1.R, res1.t, lambda X: cameras.project(cam, X),
+        fr.uv, fr.octave, fr.desc, fr.valid,
+        (cfg.width, cfg.height), radius_px=4.0, scale=cfg.scale,
+        n_levels=cfg.n_levels)
+    ext_lm = torch.where(proj_m.feat_lm >= 0,
+                         lm_sel[torch.clamp(proj_m.feat_lm, min=0).long()]
+                         .to(torch.int32), torch.full_like(proj_m.feat_lm, -1))
+    cur_lm2 = torch.where(ext_lm >= 0, ext_lm, cur_lm)
+    lm_i2 = torch.clamp(cur_lm2, min=0).long()
+    res2 = pose_opt.optimize_pose(
+        res1.R, res1.t, m.lm_pos[lm_i2], fr.xn, info,
+        (cur_lm2 >= 0) & m.lm_valid[lm_i2], obs_ur=fr.ur,
+        baseline=cfg.baseline, n_rounds=2, n_iters=8)
+    final_lm = torch.where(res2.inliers, cur_lm2, torch.full_like(cur_lm2, -1))
+
+    # ---- visible / found counters
+    vis_ids = torch.where(lm_sel_ok, lm_sel, torch.full_like(lm_sel, L))
+    m = m._replace(
+        lm_visible=add_at(m.lm_visible, vis_ids, 1),
+        lm_found=add_at(m.lm_found, torch.where(final_lm >= 0, final_lm,
+                                                torch.full_like(final_lm, L)),
+                        1))
+    return TrackOutput(R=res2.R, t=res2.t, feat_lm=final_lm, n_mm=n_mm,
+                       n_inl=res2.n_inliers, m=m, ref_kf=new_ref)
+
+
+def _track_core(fr, m, last, last_feat_lm, R_last, t_last, vel_R, vel_t,
+                has_vel: bool, ref_kf, cam, cfg: TrackerConfig):
+    dev = fr.uv.device
+    eye = torch.eye(3, device=dev)
+    damp = cfg.vel_rot_damp
+    if not has_vel:
+        vel_R_used, vel_t = eye, torch.zeros(3, device=dev)
+    elif damp == 0.0:
+        vel_R_used = eye
+    elif damp < 1.0:
+        vel_R_used = lie.so3_exp(damp * lie.so3_log(vel_R))
+    else:
+        vel_R_used = vel_R
+    out = track_frame(m, fr, last, last_feat_lm, R_last, t_last, vel_R_used,
+                      vel_t, ref_kf, cam, cfg)
+    Ri, ti = lie.se3_inv(R_last, t_last)
+    vel_new = lie.se3_mul(out.R, out.t, Ri, ti)
+    Rri, tri = lie.se3_inv(m.kf_R[out.ref_kf], m.kf_t[out.ref_kf])
+    rel = lie.se3_mul(out.R, out.t, Rri, tri)
+    # host decision scalars in one vector: [n_inl, ref_kf, vel_finite,
+    # n_mm, ref_tracked, n_close_tracked, n_close_untracked] (the close
+    # counts are stereo-only and stay 0 here)
+    ref_lm2 = m.kf_feat_lm[out.ref_kf]
+    lm_c = torch.clamp(ref_lm2, min=0).long()
+    ref_tracked = torch.sum((ref_lm2 >= 0) & m.kf_feat_valid[out.ref_kf]
+                            & m.lm_valid[lm_c])
+    zero = torch.zeros((), device=dev)
+    info = torch.stack([
+        out.n_inl.to(torch.float32), out.ref_kf.to(torch.float32),
+        torch.isfinite(vel_new[1]).all().to(torch.float32),
+        out.n_mm.to(torch.float32), ref_tracked.to(torch.float32), zero, zero])
+    return fr, out, vel_new, rel, info
+
+
+def track_step(img, m, last, last_feat_lm, R_last, t_last, vel_R, vel_t,
+               has_vel, ref_kf, cam, cfg: TrackerConfig):
+    """One frame: extraction + tracking + velocity + trajectory entry."""
+    fr = extract_frame(img, cam, cfg)
+    return _track_core(fr, m, last, last_feat_lm, R_last, t_last, vel_R,
+                       vel_t, has_vel, ref_kf, cam, cfg)
+
+
+def track_step_framedata(fr, m, last, last_feat_lm, R_last, t_last, vel_R,
+                         vel_t, has_vel, ref_kf, cam, cfg: TrackerConfig):
+    return _track_core(fr, m, last, last_feat_lm, R_last, t_last, vel_R,
+                       vel_t, has_vel, ref_kf, cam, cfg)
+
+
+def track_reference_kf(m: ms.MapState, fr: FrameData, ref_kf, R0, t0,
+                       cfg: TrackerConfig):
+    """Prediction-free fallback: mutual-NN descriptor match against the
+    reference keyframe's landmark-bearing features, then pose optimization
+    from (R0, t0)."""
+    F = fr.uv.shape[0]
+    ref_lm = m.kf_feat_lm[ref_kf]
+    ref_ok = m.kf_feat_valid[ref_kf] & (ref_lm >= 0) & \
+        m.lm_valid[torch.clamp(ref_lm, min=0).long()]
+    idx, _ = hamming.match_nn(m.kf_feat_desc[ref_kf], fr.desc,
+                              ref_ok[:, None] & fr.valid[None, :], ref_ok,
+                              fr.valid, max_dist=hamming.TH_LOW, ratio=0.7,
+                              cross_check=True)
+    keep = hamming.rotation_consistency_mask(m.kf_feat_angle[ref_kf],
+                                             fr.angle, idx)
+    idx = torch.where(keep, idx, torch.full_like(idx, -1))
+    cur_lm = put(torch.full((F,), -1, dtype=torch.int32, device=idx.device),
+                 torch.where(idx >= 0, idx, torch.full_like(idx, F)), ref_lm)
+    lm_i = torch.clamp(cur_lm, min=0).long()
+    res = pose_opt.optimize_pose(
+        R0, t0, m.lm_pos[lm_i], fr.xn, _info_of(cfg, fr.octave),
+        (cur_lm >= 0) & m.lm_valid[lm_i], n_rounds=3, n_iters=10)
+    return res.R, res.t, torch.where(res.inliers, cur_lm,
+                                     torch.full_like(cur_lm, -1)), \
+        res.n_inliers
+
+
+def insert_keyframe(m: ms.MapState, fr: FrameData, feat_lm, R, t, ts,
+                    slot: int, prev_id: Optional[int] = None):
+    """Write the frame into keyframe slot `slot`; `prev_id` is its temporal
+    predecessor (default slot - 1)."""
+    k = int(slot)
+    prev = k - 1 if prev_id is None else int(prev_id)
+    lm_i = torch.clamp(feat_lm, min=0).long()
+    assoc = (feat_lm >= 0) & m.lm_valid[lm_i]
+    ki = torch.tensor([k], device=fr.uv.device)
+
+    def row(x, v):
+        return put(x, ki, torch.as_tensor(v, dtype=x.dtype,
+                                          device=x.device)[None])
+    m = m._replace(
+        kf_R=row(m.kf_R, R), kf_t=row(m.kf_t, t),
+        kf_valid=row(m.kf_valid, True), kf_ts=row(m.kf_ts, float(ts)),
+        kf_feat_uv=row(m.kf_feat_uv, fr.uv),
+        kf_feat_xn=row(m.kf_feat_xn, fr.xn),
+        kf_feat_octave=row(m.kf_feat_octave, fr.octave),
+        kf_feat_angle=row(m.kf_feat_angle, fr.angle),
+        kf_feat_desc=row(m.kf_feat_desc, fr.desc),
+        kf_feat_valid=row(m.kf_feat_valid, fr.valid),
+        kf_feat_ur=row(m.kf_feat_ur, fr.ur),
+        kf_feat_lm=row(m.kf_feat_lm, torch.where(assoc, feat_lm,
+                                                 torch.full_like(feat_lm, -1))),
+        kf_prev=row(m.kf_prev, prev),
+        n_kf=torch.maximum(m.n_kf, torch.as_tensor(k + 1, dtype=m.n_kf.dtype,
+                                                   device=m.n_kf.device)))
+    return m, k
+
+
+def _nanmedian(x):
+    """Median of the finite entries, the mean of the two middle ones for an
+    even count (jnp.nanmedian)."""
+    n = torch.sum(torch.isfinite(x))
+    v = torch.sort(torch.where(torch.isfinite(x), x,
+                               torch.full_like(x, math.inf)))[0]
+    pos = 0.5 * (n.to(torch.float32) - 1.0)
+    lo = torch.clamp(torch.floor(pos).long(), min=0)
+    hi = torch.clamp(torch.ceil(pos).long(), min=0)
+    med = (v[lo] + v[hi]) * 0.5
+    return torch.where(n > 0, med, torch.full_like(med, math.nan))
+
+
+def create_initial_map(m: ms.MapState, fr0: FrameData, fr1: FrameData,
+                       match01, R21, t21, points, good, ts0, ts1,
+                       cfg: TrackerConfig):
+    """Monocular initial map: two keyframes, the triangulated landmarks
+    scaled to unit median depth, then a local BA."""
+    L = m.lm_valid.shape[0]
+    F = fr0.uv.shape[0]
+    dev = fr0.uv.device
+    med = _nanmedian(torch.where(good, points[:, 2],
+                                 torch.full_like(points[:, 2], math.nan)))
+    inv_med = 1.0 / torch.clamp(med, min=1e-3)
+    pts = points * inv_med
+    t21n = t21 * inv_med
+    k0 = int(m.n_kf)
+    none = torch.full((F,), -1, dtype=torch.int32, device=dev)
+    m, k0 = insert_keyframe(m, fr0, none, torch.eye(3, device=dev),
+                            torch.zeros(3, device=dev), ts0, slot=k0)
+    m, k1 = insert_keyframe(m, fr1, none, R21, t21n, ts1, slot=k0 + 1)
+    n_new = torch.cumsum(good.to(torch.int32), 0) - 1
+    slot = torch.where(good, n_new, torch.full_like(n_new, L - 1)).long()
+    j = torch.clamp(match01, min=0).long()
+    dmax = torch.linalg.norm(pts, dim=-1) * cfg.scale ** fr0.octave.to(
+        torch.float32)
+    g1 = good[:, None]
+    m = m._replace(
+        lm_pos=put(m.lm_pos, slot, torch.where(g1, pts, m.lm_pos[slot])),
+        lm_valid=put(m.lm_valid, slot, good | m.lm_valid[slot]),
+        lm_desc=put(m.lm_desc, slot, torch.where(g1, fr0.desc,
+                                                 m.lm_desc[slot])),
+        lm_ref_kf=put(m.lm_ref_kf, slot, torch.where(
+            good, torch.full_like(m.lm_ref_kf[slot], k0), m.lm_ref_kf[slot])),
+        lm_first_ts=put(m.lm_first_ts, slot, torch.where(
+            good, m.kf_ts[k0].expand(F), m.lm_first_ts[slot])),
+        lm_dist_max=put(m.lm_dist_max, slot, torch.where(
+            good, dmax, m.lm_dist_max[slot])),
+        lm_visible=put(m.lm_visible, slot, 1),
+        lm_found=put(m.lm_found, slot, 1),
+        kf_feat_lm=put2(put2(m.kf_feat_lm, k0, torch.arange(F, device=dev),
+                             torch.where(good, slot.to(torch.int32), none)),
+                        k1, j, torch.where(good, slot.to(torch.int32),
+                                           m.kf_feat_lm[k1, j])),
+        n_lm=torch.sum(good, dtype=torch.int32))
+    m = ms.update_landmark_stats(m)
+    m = local_mapping.local_bundle_adjustment(m, k1, cfg.lm_cfg)
+    return ms.update_landmark_stats(m), k1
+
+
+# ---------------------------------------------------------------------------
+# host state machine
+# ---------------------------------------------------------------------------
+
+@dataclass
+class StashedMap:
+    """An inactive map kept after tracking was lost in a mature map."""
+    gen: int
+    m: ms.MapState
+    n_kf: int
+
+
+def resolve_device(device=None) -> torch.device:
+    """None means the card; without CUDA that is an error, never a silent
+    fallback to the CPU (pass device="cpu" to run there)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "Tracker: CUDA is not available; pass device='cpu' to run "
+                "the plain PyTorch path on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def _info_to_host(info):
+    """Start the copy of a frame's decision vector to the host as soon as
+    the frame is dispatched; returns (host tensor, event) to wait on."""
+    if info.device.type != "cuda":
+        return info, None
+    host = torch.empty(info.shape, dtype=info.dtype, pin_memory=True)
+    host.copy_(info, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+def _host_info(fetch):
+    host, ev = fetch
+    if ev is not None:
+        ev.synchronize()
+    return host.numpy()
+
+
+class Tracker:
+    """Host-side orchestration of monocular tracking.
+
+    States: NO_IMAGES -> NOT_INITIALIZED -> OK <-> RECENTLY_LOST -> LOST.
+    `device=None` runs on the card and raises without one.
+    """
+
+    def __init__(self, cam: cameras.Camera, cfg: TrackerConfig, device=None,
+                 seed: int = 0):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.cam = cam.to(self.device)
+        self.cfg = cfg
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.stash = []
+        self.map_gen = 0
+        # trajectory: (ts, map_gen, ref_kf, R_cr, t_cr) — pose relative to
+        # a reference keyframe of one map generation
+        self.trajectory = []
+        self._fresh_map_state()
+        self.state = "NO_IMAGES"
+
+    # -- public API -------------------------------------------------------
+
+    def _check_timestamp(self, ts: float):
+        """A backwards jump or a gap over ts_jump: a young map resets, a
+        mature one is stashed and a fresh one starts."""
+        last = getattr(self, "_last_seen_ts", None)
+        self._last_seen_ts = ts
+        if last is None or self.state not in ("OK", "RECENTLY_LOST"):
+            return
+        dt = ts - last
+        if dt < 0 or dt > self.cfg.ts_jump:
+            self.flush()
+            if self.n_kf_host < 10:
+                self.reset_active_map()
+            else:
+                self.create_map_in_atlas()
+
+    def _to_device(self, img):
+        return torch.as_tensor(np.asarray(img) if not torch.is_tensor(img)
+                               else img).to(self.device, non_blocking=True)
+
+    def track_mono(self, img, ts: float):
+        """One grayscale frame (numpy or tensor, uint8 or float) ->
+        (state, (R_cw, t_cw) or None)."""
+        self._check_timestamp(ts)
+        img = self._to_device(img)
+        if self.state in ("NO_IMAGES", "NOT_INITIALIZED"):
+            fr = extract_frame(img, self.cam, self.cfg)
+            self._try_initialize(fr, ts)
+            pose = (self.R_last, self.t_last) if self.state == "OK" else None
+            return self.state, pose
+        return self._track(img, ts)
+
+    # -- init -------------------------------------------------------------
+
+    def _try_initialize(self, fr: FrameData, ts: float):
+        cfg = self.cfg
+        if self.fr_init is None or int(fr.valid.sum()) < cfg.min_init_matches:
+            self.fr_init, self.ts_init = fr, ts
+            self.state = "NOT_INITIALIZED"
+            return
+        idx = matching.search_for_initialization(
+            self.fr_init.uv, self.fr_init.desc, self.fr_init.valid,
+            self.fr_init.angle, fr.uv, fr.desc, fr.valid, fr.angle)
+        if int((idx >= 0).sum()) < cfg.min_init_matches:
+            self.fr_init, self.ts_init = fr, ts
+            return
+        j = torch.clamp(idx, min=0).long()
+        res = two_view.reconstruct_two_view(
+            self.fr_init.xn, fr.xn[j], idx >= 0, focal=cfg.focal,
+            generator=self.generator)
+        if int(res.n_good) < cfg.min_init_points or \
+                float(res.parallax_deg) < 1.0:
+            return
+        self.m, k1 = create_initial_map(
+            self.m, self.fr_init, fr, idx, res.R21, res.t21, res.points,
+            res.is_good, self.ts_init, ts, cfg)
+        self.last = fr
+        self.last_feat_lm = self.m.kf_feat_lm[k1]
+        self.R_last = self.m.kf_R[k1]
+        self.t_last = self.m.kf_t[k1]
+        self.ref_kf = k1
+        self.n_kf_host = k1 + 1
+        self.last_kf_id = k1
+        self._ref_matches = int((self.last_feat_lm >= 0).sum())
+        self.frames_since_kf = 0
+        self.has_vel = False
+        self.state = "OK"
+        eye, zero = torch.eye(3, device=self.device), \
+            torch.zeros(3, device=self.device)
+        self.trajectory.append((self.ts_init, self.map_gen, k1 - 1, eye, zero))
+        self.trajectory.append((ts, self.map_gen, k1, eye, zero))
+
+    # -- tracking ---------------------------------------------------------
+
+    def _track(self, img, ts: float):
+        cfg = self.cfg
+        if self.last is None:
+            fr = extract_frame(img, self.cam, cfg)
+            if self._recover_lost(fr):
+                return self.state, (self.R_last, self.t_last)
+            return self.state, None
+        vel_R, vel_t = self.vel
+        out_tuple = track_step(
+            img, self.m, self.last, self.last_feat_lm, self.R_last,
+            self.t_last, vel_R, vel_t, self.has_vel, self.ref_kf, self.cam,
+            cfg)
+        if self.state == "OK":
+            return self._track_pipelined(out_tuple, ts)
+        return self._post_track(out_tuple, ts)
+
+    def _track_framedata(self, fr: FrameData, ts: float):
+        vel_R, vel_t = self.vel
+        out_tuple = track_step_framedata(
+            fr, self.m, self.last, self.last_feat_lm, self.R_last,
+            self.t_last, vel_R, vel_t, self.has_vel, self.ref_kf, self.cam,
+            self.cfg)
+        if self.state == "OK":
+            return self._track_pipelined(out_tuple, ts)
+        return self._post_track(out_tuple, ts)
+
+    def _track_pipelined(self, out_tuple, ts: float):
+        fr, out, vel_new, rel, info = out_tuple
+        self._pending.append([out_tuple, ts, None, _info_to_host(info)])
+        # optimistic device-side state for the next dispatch; the decision
+        # is made pipeline_depth frames later
+        self.m = out.m
+        self.last = fr
+        self.last_feat_lm = out.feat_lm
+        self.R_last, self.t_last = out.R, out.t
+        self.vel = vel_new
+        self.has_vel = True
+        self.frames_since_kf += 1
+        while len(self._pending) > self.cfg.pipeline_depth:
+            self._decide_pending(*self._pending.pop(0))
+        return self.state, (out.R, out.t)
+
+    def flush(self):
+        """Resolve the in-flight frames' deferred decisions (call at the end
+        of a sequence or before reading the trajectory or map)."""
+        while self._pending:
+            self._decide_pending(*self._pending.pop(0))
+
+    def _decide_pending(self, out_tuple, ts: float, corr=None, fetch=None):
+        """Deferred host decisions for a dispatched frame: state machine,
+        trajectory entry, keyframe insertion."""
+        cfg = self.cfg
+        fr, out, vel_new, rel, info = out_tuple
+        info_h = _host_info(fetch) if fetch is not None else \
+            info.cpu().numpy()
+        n_inl = int(info_h[0])
+        ref_kf_new = int(info_h[1])
+        if not bool(info_h[2] > 0.5):
+            self.has_vel = False
+        if n_inl < cfg.min_track_points:
+            # this frame was bad and its in-flight successors built on it:
+            # drop them and recover from the reference keyframe
+            self.state = "RECENTLY_LOST"
+            self.has_vel = False
+            self.frames_lost += 1
+            self._pending = []
+            self.last = None
+            self.R_last = self.m.kf_R[self.ref_kf]
+            self.t_last = self.m.kf_t[self.ref_kf]
+            if self.frames_lost > 60:
+                self.state = "LOST"
+                if self.n_kf_host < 10:
+                    self.reset_active_map()
+                else:
+                    self.create_map_in_atlas()
+            return
+        self.frames_lost = 0
+        self.state = "OK"
+        self.ref_kf = ref_kf_new
+        if corr is not None:
+            # keyframe BA moved the map since this frame was dispatched:
+            # carry the pose into the current gauge and recompute its
+            # trajectory entry against the reference keyframe's pose now
+            out = out._replace(R=lie.matmat(out.R, corr[0]),
+                               t=lie.matvec(out.R, corr[1]) + out.t)
+            Rri, tri = lie.se3_inv(self.m.kf_R[ref_kf_new],
+                                   self.m.kf_t[ref_kf_new])
+            rel = lie.se3_mul(out.R, out.t, Rri, tri)
+        self.trajectory.append((ts, self.map_gen, ref_kf_new, rel[0], rel[1]))
+        need = self._need_new_kf(n_inl, info_h, ts, lag=len(self._pending))
+        if need:
+            k = self._insert_keyframe(fr, out, ts, refresh_anchors=False,
+                                      ref_inliers=n_inl)
+            if k is not None:
+                # the keyframe's association table was enriched by
+                # triangulation and fusion: it becomes the stage-1 anchor
+                self.last = fr
+                self.last_feat_lm = self.m.kf_feat_lm[k]
+
+    def _need_new_kf(self, n_inl: int, info_h, ts: float, lag: int = 0):
+        """NeedNewKeyFrame, monocular: c1a too long since the last KF, or
+        (c1b min gap and c2 inliers decayed below kf_ref_ratio of those at
+        the last insertion)."""
+        cfg = self.cfg
+        fs = self.frames_since_kf - lag
+        c1a = fs >= cfg.max_kf_interval
+        c1b = fs >= cfg.min_kf_interval
+        c2 = n_inl < cfg.kf_ref_ratio * max(self._ref_matches, 1) and \
+            n_inl > 15
+        return (c1a or (c1b and c2)) and n_inl > 15
+
+    def _recompute_vel_rel(self, out):
+        Ri, ti = lie.se3_inv(self.R_last, self.t_last)
+        vel_new = lie.se3_mul(out.R, out.t, Ri, ti)
+        Rri, tri = lie.se3_inv(self.m.kf_R[out.ref_kf],
+                               self.m.kf_t[out.ref_kf])
+        return vel_new, lie.se3_mul(out.R, out.t, Rri, tri)
+
+    def _post_track(self, out_tuple, ts: float):
+        """Synchronous decision path (while not in state OK)."""
+        cfg = self.cfg
+        fr, out, vel_new, rel, info = out_tuple
+        info_h = info.cpu().numpy()
+        n_inl = int(info_h[0])
+        ref_kf_new = int(info_h[1])
+        vel_finite = bool(info_h[2] > 0.5)
+        if self.has_vel and n_inl < cfg.min_local_points:
+            # the motion-model prediction may have poisoned the window
+            # search: retry prediction-free
+            _, out2, vel2, rel2, info2 = track_step_framedata(
+                fr, self.m, self.last, self.last_feat_lm, self.R_last,
+                self.t_last, None, None, False, self.ref_kf, self.cam, cfg)
+            info2_h = info2.cpu().numpy()
+            if int(info2_h[0]) > n_inl:
+                out, n_inl = out2, int(info2_h[0])
+                ref_kf_new = int(info2_h[1])
+                vel_finite = bool(info2_h[2] > 0.5)
+                vel_new, rel = vel2, rel2
+        if n_inl < cfg.min_local_points:
+            Rr, tr_, lm_r, n_r = track_reference_kf(
+                self.m, fr, self.ref_kf, self.R_last, self.t_last, cfg)
+            if int(n_r) > n_inl:
+                out = out._replace(R=Rr, t=tr_, feat_lm=lm_r, n_inl=n_r,
+                                   ref_kf=torch.as_tensor(
+                                       self.ref_kf, device=self.device))
+                n_inl = int(n_r)
+                ref_kf_new = self.ref_kf
+                self.has_vel = False
+                vel_new, rel = self._recompute_vel_rel(out)
+                vel_finite = bool(torch.isfinite(vel_new[1]).all())
+        self.m = out.m
+        if n_inl < cfg.min_track_points:
+            self.state = "RECENTLY_LOST"
+            self.has_vel = False
+            self.frames_lost += 1
+            if self.frames_lost > 60:
+                self.state = "LOST"
+                if self.n_kf_host < 10:
+                    self.reset_active_map()
+                else:
+                    self.create_map_in_atlas()
+            return self.state, None
+        self.frames_lost = 0
+        self.state = "OK"
+        if vel_finite:
+            self.vel = vel_new
+            self.has_vel = True
+        else:
+            self.has_vel = False
+        self.R_last, self.t_last = out.R, out.t
+        self.last = fr
+        self.last_feat_lm = out.feat_lm
+        self.ref_kf = ref_kf_new
+        self.frames_since_kf += 1
+        self.trajectory.append((ts, self.map_gen, self.ref_kf, rel[0], rel[1]))
+        if self._need_new_kf(n_inl, info_h, ts):
+            self._insert_keyframe(fr, out, ts, ref_inliers=n_inl)
+        return self.state, (out.R, out.t)
+
+    def _alloc_kf_slot(self):
+        """Append below the high-water mark; at capacity, recycle culled
+        keyframes' slots. None when every slot is live."""
+        cfg = self.cfg
+        if self.n_kf_host < cfg.max_kf - 1:
+            k = self.n_kf_host
+            self.n_kf_host += 1
+            return k
+        if not self._free_kf_slots:
+            valid = self.m.kf_valid[:self.n_kf_host].cpu().numpy()
+            protect = {0, self.ref_kf, self.last_kf_id}
+            self._free_kf_slots = [i for i in range(1, self.n_kf_host)
+                                   if not valid[i] and i not in protect]
+        if not self._free_kf_slots:
+            return None
+        k = self._free_kf_slots.pop(0)
+        self._rebase_trajectory(k)
+        return k
+
+    def _rebase_trajectory(self, slot: int):
+        """Re-anchor trajectory entries of a recycled keyframe slot onto the
+        newest keyframe through the culled keyframe's final pose."""
+        hits = [i for i, e in enumerate(self.trajectory)
+                if e[1] == self.map_gen and e[2] == slot]
+        if not hits:
+            return
+        anchor = self.last_kf_id
+        Rai, tai = lie.se3_inv(self.m.kf_R[anchor], self.m.kf_t[anchor])
+        dR, dt = lie.se3_mul(self.m.kf_R[slot], self.m.kf_t[slot], Rai, tai)
+        for i in hits:
+            t0, g0, _, R_cr, t_cr = self.trajectory[i]
+            R2, t2 = lie.se3_mul(R_cr, t_cr, dR, dt)
+            self.trajectory[i] = (t0, g0, anchor, R2, t2)
+
+    def _insert_keyframe(self, fr: FrameData, out: TrackOutput, ts: float,
+                         refresh_anchors: bool = True, ref_inliers=None):
+        k = self._alloc_kf_slot()
+        if k is None:
+            return None
+        prev = self.last_kf_id
+        self.m, _ = insert_keyframe(self.m, fr, out.feat_lm, out.R, out.t,
+                                    ts, slot=k, prev_id=prev)
+        self.last_kf_id = k
+        if ref_inliers is not None:
+            self._ref_matches = int(ref_inliers)
+        self.m = local_mapping.mapping_step(self.m, k, self.cam,
+                                            self.cfg.lm_cfg)
+        self.ref_kf = k
+        self.frames_since_kf = 0
+        if refresh_anchors:
+            self.last_feat_lm = self.m.kf_feat_lm[k]
+            self.R_last = self.m.kf_R[k]
+            self.t_last = self.m.kf_t[k]
+        else:
+            # pipelined: the optimistic anchor is a newer frame; carry the
+            # keyframe's BA correction over to it and to every in-flight
+            # frame (T_last' = T_last T_kf_old^-1 T_kf_new)
+            Ri, ti = lie.se3_inv(out.R, out.t)
+            dR, dt = lie.se3_mul(Ri, ti, self.m.kf_R[k], self.m.kf_t[k])
+            self.R_last, self.t_last = lie.se3_mul(self.R_last, self.t_last,
+                                                   dR, dt)
+            for entry in self._pending:
+                entry[2] = (dR, dt) if entry[2] is None else \
+                    lie.se3_mul(entry[2][0], entry[2][1], dR, dt)
+        return k
+
+    def _recover_lost(self, fr: FrameData):
+        """No tracking context: match the frame against the reference
+        keyframe, then the newest keyframes (there is no vocabulary in this
+        port yet). Failing that, count the frame lost."""
+        if self.n_kf_host > 0:
+            valid = self.m.kf_valid[:self.n_kf_host].cpu().numpy()
+            kts = self.m.kf_ts[:self.n_kf_host].cpu().numpy()
+            order = sorted((k for k in range(self.n_kf_host)
+                            if valid[k] and k != self.ref_kf),
+                           key=lambda k: -kts[k])
+            for k in ([self.ref_kf] + order[:3])[:4]:
+                R, t, lm, n = track_reference_kf(
+                    self.m, fr, k, self.m.kf_R[k], self.m.kf_t[k], self.cfg)
+                if int(n) >= max(15, self.cfg.min_track_points):
+                    self.R_last, self.t_last = R, t
+                    self.last = fr
+                    self.last_feat_lm = lm
+                    self.ref_kf = k
+                    self.has_vel = False
+                    self.state = "OK"
+                    self.frames_lost = 0
+                    self._ref_matches = int(n)
+                    self.frames_since_kf = self.cfg.min_kf_interval
+                    return True
+        self.state = "RECENTLY_LOST"
+        self.frames_lost += 1
+        if self.frames_lost > 60:
+            self.state = "LOST"
+            if self.n_kf_host < 10:
+                self.reset_active_map()
+            else:
+                self.create_map_in_atlas()
+        return False
+
+    # -- maps ---------------------------------------------------------------
+
+    def _fresh_map_state(self):
+        cfg = self.cfg
+        dev = self.device
+        self.m = ms.empty_map(cfg.max_kf, cfg.n_feat, cfg.max_lm, device=dev)
+        self.state = "NOT_INITIALIZED"
+        self.fr_init: Optional[FrameData] = None
+        self.ts_init = 0.0
+        self.last: Optional[FrameData] = None
+        self.last_feat_lm = None
+        self.R_last = torch.eye(3, device=dev)
+        self.t_last = torch.zeros(3, device=dev)
+        self.vel = (torch.eye(3, device=dev), torch.zeros(3, device=dev))
+        self.has_vel = False
+        self.ref_kf = 0
+        self.n_kf_host = 0
+        self.last_kf_id = -1
+        self._free_kf_slots = []
+        self._ref_matches = 0
+        self.frames_since_kf = 0
+        self.frames_lost = 0
+        self._pending = []
+
+    def reset_active_map(self):
+        """Throw the active map away and re-initialize."""
+        self.trajectory = [e for e in self.trajectory if e[1] != self.map_gen]
+        self._fresh_map_state()
+
+    def create_map_in_atlas(self):
+        """Stash the active map and start a fresh one."""
+        self.stash.append(StashedMap(gen=self.map_gen, m=self.m,
+                                     n_kf=self.n_kf_host))
+        self.map_gen += 1
+        self._fresh_map_state()
+
+    def resolve_ref_pose(self, gen, ref):
+        """World->camera pose of keyframe `ref` of map generation `gen`
+        (a stashed map resolves in its own gauge); None if gone."""
+        m = self.m if gen == self.map_gen else next(
+            (s.m for s in self.stash if s.gen == gen), None)
+        if m is None or ref >= m.kf_valid.shape[0]:
+            return None
+        return m.kf_R[ref], m.kf_t[ref]
+
+    def trajectory_world(self):
+        """[(ts, camera centre (3,) numpy)], chaining each relative pose
+        through its (possibly BA-updated) reference keyframe."""
+        self.flush()
+        out = []
+        for ts, gen, ref, R_cr, t_cr in self.trajectory:
+            resolved = self.resolve_ref_pose(gen, ref)
+            if resolved is None:
+                continue
+            R_cw, t_cw = lie.se3_mul(R_cr, t_cr, *resolved)
+            _, twc = lie.se3_inv(R_cw, t_cw)
+            out.append((ts, twc.cpu().numpy()))
+        return out

@@ -1,0 +1,97 @@
+"""Isolation and device rules of the PyTorch port: it imports neither JAX
+nor the JAX package, its tracker refuses to run without a card unless asked
+for the CPU, and its kernel wrappers never fall back to the plain versions
+for a tensor that is not on the CPU."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from morb_slam_tpu_torch import cameras
+from morb_slam_tpu_torch.ops import fast, hamming, orb_descriptor
+from morb_slam_tpu_torch.pipeline import tracking
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_imports_without_jax_or_reference_package():
+    script = textwrap.dedent("""
+        import importlib, pkgutil, sys
+
+        BLOCKED = {"jax", "jaxlib", "morb_slam_tpu"}
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError("blocked import: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import morb_slam_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            morb_slam_tpu_torch.__path__, "morb_slam_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        importlib.import_module("chip_smoke")
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in BLOCKED)
+        assert not loaded, loaded
+        print(len(names))
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_tracker_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tracking.TrackerConfig(width=64, height=48, focal=50.0, n_feat=50,
+                                 max_kf=4, max_lm=100, n_levels=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tracking.Tracker(cameras.pinhole(50.0, 50.0, 32, 24), cfg)
+    t = tracking.Tracker(cameras.pinhole(50.0, 50.0, 32, 24), cfg,
+                         device="cpu")
+    assert t.m.lm_pos.device.type == "cpu"
+
+
+def _counts():
+    return [dict(m.LAUNCHES) for m in (fast, orb_descriptor, hamming)]
+
+
+@pytest.mark.parametrize("kernel", ["fast_select", "orb_describe",
+                                    "hamming_top2"])
+def test_wrappers_refuse_other_devices(kernel):
+    meta = torch.device("meta")
+    before = _counts()
+    with pytest.raises(ValueError, match="unsupported device"):
+        if kernel == "fast_select":
+            fast.fast_select(torch.empty((48, 64), device=meta), 7.0, 20.0)
+        elif kernel == "orb_describe":
+            img = torch.empty((48, 64), device=meta)
+            orb_descriptor.orb_describe(img, img, torch.zeros(
+                (4, 2), dtype=torch.int32, device=meta))
+        else:
+            d = torch.empty((4, 8), dtype=torch.int32, device=meta)
+            hamming.hamming_top2(d, d, torch.ones((4, 4), dtype=torch.bool,
+                                                  device=meta))
+    assert _counts() == before
+
+
+def test_wrappers_use_plain_versions_on_cpu():
+    before = _counts()
+    img = torch.rand((48, 64)) * 255
+    fast.fast_select(img, 7.0, 20.0)
+    orb_descriptor.orb_describe(img, img, torch.full((3, 2), 24,
+                                                     dtype=torch.int32))
+    d = torch.zeros((3, 8), dtype=torch.int32)
+    hamming.hamming_top2(d, d, torch.ones((3, 3), dtype=torch.bool))
+    after = _counts()
+    for b, a in zip(before, after):
+        assert a["plain"] == b["plain"] + 1
+        assert a["kernel"] == b["kernel"]
