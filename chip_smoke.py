@@ -12,12 +12,30 @@ Phases:
                 kernel on the card with torch.profiler (`ms`) and each
                 call, kernel and plain, with CUDA events (`call_ms`,
                 `plain_ms`).
+                Also K7 (stereo_sad) and K8 (remap_bilinear) at the stereo
+                path's shapes (a raw EuRoC-rig pair remapped, 1200
+                features per image), and K1 and K2 once more on that
+                remapped, non-integer frame.
   3. main     — render the 752x480 synthetic world on the card and run 80
                 frames through `Tracker.track_mono` (1200 features, 8
                 levels), check initialization, the share of OK frames, the
                 Sim3-aligned ATE and that every kernel launched while every
                 plain version stayed unused; then count CUDA kernel
                 launches per frame with torch.profiler over 5 more frames.
+  4. stereo   — render raw, distorted pairs of a rig with EuRoC's cam0 /
+                cam1 calibration on the card and run 80 of them through
+                `System(settings, Sensor.STEREO).track_stereo` (752x480,
+                1200 features, 8 levels; rectification built by the port,
+                K8 every frame, K7 in every match); check initialization
+                on frame 0, >= 90% of frames OK, the Sim3 scale within 5%,
+                the SE3 ATE under 0.03 x extent, and that K1-K3, K7 and K8
+                launched while no plain version ran. Profile 5 more frames
+                for kernels and syncs per frame and the device time of the
+                plain K5 / K6 ranges, and one local BA for K4's.
+  5. rgbd     — 40 frames of TUM RGB-D freiburg1 geometry (640x480, 1000
+                features, bf 40) through `System(..., Sensor.RGBD)`, depth
+                rendered on the card; the first frame OK, > 85% OK, the
+                Sim3 scale within 5%.
 
 Any failure raises (nonzero exit). The line before the last is the card's
 `nvidia-smi` name and power limit; the last line is the JSON result.
@@ -38,6 +56,30 @@ import torch.nn.functional as F
 
 W, H, FX = 752, 480, 460.0
 N_FRAMES = 80
+N_RGBD = 40
+# EuRoC MAV cam0 / cam1 (fx, fy, cx, cy, radtan k1 k2 p1 p2) and cam1's pose
+# in cam0 (X_c0 = R X_c1 + t: 0.110 m baseline, ~0.8 deg about x), as in
+# ORB-SLAM3's EuRoC.yaml
+CAM0 = (458.654, 457.296, 367.215, 248.375,
+        (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05))
+CAM1 = (457.587, 456.134, 379.999, 255.238,
+        (-0.28368365, 0.07451284, -0.00010473, -3.5559e-05))
+T_C0_C1 = np.array([
+    [0.999997256477797, -0.002317135723275, -0.000343393120620,
+     0.110074137800478],
+    [0.002312067192432, 0.999898048507103, 0.014090668452683,
+     -0.000156612054392],
+    [-0.000376008102320, -0.014089835846691, 0.999900662638081,
+     0.000889382785432],
+    [0.0, 0.0, 0.0, 1.0]])
+# TUM RGB-D freiburg1 (640x480, no distortion, bf = baseline * fx = 40)
+TUM_W, TUM_H, TUM_K, TUM_BF = 640, 480, (517.3, 516.5, 318.6, 255.3), 40.0
+DEV = "cuda"
+# the profiler ranges of the plain kernel targets (K4-K6); the profiler also
+# lists each as a device-side annotation spanning its kernels and the idle
+# time between them, which per-frame device sums must skip
+RANGES = ("K4 ba_solve", "K5 optimize_pose", "K6 build_pyramid",
+          "K6 gaussian_blur")
 # NVIDIA's H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12             # float32 outside the tensor cores
@@ -113,28 +155,32 @@ class PlaneWorld:
             z = rng.uniform(3.2, 3.9)
             self._add((ox, oy, z), (1.1, 0.9), texture(256, seed + 20 + k,
                                                         device))
-        v, u = torch.meshgrid(torch.arange(height, device=device),
-                              torch.arange(width, device=device),
-                              indexing="ij")
-        self.pix = torch.stack([u, v, torch.ones_like(u)], -1).to(
-            torch.float64).reshape(-1, 3)
+        self.pix = pixel_grid(width, height, device)
 
     def _add(self, origin, extent, tex):
         self.planes.append(dict(origin=np.asarray(origin, np.float64),
                                 extent=extent, tex=tex))
 
     def render(self, R_cw, t_cw):
+        return self.render_points(R_cw, t_cw, self.pix, self.K,
+                                  (self.h, self.w))[0]
+
+    def render_points(self, R_cw, t_cw, pts, K, shape):
+        """(image, depth) seen along homogeneous pixel coordinates pts
+        (N, 3) of a camera with matrix K; pts may be undistorted rays with
+        K = I. Depth is the camera-frame z (0 where no plane is hit)."""
         R = np.asarray(R_cw, np.float64)
         t = np.asarray(t_cw, np.float64)
-        img = torch.zeros(self.h * self.w, dtype=torch.float32,
+        img = torch.zeros(pts.shape[0], dtype=torch.float32,
                           device=self.device)
+        depth = torch.zeros_like(img)
         for p in self.planes:
             th, tw = p["tex"].shape
             a = R @ (np.array([1.0, 0, 0]) * p["extent"][0] / tw)
             b = R @ (np.array([0, 1.0, 0]) * p["extent"][1] / th)
             c = R @ p["origin"] + t
-            Hinv = np.linalg.inv(self.K @ np.stack([a, b, c], axis=1))
-            src = self.pix @ torch.from_numpy(Hinv.T).to(self.device)
+            Hinv = np.linalg.inv(K @ np.stack([a, b, c], axis=1))
+            src = pts @ torch.from_numpy(Hinv.T).to(self.device)
             front = src[:, 2] > 0
             tx = src[:, 0] / src[:, 2]
             ty = src[:, 1] / src[:, 2]
@@ -144,7 +190,41 @@ class PlaneWorld:
             val = F.grid_sample(p["tex"][None, None], grid.view(1, 1, -1, 2),
                                 mode="bilinear", align_corners=True)[0, 0, 0]
             img = torch.where(ok, val, img)
-        return img.view(self.h, self.w)
+            # K maps camera points to pixels with last row (0, 0, 1), so
+            # the homography's third coordinate is 1 / z
+            depth = torch.where(ok, (1.0 / src[:, 2]).to(torch.float32), depth)
+        return img.view(*shape), depth.view(*shape)
+
+
+def pixel_grid(width, height, device):
+    """Homogeneous (u, v, 1) of every pixel, row-major, float64."""
+    v, u = torch.meshgrid(torch.arange(height, device=device),
+                          torch.arange(width, device=device), indexing="ij")
+    return torch.stack([u, v, torch.ones_like(u)], -1).to(
+        torch.float64).reshape(-1, 3)
+
+
+def raw_rays(cam, width, height, device, n_iter=60):
+    """Undistorted rays (x, y, 1) of every raw pixel of a radtan camera
+    (fx, fy, cx, cy, (k1, k2, p1, p2)): the inverse of the port's
+    `cameras.distort`, by fixed-point steps in float64. Returns (rays,
+    largest residual in normalized units)."""
+    fx, fy, cx, cy, (k1, k2, p1, p2) = cam
+    pix = pixel_grid(width, height, device)
+    dx, dy = (pix[:, 0] - cx) / fx, (pix[:, 1] - cy) / fy
+
+    def distort(x, y):
+        r2 = x * x + y * y
+        rad = 1.0 + r2 * (k1 + r2 * k2)
+        return (x * rad + 2 * p1 * x * y + p2 * (r2 + 2 * x * x),
+                y * rad + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y)
+    x, y = dx, dy
+    for _ in range(n_iter):
+        ex, ey = distort(x, y)
+        x, y = dx - (ex - x), dy - (ey - y)
+    ex, ey = distort(x, y)
+    res = float(torch.maximum((ex - dx).abs(), (ey - dy).abs()).max())
+    return torch.stack([x, y, torch.ones_like(x)], -1), res
 
 
 def camera_path(n_frames, step=0.05):
@@ -189,8 +269,9 @@ def time_ms(fn, reps=25, inner=10, warmup=3):
 
 def device_ms(fn, kernel_name, reps=20):
     """Device milliseconds per fn() spent in kernels whose name contains
-    kernel_name, from torch.profiler (CUPTI): the kernel alone, without the
-    host's dispatch gaps that the event timing includes."""
+    kernel_name (every kernel fn launches for None), from torch.profiler
+    (CUPTI): the kernels alone, without the host's dispatch gaps that the
+    event timing includes."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -198,8 +279,13 @@ def device_ms(fn, kernel_name, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    def counted(ev):
+        if kernel_name:
+            return kernel_name in ev.key
+        return ev.device_type == torch.autograd.DeviceType.CUDA and \
+            ev.key not in RANGES
     us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if kernel_name in ev.key)
+             if counted(ev))
     if us <= 0:
         raise AssertionError(f"profiler saw no {kernel_name} on the card")
     return us / reps / 1e3
@@ -235,7 +321,7 @@ def _world(state):
     if "world" not in state:
         K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
         t0 = time.perf_counter()
-        state["world"] = PlaneWorld(K, W, H, "cuda")
+        state["world"] = PlaneWorld(K, W, H, DEV)
         state["poses"] = camera_path(N_FRAMES + 5)
         torch.cuda.synchronize()
         log(f"world built on the card in {time.perf_counter() - t0:.1f} s")
@@ -400,6 +486,7 @@ def phase_kernels(state):
                      bound_ms=b_ms, bound_by=b_by, library_ms=None,
                      ms_1200x1200=kernel_small, call_ms_1200x1200=ms_small,
                      shape="4096x1200 (one launch)"))
+    _stereo_kernels(state, rows)
     state["kernel_rows"] = rows
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms on the card, "
@@ -408,16 +495,36 @@ def phase_kernels(state):
             f"{r['bound_by']})")
 
 
+def _kernel_modules():
+    from morb_slam_tpu_torch.ops import (fast, hamming, orb_descriptor,
+                                         rectify, stereo)
+    return {"fast_select": fast, "orb_describe": orb_descriptor,
+            "hamming_top2": hamming, "stereo_sad": stereo,
+            "remap_bilinear": rectify}
+
+
 def _reset_counters():
-    from morb_slam_tpu_torch.ops import fast, hamming, orb_descriptor
-    for mod in (fast, orb_descriptor, hamming):
+    for mod in _kernel_modules().values():
         mod.LAUNCHES["kernel"] = 0
         mod.LAUNCHES["plain"] = 0
 
 
+def _read_counters(names, path, state):
+    """Kernel and plain counts of one path's run; fail unless each kernel
+    of the path launched and no plain version ran."""
+    mods = _kernel_modules()
+    launches = {k: mods[k].LAUNCHES["kernel"] for k in names}
+    plain = {k: mods[k].LAUNCHES["plain"] for k in mods}
+    log(f"{path}: kernel launches", launches, "plain calls", plain)
+    for k in names:
+        check(launches[k] > 0, f"{k} never launched on the {path} path")
+    check(not any(plain.values()), f"a plain version ran on the {path} path")
+    state.setdefault("launches_by_path", {})[path] = launches
+    return launches
+
+
 def phase_main(state):
-    from morb_slam_tpu_torch import alignment, cameras
-    from morb_slam_tpu_torch.ops import fast, hamming, orb_descriptor
+    from morb_slam_tpu_torch import cameras
     from morb_slam_tpu_torch.pipeline import tracking
     world, poses = _world(state)
     frames = [world.render(*poses[i]).clamp(0, 255).to(torch.uint8)
@@ -428,81 +535,355 @@ def phase_main(state):
                                  max_kf=256, max_lm=16384, n_levels=8,
                                  min_init_matches=80, min_init_points=50)
     tracker = tracking.Tracker(cam, cfg)
-    inserts = []
-    orig_insert = tracker._insert_keyframe
+    inserts = _timed_inserts(tracker)
 
-    def timed_insert(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = orig_insert(*a, **kw)
-        torch.cuda.synchronize()
-        inserts.append((time.perf_counter() - t0) * 1e3)
-        return r
-    tracker._insert_keyframe = timed_insert
-
+    def feed(i, ts):
+        return tracker.track_mono(frames[i], ts=ts)
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
+    states, fm, secs, n_ins_20 = _track_run(tracker, feed, N_FRAMES, 1.0,
+                                            inserts)
+    launches = _read_counters(["fast_select", "orb_describe", "hamming_top2"],
+                              "mono", state)
+    log("states:", "".join("O" if s == "OK" else s[0] for s in states))
+    check("OK" in states, "never initialized")
+    n_ok = sum(s == "OK" for s in states)
+    check(n_ok >= 0.7 * N_FRAMES, f"only {n_ok} of {N_FRAMES} frames OK")
+    ate, _, _, extent, n_traj = _ate(tracker, poses, 1.0)
+    log(f"trajectory: {n_traj} poses, Sim3 ATE {ate:.4f} m over "
+        f"{extent:.3f} m extent (gate {0.023 * extent:.4f})")
+    check(math.isfinite(ate) and ate < 0.023 * extent, (ate, extent))
+    main = dict(
+        fps=(N_FRAMES - 20) / secs,
+        frame_ms_p50=float(np.percentile(fm, 50)),
+        frame_ms_p90=float(np.percentile(fm, 90)),
+        frames_ok=n_ok, kf_inserts=len(inserts),
+        kf_insert_ms_each=float(np.mean(inserts)) if inserts else None,
+        kf_inserts_in_timed_window=len(inserts) - n_ins_20,
+        ate_sim3_m=ate, extent_m=extent,
+        peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches_per_frame={k: v / N_FRAMES for k, v in launches.items()})
+    log("main path:", json.dumps(main))
+    _path_profile(tracker, lambda i: feed(i, float(i)),
+                  range(N_FRAMES, N_FRAMES + 5), "mono", main,
+                  state.get("profile_out"))
+    state["main"] = main
+
+
+# ---------------------------------------------------------------------------
+# stereo / RGB-D harness
+# ---------------------------------------------------------------------------
+
+def _rig(state):
+    """The EuRoC-calibrated rig: settings, the port's rectify maps and the
+    undistorted rays of both raw cameras (cached in state)."""
+    if "rig" not in state:
+        from morb_slam_tpu_torch.io import config
+        from morb_slam_tpu_torch.ops import rectify
+
+        def cam_settings(c):
+            return config.CameraSettings(model="PinHole", fx=c[0], fy=c[1],
+                                         cx=c[2], cy=c[3], dist=c[4],
+                                         width=W, height=H)
+        baseline = float(np.linalg.norm(T_C0_C1[:3, 3]))
+        settings = config.Settings(
+            sensor="stereo", cam1=cam_settings(CAM0), cam2=cam_settings(CAM1),
+            T_c1_c2=T_C0_C1, baseline=baseline, bf=baseline * CAM0[0],
+            th_depth=35.0, n_features=1200, n_levels=8, scale_factor=1.2)
+        maps = rectify.build_rectify_maps(
+            settings.cam1.to_camera(), settings.cam2.to_camera(), T_C0_C1, W,
+            H, device=DEV)
+        rays0, res0 = raw_rays(CAM0, W, H, DEV)
+        rays1, res1 = raw_rays(CAM1, W, H, DEV)
+        log(f"rig: rectified baseline {float(maps.baseline):.6f} m, raw-ray "
+            f"residuals {res0:.1e} / {res1:.1e} (normalized)")
+        check(max(res0, res1) < 1e-6, ("raw rays did not converge", res0,
+                                        res1))
+        state["rig"] = dict(settings=settings, maps=maps, rays=(rays0, rays1))
+    return state["rig"]
+
+
+def _raw_pair(state, R1, t1):
+    """uint8 raw (distorted) left and right images of the rig at cam0 pose
+    T_c0_w = (R1, t1), rendered with grid_sample."""
+    world, _ = _world(state)
+    rays0, rays1 = _rig(state)["rays"]
+    R_10 = T_C0_C1[:3, :3].T
+    t_10 = -R_10 @ T_C0_C1[:3, 3]
+    R1 = np.asarray(R1, np.float64)
+    t1 = np.asarray(t1, np.float64)
+    eye = np.eye(3)
+    left = world.render_points(R1, t1, rays0, eye, (H, W))[0]
+    right = world.render_points(R_10 @ R1, R_10 @ t1 + t_10, rays1, eye,
+                                (H, W))[0]
+    return tuple(x.clamp(0, 255).to(torch.uint8) for x in (left, right))
+
+
+def _distinct(idx):
+    return torch.unique(idx).numel()
+
+
+def _stereo_kernels(state, rows):
+    """K7 and K8 against their plain versions at the stereo path's shapes,
+    and K1 / K2 on the remapped (non-integer) frame."""
+    from morb_slam_tpu_torch import frontend
+    from morb_slam_tpu_torch.ops import (fast, image, orb_descriptor,
+                                         rectify, stereo)
+    _, poses = _world(state)
+    rig = _rig(state)
+    maps = torch.stack([rig["maps"].map1, rig["maps"].map2])
+    raw = torch.stack(_raw_pair(state, *poses[0])).float()
+
+    # K8 on the raw pair: exact (same rounding, no FMA)
+    rect = rectify.remap_bilinear(raw, maps)
+    want = rectify.remap_bilinear_plain(raw, maps)
+    err = float((rect - want).abs().max())
+    check(torch.equal(rect, want), ("K8 mismatch", err))
+    frac = float((rect != torch.round(rect)).float().mean())
+    log(f"K8 remap_bilinear: exact on the raw pair; {frac:.3f} of the "
+        f"rectified pixels are non-integer")
+    gx = maps[..., 0] / (W - 1) * 2 - 1
+    gy = maps[..., 1] / (H - 1) * 2 - 1
+    grid = torch.stack([gx, gy], -1)
+
+    def library():
+        return F.grid_sample(raw[:, None], grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+    x0 = torch.floor(maps[..., 0]).long().clamp(0, W - 1)
+    y0 = torch.floor(maps[..., 1]).long().clamp(0, H - 1)
+    inside = ((maps[..., 0] >= 0) & (maps[..., 0] <= W - 1)
+              & (maps[..., 1] >= 0) & (maps[..., 1] <= H - 1))
+    taps = 0
+    for b in range(2):
+        ids = [(y0[b] + dy).clamp(max=H - 1) * W + (x0[b] + dx).clamp(
+            max=W - 1) for dy in (0, 1) for dx in (0, 1)]
+        taps += _distinct(torch.stack(ids)[:, inside[b]])
+    npx = maps.shape[0] * H * W
+    # per output: the (x, y) map entry and 4 B out; the distinct source
+    # pixels the taps read; ~21 flops (2 floor, 4 sub, 8 mul, 3 add, 4 cmp)
+    b_ms, b_by = bound(npx * 12 + taps * 4, npx * 21)
+    rows.append(dict(
+        name="remap_bilinear", route="cuda",
+        source="morb_slam_tpu_torch/csrc/remap_bilinear.cu",
+        replaces="morb_slam_tpu/ops/rectify.py:97", max_abs_err=err,
+        ms=device_ms(lambda: rectify.remap_bilinear(raw, maps),
+                     "remap_bilinear_kernel"),
+        call_ms=time_ms(lambda: rectify.remap_bilinear(raw, maps)),
+        plain_ms=time_ms(lambda: rectify.remap_bilinear_plain(raw, maps),
+                         reps=10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=device_ms(library, None),
+        library_call_ms=time_ms(library),
+        library="F.grid_sample bilinear, zeros padding, align_corners "
+                "(device time, as ms)",
+        shape="2 x 752x480 (one stereo pair, one launch)"))
+
+    # K1 and K2 on the remapped, non-integer left frame
+    cfg = frontend.OrbConfig(n_features=1200, n_levels=8)
+    left = rect[0].contiguous()
+    for lvl in image.build_pyramid(left, cfg.n_levels, cfg.scale):
+        lvl = lvl.contiguous()
+        for a, b in zip(fast.fast_select(lvl, 7.0, 20.0),
+                        fast.fast_select_plain(lvl, 7.0, 20.0)):
+            check(torch.equal(a, b), f"K1 mismatch on the remapped level "
+                  f"{tuple(lvl.shape)}")
+    max_ang, bit_diff, bit_tot = 0.0, 0, 0
+    for lvl, n_keep in zip(image.build_pyramid(left, cfg.n_levels, cfg.scale),
+                           cfg.per_level_counts()):
+        lvl = lvl.contiguous()
+        yx = frontend.select_level_keypoints(lvl, n_keep, cfg)[0].contiguous()
+        blur = image.gaussian_blur(lvl).contiguous()
+        a1, d1 = orb_descriptor.orb_describe(lvl, blur, yx)
+        a0 = orb_descriptor.compute_orientations(lvl, yx)
+        d0 = orb_descriptor.compute_descriptors(blur, yx, a0)
+        dang = torch.remainder(a1 - a0 + math.pi, 2 * math.pi) - math.pi
+        max_ang = max(max_ang, float(dang.abs().max()))
+        bits = orb_descriptor.unpack_bits(d1) != orb_descriptor.unpack_bits(d0)
+        bit_diff += int(bits.sum())
+        bit_tot += bits.numel()
+    share = 1.0 - bit_diff / bit_tot
+    log(f"K1 exact and K2 within {max_ang:.2e} rad, {share:.5f} of the bits "
+        f"identical, on the remapped (non-integer) frame")
+    check(max_ang < 1e-4 and share >= 0.999, (max_ang, share))
+    rows[0]["exact_on_remapped_frame"] = True
+    rows[1]["max_abs_err_remapped_frame"] = max_ang
+    rows[1]["bits_identical_remapped_frame"] = share
+
+    # K7 on the rectified pair's real features (1200 x 1200)
+    fl = frontend.extract_orb(rect[0].contiguous(), cfg)
+    fr = frontend.extract_orb(rect[1].contiguous(), cfg)
+    bf = float(rig["maps"].baseline) * CAM0[0]
+    max_d = bf / float(rig["maps"].baseline)
+    sf = torch.tensor([1.2 ** i for i in range(8)], device=DEV)
+    best_idx, matched = stereo.row_search(fl, fr, sf, max_d)
+    u0 = fr.uv[best_idx.long(), 0].contiguous()
+    uv = fl.uv.contiguous()
+    for name, (il, ir) in (("integer", (torch.round(rect[0]),
+                                        torch.round(rect[1]))),
+                           ("non-integer", (rect[0], rect[1]))):
+        il, ir = il.contiguous(), ir.contiguous()
+        got = stereo.sad_refine(il, ir, uv, u0)
+        ref = stereo.sad_refine_plain(il, ir, uv, u0)
+        ur_err = float((got[0] - ref[0]).abs().max())
+        flips = int((stereo.filter_matches(uv[:, 0], got[0], got[1], matched,
+                                           bf, max_d).valid
+                     != stereo.filter_matches(uv[:, 0], ref[0], ref[1],
+                                              matched, bf, max_d).valid
+                     ).sum())
+        log(f"K7 stereo_sad on the {name} pair: u_right within {ur_err:.2e}"
+            f" px, best offsets equal {bool(torch.equal(got[2], ref[2]))}, "
+            f"{flips} of {uv.shape[0]} match flags flipped, "
+            f"{int(matched.sum())} row matches")
+        if name == "integer":
+            check(torch.equal(got[2], ref[2]) and torch.equal(got[1], ref[1])
+                  and ur_err <= 1e-5 and flips == 0, ("K7 integer", ur_err))
+        else:
+            check(ur_err <= 1e-3 and flips <= 0.005 * uv.shape[0],
+                  ("K7 non-integer", ur_err, flips))
+            k7_err = ur_err
+    il, ir = rect[0].contiguous(), rect[1].contiguous()
+    n = uv.shape[0]
+    wl, strip = stereo._windows(torch.arange(H * W, device=DEV).view(H, W),
+                                torch.arange(H * W, device=DEV).view(H, W),
+                                uv, u0)
+    # distinct pixels of the windows and strips, keypoints in, 3 outputs;
+    # ~5455 flops per keypoint (11 x 121 x 4 + 121 + the parabola)
+    b_ms, b_by = bound((_distinct(wl) + _distinct(strip)) * 4 + n * 24,
+                       n * 5455)
+    rows.append(dict(
+        name="stereo_sad", route="cuda",
+        source="morb_slam_tpu_torch/csrc/stereo_sad.cu",
+        replaces="morb_slam_tpu/ops/stereo.py:76", max_abs_err=k7_err,
+        ms=device_ms(lambda: stereo.sad_refine(il, ir, uv, u0),
+                     "stereo_sad_kernel"),
+        call_ms=time_ms(lambda: stereo.sad_refine(il, ir, uv, u0)),
+        plain_ms=time_ms(lambda: stereo.sad_refine_plain(il, ir, uv, u0),
+                         reps=10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape="1200 left keypoints of a 752x480 rectified pair"))
+
+
+class _CountPlain:
+    """Count the calls of the plain K4-K6 functions during one path's run
+    by wrapping the module attributes the path looks up; keeps the last
+    BA problem for K4's bound."""
+
+    def __init__(self):
+        from morb_slam_tpu_torch.ops import image
+        from morb_slam_tpu_torch.optim import ba, pose_opt
+        self.targets = [(ba, "ba_solve"), (pose_opt, "optimize_pose"),
+                        (image, "build_pyramid"), (image, "gaussian_blur")]
+        self.counts = {name: 0 for _, name in self.targets}
+        self.last_args = {}
+
+    def __enter__(self):
+        self.saved = [getattr(m, n) for m, n in self.targets]
+        for (mod, name), fn in zip(self.targets, self.saved):
+            def wrap(*a, _fn=fn, _name=name, **kw):
+                self.counts[_name] += 1
+                self.last_args[_name] = (a, kw)
+                return _fn(*a, **kw)
+            setattr(mod, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.targets, self.saved):
+            setattr(mod, name, fn)
+
+
+def range_device_ms(prof, name):
+    """(device ms per call, calls, span ms per call) of a record_function
+    range: the device time of the kernels launched inside it, and the
+    device-side annotation's span from its first kernel to its last, idle
+    gaps included."""
+    busy, span = None, 0.0
+    for ev in prof.key_averages():
+        if ev.key != name or not ev.count:
+            continue
+        if ev.device_type == torch.autograd.DeviceType.CPU:
+            total = getattr(ev, "device_time_total", None)
+            if total is None:
+                total = ev.cuda_time_total
+            busy = (total / ev.count / 1e3, ev.count)
+        else:
+            span = ev.self_device_time_total / ev.count / 1e3
+    check(busy is not None and busy[0] > 0,
+          f"profiler gave no device time under {name}")
+    return busy + (span,)
+
+
+def _track_run(tracker, feed, n, dt, inserts):
+    """Drive n frames through feed(i, ts); returns (states, frame ms of
+    frames 20.., seconds of frames 20.., KF inserts before frame 20)."""
     states, frame_ms = [], []
     t_start = None
-    for i in range(N_FRAMES):
+    for i in range(n):
         if i == 20:
             torch.cuda.synchronize()
             t_start = time.perf_counter()
             n_ins_20 = len(inserts)
         t0 = time.perf_counter()
-        st, _ = tracker.track_mono(frames[i], ts=float(i))
-        states.append(st)
+        states.append(feed(i, i * dt)[0])
         if i >= 20:
             frame_ms.append((time.perf_counter() - t0) * 1e3)
     tracker.flush()
     torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t_start
-    launches = {"fast_select": fast.LAUNCHES["kernel"],
-                "orb_describe": orb_descriptor.LAUNCHES["kernel"],
-                "hamming_top2": hamming.LAUNCHES["kernel"]}
-    plain = {"fast_select": fast.LAUNCHES["plain"],
-             "orb_describe": orb_descriptor.LAUNCHES["plain"],
-             "hamming_top2": hamming.LAUNCHES["plain"]}
-    state["launches"] = launches
-    log("states:", "".join("O" if s == "OK" else s[0] for s in states))
-    log("kernel launches on the main path:", launches, "plain calls:", plain)
-    for k in launches:
-        check(launches[k] > 0, f"{k} never launched on the main path")
-        check(plain[k] == 0, f"plain {k} ran on the main path")
+    return (states, np.asarray(frame_ms), time.perf_counter() - t_start,
+            n_ins_20)
 
-    check("OK" in states, "never initialized")
-    n_ok = sum(s == "OK" for s in states)
-    check(n_ok >= 0.7 * N_FRAMES, f"only {n_ok} of {N_FRAMES} frames OK")
+
+def _timed_inserts(tracker):
+    inserts = []
+    orig = tracker._insert_keyframe
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig(*a, **kw)
+        torch.cuda.synchronize()
+        inserts.append((time.perf_counter() - t0) * 1e3)
+        return r
+    tracker._insert_keyframe = timed
+    return inserts
+
+
+def _ate(tracker, poses, dt):
+    """(Sim3 ATE, Sim3 scale, SE3 ATE, extent, n poses) of the tracker's
+    camera centres against the ground-truth poses."""
+    from morb_slam_tpu_torch import alignment
     traj = tracker.trajectory_world()
     est, gt = [], []
     for ts, p in traj:
-        R, t = poses[int(round(ts))]
-        gt.append(-(R.T @ t))
+        R, t = poses[int(round(ts / dt))]
+        gt.append(-(np.asarray(R, np.float64).T @ t))
         est.append(p)
     est = torch.tensor(np.asarray(est), dtype=torch.float32)
     gt = torch.tensor(np.asarray(gt), dtype=torch.float32)
     rmse, s, _, _ = alignment.ate_rmse(est, gt, with_scale=True)
-    extent = float(torch.linalg.norm(gt[-1] - gt[0]))
-    ate = float(rmse)
-    log(f"trajectory: {len(traj)} poses, Sim3 ATE {ate:.4f} m over "
-        f"{extent:.3f} m extent (gate {0.023 * extent:.4f})")
-    check(math.isfinite(ate) and ate < 0.023 * extent, (ate, extent))
+    rmse_se3, _, _, _ = alignment.ate_rmse(est, gt, with_scale=False)
+    return (float(rmse), float(s), float(rmse_se3),
+            float(torch.linalg.norm(gt[-1] - gt[0])), len(traj))
 
-    fm = np.asarray(frame_ms)
-    n_ins = len(inserts) - n_ins_20
-    main = dict(
-        fps=(N_FRAMES - 20) / elapsed,
-        frame_ms_p50=float(np.percentile(fm, 50)),
-        frame_ms_p90=float(np.percentile(fm, 90)),
-        frames_ok=n_ok, kf_inserts=len(inserts),
-        kf_insert_ms_each=float(np.mean(inserts)) if inserts else None,
-        kf_inserts_in_timed_window=n_ins,
-        ate_sim3_m=ate, extent_m=extent,
-        peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-        launches_per_frame={k: v / N_FRAMES for k, v in launches.items()})
-    log("main path:", json.dumps(main))
 
-    # CUDA kernel launches per tracked frame, from the profiler
+def _ba_bound(p, n_iters):
+    """K4's least time for this problem: its active observations, poses and
+    points read once and written once; per LM iteration ~700 flops per
+    observation (residual, Jacobians, block products), 216 per pair of
+    observations of one point (the Schur fill), a (6K)^3 / 3 Cholesky."""
+    mask = p.obs_mask
+    n_obs = int(mask.sum())
+    K, L = p.R.shape[0], p.X.shape[0]
+    per_lm = torch.bincount(p.obs_lm[mask].long(), minlength=L).double()
+    pairs = float((per_lm * per_lm).sum())
+    nbytes = n_obs * 25 + 2 * (K * 48 + L * 12)
+    nops = n_iters * (n_obs * 700 + pairs * 216 + (6 * K) ** 3 / 3)
+    return bound(nbytes, nops), dict(obs=n_obs, kfs=K, points=L)
+
+
+def _path_profile(tracker, step, frames, name, out, table_path=None):
+    """Profile `frames` more frames: CUDA kernels, device ms (all, and in
+    the hand-written kernels), busy share, implicit host syncs and their
+    sites per frame; the op table goes to table_path if given."""
     import warnings
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.set_sync_debug_mode("warn")
@@ -511,45 +892,230 @@ def phase_main(state):
                                 ProfilerActivity.CUDA]) as prof:
         warnings.simplefilter("always")
         t0 = time.perf_counter()
-        for i in range(N_FRAMES, N_FRAMES + 5):
-            tracker.track_mono(frames[i], ts=float(i))
+        for i in frames:
+            step(i)
         tracker.flush()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     torch.cuda.set_sync_debug_mode(0)
+    nf = len(frames)
     n_kern, dev_us, ours_us = 0, 0.0, 0.0
+    ours = tuple(f"{k}_kernel" for k in _kernel_modules())
     for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                ev.key not in RANGES:
             n_kern += ev.count
             dev_us += ev.self_device_time_total
-            if any(k in ev.key for k in ("fast_select_kernel",
-                                         "orb_describe_kernel",
-                                         "hamming_top2_kernel")):
+            if any(k in ev.key for k in ours):
                 ours_us += ev.self_device_time_total
-    main["cuda_kernels_per_frame_profiler"] = n_kern / 5
-    main["device_ms_per_frame_profiler"] = dev_us / 5 / 1e3
-    main["k1_k3_device_ms_per_frame_profiler"] = ours_us / 5 / 1e3
-    main["device_busy_share_profiler"] = dev_us / 1e6 / wall
-    # device time per frame over the unprofiled frame time of frames 20-79
-    main["device_busy_share_unprofiled"] = dev_us / 5 / 1e6 * main["fps"]
     syncs = [w for w in syncs if "synchroniz" in str(w.message)]
-    main["host_syncs_per_frame"] = len(syncs) / 5
-    sites = collections.Counter(
+    out["cuda_kernels_per_frame_profiler"] = n_kern / nf
+    out["device_ms_per_frame_profiler"] = dev_us / nf / 1e3
+    out["hand_kernels_device_ms_per_frame_profiler"] = ours_us / nf / 1e3
+    out["device_busy_share_profiler"] = dev_us / 1e6 / wall
+    # device time per frame over the unprofiled frame time of frames 20..
+    out["device_busy_share_unprofiled"] = dev_us / nf / 1e6 * out["fps"]
+    out["host_syncs_per_frame"] = len(syncs) / nf
+    out["host_sync_sites"] = dict(collections.Counter(
         "/".join(os.path.normpath(w.filename).split(os.sep)[-2:])
-        + f":{w.lineno}" for w in syncs)
-    main["host_sync_sites"] = dict(sites.most_common(10))
-    log(f"profiler: {n_kern / 5:.0f} CUDA kernels, {dev_us / 5 / 1e3:.2f} ms "
-        f"device time ({ours_us / 5 / 1e3:.3f} ms in K1-K3) and "
-        f"{len(syncs) / 5:.1f} implicit host syncs per tracked frame; "
-        f"device busy {dev_us / 1e6 / wall:.3f} of the profiled wall time")
-    log("host sync sites over 5 frames:", main["host_sync_sites"])
-    if state.get("profile_out"):
-        os.makedirs(os.path.dirname(state["profile_out"]) or ".",
-                    exist_ok=True)
-        with open(state["profile_out"], "w") as f:
+        + f":{w.lineno}" for w in syncs).most_common(10))
+    log(f"{name} profiler: {n_kern / nf:.0f} CUDA kernels, "
+        f"{dev_us / nf / 1e3:.2f} ms device time ({ours_us / nf / 1e3:.3f} "
+        f"ms in the hand-written kernels) and {len(syncs) / nf:.1f} host "
+        f"syncs per frame; device busy {dev_us / 1e6 / wall:.3f} of the "
+        f"profiled wall time; sync sites {out['host_sync_sites']}")
+    if table_path:
+        os.makedirs(os.path.dirname(table_path) or ".", exist_ok=True)
+        with open(table_path, "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=60))
-    state["main"] = main
+    return prof
+
+
+def phase_stereo(state):
+    from morb_slam_tpu_torch import system
+    from morb_slam_tpu_torch.ops import image
+    from morb_slam_tpu_torch.optim import ba, pose_opt
+    from morb_slam_tpu_torch.pipeline import local_mapping
+    _, poses = _world(state)
+    rig = _rig(state)
+    pairs = [_raw_pair(state, *poses[i]) for i in range(N_FRAMES + 5)]
+    torch.cuda.synchronize()
+    dt = 0.05
+    sysm = system.System(rig["settings"], system.Sensor.STEREO,
+                         tracker_overrides=dict(max_kf=256, max_lm=16384))
+    tracker = sysm.tracker
+    log(f"stereo System: rectified focal {tracker.cfg.focal:.3f}, baseline "
+        f"{tracker.cfg.baseline:.6f} m, th_depth {tracker.cfg.th_depth}")
+    inserts = _timed_inserts(tracker)
+
+    def feed(i, ts):
+        return sysm.track_stereo(pairs[i][0], pairs[i][1], ts)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    with _CountPlain() as plain_calls:
+        states, fm, secs, _ = _track_run(tracker, feed, N_FRAMES, dt,
+                                         inserts)
+    launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
+                               "stereo_sad", "remap_bilinear"], "stereo",
+                              state)
+    check(launches["remap_bilinear"] == N_FRAMES,
+          ("K8 once per pair", launches["remap_bilinear"]))
+    check(launches["stereo_sad"] >= N_FRAMES,
+          ("K7 on every frame", launches["stereo_sad"]))
+    log("states:", "".join("O" if s == "OK" else s[0] for s in states))
+    n_ok = sum(s == "OK" for s in states)
+    ate, scale, ate_se3, extent, n_traj = _ate(tracker, poses, dt)
+    log(f"stereo trajectory: {n_traj} poses, SE3 ATE {ate_se3:.4f} m "
+        f"(gate {0.03 * extent:.4f}), Sim3 ATE {ate:.4f} m, scale "
+        f"{scale:.4f}, over {extent:.3f} m")
+    check(states[0] == "OK", "stereo did not initialize on frame 0")
+    check(n_ok >= 0.9 * N_FRAMES, f"stereo: only {n_ok} of {N_FRAMES} OK")
+    check(abs(scale - 1.0) < 0.05, ("stereo scale", scale))
+    check(ate_se3 < 0.03 * extent, ("stereo SE3 ATE", ate_se3, extent))
+    n_ins = len(inserts)
+    out = dict(
+        fps=(N_FRAMES - 20) / secs,
+        frame_ms_p50=float(np.percentile(fm, 50)),
+        frame_ms_p90=float(np.percentile(fm, 90)),
+        frames_ok=n_ok, kf_inserts=n_ins,
+        kf_insert_ms_each=float(np.mean(inserts)) if inserts else None,
+        ate_se3_m=ate_se3, ate_sim3_m=ate, sim3_scale=scale,
+        extent_m=extent, landmarks=int(tracker.m.lm_valid.sum()),
+        peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches_per_frame={k: v / N_FRAMES for k, v in launches.items()},
+        plain_calls_per_frame={k: v / N_FRAMES
+                               for k, v in plain_calls.counts.items()})
+
+    table = state.get("profile_out")
+    prof = _path_profile(tracker, lambda i: feed(i, i * dt),
+                         range(N_FRAMES, N_FRAMES + 5), "stereo", out,
+                         table and table.replace(".txt", "") + "_stereo.txt")
+    log("stereo path:", json.dumps(out))
+    state["stereo"] = out
+
+    # the plain K4-K6 rows: device time per call under their profiler
+    # ranges, event time per call, bounds from this run's shapes
+    k5_ms, k5_n, k5_span = range_device_ms(prof, "K5 optimize_pose")
+    k6p_ms, _, k6p_span = range_device_ms(prof, "K6 build_pyramid")
+    k6b_ms, _, k6b_span = range_device_ms(prof, "K6 gaussian_blur")
+    check("ba_solve" in plain_calls.last_args,
+          "no local BA ran on the stereo path")
+    p = plain_calls.last_args["ba_solve"][0][0]
+    pose_a, pose_kw = plain_calls.last_args["optimize_pose"]
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof4:
+        for _ in range(3):
+            ba.ba_solve(p, n_iters=local_mapping.BA_ITERS)
+        torch.cuda.synchronize()
+    k4_ms, _, k4_span = range_device_ms(prof4, "K4 ba_solve")
+    (b4, by4), k4_shape = _ba_bound(p, local_mapping.BA_ITERS)
+    # K5: 2 rounds x (8 + 1) + 1 Gauss-Newton steps over the frame's
+    # features, ~400 flops per observation and step; 33 B per observation
+    F_ = tracker.cfg.n_feat
+    b5, by5 = bound(F_ * 33 + 96, 19 * F_ * 400)
+    # K6 per image: the level-0 image in, levels 1-7 and 8 blurred levels
+    # out; ~12 flops per resized and 28 per blurred pixel
+    shapes = image.level_shapes(H, W, 8, 1.2)
+    npx = [h * w for h, w in shapes]
+    b6, by6 = bound(4 * (npx[0] + sum(npx[1:]) + sum(npx)),
+                    12 * sum(npx[1:]) + 28 * sum(npx))
+    img0 = pairs[0][0].float()
+
+    def k6():
+        for lvl in image.build_pyramid(img0, 8, 1.2):
+            image.gaussian_blur(lvl)
+    k6_call = time_ms(k6, reps=10)
+    per_frame = out["plain_calls_per_frame"]
+    state["plain_rows"] = [
+        dict(name="ba_solve (K4)", route="plain",
+             source="morb_slam_tpu_torch/optim/ba.py",
+             replaces="morb_slam_tpu/optim/ba.py:125", ms=k4_ms,
+             span_ms=k4_span,
+             plain_ms=time_ms(lambda: ba.ba_solve(
+                 p, n_iters=local_mapping.BA_ITERS), reps=3, inner=2),
+             bound_ms=b4, bound_by=by4, library_ms=None,
+             launches=plain_calls.counts["ba_solve"],
+             launches_per_frame=per_frame["ba_solve"], max_abs_err=None,
+             shape=f"one local BA of this run, {k4_shape}"),
+        dict(name="optimize_pose (K5)", route="plain",
+             source="morb_slam_tpu_torch/optim/pose_opt.py",
+             replaces="morb_slam_tpu/optim/pose_opt.py:67", ms=k5_ms,
+             span_ms=k5_span,
+             plain_ms=time_ms(lambda: pose_opt.optimize_pose(
+                 *pose_a, **pose_kw), reps=5), bound_ms=b5, bound_by=by5, library_ms=None,
+             launches=plain_calls.counts["optimize_pose"],
+             launches_per_frame=per_frame["optimize_pose"],
+             calls_profiled=k5_n, max_abs_err=None,
+             shape=f"{F_} observations, 2 x 8 GN iterations"),
+        dict(name="build_pyramid + gaussian_blur (K6)", route="plain",
+             source="morb_slam_tpu_torch/ops/image.py",
+             replaces="morb_slam_tpu/ops/image.py:33",
+             ms=k6p_ms + 8 * k6b_ms, span_ms=k6p_span + 8 * k6b_span,
+             pyramid_ms=k6p_ms,
+             blur_ms_per_level=k6b_ms, plain_ms=k6_call,
+             bound_ms=b6, bound_by=by6, library_ms=None,
+             launches=plain_calls.counts["build_pyramid"],
+             launches_per_frame=per_frame["build_pyramid"], max_abs_err=None,
+             shape="one 752x480 image, 8 levels")]
+    for r in state["plain_rows"]:
+        log(f"  {r['name']}: {r['ms']:.4f} ms device per call over a "
+            f"{r['span_ms']:.3f} ms span, bound "
+            f"{r['bound_ms']:.6f} ms by {r['bound_by']}, "
+            f"{r['launches_per_frame']:.2f} calls per frame")
+
+
+def phase_rgbd(state):
+    from morb_slam_tpu_torch import system
+    from morb_slam_tpu_torch.io import config
+    world, poses = _world(state)
+    fx, fy, cx, cy = TUM_K
+    Kmat = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    pix = pixel_grid(TUM_W, TUM_H, DEV)
+    frames = []
+    for i in range(N_RGBD):
+        img, depth = world.render_points(*poses[i], pix, Kmat,
+                                         (TUM_H, TUM_W))
+        frames.append((img.clamp(0, 255).to(torch.uint8), depth))
+    torch.cuda.synchronize()
+    settings = config.Settings(
+        sensor="rgbd", cam1=config.CameraSettings(
+            model="PinHole", fx=fx, fy=fy, cx=cx, cy=cy, width=TUM_W,
+            height=TUM_H), baseline=TUM_BF / fx, bf=TUM_BF, n_features=1000,
+        n_levels=8, scale_factor=1.2)
+    dt = 1 / 30
+    sysm = system.System(settings, system.Sensor.RGBD,
+                         tracker_overrides=dict(max_kf=256, max_lm=16384))
+    inserts = _timed_inserts(sysm.tracker)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    states, fm, secs, _ = _track_run(
+        sysm.tracker,
+        lambda i, ts: sysm.track_rgbd(frames[i][0], frames[i][1], ts),
+        N_RGBD, dt, inserts)
+    launches = _read_counters(["fast_select", "orb_describe",
+                               "hamming_top2"], "rgbd", state)
+    log("states:", "".join("O" if s == "OK" else s[0] for s in states))
+    n_ok = sum(s == "OK" for s in states)
+    ate, scale, ate_se3, extent, n_traj = _ate(sysm.tracker, poses, dt)
+    log(f"rgbd trajectory: {n_traj} poses, Sim3 ATE {ate:.4f} m, scale "
+        f"{scale:.4f}, SE3 ATE {ate_se3:.4f} m, over {extent:.3f} m")
+    check(states[0] == "OK", "rgbd did not initialize on frame 0")
+    check(n_ok > 0.85 * N_RGBD, f"rgbd: only {n_ok} of {N_RGBD} OK")
+    check(abs(scale - 1.0) < 0.05, ("rgbd scale", scale))
+    out = dict(
+        fps=(N_RGBD - 20) / secs,
+        frame_ms_p50=float(np.percentile(fm, 50)),
+        frame_ms_p90=float(np.percentile(fm, 90)),
+        frames_ok=n_ok, kf_inserts=len(inserts),
+        kf_insert_ms_each=float(np.mean(inserts)) if inserts else None,
+        ate_sim3_m=ate, sim3_scale=scale, ate_se3_m=ate_se3,
+        extent_m=extent,
+        peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches_per_frame={k: v / N_RGBD for k, v in launches.items()})
+    log("rgbd path:", json.dumps(out))
+    state["rgbd"] = out
 
 
 def main():
@@ -561,16 +1127,24 @@ def main():
         raise SystemExit("chip_smoke: CUDA is not available")
     state = {"profile_out": args.profile_out}
     for name, phase in (("device", phase_device), ("kernels", phase_kernels),
-                        ("main", phase_main)):
+                        ("main", phase_main), ("stereo", phase_stereo),
+                        ("rgbd", phase_rgbd)):
         t0 = time.perf_counter()
         log(f"== phase {name}")
         phase(state)
         log(f"== phase {name} done in {time.perf_counter() - t0:.1f} s")
     rows = state["kernel_rows"]
+    by_path = state["launches_by_path"]
     for r in rows:
-        r["launches"] = state["launches"][r["name"]]
-    log(json.dumps({"kernels": rows}))
+        # the count of this slice's main path (stereo runs all five)
+        r["launches"] = by_path["stereo"][r["name"]]
+        r["launches_by_path"] = {p: c.get(r["name"], 0)
+                                 for p, c in by_path.items()}
+    log(json.dumps({"plain_kernel_targets": state["plain_rows"]}))
     log(json.dumps({"main_path": state["main"]}))
+    log(json.dumps({"stereo_path": state["stereo"]}))
+    log(json.dumps({"rgbd_path": state["rgbd"]}))
+    log(json.dumps({"kernels": rows}))
     log(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@
 numpy arrays keyed by field name (as `{k: np.asarray(v) for k, v in
 m._asdict().items()}` builds from the reference package's map), so a map
 captured from one tracker runs on in the other. `frame_*` do the same for
-FrameData and Features, `camera_from_numpy` for camera parameters.
+FrameData and Features, `camera_from_numpy` for camera parameters,
+`rectify_from_numpy` for rectification maps and `settings_from_dict` for
+the settings dataclasses (as `dataclasses.asdict` gives them).
 Descriptors cross as the bit-identical int32 view of uint32 words; every
 float array becomes float32.
 """
@@ -15,7 +17,9 @@ import torch
 
 from . import cameras
 from .frontend import Features
+from .io import config
 from .mapstate.state import MapState
+from .ops.rectify import RectifyMaps
 from .pipeline.tracking import FrameData
 
 _DESC_FIELDS = ("desc", "kf_feat_desc", "lm_desc")
@@ -67,3 +71,25 @@ def frame_to_numpy(fr):
 def camera_from_numpy(kind: int, params, device="cpu") -> cameras.Camera:
     return cameras.Camera(int(kind), torch.as_tensor(
         np.asarray(params, np.float32), device=device))
+
+
+def rectify_from_numpy(d, device="cpu") -> RectifyMaps:
+    """RectifyMaps from a dict of map1, map2, R_rect1, baseline and cam_new
+    as (kind, params)."""
+    kind, params = d["cam_new"]
+    return RectifyMaps(map1=_to_tensor(d["map1"], device),
+                       map2=_to_tensor(d["map2"], device),
+                       cam_new=camera_from_numpy(kind, params, device),
+                       baseline=_to_tensor(d["baseline"], device),
+                       R_rect1=_to_tensor(d["R_rect1"], device))
+
+
+def settings_from_dict(d) -> config.Settings:
+    """Settings from `dataclasses.asdict` of the reference's Settings."""
+    d = dict(d)
+    for k in ("cam1", "cam2"):
+        if d.get(k) is not None:
+            d[k] = config.CameraSettings(**d[k])
+    if d.get("imu") is not None:
+        d["imu"] = config.ImuSettings(**d["imu"])
+    return config.Settings(**d)

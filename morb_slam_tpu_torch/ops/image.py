@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 _weights: dict = {}
 
@@ -68,6 +69,7 @@ def resize_bilinear(img, out_hw):
     return out
 
 
+@record_function("K6 build_pyramid")
 def build_pyramid(img, n_levels: int, scale: float):
     """(H, W) float32 -> list of per-level images, each level downscaled
     from the previous one like the reference."""
@@ -89,6 +91,7 @@ def gaussian_kernel1d(ksize: int = 7, sigma: float = 2.0):
 _KERNEL7 = gaussian_kernel1d()
 
 
+@record_function("K6 gaussian_blur")
 def gaussian_blur(img):
     """7x7 sigma=2 separable blur with edge replication: seven shifted adds
     per axis in the reference's order, so the sums round the same way."""

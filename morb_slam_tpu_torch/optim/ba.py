@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from .. import lie
 from . import linalg
@@ -91,6 +92,7 @@ def _obs_terms(p: BAProblem, R, t, X, robust: bool = True):
     return r, Jp, Jl, w, chi2
 
 
+@record_function("K4 ba_solve")
 def ba_solve(p: BAProblem, n_iters: int = 10, lambda0: float = 1e-4):
     """Levenberg-Marquardt with dense-window Schur reduction. Returns
     (R, t, X, info) with info["costs"] the per-iteration cost and

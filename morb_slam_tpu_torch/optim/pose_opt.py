@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from .. import lie
 from . import linalg
@@ -35,6 +36,7 @@ def _jacobian_se3(Xc):
     return torch.cat([eye, -lie.so3_hat(Xc)], dim=-1)
 
 
+@record_function("K5 optimize_pose")
 def optimize_pose(R0, t0, Xw, obs, info, valid, obs_ur=None, baseline=0.0,
                   n_rounds: int = 4, n_iters: int = 10):
     """Motion-only BA over world points Xw (N, 3) observed at normalized

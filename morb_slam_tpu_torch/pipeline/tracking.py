@@ -1,11 +1,15 @@
-"""The frame-rate tracking state machine, monocular (counterpart of the
-monocular part of `morb_slam_tpu/pipeline/tracking.py`).
+"""The frame-rate tracking state machine: monocular, rectified stereo and
+RGB-D, without IMU (counterpart of those parts of
+`morb_slam_tpu/pipeline/tracking.py`).
 
-Per frame, `track_step` runs extraction (K1, K2, the pyramid and blur) and
-`track_frame` (motion-model search, pose optimization, local-map search,
-pose optimization; K3 inside every search) on the tracker's device. The
-host keeps the state machine and the keyframe decisions, which lag
-`pipeline_depth` frames behind the dispatched work: each frame's decision
+Per frame, `extract_frame` runs extraction (K1, K2, the pyramid and blur);
+`extract_stereo_frame` extracts both images and matches them along rows
+(K3 and K7); `extract_rgbd_frame` reads the depth at the keypoints. Then
+`track_step_framedata` runs `track_frame` (motion-model search, pose
+optimization, local-map search, pose optimization; K3 inside every
+search) on the tracker's device. The host keeps
+the state machine and the keyframe decisions, which lag `pipeline_depth`
+frames behind the dispatched work: each frame's decision
 scalars are copied to the host asynchronously when the frame is dispatched
 and read when its decision is due, so the host never waits on frames it
 has dispatched since.
@@ -22,6 +26,7 @@ import torch
 from .. import cameras, frontend, lie, matching
 from ..mapstate import state as ms
 from ..ops import hamming
+from ..ops import stereo as stereo_ops
 from ..optim import pose_opt
 from ..solvers import two_view
 from ..tensor_ops import add_at, mask_first, put, put2, topk
@@ -53,7 +58,12 @@ class TrackerConfig:
     # fraction of the measured inter-frame rotation carried into the
     # constant-velocity prediction (0: translation only)
     vel_rot_damp: float = 0.0
-    baseline: float = 0.0      # 0 = monocular (the only mode of this port)
+    baseline: float = 0.0      # stereo baseline (m); 0 = monocular
+    th_depth: float = 35.0     # close-point gate in baseline units
+    # depth-measured features beyond this distance (m) make no landmark;
+    # 0 disables the gate
+    th_far_points: float = 0.0
+    min_stereo_init_feats: int = 400
     ts_jump: float = 1.0       # seconds; a larger gap starts a fresh map
     # frames a dispatched frame's host decision may lag behind
     pipeline_depth: int = 2
@@ -111,6 +121,46 @@ def extract_frame(img, cam: cameras.Camera, cfg: TrackerConfig) -> FrameData:
                      desc=feats.desc, valid=feats.valid,
                      ur=torch.full((F,), float("nan"), device=uv.device),
                      depth=torch.full((F,), -1.0, device=uv.device))
+
+
+def _with_depth(feats, sm: stereo_ops.StereoMatches, cam: cameras.Camera):
+    """FrameData of the left / colour image with its stereo or RGB-D depth
+    and normalized right-u."""
+    uv = cameras.undistort_points(cam, feats.uv)
+    xn = cameras.unproject(cam, uv)[:, :2]
+    p = cam.params
+    ur_n = torch.where(sm.valid, (sm.u_right - p[2]) / p[0],
+                       torch.full_like(sm.u_right, float("nan")))
+    return FrameData(uv=uv, xn=xn, octave=feats.octave, angle=feats.angle,
+                     desc=feats.desc, valid=feats.valid, ur=ur_n,
+                     depth=torch.where(sm.valid, sm.depth,
+                                       torch.full_like(sm.depth, -1.0)))
+
+
+def extract_stereo_frame(img_l, img_r, cam: cameras.Camera,
+                         cfg: TrackerConfig) -> FrameData:
+    """Extract both rectified images and match them along rows."""
+    img_l = img_l.to(torch.float32)
+    img_r = img_r.to(torch.float32)
+    feats_l = frontend.extract_orb(img_l, cfg.orb)
+    feats_r = frontend.extract_orb(img_r, cfg.orb)
+    sf = torch.tensor([cfg.scale ** i for i in range(cfg.n_levels)],
+                      dtype=torch.float32, device=img_l.device)
+    sm = stereo_ops.match_stereo(feats_l, feats_r, img_l, img_r, sf,
+                                 bf=cfg.baseline * cfg.focal,
+                                 min_z=cfg.baseline)
+    return _with_depth(feats_l, sm, cam)
+
+
+def extract_rgbd_frame(img, depth_map, cam: cameras.Camera,
+                       cfg: TrackerConfig) -> FrameData:
+    """ORB on the grey image, depth read at the keypoints with a synthetic
+    right-u (`baseline` sets the virtual stereo baseline)."""
+    img = img.to(torch.float32)
+    feats = frontend.extract_orb(img, cfg.orb)
+    sm = stereo_ops.depth_from_rgbd(feats, depth_map.to(torch.float32),
+                                    bf=cfg.baseline * cfg.focal)
+    return _with_depth(feats, sm, cam)
 
 
 def track_frame(m: ms.MapState, fr: FrameData, last: FrameData,
@@ -197,8 +247,12 @@ def track_frame(m: ms.MapState, fr: FrameData, last: FrameData,
                        n_inl=res2.n_inliers, m=m, ref_kf=new_ref)
 
 
-def _track_core(fr, m, last, last_feat_lm, R_last, t_last, vel_R, vel_t,
-                has_vel: bool, ref_kf, cam, cfg: TrackerConfig):
+def track_step_framedata(fr, m, last, last_feat_lm, R_last, t_last, vel_R,
+                         vel_t, has_vel: bool, ref_kf, cam,
+                         cfg: TrackerConfig):
+    """One extracted frame (any sensor): tracking, the new velocity, the
+    pose relative to the reference keyframe and the host decision
+    scalars."""
     dev = fr.uv.device
     eye = torch.eye(3, device=dev)
     damp = cfg.vel_rot_damp
@@ -217,32 +271,32 @@ def _track_core(fr, m, last, last_feat_lm, R_last, t_last, vel_R, vel_t,
     Rri, tri = lie.se3_inv(m.kf_R[out.ref_kf], m.kf_t[out.ref_kf])
     rel = lie.se3_mul(out.R, out.t, Rri, tri)
     # host decision scalars in one vector: [n_inl, ref_kf, vel_finite,
-    # n_mm, ref_tracked, n_close_tracked, n_close_untracked] (the close
-    # counts are stereo-only and stay 0 here)
+    # n_mm, ref_tracked, n_close_tracked, n_close_untracked]; the last three
+    # feed the stereo keyframe conditions, and the close counts are 0 mono
     ref_lm2 = m.kf_feat_lm[out.ref_kf]
     lm_c = torch.clamp(ref_lm2, min=0).long()
-    ref_tracked = torch.sum((ref_lm2 >= 0) & m.kf_feat_valid[out.ref_kf]
-                            & m.lm_valid[lm_c])
+    ref_ok = (ref_lm2 >= 0) & m.kf_feat_valid[out.ref_kf] & m.lm_valid[lm_c]
     zero = torch.zeros((), device=dev)
+    if cfg.baseline > 0:
+        # the reference KF's landmarks seen >= 3 times (2 while the map
+        # holds <= 2 KFs); map-wide counts every frame, as the reference
+        # package does
+        obs = ms.lm_obs_count(m)
+        min_obs = torch.where(m.n_kf <= 2, 2, 3)
+        ref_tracked = torch.sum(ref_ok & (obs[lm_c] >= min_obs))
+        close = fr.valid & (fr.depth > 0) & \
+            (fr.depth < cfg.th_depth * cfg.baseline)
+        tracked = out.feat_lm >= 0
+        n_close = (torch.sum(close & tracked).to(torch.float32),
+                   torch.sum(close & ~tracked).to(torch.float32))
+    else:
+        ref_tracked = torch.sum(ref_ok)
+        n_close = (zero, zero)
     info = torch.stack([
         out.n_inl.to(torch.float32), out.ref_kf.to(torch.float32),
         torch.isfinite(vel_new[1]).all().to(torch.float32),
-        out.n_mm.to(torch.float32), ref_tracked.to(torch.float32), zero, zero])
+        out.n_mm.to(torch.float32), ref_tracked.to(torch.float32), *n_close])
     return fr, out, vel_new, rel, info
-
-
-def track_step(img, m, last, last_feat_lm, R_last, t_last, vel_R, vel_t,
-               has_vel, ref_kf, cam, cfg: TrackerConfig):
-    """One frame: extraction + tracking + velocity + trajectory entry."""
-    fr = extract_frame(img, cam, cfg)
-    return _track_core(fr, m, last, last_feat_lm, R_last, t_last, vel_R,
-                       vel_t, has_vel, ref_kf, cam, cfg)
-
-
-def track_step_framedata(fr, m, last, last_feat_lm, R_last, t_last, vel_R,
-                         vel_t, has_vel, ref_kf, cam, cfg: TrackerConfig):
-    return _track_core(fr, m, last, last_feat_lm, R_last, t_last, vel_R,
-                       vel_t, has_vel, ref_kf, cam, cfg)
 
 
 def track_reference_kf(m: ms.MapState, fr: FrameData, ref_kf, R0, t0,
@@ -363,6 +417,95 @@ def create_initial_map(m: ms.MapState, fr0: FrameData, fr1: FrameData,
     return ms.update_landmark_stats(m), k1
 
 
+def stereo_initialize(m: ms.MapState, fr: FrameData, ts,
+                      cfg: TrackerConfig, slot: int = 0):
+    """First-frame stereo / RGB-D map: every feature with a valid depth
+    becomes a landmark of keyframe `slot`."""
+    L = m.lm_valid.shape[0]
+    F = fr.uv.shape[0]
+    dev = fr.uv.device
+    good = fr.valid & (fr.depth > 0)
+    if cfg.th_far_points > 0:
+        good = good & (fr.depth < cfg.th_far_points)
+    Xw = torch.cat([fr.xn * fr.depth[:, None], fr.depth[:, None]], dim=-1)
+    n_new = torch.cumsum(good.to(torch.int32), 0) - 1
+    lm = torch.where(good, n_new, torch.full_like(n_new, L - 1)).long()
+    # landmarks must exist before the keyframe's associations are written
+    # (insert_keyframe drops associations to invalid landmarks)
+    none = torch.full((F,), -1, dtype=torch.int32, device=dev)
+    m, k0 = insert_keyframe(m, fr, none, torch.eye(3, device=dev),
+                            torch.zeros(3, device=dev), ts, slot=slot)
+    dmax = fr.depth * cfg.scale ** fr.octave.to(torch.float32)
+    g1 = good[:, None]
+    down = torch.tensor([0.0, 0.0, -1.0], device=dev).expand(F, 3)
+    m = m._replace(
+        kf_feat_lm=put(m.kf_feat_lm, torch.tensor([k0], device=dev),
+                       torch.where(good, lm.to(torch.int32), none)[None]),
+        lm_pos=put(m.lm_pos, lm, torch.where(g1, Xw, m.lm_pos[lm])),
+        lm_valid=put(m.lm_valid, lm, good | m.lm_valid[lm]),
+        lm_desc=put(m.lm_desc, lm, torch.where(g1, fr.desc, m.lm_desc[lm])),
+        lm_ref_kf=put(m.lm_ref_kf, lm, torch.where(
+            good, torch.full_like(m.lm_ref_kf[lm], k0), m.lm_ref_kf[lm])),
+        lm_first_ts=put(m.lm_first_ts, lm, torch.where(
+            good, m.kf_ts[k0].expand(F), m.lm_first_ts[lm])),
+        lm_dist_max=put(m.lm_dist_max, lm, torch.where(
+            good, dmax, m.lm_dist_max[lm])),
+        lm_normal=put(m.lm_normal, lm, torch.where(g1, down,
+                                                   m.lm_normal[lm])),
+        lm_visible=put(m.lm_visible, lm, 1),
+        lm_found=put(m.lm_found, lm, 1),
+        n_lm=torch.sum(good, dtype=torch.int32))
+    return ms.update_landmark_stats(m), k0
+
+
+def create_close_landmarks(m: ms.MapState, kf_id: int, fr: FrameData,
+                           cfg: TrackerConfig):
+    """New landmarks straight from the measured depth for the keyframe's
+    unmatched close features (nearer than th_depth * baseline), the 128
+    closest first, into free landmark slots."""
+    L = m.lm_valid.shape[0]
+    th = cfg.th_depth * cfg.baseline
+    if cfg.th_far_points > 0:
+        th = min(th, cfg.th_far_points)
+    free_f = (m.kf_feat_lm[kf_id] < 0) & fr.valid & (fr.depth > 0) & \
+        (fr.depth < th)
+    n_c = min(128, fr.uv.shape[0])
+    sel = topk(torch.where(free_f, -fr.depth,
+                           torch.full_like(fr.depth, -math.inf)), n_c)[1]
+    sel_good = free_f[sel]
+    n_free_ok, free_slots = topk((~m.lm_valid).to(torch.int32), n_c)
+    rank = torch.clamp(torch.cumsum(sel_good.to(torch.int32), 0) - 1, min=0)
+    sel_good = sel_good & (n_free_ok == 1)[rank]
+    slot = torch.where(sel_good, free_slots[rank],
+                       torch.full_like(free_slots[rank], L))
+    old = torch.clamp(slot, max=L - 1)    # a slot of L is dropped by put
+    z = fr.depth[sel]
+    Xc = torch.cat([fr.xn[sel] * z[:, None], z[:, None]], dim=-1)
+    Rwc = m.kf_R[kf_id].T
+    Xw = lie.se3_apply(Rwc, -lie.matvec(Rwc, m.kf_t[kf_id]), Xc)
+    dmax = z * cfg.scale ** fr.octave[sel].to(torch.float32)
+    g1 = sel_good[:, None]
+    return m._replace(
+        lm_pos=put(m.lm_pos, slot, torch.where(g1, Xw, m.lm_pos[old])),
+        lm_valid=put(m.lm_valid, slot, sel_good | m.lm_valid[old]),
+        lm_desc=put(m.lm_desc, slot, torch.where(g1, fr.desc[sel],
+                                                 m.lm_desc[old])),
+        lm_ref_kf=put(m.lm_ref_kf, slot, torch.where(
+            sel_good, torch.full_like(m.lm_ref_kf[old], kf_id),
+            m.lm_ref_kf[old])),
+        lm_first_ts=put(m.lm_first_ts, slot, torch.where(
+            sel_good, m.kf_ts[kf_id].expand(n_c), m.lm_first_ts[old])),
+        lm_dist_max=put(m.lm_dist_max, slot, torch.where(
+            sel_good, dmax, m.lm_dist_max[old])),
+        lm_visible=put(m.lm_visible, slot, torch.where(
+            sel_good, torch.ones_like(m.lm_visible[old]), m.lm_visible[old])),
+        lm_found=put(m.lm_found, slot, torch.where(
+            sel_good, torch.ones_like(m.lm_found[old]), m.lm_found[old])),
+        kf_feat_lm=put2(m.kf_feat_lm, kf_id, sel, torch.where(
+            sel_good, slot.to(torch.int32), m.kf_feat_lm[kf_id, sel])),
+        n_lm=m.n_lm + torch.sum(sel_good, dtype=torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # host state machine
 # ---------------------------------------------------------------------------
@@ -407,7 +550,8 @@ def _host_info(fetch):
 
 
 class Tracker:
-    """Host-side orchestration of monocular tracking.
+    """Host-side orchestration of monocular, rectified stereo and RGB-D
+    tracking (`cfg.baseline` > 0 for the two depth sensors).
 
     States: NO_IMAGES -> NOT_INITIALIZED -> OK <-> RECENTLY_LOST -> LOST.
     `device=None` runs on the card and raises without one.
@@ -427,6 +571,9 @@ class Tracker:
         # trajectory: (ts, map_gen, ref_kf, R_cr, t_cr) — pose relative to
         # a reference keyframe of one map generation
         self.trajectory = []
+        # localization-only mode switches keyframe insertion and map resets
+        # off
+        self._mapping_enabled = True
         self._fresh_map_state()
         self.state = "NO_IMAGES"
 
@@ -442,10 +589,7 @@ class Tracker:
         dt = ts - last
         if dt < 0 or dt > self.cfg.ts_jump:
             self.flush()
-            if self.n_kf_host < 10:
-                self.reset_active_map()
-            else:
-                self.create_map_in_atlas()
+            self._drop_lost_map()
 
     def _to_device(self, img):
         return torch.as_tensor(np.asarray(img) if not torch.is_tensor(img)
@@ -455,13 +599,32 @@ class Tracker:
         """One grayscale frame (numpy or tensor, uint8 or float) ->
         (state, (R_cw, t_cw) or None)."""
         self._check_timestamp(ts)
-        img = self._to_device(img)
+        fr = extract_frame(self._to_device(img), self.cam, self.cfg)
         if self.state in ("NO_IMAGES", "NOT_INITIALIZED"):
-            fr = extract_frame(img, self.cam, self.cfg)
             self._try_initialize(fr, ts)
             pose = (self.R_last, self.t_last) if self.state == "OK" else None
             return self.state, pose
-        return self._track(img, ts)
+        return self._track(fr, ts)
+
+    def track_stereo(self, img_l, img_r, ts: float):
+        """One rectified stereo pair -> (state, (R_cw, t_cw) or None)."""
+        self._check_timestamp(ts)
+        fr = extract_stereo_frame(self._to_device(img_l),
+                                  self._to_device(img_r), self.cam, self.cfg)
+        if self.state in ("NO_IMAGES", "NOT_INITIALIZED"):
+            return self._try_init_from_depth(fr, ts)
+        return self._track(fr, ts)
+
+    def track_rgbd(self, img, depth_map, ts: float):
+        """One grey image and its depth map (metres, 0 = none) -> (state,
+        (R_cw, t_cw) or None)."""
+        self._check_timestamp(ts)
+        fr = extract_rgbd_frame(self._to_device(img),
+                                self._to_device(depth_map), self.cam,
+                                self.cfg)
+        if self.state in ("NO_IMAGES", "NOT_INITIALIZED"):
+            return self._try_init_from_depth(fr, ts)
+        return self._track(fr, ts)
 
     # -- init -------------------------------------------------------------
 
@@ -503,25 +666,37 @@ class Tracker:
         self.trajectory.append((self.ts_init, self.map_gen, k1 - 1, eye, zero))
         self.trajectory.append((ts, self.map_gen, k1, eye, zero))
 
+    def _try_init_from_depth(self, fr: FrameData, ts: float):
+        """Stereo / RGB-D: a map from the first frame with enough features
+        of valid depth."""
+        n_depth = int((fr.valid & (fr.depth > 0)).sum())
+        if n_depth < self.cfg.min_stereo_init_feats:
+            self.state = "NOT_INITIALIZED"
+            return self.state, None
+        self.m, k0 = stereo_initialize(self.m, fr, ts, self.cfg,
+                                       slot=self.n_kf_host)
+        self.last = fr
+        self.last_feat_lm = self.m.kf_feat_lm[k0]
+        self.R_last = torch.eye(3, device=self.device)
+        self.t_last = torch.zeros(3, device=self.device)
+        self.ref_kf = k0
+        self.n_kf_host = k0 + 1
+        self.last_kf_id = k0
+        self._ref_matches = int((self.last_feat_lm >= 0).sum())
+        self.frames_since_kf = 0
+        self.has_vel = False
+        self.state = "OK"
+        self.trajectory.append((ts, self.map_gen, k0, self.R_last,
+                                self.t_last))
+        return self.state, (self.R_last, self.t_last)
+
     # -- tracking ---------------------------------------------------------
 
-    def _track(self, img, ts: float):
-        cfg = self.cfg
+    def _track(self, fr: FrameData, ts: float):
         if self.last is None:
-            fr = extract_frame(img, self.cam, cfg)
             if self._recover_lost(fr):
                 return self.state, (self.R_last, self.t_last)
             return self.state, None
-        vel_R, vel_t = self.vel
-        out_tuple = track_step(
-            img, self.m, self.last, self.last_feat_lm, self.R_last,
-            self.t_last, vel_R, vel_t, self.has_vel, self.ref_kf, self.cam,
-            cfg)
-        if self.state == "OK":
-            return self._track_pipelined(out_tuple, ts)
-        return self._post_track(out_tuple, ts)
-
-    def _track_framedata(self, fr: FrameData, ts: float):
         vel_R, vel_t = self.vel
         out_tuple = track_step_framedata(
             fr, self.m, self.last, self.last_feat_lm, self.R_last,
@@ -576,10 +751,7 @@ class Tracker:
             self.t_last = self.m.kf_t[self.ref_kf]
             if self.frames_lost > 60:
                 self.state = "LOST"
-                if self.n_kf_host < 10:
-                    self.reset_active_map()
-                else:
-                    self.create_map_in_atlas()
+                self._drop_lost_map()
             return
         self.frames_lost = 0
         self.state = "OK"
@@ -595,7 +767,7 @@ class Tracker:
             rel = lie.se3_mul(out.R, out.t, Rri, tri)
         self.trajectory.append((ts, self.map_gen, ref_kf_new, rel[0], rel[1]))
         need = self._need_new_kf(n_inl, info_h, ts, lag=len(self._pending))
-        if need:
+        if need and self._mapping_enabled:
             k = self._insert_keyframe(fr, out, ts, refresh_anchors=False,
                                       ref_inliers=n_inl)
             if k is not None:
@@ -605,16 +777,24 @@ class Tracker:
                 self.last_feat_lm = self.m.kf_feat_lm[k]
 
     def _need_new_kf(self, n_inl: int, info_h, ts: float, lag: int = 0):
-        """NeedNewKeyFrame, monocular: c1a too long since the last KF, or
-        (c1b min gap and c2 inliers decayed below kf_ref_ratio of those at
-        the last insertion)."""
+        """NeedNewKeyFrame: c1a too long since the last KF; c1b the min gap;
+        c1c (stereo / RGB-D) tracking starved of close points or under a
+        quarter of the reference KF's landmarks; c2 inliers decayed below
+        kf_ref_ratio of those at the last insertion, or close points
+        starved. Insert on c1a, or on (c1b or c1c) and c2."""
         cfg = self.cfg
+        ref_tracked = max(int(info_h[4]), 1)
+        close_trk, close_untrk = int(info_h[5]), int(info_h[6])
+        stereoish = cfg.baseline > 0
+        need_close = stereoish and close_trk < 100 and close_untrk > 70
         fs = self.frames_since_kf - lag
         c1a = fs >= cfg.max_kf_interval
         c1b = fs >= cfg.min_kf_interval
-        c2 = n_inl < cfg.kf_ref_ratio * max(self._ref_matches, 1) and \
-            n_inl > 15
-        return (c1a or (c1b and c2)) and n_inl > 15
+        c1c = stereoish and c1b and \
+            (n_inl < 0.25 * ref_tracked or need_close)
+        c2 = (n_inl < cfg.kf_ref_ratio * max(self._ref_matches, 1)
+              or need_close) and n_inl > 15
+        return (c1a or ((c1b or c1c) and c2)) and n_inl > 15
 
     def _recompute_vel_rel(self, out):
         Ri, ti = lie.se3_inv(self.R_last, self.t_last)
@@ -662,10 +842,7 @@ class Tracker:
             self.frames_lost += 1
             if self.frames_lost > 60:
                 self.state = "LOST"
-                if self.n_kf_host < 10:
-                    self.reset_active_map()
-                else:
-                    self.create_map_in_atlas()
+                self._drop_lost_map()
             return self.state, None
         self.frames_lost = 0
         self.state = "OK"
@@ -680,7 +857,7 @@ class Tracker:
         self.ref_kf = ref_kf_new
         self.frames_since_kf += 1
         self.trajectory.append((ts, self.map_gen, self.ref_kf, rel[0], rel[1]))
-        if self._need_new_kf(n_inl, info_h, ts):
+        if self._need_new_kf(n_inl, info_h, ts) and self._mapping_enabled:
             self._insert_keyframe(fr, out, ts, ref_inliers=n_inl)
         return self.state, (out.R, out.t)
 
@@ -729,6 +906,8 @@ class Tracker:
         self.last_kf_id = k
         if ref_inliers is not None:
             self._ref_matches = int(ref_inliers)
+        if self.cfg.baseline > 0:
+            self.m = create_close_landmarks(self.m, k, fr, self.cfg)
         self.m = local_mapping.mapping_step(self.m, k, self.cam,
                                             self.cfg.lm_cfg)
         self.ref_kf = k
@@ -778,10 +957,7 @@ class Tracker:
         self.frames_lost += 1
         if self.frames_lost > 60:
             self.state = "LOST"
-            if self.n_kf_host < 10:
-                self.reset_active_map()
-            else:
-                self.create_map_in_atlas()
+            self._drop_lost_map()
         return False
 
     # -- maps ---------------------------------------------------------------
@@ -807,6 +983,16 @@ class Tracker:
         self.frames_since_kf = 0
         self.frames_lost = 0
         self._pending = []
+
+    def _drop_lost_map(self):
+        """After LOST or a timestamp jump: a young map is thrown away, a
+        mature one stashed; localization mode keeps the map."""
+        if not self._mapping_enabled:
+            return
+        if self.n_kf_host < 10:
+            self.reset_active_map()
+        else:
+            self.create_map_in_atlas()
 
     def reset_active_map(self):
         """Throw the active map away and re-initialize."""

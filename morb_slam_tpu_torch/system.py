@@ -1,0 +1,132 @@
+"""System: the public facade (counterpart of `morb_slam_tpu/system.py`).
+
+One object built from `Settings` (or a YAML path) that owns the tracker and
+feeds it frames: `track_monocular`, `track_stereo` (raw pairs are rectified
+on the card by K8 with maps built once) and `track_rgbd`, plus the
+localization-mode toggles, `reset` and `state`. Inertial sensors, a
+vocabulary, trajectory writers and atlas save / load belong to later slices
+of the port and raise `NotImplementedError` here.
+"""
+from __future__ import annotations
+
+import enum
+from typing import Optional
+
+import torch
+
+from .io import config as config_mod
+from .ops import rectify as rectify_mod
+from .pipeline import tracking
+
+
+class Sensor(enum.Enum):
+    MONOCULAR = "monocular"
+    STEREO = "stereo"
+    RGBD = "rgbd"
+    IMU_MONOCULAR = "imu-monocular"
+    IMU_STEREO = "imu-stereo"
+    IMU_RGBD = "imu-rgbd"
+
+    @property
+    def inertial(self):
+        return self.name.startswith("IMU")
+
+    @property
+    def stereo(self):
+        return "STEREO" in self.name
+
+    @property
+    def rgbd(self):
+        return "RGBD" in self.name
+
+
+class System:
+    """Construct from a Settings object (or YAML path), feed frames, read
+    the tracker's state. `device=None` runs on the card and raises without
+    one; pass device="cpu" for the plain PyTorch path."""
+
+    def __init__(self, settings, sensor: Sensor, vocabulary=None,
+                 vocabulary_path: Optional[str] = None,
+                 tracker_overrides: Optional[dict] = None, device=None):
+        if isinstance(settings, str):
+            settings = config_mod.load_settings(settings)
+        if sensor.inertial:
+            raise NotImplementedError(
+                "inertial sensors come with the visual-inertial slice of "
+                "the port")
+        if vocabulary is not None or vocabulary_path:
+            raise NotImplementedError(
+                "vocabularies come with the relocalization slice of the port")
+        if settings.load_atlas:
+            raise NotImplementedError(
+                "atlas load / save comes with the persistence slice of the "
+                "port")
+        self.settings = settings
+        self.sensor = sensor
+        self.device = tracking.resolve_device(device)
+
+        cam = settings.cam1.to_camera()
+        width = settings.cam1.width or 752
+        height = settings.cam1.height or 480
+        focal = settings.cam1.fx
+        baseline = settings.baseline if (sensor.stereo or sensor.rgbd) \
+            else 0.0
+        # raw stereo (distorted pinhole or KB8 fisheye) is remapped every
+        # frame into an ideal rectified pinhole pair
+        self.rectify = None
+        if (sensor.stereo and settings.cam2 is not None
+                and settings.T_c1_c2 is not None
+                and settings.cam1.model != "Rectified"):
+            self.rectify = rectify_mod.build_rectify_maps(
+                cam, settings.cam2.to_camera(), settings.T_c1_c2, width,
+                height, device=self.device)
+            self._maps = torch.stack([self.rectify.map1, self.rectify.map2])
+            cam = self.rectify.cam_new
+            focal = float(cam.params[0])
+            baseline = float(self.rectify.baseline)
+        kw = dict(width=width, height=height, focal=focal,
+                  n_feat=settings.n_features, scale=settings.scale_factor,
+                  n_levels=settings.n_levels, baseline=baseline,
+                  th_depth=settings.th_depth,
+                  th_far_points=settings.th_far_points)
+        if tracker_overrides:
+            kw.update(tracker_overrides)
+        self.tracker = tracking.Tracker(cam, tracking.TrackerConfig(**kw),
+                                        device=self.device)
+        self.localization_only = False
+
+    # ---- frame feeds ----------------------------------------------------
+
+    def track_monocular(self, img, ts: float):
+        return self.tracker.track_mono(img, ts)
+
+    def track_stereo(self, img_l, img_r, ts: float):
+        if self.rectify is not None:
+            pair = torch.stack([self.tracker._to_device(img_l),
+                                self.tracker._to_device(img_r)])
+            img_l, img_r = rectify_mod.remap_bilinear(
+                pair.to(torch.float32), self._maps)
+        return self.tracker.track_stereo(img_l, img_r, ts)
+
+    def track_rgbd(self, img, depth, ts: float):
+        return self.tracker.track_rgbd(img, depth, ts)
+
+    # ---- modes / control ------------------------------------------------
+
+    def activate_localization_mode(self):
+        """Stop mapping, track only."""
+        self.localization_only = True
+        self.tracker._mapping_enabled = False
+
+    def deactivate_localization_mode(self):
+        self.localization_only = False
+        self.tracker._mapping_enabled = True
+
+    def reset(self):
+        """Fresh map, same camera and configuration."""
+        t = self.tracker
+        self.tracker = tracking.Tracker(t.cam, t.cfg, device=self.device)
+
+    @property
+    def state(self):
+        return self.tracker.state

@@ -1,7 +1,8 @@
 """Isolation and device rules of the PyTorch port: it imports neither JAX
-nor the JAX package, its tracker refuses to run without a card unless asked
-for the CPU, and its kernel wrappers never fall back to the plain versions
-for a tensor that is not on the CPU."""
+nor the JAX package, nor YAML or OpenCV at import time (the card's machine
+has neither); its tracker and System refuse to run without a card unless
+asked for the CPU; and its kernel wrappers never fall back to the plain
+versions for a tensor that is not on the CPU."""
 import os
 import subprocess
 import sys
@@ -10,8 +11,10 @@ import textwrap
 import pytest
 import torch
 
-from morb_slam_tpu_torch import cameras
-from morb_slam_tpu_torch.ops import fast, hamming, orb_descriptor
+from morb_slam_tpu_torch import cameras, system
+from morb_slam_tpu_torch.io import config
+from morb_slam_tpu_torch.ops import (fast, hamming, orb_descriptor, rectify,
+                                     stereo)
 from morb_slam_tpu_torch.pipeline import tracking
 
 torch.set_num_threads(1)
@@ -22,7 +25,7 @@ def test_imports_without_jax_or_reference_package():
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
 
-        BLOCKED = {"jax", "jaxlib", "morb_slam_tpu"}
+        BLOCKED = {"jax", "jaxlib", "morb_slam_tpu", "yaml", "cv2"}
 
         class Block:
             def find_spec(self, name, path=None, target=None):
@@ -60,12 +63,26 @@ def test_tracker_default_device_needs_cuda(monkeypatch):
     assert t.m.lm_pos.device.type == "cpu"
 
 
+def test_system_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    s = config.Settings(cam1=config.CameraSettings(fx=50.0, fy=50.0, cx=32,
+                                                   cy=24, width=64,
+                                                   height=48))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        system.System(s, system.Sensor.MONOCULAR)
+    sm = system.System(s, system.Sensor.MONOCULAR, device="cpu",
+                       tracker_overrides=dict(max_kf=4, max_lm=100))
+    assert sm.tracker.device.type == "cpu"
+
+
 def _counts():
-    return [dict(m.LAUNCHES) for m in (fast, orb_descriptor, hamming)]
+    return [dict(m.LAUNCHES) for m in (fast, orb_descriptor, hamming, stereo,
+                                       rectify)]
 
 
 @pytest.mark.parametrize("kernel", ["fast_select", "orb_describe",
-                                    "hamming_top2"])
+                                    "hamming_top2", "stereo_sad",
+                                    "remap_bilinear"])
 def test_wrappers_refuse_other_devices(kernel):
     meta = torch.device("meta")
     before = _counts()
@@ -76,10 +93,17 @@ def test_wrappers_refuse_other_devices(kernel):
             img = torch.empty((48, 64), device=meta)
             orb_descriptor.orb_describe(img, img, torch.zeros(
                 (4, 2), dtype=torch.int32, device=meta))
-        else:
+        elif kernel == "hamming_top2":
             d = torch.empty((4, 8), dtype=torch.int32, device=meta)
             hamming.hamming_top2(d, d, torch.ones((4, 4), dtype=torch.bool,
                                                   device=meta))
+        elif kernel == "stereo_sad":
+            img = torch.empty((48, 64), device=meta)
+            stereo.sad_refine(img, img, torch.zeros((3, 2), device=meta),
+                              torch.zeros(3, device=meta))
+        else:
+            rectify.remap_bilinear(torch.empty((48, 64), device=meta),
+                                   torch.zeros((8, 8, 2), device=meta))
     assert _counts() == before
 
 
@@ -91,6 +115,9 @@ def test_wrappers_use_plain_versions_on_cpu():
                                                      dtype=torch.int32))
     d = torch.zeros((3, 8), dtype=torch.int32)
     hamming.hamming_top2(d, d, torch.ones((3, 3), dtype=torch.bool))
+    stereo.sad_refine(img, img, torch.full((3, 2), 20.0), torch.full((3,),
+                                                                     20.0))
+    rectify.remap_bilinear(img, torch.zeros((8, 8, 2)))
     after = _counts()
     for b, a in zip(before, after):
         assert a["plain"] == b["plain"] + 1

@@ -1,8 +1,11 @@
-"""The CUDA kernels K1-K3 of the PyTorch port against their plain PyTorch
-versions on the card, on shapes and inputs the main path does not reach:
-image sizes that are no multiple of the 16-px cell, flat images where every
-key ties, empty keypoint and row sets, a single column, fully masked rows,
-duplicated descriptors and unaligned views.
+"""The CUDA kernels K1-K3, K7 and K8 of the PyTorch port against their
+plain PyTorch versions on the card, on shapes and inputs the main path does
+not reach: image sizes that are no multiple of the 16-px cell, flat images
+where every key ties, empty keypoint and row sets, a single column, fully
+masked rows, duplicated descriptors and unaligned views; stereo keypoints
+on and beyond the image border, SAD ties and best offsets at both ends of
+the sweep; remap coordinates exactly on the last row and column and just
+outside.
 
 Marked `gpu`: each test skips without a CUDA card. On a machine with one
 (and without JAX, so without tests/conftest.py):
@@ -10,7 +13,9 @@ Marked `gpu`: each test skips without a CUDA card. On a machine with one
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances: K1 and K3 exact; K2 angles within 1e-4 rad and descriptor bits
->= 99.9% identical (the kernel sums the moments in another order).
+>= 99.9% identical (the kernel sums the moments in another order); K7 on
+integer-valued images: best offset and SAD exact, refined x within 1e-5 px,
+on non-integer images within 1e-3 px; K8 exact (same rounding, no FMA).
 """
 import math
 
@@ -19,7 +24,8 @@ import pytest
 import torch
 
 from morb_slam_tpu_torch import frontend
-from morb_slam_tpu_torch.ops import fast, hamming, image, orb_descriptor
+from morb_slam_tpu_torch.ops import (fast, hamming, image, orb_descriptor,
+                                     rectify, stereo)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -161,3 +167,136 @@ def test_extract_orb_level0_matches_cpu(cuda):
     bits = orb_descriptor.unpack_bits(got.desc[:n0].cpu()[ok]) != \
         orb_descriptor.unpack_bits(want.desc[:n0][ok])
     assert float(bits.float().mean()) <= 1e-3
+
+
+def _sad_pair(cuda, kind, shift=0, seed=7, shape=(120, 160)):
+    rng = np.random.default_rng(seed)
+    if kind == "flat":
+        left = np.full(shape, 90.0, np.float32)
+    else:
+        left = rng.integers(0, 256, shape).astype(np.float32)
+    right = np.roll(left, -shift, axis=1)
+    if kind == "noise":
+        right = right + rng.normal(0, 0.7, shape).astype(np.float32)
+    return (torch.from_numpy(left).to(cuda),
+            torch.from_numpy(np.ascontiguousarray(right)).to(cuda))
+
+
+def _sad_check(cuda, left, right, uv, u0, integer):
+    got = stereo.sad_refine(left, right, uv.to(cuda), u0.to(cuda))
+    want = stereo.sad_refine_plain(left, right, uv.to(cuda), u0.to(cuda))
+    if integer:
+        assert torch.equal(got[2], want[2])
+        assert torch.equal(got[1], want[1])
+    tol = 1e-5 if integer else 1e-3
+    assert bool(torch.all((got[0] - want[0]).abs() <= tol))
+    return got
+
+
+def test_sad_refine_border_and_outside(cuda):
+    h, w = 120, 160
+    left, right = _sad_pair(cuda, "int", shift=3)
+    uv = torch.tensor([[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1],
+                       [0.5, 2.5], [w - 1.5, h - 0.5], [-7, 3], [w + 30, h + 9],
+                       [4, 60], [w - 5, 60]], dtype=torch.float32)
+    u0 = torch.clamp(uv[:, 0] - 3, min=-20)
+    _, sad, k = _sad_check(cuda, left, right, uv, u0, integer=True)
+    assert int((k == 5).sum()) >= 1 and float(sad.min()) == 0.0
+
+
+def test_sad_refine_ties_pick_first_offset(cuda):
+    left, right = _sad_pair(cuda, "flat")
+    uv = torch.tensor([[40.0, 40.0], [80.0, 60.0], [0.0, 0.0]])
+    ur, sad, k = _sad_check(cuda, left, right, uv, uv[:, 0], integer=True)
+    assert torch.equal(k.cpu(), torch.zeros(3, dtype=torch.int32))
+    assert torch.equal(sad.cpu(), torch.zeros(3))
+    assert torch.equal(ur.cpu(), uv[:, 0] - 5)      # 0 at the sweep's end
+
+
+@pytest.mark.parametrize("offset", [-5, 5])
+def test_sad_refine_best_at_sweep_ends(cuda, offset):
+    left, right = _sad_pair(cuda, "int", shift=7)
+    rng = np.random.default_rng(11)
+    uv = torch.from_numpy(np.stack([rng.uniform(20, 140, 200),
+                                    rng.uniform(10, 110, 200)], -1).astype(
+        np.float32))
+    uv = torch.round(uv)
+    u0 = uv[:, 0] - 7 - offset              # true match at u0 + offset
+    ur, _, k = _sad_check(cuda, left, right, uv, u0, integer=True)
+    assert bool(torch.all(k == 5 + offset))
+    assert torch.equal(ur.cpu(), uv[:, 0] - 7)      # delta 0 at the ends
+
+
+@pytest.mark.parametrize("n", [0, 1, 9, 1200])
+def test_sad_refine_non_integer(cuda, n):
+    left, right = _sad_pair(cuda, "noise", shift=4, shape=(480, 752))
+    rng = np.random.default_rng(n)
+    uv = torch.from_numpy(np.stack([rng.uniform(0, 751, n),
+                                    rng.uniform(0, 479, n)], -1).astype(
+        np.float32).reshape(n, 2))
+    u0 = uv[:, 0] - 4 + torch.from_numpy(rng.integers(-3, 4, n).astype(
+        np.float32))
+    got = _sad_check(cuda, left, right, uv, u0, integer=False)
+    assert got[0].shape == (n,)
+
+
+def _remap_case(cuda, hs, ws, h, w, seed=0):
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.uniform(0, 255, (hs, ws)).astype(
+        np.float32)).to(cuda)
+    mp = np.stack([rng.uniform(-1.5, ws + 0.5, (h, w)),
+                   rng.uniform(-1.5, hs + 0.5, (h, w))], -1).astype(np.float32)
+    edge = [[ws - 1, hs - 1], [ws - 1, 0], [0, hs - 1], [0, 0],
+            [np.nextafter(np.float32(ws - 1), np.float32(ws)), 3],
+            [3, np.nextafter(np.float32(hs - 1), np.float32(hs))],
+            [np.nextafter(np.float32(0), np.float32(-1)), 3],
+            [3, -1e-7], [np.nan, 3], [1e9, -1e9]]
+    n = min(len(edge), h * w)
+    mp.reshape(-1, 2)[:n] = edge[:n]
+    return img, torch.from_numpy(mp).to(cuda)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (7, 9, 5, 3),
+                                   (480, 752, 480, 752), (200, 300, 31, 517)])
+def test_remap_bilinear_exact(cuda, shape):
+    img, mp = _remap_case(cuda, *shape)
+    got = rectify.remap_bilinear(img, mp)
+    want = rectify.remap_bilinear_plain(img[None], mp[None])[0]
+    assert torch.equal(got, want), float((got - want).abs().max())
+    hs, ws = shape[:2]
+    flat = got.reshape(-1).cpu()
+    if flat.numel() >= 10:
+        assert float(flat[0]) == float(img[hs - 1, ws - 1])   # last pixel
+        assert bool(torch.all(flat[4:10] == 0))     # just outside, NaN, huge
+
+
+def test_remap_bilinear_batch_and_views(cuda):
+    img, mp = _remap_case(cuda, 480, 752, 480, 752, seed=3)
+    pair = torch.stack([img, img.flip(0)])
+    maps = torch.stack([mp, mp.flip(1)])
+    got = rectify.remap_bilinear(pair, maps)
+    for b in range(2):
+        assert torch.equal(got[b], rectify.remap_bilinear_plain(
+            pair[b:b + 1], maps[b:b + 1])[0])
+    # a non-contiguous map view is copied, not misread
+    view = torch.cat([mp, mp], dim=1)[:, ::2]
+    assert torch.equal(rectify.remap_bilinear(img, view),
+                       rectify.remap_bilinear_plain(img[None],
+                                                    view[None])[0])
+
+
+def test_k7_k8_refuse_bad_inputs_on_the_card(cuda):
+    before = [dict(m.LAUNCHES) for m in (stereo, rectify)]
+    img = torch.zeros((48, 64), device=cuda)
+    with pytest.raises(ValueError):
+        stereo.sad_refine(img.double(), img.double(),
+                          torch.zeros((3, 2), device=cuda),
+                          torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError):
+        stereo.sad_refine(img, img[:, :32], torch.zeros((3, 2), device=cuda),
+                          torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError):
+        rectify.remap_bilinear(img, torch.zeros((8, 8, 3), device=cuda))
+    with pytest.raises(ValueError):
+        rectify.remap_bilinear(img, torch.zeros((8, 8, 2)))
+    assert [dict(m.LAUNCHES) for m in (stereo, rectify)] == before
