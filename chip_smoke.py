@@ -15,27 +15,47 @@ Phases:
                 Also K7 (stereo_sad) and K8 (remap_bilinear) at the stereo
                 path's shapes (a raw EuRoC-rig pair remapped, 1200
                 features per image), and K1 and K2 once more on that
-                remapped, non-integer frame.
+                remapped, non-integer frame; K5 (pose_opt) on a
+                tracking-shaped (1200 observations, mixed stereo, 2 x 8)
+                and a relocalization-shaped (1200, mono, 3 x 10) problem,
+                K9 (vocab_transform) with a k = 10, depth = 4 vocabulary
+                trained on the host from descriptors of rendered frames,
+                and K10 (bow_l1) on a 256 x 10^4 keyframe database.
   3. main     — render the 752x480 synthetic world on the card and run 80
                 frames through `Tracker.track_mono` (1200 features, 8
                 levels), check initialization, the share of OK frames, the
-                Sim3-aligned ATE and that every kernel launched while every
-                plain version stayed unused; then count CUDA kernel
-                launches per frame with torch.profiler over 5 more frames.
+                Sim3-aligned ATE and that every kernel of the path (K1-K3,
+                K5) launched while every plain version stayed unused; then
+                count CUDA kernel launches per frame with torch.profiler
+                over 5 more frames.
   4. stereo   — render raw, distorted pairs of a rig with EuRoC's cam0 /
                 cam1 calibration on the card and run 80 of them through
                 `System(settings, Sensor.STEREO).track_stereo` (752x480,
                 1200 features, 8 levels; rectification built by the port,
                 K8 every frame, K7 in every match); check initialization
                 on frame 0, >= 90% of frames OK, the Sim3 scale within 5%,
-                the SE3 ATE under 0.03 x extent, and that K1-K3, K7 and K8
-                launched while no plain version ran. Profile 5 more frames
-                for kernels and syncs per frame and the device time of the
-                plain K5 / K6 ranges, and one local BA for K4's.
+                the SE3 ATE under 0.03 x extent, and that K1-K3, K5, K7 and
+                K8 launched while no plain version ran. Profile 5 more
+                frames for kernels and syncs per frame, K5's device time on
+                the path and the device time of the plain K6 ranges, and
+                one local BA for K4's.
   5. rgbd     — 40 frames of TUM RGB-D freiburg1 geometry (640x480, 1000
                 features, bf 40) through `System(..., Sensor.RGBD)`, depth
                 rendered on the card; the first frame OK, > 85% OK, the
                 Sim3 scale within 5%.
+  6. reloc    — BoW relocalization through `System(settings,
+                Sensor.MONOCULAR, vocabulary_path=...)` with loop closing
+                off, at the main path's geometry: the k = 10, depth = 4
+                vocabulary saved to a temporary .npz, 60 frames of the path
+                mapped, 6 blank frames, then poses 5-20 revisited, where
+                neither the reference keyframe nor the newest ones can
+                anchor tracking. Check that `_try_relocalize` recovered,
+                the relocalized camera centre within 0.15 map units of the
+                mapped keyframe nearest that pose (the JAX test's gate),
+                the Sim3 ATE of every OK frame under 0.023 x extent, and
+                that K1-K3, K5, K9 and K10 launched while no plain version
+                ran; time each relocalization attempt and count its host
+                syncs.
 
 Any failure raises (nonzero exit). The line before the last is the card's
 `nvidia-smi` name and power limit; the last line is the JSON result.
@@ -57,6 +77,9 @@ import torch.nn.functional as F
 W, H, FX = 752, 480, 460.0
 N_FRAMES = 80
 N_RGBD = 40
+# relocalization: frames mapped, blank frames, path poses revisited
+N_MAP, N_BLANK, REVISIT = 60, 6, range(5, 21)
+VOC_K, VOC_DEPTH, VOC_ITERS = 10, 4, 3
 # EuRoC MAV cam0 / cam1 (fx, fy, cx, cy, radtan k1 k2 p1 p2) and cam1's pose
 # in cam0 (X_c0 = R X_c1 + t: 0.110 m baseline, ~0.8 deg about x), as in
 # ORB-SLAM3's EuRoC.yaml
@@ -75,11 +98,12 @@ T_C0_C1 = np.array([
 # TUM RGB-D freiburg1 (640x480, no distortion, bf = baseline * fx = 40)
 TUM_W, TUM_H, TUM_K, TUM_BF = 640, 480, (517.3, 516.5, 318.6, 255.3), 40.0
 DEV = "cuda"
-# the profiler ranges of the plain kernel targets (K4-K6); the profiler also
-# lists each as a device-side annotation spanning its kernels and the idle
-# time between them, which per-frame device sums must skip
+# the port's profiler ranges (the plain K4 and K6, the wrappers of K5, K9
+# and K10); the profiler also lists each as a device-side annotation
+# spanning its kernels and the idle time between them, which per-frame
+# device sums must skip
 RANGES = ("K4 ba_solve", "K5 optimize_pose", "K6 build_pyramid",
-          "K6 gaussian_blur")
+          "K6 gaussian_blur", "K9 vocab_transform", "K10 bow_l1")
 # NVIDIA's H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12             # float32 outside the tensor cores
@@ -487,6 +511,7 @@ def phase_kernels(state):
                      ms_1200x1200=kernel_small, call_ms_1200x1200=ms_small,
                      shape="4096x1200 (one launch)"))
     _stereo_kernels(state, rows)
+    _reloc_kernels(state, rows)
     state["kernel_rows"] = rows
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms on the card, "
@@ -495,26 +520,32 @@ def phase_kernels(state):
             f"{r['bound_by']})")
 
 
-def _kernel_modules():
+def _kernel_counters():
+    """The launch counter of each hand-written kernel, by kernel name."""
     from morb_slam_tpu_torch.ops import (fast, hamming, orb_descriptor,
                                          rectify, stereo)
-    return {"fast_select": fast, "orb_describe": orb_descriptor,
-            "hamming_top2": hamming, "stereo_sad": stereo,
-            "remap_bilinear": rectify}
+    from morb_slam_tpu_torch.optim import pose_opt
+    from morb_slam_tpu_torch.vocab import tree
+    return {"fast_select": fast.LAUNCHES,
+            "orb_describe": orb_descriptor.LAUNCHES,
+            "hamming_top2": hamming.LAUNCHES, "stereo_sad": stereo.LAUNCHES,
+            "remap_bilinear": rectify.LAUNCHES, "pose_opt": pose_opt.LAUNCHES,
+            "vocab_transform": tree.LAUNCHES["vocab_transform"],
+            "bow_l1": tree.LAUNCHES["bow_l1"]}
 
 
 def _reset_counters():
-    for mod in _kernel_modules().values():
-        mod.LAUNCHES["kernel"] = 0
-        mod.LAUNCHES["plain"] = 0
+    for c in _kernel_counters().values():
+        c["kernel"] = 0
+        c["plain"] = 0
 
 
 def _read_counters(names, path, state):
     """Kernel and plain counts of one path's run; fail unless each kernel
     of the path launched and no plain version ran."""
-    mods = _kernel_modules()
-    launches = {k: mods[k].LAUNCHES["kernel"] for k in names}
-    plain = {k: mods[k].LAUNCHES["plain"] for k in mods}
+    counters = _kernel_counters()
+    launches = {k: counters[k]["kernel"] for k in names}
+    plain = {k: c["plain"] for k, c in counters.items()}
     log(f"{path}: kernel launches", launches, "plain calls", plain)
     for k in names:
         check(launches[k] > 0, f"{k} never launched on the {path} path")
@@ -543,8 +574,8 @@ def phase_main(state):
     _reset_counters()
     states, fm, secs, n_ins_20 = _track_run(tracker, feed, N_FRAMES, 1.0,
                                             inserts)
-    launches = _read_counters(["fast_select", "orb_describe", "hamming_top2"],
-                              "mono", state)
+    launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
+                               "pose_opt"], "mono", state)
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
     check("OK" in states, "never initialized")
     n_ok = sum(s == "OK" for s in states)
@@ -763,16 +794,233 @@ def _stereo_kernels(state, rows):
         shape="1200 left keypoints of a 752x480 rectified pair"))
 
 
+# ---------------------------------------------------------------------------
+# relocalization harness: vocabulary, K5 / K9 / K10 checks
+# ---------------------------------------------------------------------------
+
+def _vocabulary(state):
+    """The k = 10, depth = 4 vocabulary, trained on the host (the port's
+    numpy `train`) from the descriptors of every 4th frame of the path,
+    extracted by the port on the card (cached in state)."""
+    if "voc" not in state:
+        from morb_slam_tpu_torch import frontend
+        from morb_slam_tpu_torch.vocab import tree
+        world, poses = _world(state)
+        cfg = frontend.OrbConfig(n_features=1200, n_levels=8)
+        descs = []
+        for R, t in poses[::4]:
+            f = frontend.extract_orb(
+                world.render(R, t).clamp(0, 255).to(torch.uint8).float(), cfg)
+            descs.append(f.desc[f.valid].cpu().numpy())
+        descs = np.concatenate(descs)
+        t0 = time.perf_counter()
+        voc = tree.train(descs, k=VOC_K, depth=VOC_DEPTH, iters=VOC_ITERS)
+        secs = time.perf_counter() - t0
+        log(f"vocabulary: k {VOC_K}, depth {VOC_DEPTH}, {voc.n_words} words "
+            f"trained on {descs.shape[0]} descriptors of {len(poses[::4])} "
+            f"frames in {secs:.1f} s ({VOC_ITERS} k-means iterations)")
+        state["voc"] = voc.to(DEV)
+        state["voc_train"] = dict(seconds=secs, descriptors=descs.shape[0],
+                                  frames=len(poses[::4]), iters=VOC_ITERS)
+    return state["voc"]
+
+
+def _pose_problem(n, stereo_share, seed):
+    """A pose problem shaped like the tracker's: n points 2-8 units ahead,
+    0.5 px noise at focal FX, 10% outliers, 5% invalid rows, octave-scaled
+    information, a share of stereo rows (baseline 0.11), solved from a pose
+    ~4 degrees and ~3 cm off."""
+    from morb_slam_tpu_torch import lie
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                  rng.uniform(2, 8, n)], -1)
+    xn = X[:, :2] / X[:, 2:] + rng.normal(0, 0.5 / FX, (n, 2))
+    bad = rng.random(n) < 0.1
+    xn[bad] += rng.uniform(-0.05, 0.05, (int(bad.sum()), 2))
+    ur = np.full(n, np.nan)
+    st = rng.random(n) < stereo_share
+    ur[st] = (X[st, 0] - 0.11) / X[st, 2] + rng.normal(0, 0.5 / FX,
+                                                      int(st.sum()))
+    info = FX ** 2 * 1.2 ** (-2.0 * rng.integers(0, 8, n))
+    valid = rng.random(n) < 0.95
+    dR, dt = lie.se3_exp(torch.tensor([0.05, -0.03, 0.04, 0.02, -0.01, 0.015]))
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=DEV)
+    return ((dR.to(DEV), dt.to(DEV), f(X), f(xn), f(info),
+             torch.from_numpy(valid).to(DEV)),
+            dict(obs_ur=f(ur) if stereo_share > 0 else None,
+                 baseline=0.11 if stereo_share > 0 else 0.0))
+
+
+def _reloc_kernels(state, rows):
+    """K5, K9 and K10 against their plain versions at the shapes of the
+    tracking and relocalization paths."""
+    from morb_slam_tpu_torch import frontend
+    from morb_slam_tpu_torch.optim import pose_opt
+    from morb_slam_tpu_torch.vocab import tree
+
+    # K5 on a tracking-shaped (mixed stereo, 2 x 8) and a relocalization-
+    # shaped (mono, 3 x 10) problem of 1200 observations: R, t within 1e-4,
+    # the inlier count within 1%
+    k5 = {}
+    for name, share, rounds, iters, seed in (("tracking", 0.6, 2, 8, 1),
+                                             ("relocalization", 0.0, 3, 10,
+                                              2)):
+        args, kw = _pose_problem(1200, share, seed)
+        kw.update(n_rounds=rounds, n_iters=iters)
+        got = pose_opt.optimize_pose(*args, **kw)
+        want = pose_opt.optimize_pose_plain(*args, **kw)
+        err = max(float((got.R - want.R).abs().max()),
+                  float((got.t - want.t).abs().max()))
+        n_valid = int(args[5].sum())
+        dn = abs(int(got.n_inliers) - int(want.n_inliers))
+        log(f"K5 pose_opt {name} (1200 obs, {rounds} x {iters}): R, t within "
+            f"{err:.2e}, inliers {int(got.n_inliers)} vs plain "
+            f"{int(want.n_inliers)} of {n_valid} valid")
+        check(err <= 1e-4 and dn <= 0.01 * n_valid, ("K5", name, err, dn))
+        check(int(got.n_inliers) == int(got.inliers.sum()),
+              ("K5 inlier count", name))
+        n_st = int((args[5] & torch.isfinite(kw["obs_ur"])).sum()) \
+            if kw["obs_ur"] is not None else 0
+        # inputs read once (X, obs, info, valid, obs_ur), outputs written
+        # once; per Gauss-Newton step and active row ~200 flops (pose,
+        # residual, Huber weight, 2 Jacobian rows, their 27 normal-equation
+        # sums), ~280 for a stereo row; ~30 per row to reclassify
+        nbytes = 1200 * (25 + 5) + (1200 * 4 if n_st else 0) + 2 * 48 + 8
+        nops = rounds * iters * ((n_valid - n_st) * 200 + n_st * 280) + \
+            (rounds + 1) * 1200 * 30
+        b_ms, b_by = bound(nbytes, nops)
+        k5[name] = dict(
+            ms=device_ms(lambda: pose_opt.optimize_pose(*args, **kw),
+                         "pose_opt_kernel"),
+            call_ms=time_ms(lambda: pose_opt.optimize_pose(*args, **kw)),
+            plain_ms=time_ms(lambda: pose_opt.optimize_pose_plain(*args, **kw),
+                             reps=5, inner=2),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            inliers=int(got.n_inliers), inliers_plain=int(want.n_inliers))
+    tr, rl = k5["tracking"], k5["relocalization"]
+    rows.append(dict(
+        name="pose_opt", route="cuda",
+        source="morb_slam_tpu_torch/csrc/pose_opt.cu",
+        replaces="morb_slam_tpu/optim/pose_opt.py:67",
+        max_abs_err=max(tr["max_abs_err"], rl["max_abs_err"]),
+        ms=tr["ms"], call_ms=tr["call_ms"], plain_ms=tr["plain_ms"],
+        bound_ms=tr["bound_ms"], bound_by=tr["bound_by"], library_ms=None,
+        relocalization_shape=rl,
+        shape="1200 observations, 60% stereo, 2 x 8 (tracking)"))
+
+    # K9 on the descriptors of three frames of the path: exact
+    voc = _vocabulary(state)
+    world, poses = _world(state)
+    cfg = frontend.OrbConfig(n_features=1200, n_levels=8)
+    def frame_feats(i):
+        img = world.render(*poses[i]).clamp(0, 255).to(torch.uint8).float()
+        return frontend.extract_orb(img, cfg)
+    feats = [frame_feats(i) for i in (1, 30, 57)]
+    for f in feats:
+        got = tree.transform(voc, f.desc, f.valid)
+        want = tree.transform_plain(voc, f.desc, f.valid)
+        check(torch.equal(got, want),
+              ("K9 mismatch", int((got != want).sum())))
+        check(torch.equal(tree.transform(voc, f.desc),
+                          tree.transform_plain(voc, f.desc)), "K9 unmasked")
+    log(f"K9 vocab_transform: word ids exact on {len(feats)} frames "
+        f"({sum(int(f.valid.sum()) for f in feats)} valid descriptors)")
+    d, v = feats[0].desc, feats[0].valid
+    words = tree.transform(voc, d, v)
+    w_ok = words[words >= 0].long()
+    # the center rows this descent reads: per level the k children of each
+    # distinct node it passes through
+    rows_read = sum(
+        VOC_K * torch.unique(w_ok // VOC_K ** (VOC_DEPTH - l)).numel()
+        for l in range(VOC_DEPTH))
+    n_ok = int(v.sum())
+    # descriptors and mask in, word ids out, the center rows read once;
+    # per valid descriptor, level and child 8 XOR + 8 popc + 8 add + compare
+    b_ms, b_by = bound(d.shape[0] * (32 + 1 + 4) + rows_read * 32,
+                       n_ok * VOC_DEPTH * VOC_K * 25)
+    rows.append(dict(
+        name="vocab_transform", route="cuda",
+        source="morb_slam_tpu_torch/csrc/vocab_transform.cu",
+        replaces="morb_slam_tpu/vocab/tree.py:118", max_abs_err=0.0,
+        ms=device_ms(lambda: tree.transform(voc, d, v),
+                     "vocab_transform_kernel"),
+        call_ms=time_ms(lambda: tree.transform(voc, d, v)),
+        plain_ms=time_ms(lambda: tree.transform_plain(voc, d, v), reps=10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        center_rows_read=rows_read,
+        shape=f"1200 descriptors ({n_ok} valid), k {VOC_K}, depth "
+              f"{VOC_DEPTH}"))
+
+    # K10 on a full 256 x 10^4 database: the BoW vectors of the 3 frames
+    # and 253 sparse L1-normalized rows from a seed; scores within 1e-5 and
+    # the same top 3 unless two scores lie within 1e-5
+    Wn = voc.n_words
+    real = torch.stack([tree.bow_vector(voc, tree.transform(voc, f.desc,
+                                                            f.valid))
+                        for f in feats])
+    rng = np.random.default_rng(3)
+    fake = rng.random((253, Wn)) * (rng.random((253, Wn)) < 0.05)
+    fake /= fake.sum(1, keepdims=True)
+    db = torch.cat([real, torch.from_numpy(fake.astype(np.float32)).to(DEV)])
+    f31 = frame_feats(31)
+    q = tree.bow_vector(voc, tree.transform(voc, f31.desc, f31.valid))
+    ok = torch.from_numpy(rng.random(256) < 0.8).to(DEV)
+    ok[:3] = True
+    err = 0.0
+    for mask in (None, ok):
+        got = tree.l1_score(q, db, mask)
+        want = tree.l1_score_plain(q, db, mask)
+        err = max(err, float((got - want).abs().max()))
+        top_g = torch.topk(got, 3).indices
+        top_w = torch.topk(want, 3).indices
+        if not torch.equal(top_g, top_w):
+            s = torch.sort(want, descending=True).values[:4]
+            check(bool(((s[:-1] - s[1:]) < 1e-5).any()),
+                  ("K10 top-3 differ", top_g.tolist(), top_w.tolist()))
+        if mask is not None:
+            check(bool((got[~mask] == -1).all()), "K10 masked rows")
+    Q = torch.stack([q, real[0]])
+    err = max(err, float((tree.l1_score(Q, db)
+                          - tree.l1_score_plain(Q, db)).abs().max()))
+    check(err <= 1e-5, ("K10", err))
+    top = torch.topk(tree.l1_score(q, db), 3).indices.tolist()
+    log(f"K10 bow_l1: scores within {err:.2e} of plain on a 256 x {Wn} "
+        f"database; top 3 rows {top} for frame 31 (row 1 is frame 30)")
+    K_ = db.shape[0]
+    # the database and query read once, 4 B out per row; 3 flops per element
+    b_ms, b_by = bound(K_ * Wn * 4 + Wn * 4 + K_ * 4, 3 * K_ * Wn)
+
+    def library():
+        return torch.cdist(q[None], db, p=1)
+    lib_err = float((1.0 - 0.5 * library()[0] - tree.l1_score(q, db))
+                    .abs().max())
+    rows.append(dict(
+        name="bow_l1", route="cuda",
+        source="morb_slam_tpu_torch/csrc/bow_l1.cu",
+        replaces="morb_slam_tpu/vocab/tree.py:145", max_abs_err=err,
+        ms=device_ms(lambda: tree.l1_score(q, db), "bow_l1_kernel"),
+        call_ms=time_ms(lambda: tree.l1_score(q, db)),
+        plain_ms=time_ms(lambda: tree.l1_score_plain(q, db), reps=10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=device_ms(library, None),
+        library_call_ms=time_ms(library),
+        library="torch.cdist(q, db, p=1) (device time, as ms)",
+        library_max_abs_err=lib_err,
+        shape=f"1 query x {K_} rows x {Wn} words"))
+
+
 class _CountPlain:
-    """Count the calls of the plain K4-K6 functions during one path's run
-    by wrapping the module attributes the path looks up; keeps the last
+    """Count the calls of the plain K4 and K6 functions during one path's
+    run by wrapping the module attributes the path looks up; keeps the last
     BA problem for K4's bound."""
 
     def __init__(self):
         from morb_slam_tpu_torch.ops import image
-        from morb_slam_tpu_torch.optim import ba, pose_opt
-        self.targets = [(ba, "ba_solve"), (pose_opt, "optimize_pose"),
-                        (image, "build_pyramid"), (image, "gaussian_blur")]
+        from morb_slam_tpu_torch.optim import ba
+        self.targets = [(ba, "ba_solve"), (image, "build_pyramid"),
+                        (image, "gaussian_blur")]
         self.counts = {name: 0 for _, name in self.targets}
         self.last_args = {}
 
@@ -854,7 +1102,10 @@ def _ate(tracker, poses, dt):
     traj = tracker.trajectory_world()
     est, gt = [], []
     for ts, p in traj:
-        R, t = poses[int(round(ts / dt))]
+        pose = poses[int(round(ts / dt))]
+        if pose is None:
+            continue
+        R, t = pose
         gt.append(-(np.asarray(R, np.float64).T @ t))
         est.append(p)
     est = torch.tensor(np.asarray(est), dtype=torch.float32)
@@ -862,7 +1113,7 @@ def _ate(tracker, poses, dt):
     rmse, s, _, _ = alignment.ate_rmse(est, gt, with_scale=True)
     rmse_se3, _, _, _ = alignment.ate_rmse(est, gt, with_scale=False)
     return (float(rmse), float(s), float(rmse_se3),
-            float(torch.linalg.norm(gt[-1] - gt[0])), len(traj))
+            float(torch.linalg.norm(gt[-1] - gt[0])), len(est))
 
 
 def _ba_bound(p, n_iters):
@@ -900,7 +1151,7 @@ def _path_profile(tracker, step, frames, name, out, table_path=None):
     torch.cuda.set_sync_debug_mode(0)
     nf = len(frames)
     n_kern, dev_us, ours_us = 0, 0.0, 0.0
-    ours = tuple(f"{k}_kernel" for k in _kernel_modules())
+    ours = tuple(f"{k}_kernel" for k in _kernel_counters())
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA and \
                 ev.key not in RANGES:
@@ -935,7 +1186,7 @@ def _path_profile(tracker, step, frames, name, out, table_path=None):
 def phase_stereo(state):
     from morb_slam_tpu_torch import system
     from morb_slam_tpu_torch.ops import image
-    from morb_slam_tpu_torch.optim import ba, pose_opt
+    from morb_slam_tpu_torch.optim import ba
     from morb_slam_tpu_torch.pipeline import local_mapping
     _, poses = _world(state)
     rig = _rig(state)
@@ -957,8 +1208,8 @@ def phase_stereo(state):
         states, fm, secs, _ = _track_run(tracker, feed, N_FRAMES, dt,
                                          inserts)
     launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
-                               "stereo_sad", "remap_bilinear"], "stereo",
-                              state)
+                               "pose_opt", "stereo_sad", "remap_bilinear"],
+                              "stereo", state)
     check(launches["remap_bilinear"] == N_FRAMES,
           ("K8 once per pair", launches["remap_bilinear"]))
     check(launches["stereo_sad"] >= N_FRAMES,
@@ -991,18 +1242,23 @@ def phase_stereo(state):
     prof = _path_profile(tracker, lambda i: feed(i, i * dt),
                          range(N_FRAMES, N_FRAMES + 5), "stereo", out,
                          table and table.replace(".txt", "") + "_stereo.txt")
+    # K5 on the path: the kernel's own device time per launch (the
+    # profiler does not tie a ctypes launch to the CPU side of its range)
+    k5 = [ev for ev in prof.key_averages() if "pose_opt_kernel" in ev.key]
+    check(k5 and k5[0].count, "profiler saw no pose_opt_kernel on the path")
+    out["pose_opt_on_path"] = dict(
+        device_ms_per_call=k5[0].self_device_time_total / k5[0].count / 1e3,
+        calls_profiled=k5[0].count)
     log("stereo path:", json.dumps(out))
     state["stereo"] = out
 
-    # the plain K4-K6 rows: device time per call under their profiler
+    # the plain K4 and K6 rows: device time per call under their profiler
     # ranges, event time per call, bounds from this run's shapes
-    k5_ms, k5_n, k5_span = range_device_ms(prof, "K5 optimize_pose")
     k6p_ms, _, k6p_span = range_device_ms(prof, "K6 build_pyramid")
     k6b_ms, _, k6b_span = range_device_ms(prof, "K6 gaussian_blur")
     check("ba_solve" in plain_calls.last_args,
           "no local BA ran on the stereo path")
     p = plain_calls.last_args["ba_solve"][0][0]
-    pose_a, pose_kw = plain_calls.last_args["optimize_pose"]
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof4:
@@ -1011,10 +1267,6 @@ def phase_stereo(state):
         torch.cuda.synchronize()
     k4_ms, _, k4_span = range_device_ms(prof4, "K4 ba_solve")
     (b4, by4), k4_shape = _ba_bound(p, local_mapping.BA_ITERS)
-    # K5: 2 rounds x (8 + 1) + 1 Gauss-Newton steps over the frame's
-    # features, ~400 flops per observation and step; 33 B per observation
-    F_ = tracker.cfg.n_feat
-    b5, by5 = bound(F_ * 33 + 96, 19 * F_ * 400)
     # K6 per image: the level-0 image in, levels 1-7 and 8 blurred levels
     # out; ~12 flops per resized and 28 per blurred pixel
     shapes = image.level_shapes(H, W, 8, 1.2)
@@ -1039,16 +1291,6 @@ def phase_stereo(state):
              launches=plain_calls.counts["ba_solve"],
              launches_per_frame=per_frame["ba_solve"], max_abs_err=None,
              shape=f"one local BA of this run, {k4_shape}"),
-        dict(name="optimize_pose (K5)", route="plain",
-             source="morb_slam_tpu_torch/optim/pose_opt.py",
-             replaces="morb_slam_tpu/optim/pose_opt.py:67", ms=k5_ms,
-             span_ms=k5_span,
-             plain_ms=time_ms(lambda: pose_opt.optimize_pose(
-                 *pose_a, **pose_kw), reps=5), bound_ms=b5, bound_by=by5, library_ms=None,
-             launches=plain_calls.counts["optimize_pose"],
-             launches_per_frame=per_frame["optimize_pose"],
-             calls_profiled=k5_n, max_abs_err=None,
-             shape=f"{F_} observations, 2 x 8 GN iterations"),
         dict(name="build_pyramid + gaussian_blur (K6)", route="plain",
              source="morb_slam_tpu_torch/ops/image.py",
              replaces="morb_slam_tpu/ops/image.py:33",
@@ -1095,7 +1337,7 @@ def phase_rgbd(state):
         lambda i, ts: sysm.track_rgbd(frames[i][0], frames[i][1], ts),
         N_RGBD, dt, inserts)
     launches = _read_counters(["fast_select", "orb_describe",
-                               "hamming_top2"], "rgbd", state)
+                               "hamming_top2", "pose_opt"], "rgbd", state)
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
     n_ok = sum(s == "OK" for s in states)
     ate, scale, ate_se3, extent, n_traj = _ate(sysm.tracker, poses, dt)
@@ -1118,6 +1360,158 @@ def phase_rgbd(state):
     state["rgbd"] = out
 
 
+def phase_reloc(state):
+    import tempfile
+    import warnings
+    from morb_slam_tpu_torch import system
+    from morb_slam_tpu_torch.io import config, serialization
+    from morb_slam_tpu_torch.pipeline import tracking
+    world, poses = _world(state)
+    voc = _vocabulary(state)
+    seq = list(poses[:N_MAP]) + [None] * N_BLANK + [poses[i] for i in REVISIT]
+    blank = torch.zeros((H, W), dtype=torch.uint8, device=DEV)
+    frames = [world.render(*p).clamp(0, 255).to(torch.uint8)
+              if p is not None else blank for p in seq]
+    torch.cuda.synchronize()
+    settings = config.Settings(
+        cam1=config.CameraSettings(model="PinHole", fx=FX, fy=FX, cx=W / 2,
+                                   cy=H / 2, width=W, height=H),
+        n_features=1200, n_levels=8, scale_factor=1.2, loop_closing=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "voc.npz")
+        serialization.save_vocabulary(path, voc)
+        sysm = system.System(settings, system.Sensor.MONOCULAR,
+                             vocabulary_path=path,
+                             tracker_overrides=dict(
+                                 max_kf=256, max_lm=16384,
+                                 min_init_matches=80, min_init_points=50))
+    tracker = sysm.tracker
+    check(tracker.db is not None and tracker.loop_closer is None,
+          "the System built no keyframe database")
+    inserts = _timed_inserts(tracker)
+
+    # every relocalization attempt: frame, outcome, wall time, host syncs
+    # and their sites, the BoW candidates
+    attempts, cands = [], []
+    cur = {"i": -1}
+    orig_try = tracker._try_relocalize
+    orig_top = tracking.kfdb.top_candidates
+
+    def top_candidates(*a, **kw):
+        out = orig_top(*a, **kw)
+        cands.append((cur["i"], out[0], out[1]))
+        return out
+
+    def try_reloc(fr):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as ws:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            ok = orig_try(fr)
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        syncs = [w for w in ws if "synchroniz" in str(w.message)]
+        rec = dict(frame=cur["i"], ok=ok, ms=ms, syncs=len(syncs),
+                   sites=collections.Counter(
+                       "/".join(os.path.normpath(w.filename).split(os.sep)
+                                [-2:]) + f":{w.lineno}" for w in syncs))
+        if ok:
+            rec.update(inliers=tracker._ref_matches, ref_kf=tracker.ref_kf,
+                       R=tracker.R_last.cpu().numpy(),
+                       t=tracker.t_last.cpu().numpy())
+        attempts.append(rec)
+        return ok
+    tracker._try_relocalize = try_reloc
+    tracking.kfdb.top_candidates = top_candidates
+    _reset_counters()
+    try:
+        states, fm, secs, _ = _track_run(
+            tracker, lambda i, ts: (cur.__setitem__("i", i),
+                                    sysm.track_monocular(frames[i], ts))[1],
+            len(frames), 1.0, inserts)
+    finally:
+        tracking.kfdb.top_candidates = orig_top
+    launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
+                               "pose_opt", "vocab_transform", "bow_l1"],
+                              "reloc", state)
+    log("states:", "".join("O" if s == "OK" else s[0] for s in states))
+    n_map = N_MAP + N_BLANK
+    check("RECENTLY_LOST" in states[N_MAP:n_map], "never lost in the blank")
+    wins = [a for a in attempts if a["ok"] and a["frame"] >= n_map]
+    check(wins, ("no BoW relocalization on the revisit",
+                 [(a["frame"], a["ok"]) for a in attempts]))
+    win = wins[0]
+    first_ok = next(i for i in range(n_map, len(states)) if states[i] == "OK")
+    check(first_ok == win["frame"],
+          ("the revisit recovered before the BoW branch did", first_ok,
+           win["frame"]))
+    n_ok_after = sum(s == "OK" for s in states[first_ok:])
+    check(n_ok_after >= 0.8 * (len(states) - first_ok),
+          ("tracking did not hold after relocalizing", states[first_ok:]))
+    # the relocalized camera centre against the keyframe mapped nearest
+    # that pose (culled ones keep their last pose, as in the JAX test) and
+    # against the centre tracked at that pose while mapping (map units;
+    # timestamps are frame indices)
+    pose_i = REVISIT[win["frame"] - n_map]
+    m = tracker.m
+    n_kf = tracker.n_kf_host
+    kf_ts = m.kf_ts[:n_kf].cpu().numpy()
+    k = int(np.argmin(np.where(kf_ts < N_MAP, np.abs(kf_ts - pose_i),
+                               np.inf)))
+    c_kf = -(m.kf_R[k].T @ m.kf_t[k]).cpu().numpy()
+    c_est = -(win["R"].T @ win["t"])
+    centre_err = float(np.linalg.norm(c_est - c_kf))
+    tracked = dict(tracker.trajectory_world()).get(float(pose_i))
+    err_tracked = None if tracked is None else \
+        float(np.linalg.norm(c_est - tracked))
+    ate, scale, _, _, n_traj = _ate(tracker, seq, 1.0)
+    c0 = -(poses[0][0].T @ poses[0][1])
+    c1 = -(poses[N_MAP - 1][0].T @ poses[N_MAP - 1][1])
+    extent = float(np.linalg.norm(c1 - c0))
+    log(f"reloc: BoW relocalization on frame {win['frame']} (pose {pose_i}) "
+        f"with {win['inliers']} inliers against keyframe {win['ref_kf']}; "
+        f"centre {centre_err:.4f} map units from keyframe {k} (ts "
+        f"{kf_ts[k]:.0f}), {err_tracked} from the centre tracked at that "
+        f"pose; Sim3 ATE {ate:.4f} m over {n_traj} poses, "
+        f"{extent:.3f} m mapped (gate {0.023 * extent:.4f})")
+    check(centre_err < 0.15, ("relocalized centre", centre_err))
+    check(math.isfinite(ate) and ate < 0.023 * extent, ("reloc ATE", ate))
+    won = [(int(i), s) for f, i, s in
+           ((f, i, s) for f, ids, sc in cands if f == win["frame"]
+            for i, s in zip(ids.tolist(), sc.tolist()))]
+    sites = collections.Counter()
+    for a in attempts:
+        sites.update(a["sites"])
+    out = dict(
+        reloc_frame=win["frame"], revisited_pose=pose_i,
+        candidates=[dict(kf=i, score=s) for i, s in won],
+        inliers=win["inliers"], ref_kf=win["ref_kf"],
+        centre_err_vs_nearest_kf=centre_err, nearest_kf=k,
+        nearest_kf_ts=float(kf_ts[k]),
+        nearest_kf_valid=bool(m.kf_valid[k]),
+        centre_err_vs_tracked_same_pose=err_tracked,
+        ate_sim3_m=ate, sim3_scale=scale, traj_poses=n_traj,
+        extent_mapped_m=extent,
+        attempts=len(attempts), attempts_ok=sum(a["ok"] for a in attempts),
+        attempt_ms_p50=float(np.median([a["ms"] for a in attempts])),
+        attempt_ms_success=win["ms"],
+        host_syncs_per_attempt=float(np.mean([a["syncs"] for a in attempts])),
+        host_sync_sites=dict(sites.most_common(10)),
+        launches=launches,
+        frames=len(frames), frames_ok=sum(s == "OK" for s in states),
+        kf_inserts=len(inserts),
+        kf_insert_ms_each=float(np.mean(inserts)) if inserts else None,
+        db_keyframes=int(tracker.db.valid.sum()),
+        fps=(len(frames) - 20) / secs,
+        frame_ms_p50=float(np.percentile(fm, 50)),
+        vocabulary=dict(k=VOC_K, depth=VOC_DEPTH, words=voc.n_words,
+                        **state["voc_train"]))
+    log("reloc path:", json.dumps(out))
+    state["reloc"] = out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile-out", default=None,
@@ -1128,7 +1522,7 @@ def main():
     state = {"profile_out": args.profile_out}
     for name, phase in (("device", phase_device), ("kernels", phase_kernels),
                         ("main", phase_main), ("stereo", phase_stereo),
-                        ("rgbd", phase_rgbd)):
+                        ("rgbd", phase_rgbd), ("reloc", phase_reloc)):
         t0 = time.perf_counter()
         log(f"== phase {name}")
         phase(state)
@@ -1136,14 +1530,17 @@ def main():
     rows = state["kernel_rows"]
     by_path = state["launches_by_path"]
     for r in rows:
-        # the count of this slice's main path (stereo runs all five)
-        r["launches"] = by_path["stereo"][r["name"]]
+        # the count of this slice's path (reloc) for the kernels it runs,
+        # else of the stereo path, which runs the other two
+        r["launches"] = by_path["reloc"].get(r["name"],
+                                             by_path["stereo"].get(r["name"]))
         r["launches_by_path"] = {p: c.get(r["name"], 0)
                                  for p, c in by_path.items()}
     log(json.dumps({"plain_kernel_targets": state["plain_rows"]}))
     log(json.dumps({"main_path": state["main"]}))
     log(json.dumps({"stereo_path": state["stereo"]}))
     log(json.dumps({"rgbd_path": state["rgbd"]}))
+    log(json.dumps({"reloc_path": state["reloc"]}))
     log(json.dumps({"kernels": rows}))
     log(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

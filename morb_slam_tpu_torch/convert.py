@@ -5,8 +5,11 @@ numpy arrays keyed by field name (as `{k: np.asarray(v) for k, v in
 m._asdict().items()}` builds from the reference package's map), so a map
 captured from one tracker runs on in the other. `frame_*` do the same for
 FrameData and Features, `camera_from_numpy` for camera parameters,
-`rectify_from_numpy` for rectification maps and `settings_from_dict` for
-the settings dataclasses (as `dataclasses.asdict` gives them).
+`rectify_from_numpy` for rectification maps, `settings_from_dict` for
+the settings dataclasses (as `dataclasses.asdict` gives them),
+`vocab_from_numpy` / `vocab_to_numpy` for vocabularies (a dict of centers,
+weights and k, as `voc._asdict()` gives it) and `database_from_numpy` for
+the keyframe database.
 Descriptors cross as the bit-identical int32 view of uint32 words; every
 float array becomes float32.
 """
@@ -21,6 +24,8 @@ from .io import config
 from .mapstate.state import MapState
 from .ops.rectify import RectifyMaps
 from .pipeline.tracking import FrameData
+from .vocab import tree
+from .vocab.database import KeyframeDatabase
 
 _DESC_FIELDS = ("desc", "kf_feat_desc", "lm_desc")
 
@@ -93,3 +98,19 @@ def settings_from_dict(d) -> config.Settings:
     if d.get("imu") is not None:
         d["imu"] = config.ImuSettings(**d["imu"])
     return config.Settings(**d)
+
+
+def vocab_from_numpy(d, device="cpu") -> tree.Vocabulary:
+    """Vocabulary from a dict of centers (per-level uint32 arrays), weights
+    and k."""
+    return tree.from_arrays([np.asarray(c) for c in d["centers"]],
+                            np.asarray(d["weights"]), int(d["k"])).to(device)
+
+
+def vocab_to_numpy(voc: tree.Vocabulary):
+    centers, weights = tree.to_arrays(voc)
+    return {"centers": centers, "weights": weights, "k": voc.k}
+
+
+def database_from_numpy(d, device="cpu") -> KeyframeDatabase:
+    return _from(KeyframeDatabase, d, device)

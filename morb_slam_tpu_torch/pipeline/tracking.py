@@ -1,5 +1,6 @@
 """The frame-rate tracking state machine: monocular, rectified stereo and
-RGB-D, without IMU (counterpart of those parts of
+RGB-D, without IMU, with BoW relocalization when the tracker has a
+vocabulary (counterpart of those parts of
 `morb_slam_tpu/pipeline/tracking.py`).
 
 Per frame, `extract_frame` runs extraction (K1, K2, the pyramid and blur);
@@ -13,6 +14,12 @@ frames behind the dispatched work: each frame's decision
 scalars are copied to the host asynchronously when the frame is dispatched
 and read when its decision is due, so the host never waits on frames it
 has dispatched since.
+
+With a vocabulary, every keyframe insert adds the keyframe's BoW vector to
+the place-recognition database (K9 `transform`), and a frame without
+tracking context first scores the database (K10) and tries PnP +
+`optimize_pose` (K5) against the best three keyframes
+(`relocalize_candidate`) before the reference-keyframe fallback.
 """
 from __future__ import annotations
 
@@ -28,8 +35,10 @@ from ..mapstate import state as ms
 from ..ops import hamming
 from ..ops import stereo as stereo_ops
 from ..optim import pose_opt
-from ..solvers import two_view
+from ..solvers import pnp, two_view
 from ..tensor_ops import add_at, mask_first, put, put2, topk
+from ..vocab import database as kfdb
+from ..vocab import tree as voctree
 from . import local_mapping
 
 MAX_LOCAL_LM = 4096
@@ -326,6 +335,70 @@ def track_reference_kf(m: ms.MapState, fr: FrameData, ref_kf, R0, t0,
         res.n_inliers
 
 
+def relocalize_candidate(m: ms.MapState, fr: FrameData, kf_id: int,
+                         cfg: TrackerConfig, cam: cameras.Camera,
+                         samples=None, generator=None):
+    """One relocalization attempt against candidate keyframe kf_id:
+    brute-force descriptor match (ratio 0.75, cross check) to its
+    landmarks, PnP RANSAC (192 hypotheses; samples (192, 8), drawn from
+    `generator` when absent) and pose optimization (3 x 10); then a guided
+    second pass projects the candidate's covisible window (min_weight 10)
+    with that pose, searches a 10-px window and optimizes again, and the
+    pass with more inliers wins. Returns (R, t, feat_lm, n_inliers)."""
+    K, F = m.kf_feat_lm.shape
+    L = m.lm_valid.shape[0]
+    ref_lm = m.kf_feat_lm[kf_id]
+    ref_ok = m.kf_feat_valid[kf_id] & (ref_lm >= 0) & \
+        m.lm_valid[torch.clamp(ref_lm, min=0).long()]
+    idx, _ = hamming.match_nn(m.kf_feat_desc[kf_id], fr.desc,
+                              ref_ok[:, None] & fr.valid[None, :], ref_ok,
+                              fr.valid, max_dist=hamming.TH_LOW, ratio=0.75,
+                              cross_check=True)
+    cur_lm = put(torch.full((F,), -1, dtype=torch.int32, device=idx.device),
+                 torch.where(idx >= 0, idx, torch.full_like(idx, F)), ref_lm)
+    lm_i = torch.clamp(cur_lm, min=0).long()
+    has = (cur_lm >= 0) & m.lm_valid[lm_i]
+    pnp_res = pnp.solve_pnp(m.lm_pos[lm_i], fr.xn, has, focal=cfg.focal,
+                            samples=samples, generator=generator, n_hyp=192)
+    info = _info_of(cfg, fr.octave)
+    res = pose_opt.optimize_pose(pnp_res.R, pnp_res.t, m.lm_pos[lm_i], fr.xn,
+                                 info, has, n_rounds=3, n_iters=10)
+    cur_lm = torch.where(res.inliers, cur_lm, torch.full_like(cur_lm, -1))
+    # guided second pass over the candidate's covisible window
+    win_idx, win_ok = ms.local_window(m, kf_id, min(LOCAL_KFS, K),
+                                      min_weight=10)
+    slot_lm = torch.where(m.kf_feat_lm >= 0, m.kf_feat_lm,
+                          torch.full_like(m.kf_feat_lm, L)).long()
+    lm_in = torch.zeros(L + 1, dtype=torch.bool, device=fr.uv.device)
+    lm_in[torch.where(m.kf_feat_valid[win_idx] & win_ok[:, None],
+                      slot_lm[win_idx],
+                      torch.full_like(slot_lm[win_idx], L)).reshape(-1)] = True
+    lm_in = lm_in[:L] & m.lm_valid
+    lm_sel = mask_first(lm_in, min(MAX_LOCAL_LM, L))
+    proj_m = matching.search_by_projection(
+        m.lm_pos[lm_sel], m.lm_normal[lm_sel], m.lm_dist_max[lm_sel],
+        m.lm_desc[lm_sel], lm_in[lm_sel],
+        res.R, res.t, lambda X: cameras.project(cam, X),
+        fr.uv, fr.octave, fr.desc, fr.valid,
+        (cfg.width, cfg.height), radius_px=10.0, scale=cfg.scale,
+        n_levels=cfg.n_levels)
+    ext_lm = torch.where(proj_m.feat_lm >= 0,
+                         lm_sel[torch.clamp(proj_m.feat_lm, min=0).long()]
+                         .to(torch.int32), torch.full_like(proj_m.feat_lm, -1))
+    cur_lm2 = torch.where(ext_lm >= 0, ext_lm, cur_lm)
+    lm_i2 = torch.clamp(cur_lm2, min=0).long()
+    res2 = pose_opt.optimize_pose(
+        res.R, res.t, m.lm_pos[lm_i2], fr.xn, info,
+        (cur_lm2 >= 0) & m.lm_valid[lm_i2], n_rounds=3, n_iters=10)
+    better = res2.n_inliers >= res.n_inliers
+    R_f = torch.where(better, res2.R, res.R)
+    t_f = torch.where(better, res2.t, res.t)
+    lm_f = torch.where(better, torch.where(res2.inliers, cur_lm2,
+                                           torch.full_like(cur_lm2, -1)),
+                       cur_lm)
+    return R_f, t_f, lm_f, torch.maximum(res2.n_inliers, res.n_inliers)
+
+
 def insert_keyframe(m: ms.MapState, fr: FrameData, feat_lm, R, t, ts,
                     slot: int, prev_id: Optional[int] = None):
     """Write the frame into keyframe slot `slot`; `prev_id` is its temporal
@@ -512,10 +585,12 @@ def create_close_landmarks(m: ms.MapState, kf_id: int, fr: FrameData,
 
 @dataclass
 class StashedMap:
-    """An inactive map kept after tracking was lost in a mature map."""
+    """An inactive map kept after tracking was lost in a mature map, with
+    its place-recognition database (None without a vocabulary)."""
     gen: int
     m: ms.MapState
     n_kf: int
+    db: Optional[kfdb.KeyframeDatabase] = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -554,17 +629,22 @@ class Tracker:
     tracking (`cfg.baseline` > 0 for the two depth sensors).
 
     States: NO_IMAGES -> NOT_INITIALIZED -> OK <-> RECENTLY_LOST -> LOST.
-    `device=None` runs on the card and raises without one.
+    `device=None` runs on the card and raises without one. With a
+    vocabulary `voc` the tracker keeps a keyframe database and relocalizes
+    by BoW; loop closing is not part of the port yet (`loop_closer` stays
+    None).
     """
 
     def __init__(self, cam: cameras.Camera, cfg: TrackerConfig, device=None,
-                 seed: int = 0):
+                 seed: int = 0, voc: Optional[voctree.Vocabulary] = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.cam = cam.to(self.device)
         self.cfg = cfg
+        self.voc = None if voc is None else voc.to(self.device)
+        self.loop_closer = None
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.stash = []
         self.map_gen = 0
@@ -650,6 +730,8 @@ class Tracker:
         self.m, k1 = create_initial_map(
             self.m, self.fr_init, fr, idx, res.R21, res.t21, res.points,
             res.is_good, self.ts_init, ts, cfg)
+        self._db_add(k1 - 1, self.fr_init)
+        self._db_add(k1, fr)
         self.last = fr
         self.last_feat_lm = self.m.kf_feat_lm[k1]
         self.R_last = self.m.kf_R[k1]
@@ -675,6 +757,7 @@ class Tracker:
             return self.state, None
         self.m, k0 = stereo_initialize(self.m, fr, ts, self.cfg,
                                        slot=self.n_kf_host)
+        self._db_add(k0, fr)
         self.last = fr
         self.last_feat_lm = self.m.kf_feat_lm[k0]
         self.R_last = torch.eye(3, device=self.device)
@@ -908,6 +991,7 @@ class Tracker:
             self._ref_matches = int(ref_inliers)
         if self.cfg.baseline > 0:
             self.m = create_close_landmarks(self.m, k, fr, self.cfg)
+        self._db_add(k, fr)
         self.m = local_mapping.mapping_step(self.m, k, self.cam,
                                             self.cfg.lm_cfg)
         self.ref_kf = k
@@ -929,10 +1013,52 @@ class Tracker:
                     lie.se3_mul(entry[2][0], entry[2][1], dR, dt)
         return k
 
+    def _db_add(self, kf_id: int, fr: FrameData):
+        """Put the keyframe's BoW vector into the database (with a
+        vocabulary)."""
+        if self.db is None:
+            return
+        bow = voctree.bow_vector(
+            self.voc, voctree.transform(self.voc, fr.desc, fr.valid))
+        self.db = kfdb.add_keyframe(self.db, kf_id, bow)
+
+    def _try_relocalize(self, fr: FrameData):
+        """BoW candidates (the top 3 by L1 score) + PnP RANSAC + pose
+        optimization; the candidate with the most inliers wins if it has at
+        least 30."""
+        if self.db is None:
+            return False
+        bow = voctree.bow_vector(
+            self.voc, voctree.transform(self.voc, fr.desc, fr.valid))
+        ids, _, ok = kfdb.top_candidates(self.db, bow, 3)
+        ids_h, ok_h = torch.stack([ids, ok.to(ids.dtype)]).tolist()
+        best = None
+        for kf, good in zip(ids_h, ok_h):
+            if not good:
+                continue
+            R, t, feat_lm, n_inl = relocalize_candidate(
+                self.m, fr, kf, self.cfg, self.cam, generator=self.generator)
+            n_inl = int(n_inl)
+            if best is None or n_inl > best[3]:
+                best = (R, t, feat_lm, n_inl, kf)
+        if best is None or best[3] < 30:
+            return False
+        self.R_last, self.t_last, self.last_feat_lm, n_inl, self.ref_kf = best
+        self.last = fr
+        self.has_vel = False
+        self.state = "OK"
+        self.frames_lost = 0
+        # re-arm the keyframe trigger: insertion may happen at once
+        self._ref_matches = n_inl
+        self.frames_since_kf = self.cfg.min_kf_interval
+        return True
+
     def _recover_lost(self, fr: FrameData):
-        """No tracking context: match the frame against the reference
-        keyframe, then the newest keyframes (there is no vocabulary in this
-        port yet). Failing that, count the frame lost."""
+        """No tracking context: BoW relocalization when the tracker has a
+        vocabulary, then a match against the reference keyframe and the
+        newest keyframes. Failing both, count the frame lost."""
+        if self._try_relocalize(fr):
+            return True
         if self.n_kf_host > 0:
             valid = self.m.kf_valid[:self.n_kf_host].cpu().numpy()
             kts = self.m.kf_ts[:self.n_kf_host].cpu().numpy()
@@ -966,6 +1092,8 @@ class Tracker:
         cfg = self.cfg
         dev = self.device
         self.m = ms.empty_map(cfg.max_kf, cfg.n_feat, cfg.max_lm, device=dev)
+        self.db = None if self.voc is None else \
+            kfdb.empty(cfg.max_kf, self.voc.n_words, device=dev)
         self.state = "NOT_INITIALIZED"
         self.fr_init: Optional[FrameData] = None
         self.ts_init = 0.0
@@ -1002,7 +1130,7 @@ class Tracker:
     def create_map_in_atlas(self):
         """Stash the active map and start a fresh one."""
         self.stash.append(StashedMap(gen=self.map_gen, m=self.m,
-                                     n_kf=self.n_kf_host))
+                                     n_kf=self.n_kf_host, db=self.db))
         self.map_gen += 1
         self._fresh_map_state()
 

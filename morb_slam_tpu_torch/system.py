@@ -3,9 +3,11 @@
 One object built from `Settings` (or a YAML path) that owns the tracker and
 feeds it frames: `track_monocular`, `track_stereo` (raw pairs are rectified
 on the card by K8 with maps built once) and `track_rgbd`, plus the
-localization-mode toggles, `reset` and `state`. Inertial sensors, a
-vocabulary, trajectory writers and atlas save / load belong to later slices
-of the port and raise `NotImplementedError` here.
+localization-mode toggles, `reset` and `state`. A vocabulary (`vocabulary=`
+or `vocabulary_path=`, `.npz` or ORBvoc `.txt`) gives the tracker BoW
+relocalization; loop closing on top of it, inertial sensors, trajectory
+writers and atlas save / load belong to later slices of the port and raise
+`NotImplementedError` here.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Optional
 import torch
 
 from .io import config as config_mod
+from .io import serialization
 from .ops import rectify as rectify_mod
 from .pipeline import tracking
 
@@ -54,9 +57,12 @@ class System:
             raise NotImplementedError(
                 "inertial sensors come with the visual-inertial slice of "
                 "the port")
-        if vocabulary is not None or vocabulary_path:
+        if (vocabulary is not None or vocabulary_path) and \
+                settings.loop_closing:
             raise NotImplementedError(
-                "vocabularies come with the relocalization slice of the port")
+                "loop closing comes with item 13 (loop closing, merge and "
+                "global BA) of the port; a vocabulary with loopClosing: 0 "
+                "(settings.loop_closing = False) runs relocalization today")
         if settings.load_atlas:
             raise NotImplementedError(
                 "atlas load / save comes with the persistence slice of the "
@@ -64,6 +70,9 @@ class System:
         self.settings = settings
         self.sensor = sensor
         self.device = tracking.resolve_device(device)
+        if vocabulary is None and vocabulary_path:
+            vocabulary = serialization.load_vocabulary(vocabulary_path)
+        self.voc = None if vocabulary is None else vocabulary.to(self.device)
 
         cam = settings.cam1.to_camera()
         width = settings.cam1.width or 752
@@ -92,7 +101,7 @@ class System:
         if tracker_overrides:
             kw.update(tracker_overrides)
         self.tracker = tracking.Tracker(cam, tracking.TrackerConfig(**kw),
-                                        device=self.device)
+                                        device=self.device, voc=self.voc)
         self.localization_only = False
 
     # ---- frame feeds ----------------------------------------------------
@@ -123,9 +132,10 @@ class System:
         self.tracker._mapping_enabled = True
 
     def reset(self):
-        """Fresh map, same camera and configuration."""
+        """Fresh map, same camera, configuration and vocabulary."""
         t = self.tracker
-        self.tracker = tracking.Tracker(t.cam, t.cfg, device=self.device)
+        self.tracker = tracking.Tracker(t.cam, t.cfg, device=self.device,
+                                        voc=self.voc)
 
     @property
     def state(self):

@@ -2,7 +2,9 @@
 nor the JAX package, nor YAML or OpenCV at import time (the card's machine
 has neither); its tracker and System refuse to run without a card unless
 asked for the CPU; and its kernel wrappers never fall back to the plain
-versions for a tensor that is not on the CPU."""
+versions for a tensor that is not on the CPU. The walk over the package
+covers every module, among them `vocab/`, `io/serialization.py` and
+`solvers/pnp.py`."""
 import os
 import subprocess
 import sys
@@ -15,7 +17,9 @@ from morb_slam_tpu_torch import cameras, system
 from morb_slam_tpu_torch.io import config
 from morb_slam_tpu_torch.ops import (fast, hamming, orb_descriptor, rectify,
                                      stereo)
+from morb_slam_tpu_torch.optim import pose_opt
 from morb_slam_tpu_torch.pipeline import tracking
+from morb_slam_tpu_torch.vocab import tree
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,6 +47,9 @@ def test_imports_without_jax_or_reference_package():
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
+        for need in ("vocab.tree", "vocab.database", "io.serialization",
+                     "solvers.pnp", "optim.pose_opt"):
+            assert "morb_slam_tpu_torch." + need in names, need
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -76,13 +83,32 @@ def test_system_default_device_needs_cuda(monkeypatch):
 
 
 def _counts():
-    return [dict(m.LAUNCHES) for m in (fast, orb_descriptor, hamming, stereo,
-                                       rectify)]
+    return [dict(c) for c in (fast.LAUNCHES, orb_descriptor.LAUNCHES,
+                              hamming.LAUNCHES, stereo.LAUNCHES,
+                              rectify.LAUNCHES, pose_opt.LAUNCHES,
+                              tree.LAUNCHES["vocab_transform"],
+                              tree.LAUNCHES["bow_l1"])]
+
+
+def _voc(device):
+    return tree.Vocabulary(
+        centers=(torch.zeros((2, 8), dtype=torch.int32, device=device),
+                 torch.zeros((4, 8), dtype=torch.int32, device=device)),
+        weights=torch.ones(4, device=device), k=2)
+
+
+def _pose_args(device, n=5):
+    return (torch.eye(3, device=device), torch.zeros(3, device=device),
+            torch.ones((n, 3), device=device), torch.zeros((n, 2),
+                                                           device=device),
+            torch.ones(n, device=device),
+            torch.ones(n, dtype=torch.bool, device=device))
 
 
 @pytest.mark.parametrize("kernel", ["fast_select", "orb_describe",
                                     "hamming_top2", "stereo_sad",
-                                    "remap_bilinear"])
+                                    "remap_bilinear", "pose_opt",
+                                    "vocab_transform", "bow_l1"])
 def test_wrappers_refuse_other_devices(kernel):
     meta = torch.device("meta")
     before = _counts()
@@ -101,6 +127,14 @@ def test_wrappers_refuse_other_devices(kernel):
             img = torch.empty((48, 64), device=meta)
             stereo.sad_refine(img, img, torch.zeros((3, 2), device=meta),
                               torch.zeros(3, device=meta))
+        elif kernel == "pose_opt":
+            pose_opt.optimize_pose(*_pose_args(meta))
+        elif kernel == "vocab_transform":
+            tree.transform(_voc(meta), torch.zeros((3, 8), dtype=torch.int32,
+                                                   device=meta))
+        elif kernel == "bow_l1":
+            tree.l1_score(torch.zeros(4, device=meta),
+                          torch.zeros((3, 4), device=meta))
         else:
             rectify.remap_bilinear(torch.empty((48, 64), device=meta),
                                    torch.zeros((8, 8, 2), device=meta))
@@ -118,6 +152,9 @@ def test_wrappers_use_plain_versions_on_cpu():
     stereo.sad_refine(img, img, torch.full((3, 2), 20.0), torch.full((3,),
                                                                      20.0))
     rectify.remap_bilinear(img, torch.zeros((8, 8, 2)))
+    pose_opt.optimize_pose(*_pose_args("cpu"), n_rounds=1, n_iters=1)
+    tree.transform(_voc("cpu"), torch.zeros((3, 8), dtype=torch.int32))
+    tree.l1_score(torch.zeros(4), torch.zeros((3, 4)))
     after = _counts()
     for b, a in zip(before, after):
         assert a["plain"] == b["plain"] + 1

@@ -1,11 +1,15 @@
-"""The CUDA kernels K1-K3, K7 and K8 of the PyTorch port against their
+"""The CUDA kernels K1-K3, K5 and K7-K10 of the PyTorch port against their
 plain PyTorch versions on the card, on shapes and inputs the main path does
 not reach: image sizes that are no multiple of the 16-px cell, flat images
 where every key ties, empty keypoint and row sets, a single column, fully
 masked rows, duplicated descriptors and unaligned views; stereo keypoints
 on and beyond the image border, SAD ties and best offsets at both ends of
 the sweep; remap coordinates exactly on the last row and column and just
-outside.
+outside; pose problems of 0, 1, 1200 and 16384 observations, all invalid,
+partly behind the camera, mono and mixed stereo; vocabulary descents with
+tied children, no valid descriptor and other branchings and depths; L1
+scores over widths that are no multiple of 4, masked rows and batches of
+queries; and every new wrapper refusing bad dtypes and shapes.
 
 Marked `gpu`: each test skips without a CUDA card. On a machine with one
 (and without JAX, so without tests/conftest.py):
@@ -15,7 +19,11 @@ Marked `gpu`: each test skips without a CUDA card. On a machine with one
 Tolerances: K1 and K3 exact; K2 angles within 1e-4 rad and descriptor bits
 >= 99.9% identical (the kernel sums the moments in another order); K7 on
 integer-valued images: best offset and SAD exact, refined x within 1e-5 px,
-on non-integer images within 1e-3 px; K8 exact (same rounding, no FMA).
+on non-integer images within 1e-3 px; K8 exact (same rounding, no FMA); K5
+R and t within 1e-4 and the inlier count within 1% (the kernel sums the
+normal equations in another order, so a row whose chi2 sits at its gate
+may flip), chi2 as residual norms within 1e-6; K9 exact (integer work); K10 within 1e-5 (float sums in another
+order), masked rows exactly -1.
 """
 import math
 
@@ -23,9 +31,11 @@ import numpy as np
 import pytest
 import torch
 
-from morb_slam_tpu_torch import frontend
+from morb_slam_tpu_torch import frontend, lie
 from morb_slam_tpu_torch.ops import (fast, hamming, image, orb_descriptor,
                                      rectify, stereo)
+from morb_slam_tpu_torch.optim import pose_opt
+from morb_slam_tpu_torch.vocab import tree
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -300,3 +310,239 @@ def test_k7_k8_refuse_bad_inputs_on_the_card(cuda):
     with pytest.raises(ValueError):
         rectify.remap_bilinear(img, torch.zeros((8, 8, 2)))
     assert [dict(m.LAUNCHES) for m in (stereo, rectify)] == before
+
+
+# ---------------------------------------------------------------------------
+# K5 pose_opt
+# ---------------------------------------------------------------------------
+
+def _pose_problem(cuda, n, stereo_share=0.0, behind=0.0, valid_share=0.95,
+                  seed=0):
+    """n points seen from a perturbed pose: 0.5 px noise, 10% outliers,
+    optionally a share of stereo rows and of points behind the camera."""
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                  rng.uniform(2, 8, n)], -1)
+    X[rng.random(n) < behind, 2] *= -1
+    uv = X[:, :2] / X[:, 2:] + rng.normal(0, 0.5 / 460.0, (n, 2))
+    bad = rng.random(n) < 0.1
+    uv[bad] += rng.uniform(-0.05, 0.05, (int(bad.sum()), 2))
+    ur = np.full(n, np.nan)
+    st = rng.random(n) < stereo_share
+    ur[st] = ((X[st, 0] - 0.11) / X[st, 2]
+              + rng.normal(0, 0.5 / 460.0, int(st.sum())))
+    info = 460.0 ** 2 * 1.2 ** (-2.0 * rng.integers(0, 8, n))
+    valid = rng.random(n) < valid_share
+    dR, dt = lie.se3_exp(torch.tensor([0.05, -0.03, 0.04, 0.02, -0.01, 0.015]))
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                  device=cuda)
+    return (dR.to(cuda), dt.to(cuda), f(X), f(uv), f(info),
+            torch.from_numpy(valid).to(cuda),
+            f(ur) if stereo_share > 0 else None)
+
+
+def _chi2_close(got, want, info):
+    """chi2 = |r|^2 info; compare the residual norms |r| in normalized
+    units: both versions transform the points with float32 products in
+    their own order, so |r| agrees to ~1e-7 x |x / z|, not chi2 to a fixed
+    relative tolerance (a small residual is a difference of two ~1 terms)."""
+    d = (torch.sqrt(got / info) - torch.sqrt(want / info)).abs()
+    assert float(d.max()) <= 1e-6, float(d.max())
+
+
+def _pose_check(got, want, n_valid):
+    assert torch.allclose(got.R, want.R, atol=1e-4), (got.R, want.R)
+    assert torch.allclose(got.t, want.t, atol=1e-4), (got.t, want.t)
+    assert abs(int(got.n_inliers) - int(want.n_inliers)) <= \
+        max(0.01 * n_valid, 0), (int(got.n_inliers), int(want.n_inliers))
+    assert got.inliers.dtype == torch.bool and got.chi2.shape == want.chi2.shape
+    assert int(got.n_inliers) == int(got.inliers.sum())
+
+
+@pytest.mark.parametrize("rounds,iters", [(2, 8), (3, 10)])
+@pytest.mark.parametrize("n,stereo_share", [(0, 0.0), (1200, 0.0),
+                                            (1200, 0.6), (16384, 0.3)])
+def test_pose_opt_matches_plain(cuda, n, stereo_share, rounds, iters):
+    args = _pose_problem(cuda, n, stereo_share=stereo_share, seed=n)
+    ur = args[6]
+    kw = dict(obs_ur=ur, baseline=0.11 if ur is not None else 0.0,
+              n_rounds=rounds, n_iters=iters)
+    got = pose_opt.optimize_pose(*args[:6], **kw)
+    want = pose_opt.optimize_pose_plain(*args[:6], **kw)
+    _pose_check(got, want, int(args[5].sum()))
+    if n > 0:   # it converged: most valid rows are inliers
+        assert int(got.n_inliers) > 0.7 * int(args[5].sum())
+
+
+@pytest.mark.parametrize("rounds,iters", [(2, 8), (3, 10)])
+def test_pose_opt_single_observation(cuda, rounds, iters):
+    """One row constrains 2 of the 6 pose directions: the other 4 see only
+    the 1e-6 damping, so both versions' steps there are float32 rounding
+    amplified ~1e6 times and are not comparable. What holds: the launch
+    runs, the pose stays a finite rotation, and the returned chi2, inlier
+    flag and count are those of the returned pose (the plain version
+    evaluated there with no step)."""
+    R0, t0, X, uv, info, _, _ = _pose_problem(cuda, 1, seed=1)
+    valid = torch.ones(1, dtype=torch.bool, device=cuda)
+    got = pose_opt.optimize_pose(R0, t0, X, uv, info, valid,
+                                 n_rounds=rounds, n_iters=iters)
+    assert bool(torch.isfinite(got.R).all() and torch.isfinite(got.t).all())
+    eye = torch.eye(3, device=cuda)
+    assert torch.allclose(got.R @ got.R.T, eye, atol=1e-4)
+    at = pose_opt.optimize_pose_plain(got.R, got.t, X, uv, info, valid,
+                                      n_rounds=0, n_iters=0)
+    _chi2_close(got.chi2, at.chi2, info)
+    assert torch.equal(got.inliers, at.inliers)
+    assert int(got.n_inliers) == int(at.n_inliers)
+    # zero rounds: the kernel only evaluates, as the plain version does
+    got0 = pose_opt.optimize_pose(R0, t0, X, uv, info, valid, n_rounds=0,
+                                  n_iters=0)
+    want0 = pose_opt.optimize_pose_plain(R0, t0, X, uv, info, valid,
+                                         n_rounds=0, n_iters=0)
+    assert torch.equal(got0.R, R0) and torch.equal(got0.t, t0)
+    _chi2_close(got0.chi2, want0.chi2, info)
+    assert torch.equal(got0.inliers, want0.inliers)
+
+
+def test_pose_opt_all_invalid_and_behind(cuda):
+    R0, t0, X, uv, info, valid, _ = _pose_problem(cuda, 500, behind=0.3)
+    none = torch.zeros_like(valid)
+    got = pose_opt.optimize_pose(R0, t0, X, uv, info, none, n_rounds=3,
+                                 n_iters=10)
+    assert torch.equal(got.R, R0) and torch.equal(got.t, t0)
+    assert int(got.n_inliers) == 0 and not bool(got.inliers.any())
+    want = pose_opt.optimize_pose_plain(R0, t0, X, uv, info, none,
+                                        n_rounds=3, n_iters=10)
+    _chi2_close(got.chi2, want.chi2, info)
+    # 30% of the points behind the camera contribute nothing
+    got = pose_opt.optimize_pose(R0, t0, X, uv, info, valid, n_rounds=3,
+                                 n_iters=10)
+    want = pose_opt.optimize_pose_plain(R0, t0, X, uv, info, valid,
+                                        n_rounds=3, n_iters=10)
+    _pose_check(got, want, int(valid.sum()))
+
+
+def test_pose_opt_strided_observations(cuda):
+    R0, t0, X, uv, info, valid, _ = _pose_problem(cuda, 700, seed=4)
+    xn = torch.cat([uv, torch.ones_like(uv[:, :1])], -1)[:, :2]
+    assert not xn.is_contiguous()
+    got = pose_opt.optimize_pose(R0, t0, X, xn, info, valid, n_rounds=2,
+                                 n_iters=8)
+    want = pose_opt.optimize_pose_plain(R0, t0, X, uv, info, valid,
+                                        n_rounds=2, n_iters=8)
+    _pose_check(got, want, int(valid.sum()))
+
+
+# ---------------------------------------------------------------------------
+# K9 vocab_transform
+# ---------------------------------------------------------------------------
+
+def _vocab(cuda, k, depth, seed=0, tie_every=0):
+    rng = np.random.default_rng(seed)
+    centers = []
+    for level in range(depth):
+        c = _desc(rng, k ** (level + 1))
+        if tie_every:
+            # children j and j + 1 of a node identical: argmin takes j
+            c = c.reshape(-1, k, 8)
+            c[:, 1::tie_every] = c[:, 0::tie_every][:, :c[:, 1::tie_every]
+                                                   .shape[1]]
+            c = c.reshape(-1, 8)
+        centers.append(c.to(cuda))
+    return tree.Vocabulary(centers=tuple(centers),
+                           weights=torch.ones(k ** depth, device=cuda), k=k)
+
+
+@pytest.mark.parametrize("k,depth", [(10, 4), (3, 6), (16, 3), (8, 5),
+                                     (40, 2), (5, 1)])
+def test_vocab_transform_exact(cuda, k, depth):
+    voc = _vocab(cuda, k, depth, seed=k)
+    rng = np.random.default_rng(depth)
+    d = _desc(rng, 1200).to(cuda)
+    valid = torch.from_numpy(rng.random(1200) < 0.8).to(cuda)
+    got = tree.transform(voc, d, valid)
+    want = tree.transform_plain(voc, d, valid)
+    assert torch.equal(got, want), int((got != want).sum())
+    assert torch.equal(tree.transform(voc, d), tree.transform_plain(voc, d))
+    assert bool((got[~valid] == -1).all())
+
+
+def test_vocab_transform_ties_and_invalid(cuda):
+    voc = _vocab(cuda, 10, 4, seed=1, tie_every=2)
+    rng = np.random.default_rng(9)
+    # descriptors equal to centers: ties at distance 0 in every level
+    d = torch.cat([voc.centers[-1][rng.integers(0, 10 ** 4, 300)],
+                   _desc(rng, 300).to(cuda)])
+    got = tree.transform(voc, d)
+    assert torch.equal(got, tree.transform_plain(voc, d))
+    # a copied leaf center ties with its original: the first child wins
+    assert int((got[:300] % 2).sum()) == 0
+    none = torch.zeros(600, dtype=torch.bool, device=cuda)
+    assert bool((tree.transform(voc, d, none) == -1).all())
+    empty = tree.transform(voc, d[:0], none[:0])
+    assert empty.shape == (0,)
+
+
+# ---------------------------------------------------------------------------
+# K10 bow_l1
+# ---------------------------------------------------------------------------
+
+def _bows(cuda, n, W, seed):
+    rng = np.random.default_rng(seed)
+    v = rng.random((n, W)) * (rng.random((n, W)) < 0.05)
+    v /= np.maximum(v.sum(1, keepdims=True), 1e-12)
+    return torch.from_numpy(v.astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("B,K,W", [(1, 256, 10 ** 4), (3, 256, 10 ** 4 + 3),
+                                   (2, 7, 1001), (1, 1, 5), (4, 300, 216)])
+def test_bow_l1_matches_plain(cuda, B, K, W):
+    db = _bows(cuda, K, W, seed=K)
+    q = _bows(cuda, B, W, seed=W)
+    rng = np.random.default_rng(B)
+    ok = torch.from_numpy(rng.random(K) < 0.7).to(cuda)
+    for qq in (q, q[0]):
+        for mask in (None, ok):
+            got = tree.l1_score(qq, db, mask)
+            want = tree.l1_score_plain(qq, db, mask)
+            assert got.shape == want.shape
+            assert torch.allclose(got, want, atol=1e-5), \
+                float((got - want).abs().max())
+            if mask is not None:
+                assert bool((got[..., ~mask] == -1).all())
+    # a query scores 1 against itself
+    assert abs(float(tree.l1_score(db[0], db)[0]) - 1.0) < 1e-5
+
+
+def test_new_wrappers_refuse_bad_inputs_on_the_card(cuda):
+    counts = [pose_opt.LAUNCHES, tree.LAUNCHES["vocab_transform"],
+              tree.LAUNCHES["bow_l1"]]
+    before = [dict(c) for c in counts]
+    R0, t0, X, uv, info, valid, _ = _pose_problem(cuda, 20)
+    with pytest.raises(ValueError):
+        pose_opt.optimize_pose(R0, t0, X.double(), uv, info, valid)
+    with pytest.raises(ValueError):
+        pose_opt.optimize_pose(R0, t0, X, uv, info, valid[:5])
+    with pytest.raises(ValueError):
+        pose_opt.optimize_pose(R0, t0, X, uv, info, valid.float())
+    with pytest.raises(ValueError):
+        pose_opt.optimize_pose(R0.cpu(), t0, X, uv, info, valid)
+    voc = _vocab(cuda, 4, 2)
+    d = torch.zeros((5, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        tree.transform(voc, d.long())
+    with pytest.raises(ValueError):
+        tree.transform(voc, d[:, :4])
+    with pytest.raises(ValueError):
+        tree.transform(voc.to("cpu"), d)
+    with pytest.raises(ValueError):
+        tree.transform(voc, d, torch.ones(4, dtype=torch.bool, device=cuda))
+    db = torch.zeros((3, 16), device=cuda)
+    with pytest.raises(ValueError):
+        tree.l1_score(torch.zeros(15, device=cuda), db)
+    with pytest.raises(ValueError):
+        tree.l1_score(torch.zeros(16, device=cuda), db.double())
+    with pytest.raises(ValueError):
+        tree.l1_score(torch.zeros(16, device=cuda), db,
+                      torch.ones(2, dtype=torch.bool, device=cuda))
+    assert [dict(c) for c in counts] == before

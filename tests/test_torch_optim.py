@@ -44,7 +44,7 @@ def _pose_case(seed, n_out, stereo):
 
 @pytest.mark.parametrize("seed,n_out,stereo,rounds,iters", [
     (20, 0, False, 4, 10), (21, 60, False, 4, 10), (22, 30, True, 4, 10),
-    (23, 40, False, 2, 8), (24, 80, False, 3, 10)])
+    (23, 40, False, 2, 8), (24, 80, False, 3, 10), (25, 50, True, 3, 10)])
 def test_optimize_pose_parity(seed, n_out, stereo, rounds, iters):
     R0, t0, X, uv, info, valid, ur = _pose_case(seed, n_out, stereo)
     kw = dict(n_rounds=rounds, n_iters=iters)
