@@ -20,8 +20,14 @@ Phases:
                 and a relocalization-shaped (1200, mono, 3 x 10) problem,
                 K9 (vocab_transform) with a k = 10, depth = 4 vocabulary
                 trained on the host from descriptors of rendered frames,
-                and K10 (bow_l1) on a 256 x 10^4 keyframe database.
-  3. main     — render the 752x480 synthetic world on the card and run 80
+                and K10 (bow_l1) on a 256 x 10^4 keyframe database; K11
+                (preintegrate) on a 64-sample frame batch and a 768-sample
+                keyframe buffer (512 valid), each fresh and continued, and
+                K12 (pose_inertial) on a tracking-shaped problem (1200
+                observations, 60% stereo) with a noisy 0.05 s edge. K4
+                (ba_assemble) is held against its plain version in the
+                stereo phase, on the local BA problem that path built.
+  3. main   — render the 752x480 synthetic world on the card and run 80
                 frames through `Tracker.track_mono` (1200 features, 8
                 levels), check initialization, the share of OK frames, the
                 Sim3-aligned ATE and that every kernel of the path (K1-K3,
@@ -37,8 +43,11 @@ Phases:
                 the SE3 ATE under 0.03 x extent, and that K1-K3, K5, K7 and
                 K8 launched while no plain version ran. Profile 5 more
                 frames for kernels and syncs per frame, K5's device time on
-                the path and the device time of the plain K6 ranges, and
-                one local BA for K4's.
+                the path and the device time of the plain K6 ranges. Then
+                K4 on the path's last local BA problem: its blocks in both
+                tangent modes against the plain assembly, two launches
+                bitwise equal, and the whole LM loop against the loop over
+                the plain assembly.
   5. rgbd     — 40 frames of TUM RGB-D freiburg1 geometry (640x480, 1000
                 features, bf 40) through `System(..., Sensor.RGBD)`, depth
                 rendered on the card; the first frame OK, > 85% OK, the
@@ -56,6 +65,21 @@ Phases:
                 that K1-K3, K5, K9 and K10 launched while no plain version
                 ran; time each relocalization attempt and count its host
                 syncs.
+  7. vi       — stereo-inertial through `System(settings,
+                Sensor.IMU_STEREO)` on the stereo phase's EuRoC rig with
+                EuRoC's IMU noise densities and random walks at 200 Hz and
+                EuRoC's cam0-to-body rotation: 120 raw pairs at 20 Hz on
+                the tests' accelerated analytic trajectory, each with the
+                IMU samples since the previous frame (camera-centre specific
+                force and rate in body axes, zero lever arm, seeded noise).
+                Check > 85% of frames OK, the IMU initialized with
+                viba_stage >= 2, the Sim3 scale within 0.06 of 1 and the SE3
+                ATE under 0.04 x extent, and that K1-K5, K7, K8, K11 and K12
+                launched while no plain version ran; time frames 60-119,
+                each keyframe insert's mapping step (visual until the IMU
+                initialization, inertial after) and each IMU-init stage;
+                profile 5 more frames, then the plain K13 range and
+                `inertial_only_optimize` on the path's last problems.
 
 Any failure raises (nonzero exit). The line before the last is the card's
 `nvidia-smi` name and power limit; the last line is the JSON result.
@@ -64,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import os
@@ -98,12 +123,24 @@ T_C0_C1 = np.array([
 # TUM RGB-D freiburg1 (640x480, no distortion, bf = baseline * fx = 40)
 TUM_W, TUM_H, TUM_K, TUM_BF = 640, 480, (517.3, 516.5, 318.6, 255.3), 40.0
 DEV = "cuda"
-# the port's profiler ranges (the plain K4 and K6, the wrappers of K5, K9
-# and K10); the profiler also lists each as a device-side annotation
-# spanning its kernels and the idle time between them, which per-frame
-# device sums must skip
-RANGES = ("K4 ba_solve", "K5 optimize_pose", "K6 build_pyramid",
-          "K6 gaussian_blur", "K9 vocab_transform", "K10 bow_l1")
+# visual-inertial phase: frames at 20 Hz (timed from VI_TIMED on), EuRoC's
+# IMU (noise densities, random walks, rate) and its cam0-to-body rotation
+# (T_BS of cam0 in EuRoC's sensor.yaml: ~90 deg about the optical axis)
+N_VI, VI_DT, VI_TIMED = 120, 0.05, 60
+IMU_NOISE = dict(noise_gyro=1.7e-4, noise_acc=2.0e-3, walk_gyro=1.9e-5,
+                 walk_acc=3.0e-3, frequency=200.0)
+R_B_C0 = np.array([
+    [0.0148655429818, -0.999880929698, 0.00414029679422],
+    [0.999557249008, 0.0149672133247, 0.025715529948],
+    [-0.0257744366974, 0.00375618835797, 0.999660727178]])
+# the port's profiler ranges (the plain K6, K13 and inertial_only_optimize,
+# K4's LM loop, the kernel wrappers); the profiler also lists each as a
+# device-side annotation spanning its kernels and the idle time between
+# them, which per-frame device sums must skip
+RANGES = ("K4 ba_solve", "K4 ba_assemble", "K5 optimize_pose",
+          "K6 build_pyramid", "K6 gaussian_blur", "K9 vocab_transform",
+          "K10 bow_l1", "K11 preintegrate", "K12 optimize_pose_inertial",
+          "K13 vi_ba edges", "inertial_only_optimize")
 # NVIDIA's H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12             # float32 outside the tensor cores
@@ -266,6 +303,50 @@ def camera_path(n_frames, step=0.05):
     return poses
 
 
+GRAVITY_W = np.array([0.0, 0.0, -9.81])
+
+
+def analytic_pose(t, speed=1.0):
+    """The tests' continuous camera path (t in seconds, frame i = t / 0.05)
+    with ~1 m/s^2 accelerations. Returns (R_cw, t_cw) in float64 (the IMU
+    samples differentiate it); world gravity is -z."""
+    from scipy.spatial.transform import Rotation
+    i = t / 0.05
+    yaw = 0.1 * np.sin(i * 0.08)
+    pitch = 0.02 * np.sin(i * 0.13)
+    center = np.array([speed * t + 0.35 * np.sin(2.0 * t),
+                       0.15 * np.sin(1.9 * t),
+                       0.08 * np.sin(2.4 * t)])
+    R_cw = Rotation.from_rotvec([pitch, yaw, 0.0]).as_matrix().T
+    return R_cw, -R_cw @ center
+
+
+def imu_between(t0, t1, freq=200.0, rng=None, noise_g=0.0, noise_a=0.0):
+    """The tests' IMU samples in (t0, t1]: camera-frame angular rate and
+    specific force of the analytic path by finite differences (float64),
+    plus seeded Gaussian noise. Returns (timestamps, acc, gyro)."""
+    from scipy.spatial.transform import Rotation
+    h = 2e-3
+    ts = np.arange(np.floor(t0 * freq) + 1, np.floor(t1 * freq) + 1) / freq
+
+    def center(tt):
+        Rc, tc = analytic_pose(tt)
+        return -Rc.T @ tc
+    acc, gyr = [], []
+    for t in ts:
+        R_wb = analytic_pose(t)[0].T
+        W_ = R_wb.T @ analytic_pose(t + h)[0].T
+        gyr.append(Rotation.from_matrix(W_).as_rotvec() / h)
+        a_w = (center(t + h) - 2 * center(t) + center(t - h)) / h ** 2
+        acc.append(R_wb.T @ (a_w - GRAVITY_W))
+    acc = np.asarray(acc, np.float32).reshape(-1, 3)
+    gyr = np.asarray(gyr, np.float32).reshape(-1, 3)
+    if rng is not None:
+        acc = acc + rng.normal(0, noise_a, acc.shape).astype(np.float32)
+        gyr = gyr + rng.normal(0, noise_g, gyr.shape).astype(np.float32)
+    return ts, acc, gyr
+
+
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -291,28 +372,54 @@ def time_ms(fn, reps=25, inner=10, warmup=3):
     return float(np.median(times))
 
 
-def device_ms(fn, kernel_name, reps=20):
+PROFILE_PAD_S = 0.1
+# kernels whose `ms` came from CUDA events because the profiler saw none
+EVENT_TIMED = set()
+
+
+@contextlib.contextmanager
+def profiled(cpu=False):
+    """torch.profiler (CUPTI) over the enclosed work, the card synchronized
+    and idle for PROFILE_PAD_S at both ends. The profiler keeps only the
+    device activity that its clock places inside the traced window; the idle
+    margins keep a short run's kernels inside it (an H100 run once reported
+    none of a 20-call run's kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
+def device_ms(fn, kernel_name, reps=20, tries=3):
     """Device milliseconds per fn() spent in kernels whose name contains
     kernel_name (every kernel fn launches for None), from torch.profiler
     (CUPTI): the kernels alone, without the host's dispatch gaps that the
-    event timing includes."""
-    from torch.profiler import ProfilerActivity, profile
+    event timing includes. Where `tries` profiles see none of them, the
+    CUDA-event time per call instead, and the name goes into EVENT_TIMED."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+
     def counted(ev):
         if kernel_name:
             return kernel_name in ev.key
         return ev.device_type == torch.autograd.DeviceType.CUDA and \
             ev.key not in RANGES
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if counted(ev))
-    if us <= 0:
-        raise AssertionError(f"profiler saw no {kernel_name} on the card")
-    return us / reps / 1e3
+    for _ in range(tries):
+        with profiled() as prof:
+            for _ in range(reps):
+                fn()
+        us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if counted(ev))
+        if us > 0:
+            return us / reps / 1e3
+    log(f"profiler saw no {kernel_name or 'kernel'} in {tries} runs: timed "
+        f"by CUDA events instead")
+    EVENT_TIMED.add(kernel_name)
+    return time_ms(fn, reps=reps, inner=1)
 
 
 def bound(nbytes, nops):
@@ -512,6 +619,7 @@ def phase_kernels(state):
                      shape="4096x1200 (one launch)"))
     _stereo_kernels(state, rows)
     _reloc_kernels(state, rows)
+    _vi_kernels(rows)
     state["kernel_rows"] = rows
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms on the card, "
@@ -522,16 +630,18 @@ def phase_kernels(state):
 
 def _kernel_counters():
     """The launch counter of each hand-written kernel, by kernel name."""
+    from morb_slam_tpu_torch import imu
     from morb_slam_tpu_torch.ops import (fast, hamming, orb_descriptor,
                                          rectify, stereo)
-    from morb_slam_tpu_torch.optim import pose_opt
+    from morb_slam_tpu_torch.optim import ba, pose_opt, vi_ba
     from morb_slam_tpu_torch.vocab import tree
     return {"fast_select": fast.LAUNCHES,
             "orb_describe": orb_descriptor.LAUNCHES,
             "hamming_top2": hamming.LAUNCHES, "stereo_sad": stereo.LAUNCHES,
             "remap_bilinear": rectify.LAUNCHES, "pose_opt": pose_opt.LAUNCHES,
             "vocab_transform": tree.LAUNCHES["vocab_transform"],
-            "bow_l1": tree.LAUNCHES["bow_l1"]}
+            "bow_l1": tree.LAUNCHES["bow_l1"], "ba_assemble": ba.LAUNCHES,
+            "preintegrate": imu.LAUNCHES, "pose_inertial": vi_ba.LAUNCHES}
 
 
 def _reset_counters():
@@ -575,7 +685,7 @@ def phase_main(state):
     states, fm, secs, n_ins_20 = _track_run(tracker, feed, N_FRAMES, 1.0,
                                             inserts)
     launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
-                               "pose_opt"], "mono", state)
+                               "pose_opt", "ba_assemble"], "mono", state)
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
     check("OK" in states, "never initialized")
     n_ok = sum(s == "OK" for s in states)
@@ -1011,18 +1121,232 @@ def _reloc_kernels(state, rows):
         shape=f"1 query x {K_} rows x {Wn} words"))
 
 
-class _CountPlain:
-    """Count the calls of the plain K4 and K6 functions during one path's
-    run by wrapping the module attributes the path looks up; keeps the last
-    BA problem for K4's bound."""
+# ---------------------------------------------------------------------------
+# visual-inertial harness: K11 / K12 checks
+# ---------------------------------------------------------------------------
 
-    def __init__(self):
-        from morb_slam_tpu_torch.ops import image
-        from morb_slam_tpu_torch.optim import ba
-        self.targets = [(ba, "ba_solve"), (image, "build_pyramid"),
-                        (image, "gaussian_blur")]
-        self.counts = {name: 0 for _, name in self.targets}
+def _imu_calib():
+    from morb_slam_tpu_torch import imu
+    n = IMU_NOISE
+    return imu.make_calib(np.eye(3), np.zeros(3), n["noise_gyro"],
+                          n["noise_acc"], n["walk_gyro"], n["walk_acc"],
+                          n["frequency"], device=DEV)
+
+
+def _imu_noise():
+    """The discrete per-sample noise of EuRoC's densities at its rate."""
+    sf = math.sqrt(IMU_NOISE["frequency"])
+    return dict(noise_g=IMU_NOISE["noise_gyro"] * sf,
+                noise_a=IMU_NOISE["noise_acc"] * sf)
+
+
+def _imu_batch(t0, cap, n_valid, rng):
+    """n_valid noisy samples of the analytic path after t0, zero-padded to
+    cap, on the card: (acc, gyro, dts, mask)."""
+    _, acc, gyr = imu_between(t0, t0 + (n_valid + 1) / 200.0, rng=rng,
+                              **_imu_noise())
+    pad = np.zeros((cap - n_valid, 3), np.float32)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEV)
+    dts = np.where(np.arange(cap) < n_valid, 0.005, 0.0)
+    return (f(np.concatenate([acc[:n_valid], pad])),
+            f(np.concatenate([gyr[:n_valid], pad])), f(dts),
+            torch.arange(cap, device=DEV) < n_valid)
+
+
+PRE_FIELDS = ("dt", "dR", "dV", "dP", "J_Rg", "J_Vg", "J_Va", "J_Pg", "J_Pa",
+              "avg_a", "avg_w")
+
+
+def _pre_errors(got, want):
+    """(largest absolute error of the deltas and Jacobians, the same
+    relative to max(1, the field's max-abs), C's error relative to its
+    max-abs)."""
+    ab, rel = 0.0, 0.0
+    for name in PRE_FIELDS:
+        a, b = getattr(got, name), getattr(want, name)
+        e = float((a - b).abs().max())
+        ab = max(ab, e)
+        rel = max(rel, e / max(1.0, float(b.abs().max())))
+    c = float((got.C - want.C).abs().max()) / max(
+        float(want.C.abs().max()), 1e-30)
+    return ab, rel, c
+
+
+# K11's float32 operations per valid sample (a 3x3 product is 27 multiplies
+# and 18 adds), with the structure of the transition blocks A (9x9) and B
+# (9x6) of imu.py (csrc/preintegrate.cu states the same count):
+K11_FLOPS = (
+    513     # A C[:9, :9]: A's rows [dRi^T 0 0; M I 0; M dt/2 dt I I], M =
+            # -dR hat(a) dt: 9 block products and the identity / dt terms
+    + 369   # (A C) A^T, the 6 upper blocks (C stays symmetric)
+    + 180   # B diag(N) B^T: Jr Ng Jr^T dt^2 and dR Na dR^T with 3 scalings
+            # (B's gyro and acc columns meet in no block), added to C
+    + 12    # the bias random-walk diagonal
+    + 9 + 27 + 15   # a, w, phi; dR hat(a) (3 cross products); dR a
+    + 110   # so3_exp and the right Jacobian of phi
+    + 18 + 20       # A's two dR hat(a) blocks; dP, dV
+    + 216   # the five bias Jacobians (two 3x3 products)
+    + 85    # dR dRi and its Gram-Schmidt normalization
+    + 7)    # dt and the measurement sums
+
+
+def _vi_kernels(rows):
+    """K11 and K12 against their plain versions at the visual-inertial
+    path's shapes."""
+    from morb_slam_tpu_torch import imu, lie
+    from morb_slam_tpu_torch.optim import vi_ba
+    calib = _imu_calib()
+    rng = np.random.default_rng(11)
+    bias = torch.tensor([0.002, -0.001, 0.003, 0.02, -0.03, 0.01],
+                        device=DEV)
+
+    # K11: a frame batch (64 slots, 10 samples) and a keyframe buffer (768
+    # slots, 512 samples), each fresh and continued by a frame batch. The
+    # deltas and Jacobians within 1e-5 of plain, relative to max(1, the
+    # field's size): a 512-sample recursion reaches |dV| ~ 25 m/s, where
+    # float32's own step is 2e-6; C within 1e-5 of its max-abs
+    k11, worst = {}, (0.0, 0.0, 0.0)
+    for name, cap, n in (("frame", 64, 10), ("keyframe", 768, 512)):
+        acc, gyr, dts, mask = _imu_batch(1.0, cap, n, rng)
+        nxt = _imu_batch(1.0 + n / 200.0, 64, 10, rng)
+        got = imu.preintegrate(acc, gyr, dts, mask, bias, calib)
+        want = imu.preintegrate_plain(acc, gyr, dts, mask, bias, calib)
+        got2 = imu.preintegrate(*nxt, bias, calib, init=got)
+        want2 = imu.preintegrate_plain(*nxt, bias, calib, init=want)
+        for case, (g, w) in (("fresh", (got, want)),
+                             ("continued", (got2, want2))):
+            ab, rel, c = _pre_errors(g, w)
+            log(f"K11 preintegrate {name} {cap}/{n} {case}: deltas and "
+                f"Jacobians within {ab:.2e} ({rel:.2e} relative), C within "
+                f"{c:.2e} of its max-abs")
+            check(rel <= 1e-5 and c <= 1e-5, ("K11", name, case, ab, rel, c))
+            worst = tuple(max(x, y) for x, y in zip(worst, (ab, rel, c)))
+        k11[name] = dict(args=(acc, gyr, dts, mask), init=got, nxt=nxt,
+                         n=n, cap=cap)
+    fr, kf = k11["frame"], k11["keyframe"]
+
+    def k11_bound(cap, n, cont):
+        # the mask of every slot (1 B) and each valid sample's acc, gyro and
+        # dt (28 B), bias and noise in, the carry in when continued, the
+        # packed result out; K11_FLOPS per valid sample
+        return bound(cap + n * 28 + 24 + 48 + imu.PACK * 4 * (1 + cont),
+                     n * K11_FLOPS)
+    # the path's per-frame call: a frame batch continuing the chain
+    frame_call = (lambda: imu.preintegrate(*fr["nxt"], bias, calib,
+                                           init=fr["init"]))
+    b_ms, b_by = k11_bound(64, 10, 1)
+    kf_call = lambda: imu.preintegrate(*kf["args"], bias, calib)
+    kb_ms, kb_by = k11_bound(768, 512, 0)
+    rows.append(dict(
+        name="preintegrate", route="cuda",
+        source="morb_slam_tpu_torch/csrc/preintegrate.cu",
+        replaces="morb_slam_tpu/imu.py:79", max_abs_err=worst[0],
+        max_rel_err=worst[1], C_rel_err=worst[2],
+        ms=device_ms(frame_call, "preintegrate_kernel"),
+        call_ms=time_ms(frame_call),
+        plain_ms=time_ms(lambda: imu.preintegrate_plain(
+            *fr["nxt"], bias, calib, init=fr["init"]), reps=5, inner=2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        keyframe_buffer=dict(
+            ms=device_ms(kf_call, "preintegrate_kernel"),
+            call_ms=time_ms(kf_call),
+            plain_ms=time_ms(lambda: imu.preintegrate_plain(
+                *kf["args"], bias, calib), reps=2, inner=1, warmup=1),
+            bound_ms=kb_ms, bound_by=kb_by,
+            shape="768 slots, 512 samples, fresh"),
+        shape="64 slots, 10 samples, continuing a chain (one frame)"))
+
+    # K12 on a tracking-shaped problem: 1200 observations, 60% stereo, the
+    # anchor keyframe 0.05 s earlier on a constant-velocity path, its edge
+    # preintegrated from noisy samples; R, t within 1e-5, v and bias within
+    # 1e-4, the same inliers
+    args, kw = _pose_problem(1200, 0.6, seed=4)
+    R0, t0, X, xn, info, valid = args
+    n_rows = 10
+    acc = np.tile([0.0, 0.0, 9.81], (n_rows, 1)) + rng.normal(
+        0, _imu_noise()["noise_a"], (n_rows, 3))
+    gyr = rng.normal(0, _imu_noise()["noise_g"], (n_rows, 3))
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                  device=DEV)
+    z6 = torch.zeros(6, device=DEV)
+    pre = imu.preintegrate_plain(f(acc), f(gyr), f(np.full(n_rows, 0.005)),
+                                 torch.ones(n_rows, dtype=torch.bool,
+                                            device=DEV), z6, calib)
+    eye9 = torch.eye(9, device=DEV)
+    info9 = vi_ba.floor_info(torch.linalg.inv_ex(
+        pre.C[:9, :9] + 1e-9 * eye9).inverse)
+    rw = 1.0 / torch.clamp(torch.diagonal(pre.C[9:, 9:]), min=1e-12)
+    v = f([0.4, -0.05, 0.1])
+    k12_args = (R0, t0, v + f([0.05, 0.05, -0.05]), z6, X, xn, info, valid,
+                kw["obs_ur"], torch.tensor(kw["baseline"], device=DEV),
+                torch.eye(3, device=DEV), -v * pre.dt, v, z6, pre.dt, pre.dR,
+                pre.dV, pre.dP, pre.J_Rg, pre.J_Vg, pre.J_Va, pre.J_Pg,
+                pre.J_Pa, info9, pre.bias, rw)
+    got = vi_ba.optimize_pose_inertial(*k12_args, n_iters=6)
+    want = vi_ba.optimize_pose_inertial_plain(*k12_args, n_iters=6)
+    err_Rt = max(float((got.R_cw - want.R_cw).abs().max()),
+                 float((got.t_cw - want.t_cw).abs().max()))
+    err_vb = max(float((got.v - want.v).abs().max()),
+                 float((got.bias - want.bias).abs().max()))
+    n_valid = int(valid.sum())
+    c_err = float(torch.linalg.norm(-lie.matvec(got.R_cw.T, got.t_cw)))
+    log(f"K12 pose_inertial (1200 obs, 60% stereo, 2 x 6 + final): R, t "
+        f"within {err_Rt:.2e}, v and bias within {err_vb:.2e}, inliers "
+        f"{int(got.n_inliers)} vs plain {int(want.n_inliers)} of {n_valid} "
+        f"valid; camera centre {c_err:.2e} from the truth")
+    check(err_Rt <= 1e-5 and err_vb <= 1e-4, ("K12", err_Rt, err_vb))
+    check(int(got.n_inliers) == int(want.n_inliers) ==
+          int(got.inliers.sum()), ("K12 inliers", int(got.n_inliers),
+                                   int(want.n_inliers)))
+    check(bool(torch.isfinite(got.H_marg).all()), "K12 H_marg")
+    st = torch.isfinite(kw["obs_ur"])
+    n_st = int((valid & st).sum())
+    n_inl = int(got.n_inliers)
+    n_inl_st = int((got.inliers & st).sum())
+    # inputs read once, the 30x30 Hessian, state and inliers written once;
+    # per assembling step and active row ~150 flops (+70 for a stereo
+    # row): round 1's 6 steps over the valid rows, round 2's 6 and the
+    # final step over the inliers; per step ~126 kflop of fixed work (the
+    # forward-mode 9 x 30 edge Jacobian, its products, the Cholesky); ~40
+    # flops per row for each reclassification
+    nops = (6 * (n_valid * 150 + n_st * 70) + 7 * (n_inl * 150 + n_inl_st * 70)
+            + 13 * 126e3 + 2 * 40 * 1200)
+    b_ms, b_by = bound(1200 * 30 + 197 * 4 + 921 * 4 + 8, nops)
+    call = lambda: vi_ba.optimize_pose_inertial(*k12_args, n_iters=6)
+    rows.append(dict(
+        name="pose_inertial", route="cuda",
+        source="morb_slam_tpu_torch/csrc/pose_inertial.cu",
+        replaces="morb_slam_tpu/optim/vi_ba.py:426",
+        max_abs_err=max(err_Rt, err_vb), max_abs_err_R_t=err_Rt,
+        max_abs_err_v_bias=err_vb,
+        ms=device_ms(call, "pose_inertial_kernel"), call_ms=time_ms(call),
+        plain_ms=time_ms(lambda: vi_ba.optimize_pose_inertial_plain(
+            *k12_args, n_iters=6), reps=3, inner=1, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        inliers=n_inl, inliers_plain=int(want.n_inliers),
+        shape="1200 observations, 60% stereo, 0.05 s edge, 2 x 6 + final"))
+
+
+class _CountCalls:
+    """Count the calls of module functions during one path's run by
+    wrapping the module attributes the path looks up (by default K4's LM
+    loop `ba.ba_solve` and the plain K6 functions); keep each one's last
+    arguments, every call's keyword arguments and, for the names in
+    `timed`, its milliseconds per call with the card synchronized before
+    and after."""
+
+    def __init__(self, targets=None, timed=()):
+        if targets is None:
+            from morb_slam_tpu_torch.ops import image
+            from morb_slam_tpu_torch.optim import ba
+            targets = [(ba, "ba_solve"), (image, "build_pyramid"),
+                       (image, "gaussian_blur")]
+        self.targets = targets
+        self.timed = set(timed)
+        self.counts = {name: 0 for _, name in targets}
+        self.ms = {name: [] for name in timed}
         self.last_args = {}
+        self.kwargs = {name: [] for _, name in targets}
 
     def __enter__(self):
         self.saved = [getattr(m, n) for m, n in self.targets]
@@ -1030,7 +1354,15 @@ class _CountPlain:
             def wrap(*a, _fn=fn, _name=name, **kw):
                 self.counts[_name] += 1
                 self.last_args[_name] = (a, kw)
-                return _fn(*a, **kw)
+                self.kwargs[_name].append(kw)
+                if _name not in self.timed:
+                    return _fn(*a, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.ms[_name].append((time.perf_counter() - t0) * 1e3)
+                return r
             setattr(mod, name, wrap)
         return self
 
@@ -1039,40 +1371,45 @@ class _CountPlain:
             setattr(mod, name, fn)
 
 
-def range_device_ms(prof, name):
+def range_device_ms(name, run, prof=None, tries=3):
     """(device ms per call, calls, span ms per call) of a record_function
     range: the device time of the kernels launched inside it, and the
     device-side annotation's span from its first kernel to its last, idle
-    gaps included."""
-    busy, span = None, 0.0
-    for ev in prof.key_averages():
-        if ev.key != name or not ev.count:
-            continue
-        if ev.device_type == torch.autograd.DeviceType.CPU:
-            total = getattr(ev, "device_time_total", None)
-            if total is None:
-                total = ev.cuda_time_total
-            busy = (total / ev.count / 1e3, ev.count)
-        else:
-            span = ev.self_device_time_total / ev.count / 1e3
-    check(busy is not None and busy[0] > 0,
-          f"profiler gave no device time under {name}")
-    return busy + (span,)
+    gaps included. Read from `prof` where given, else from the profile that
+    run() returns, profiled anew up to `tries` times while the range shows
+    no device time."""
+    for _ in range(tries):
+        prof = prof or run()
+        busy, span = None, 0.0
+        for ev in prof.key_averages():
+            if ev.key != name or not ev.count:
+                continue
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                total = getattr(ev, "device_time_total", None)
+                if total is None:
+                    total = ev.cuda_time_total
+                busy = (total / ev.count / 1e3, ev.count)
+            else:
+                span = ev.self_device_time_total / ev.count / 1e3
+        if busy is not None and busy[0] > 0:
+            return busy + (span,)
+        prof = None
+    check(False, f"profiler gave no device time under {name}")
 
 
-def _track_run(tracker, feed, n, dt, inserts):
+def _track_run(tracker, feed, n, dt, inserts, timed_from=20):
     """Drive n frames through feed(i, ts); returns (states, frame ms of
-    frames 20.., seconds of frames 20.., KF inserts before frame 20)."""
+    frames timed_from.., their seconds, KF inserts before timed_from)."""
     states, frame_ms = [], []
     t_start = None
     for i in range(n):
-        if i == 20:
+        if i == timed_from:
             torch.cuda.synchronize()
             t_start = time.perf_counter()
             n_ins_20 = len(inserts)
         t0 = time.perf_counter()
         states.append(feed(i, i * dt)[0])
-        if i >= 20:
+        if i >= timed_from:
             frame_ms.append((time.perf_counter() - t0) * 1e3)
     tracker.flush()
     torch.cuda.synchronize()
@@ -1116,19 +1453,27 @@ def _ate(tracker, poses, dt):
             float(torch.linalg.norm(gt[-1] - gt[0])), len(est))
 
 
-def _ba_bound(p, n_iters):
-    """K4's least time for this problem: its active observations, poses and
-    points read once and written once; per LM iteration ~700 flops per
-    observation (residual, Jacobians, block products), 216 per pair of
-    observations of one point (the Schur fill), a (6K)^3 / 3 Cholesky."""
-    mask = p.obs_mask
-    n_obs = int(mask.sum())
+def _ba_bound(p):
+    """K4's least time for one assembly of this problem: every observation
+    (25 B), the two sorted orders (8 B per observation and 4 per segment
+    start), poses, points and lm_opt read once; Hpp, bp, the dense
+    (L, K, 6, 3) coupling, Hll, bl and the cost written once. Per active
+    observation ~120 flops for its residual, Jacobians and Huber weight
+    (taken in both the keyframe and the landmark pass) and per residual
+    row ~114 for its block products (Hpp 42, bp 12, coupling 36, Hll 18,
+    bl 6)."""
+    from morb_slam_tpu_torch.optim import ba
+    O = p.obs_uv.shape[0]
     K, L = p.R.shape[0], p.X.shape[0]
-    per_lm = torch.bincount(p.obs_lm[mask].long(), minlength=L).double()
-    pairs = float((per_lm * per_lm).sum())
-    nbytes = n_obs * 25 + 2 * (K * 48 + L * 12)
-    nops = n_iters * (n_obs * 700 + pairs * 216 + (6 * K) ** 3 / 3)
-    return bound(nbytes, nops), dict(obs=n_obs, kfs=K, points=L)
+    act = p.obs_mask
+    n_obs = int(act.sum())
+    n_st = int((act & torch.isfinite(p.obs_ur)).sum())
+    nbytes = (O * (25 + 8) + 4 * (K + L + 2) + K * 48 + L * 13
+              + K * (144 + 24) + L * K * 72 + L * 48 + 4)
+    nops = n_obs * 120 + (2 * n_obs + n_st) * 114
+    return bound(nbytes, nops), dict(obs=O, active_obs=n_obs, kfs=K,
+                                     points=L, ba_assemble_outputs=list(
+                                         ba.BlockSums._fields))
 
 
 def _path_profile(tracker, step, frames, name, out, table_path=None):
@@ -1136,11 +1481,9 @@ def _path_profile(tracker, step, frames, name, out, table_path=None):
     the hand-written kernels), busy share, implicit host syncs and their
     sites per frame; the op table goes to table_path if given."""
     import warnings
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as syncs, \
-            profile(activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA]) as prof:
+            profiled(cpu=True) as prof:
         warnings.simplefilter("always")
         t0 = time.perf_counter()
         for i in frames:
@@ -1186,8 +1529,6 @@ def _path_profile(tracker, step, frames, name, out, table_path=None):
 def phase_stereo(state):
     from morb_slam_tpu_torch import system
     from morb_slam_tpu_torch.ops import image
-    from morb_slam_tpu_torch.optim import ba
-    from morb_slam_tpu_torch.pipeline import local_mapping
     _, poses = _world(state)
     rig = _rig(state)
     pairs = [_raw_pair(state, *poses[i]) for i in range(N_FRAMES + 5)]
@@ -1204,12 +1545,12 @@ def phase_stereo(state):
         return sysm.track_stereo(pairs[i][0], pairs[i][1], ts)
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
-    with _CountPlain() as plain_calls:
+    with _CountCalls() as calls:
         states, fm, secs, _ = _track_run(tracker, feed, N_FRAMES, dt,
                                          inserts)
     launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
-                               "pose_opt", "stereo_sad", "remap_bilinear"],
-                              "stereo", state)
+                               "pose_opt", "stereo_sad", "remap_bilinear",
+                               "ba_assemble"], "stereo", state)
     check(launches["remap_bilinear"] == N_FRAMES,
           ("K8 once per pair", launches["remap_bilinear"]))
     check(launches["stereo_sad"] >= N_FRAMES,
@@ -1235,8 +1576,9 @@ def phase_stereo(state):
         extent_m=extent, landmarks=int(tracker.m.lm_valid.sum()),
         peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         launches_per_frame={k: v / N_FRAMES for k, v in launches.items()},
-        plain_calls_per_frame={k: v / N_FRAMES
-                               for k, v in plain_calls.counts.items()})
+        local_ba_per_frame=calls.counts["ba_solve"] / N_FRAMES,
+        plain_calls_per_frame={k: calls.counts[k] / N_FRAMES
+                               for k in ("build_pyramid", "gaussian_blur")})
 
     table = state.get("profile_out")
     prof = _path_profile(tracker, lambda i: feed(i, i * dt),
@@ -1244,53 +1586,43 @@ def phase_stereo(state):
                          table and table.replace(".txt", "") + "_stereo.txt")
     # K5 on the path: the kernel's own device time per launch (the
     # profiler does not tie a ctypes launch to the CPU side of its range)
+    # (the launch counts above show that it ran)
     k5 = [ev for ev in prof.key_averages() if "pose_opt_kernel" in ev.key]
-    check(k5 and k5[0].count, "profiler saw no pose_opt_kernel on the path")
     out["pose_opt_on_path"] = dict(
         device_ms_per_call=k5[0].self_device_time_total / k5[0].count / 1e3,
-        calls_profiled=k5[0].count)
+        calls_profiled=k5[0].count) if k5 and k5[0].count else None
     log("stereo path:", json.dumps(out))
     state["stereo"] = out
 
-    # the plain K4 and K6 rows: device time per call under their profiler
-    # ranges, event time per call, bounds from this run's shapes
-    k6p_ms, _, k6p_span = range_device_ms(prof, "K6 build_pyramid")
-    k6b_ms, _, k6b_span = range_device_ms(prof, "K6 gaussian_blur")
-    check("ba_solve" in plain_calls.last_args,
-          "no local BA ran on the stereo path")
-    p = plain_calls.last_args["ba_solve"][0][0]
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof4:
-        for _ in range(3):
-            ba.ba_solve(p, n_iters=local_mapping.BA_ITERS)
-        torch.cuda.synchronize()
-    k4_ms, _, k4_span = range_device_ms(prof4, "K4 ba_solve")
-    (b4, by4), k4_shape = _ba_bound(p, local_mapping.BA_ITERS)
+    check("ba_solve" in calls.last_args, "no local BA ran on the stereo path")
+    _k4_kernel(state, calls.last_args["ba_solve"][0][0],
+               out["launches_per_frame"]["ba_assemble"])
+
+    # the plain K6 row: device time per call under its profiler ranges,
+    # event time per call, the bound from this run's shapes
+    img0 = pairs[0][0].float()
+
+    def k6():
+        for lvl in image.build_pyramid(img0, 8, 1.2):
+            image.gaussian_blur(lvl)
+
+    def k6_profile():
+        with profiled(cpu=True) as p6:
+            k6()
+        return p6
+    k6p_ms, _, k6p_span = range_device_ms("K6 build_pyramid", k6_profile,
+                                          prof)
+    k6b_ms, _, k6b_span = range_device_ms("K6 gaussian_blur", k6_profile,
+                                          prof)
     # K6 per image: the level-0 image in, levels 1-7 and 8 blurred levels
     # out; ~12 flops per resized and 28 per blurred pixel
     shapes = image.level_shapes(H, W, 8, 1.2)
     npx = [h * w for h, w in shapes]
     b6, by6 = bound(4 * (npx[0] + sum(npx[1:]) + sum(npx)),
                     12 * sum(npx[1:]) + 28 * sum(npx))
-    img0 = pairs[0][0].float()
-
-    def k6():
-        for lvl in image.build_pyramid(img0, 8, 1.2):
-            image.gaussian_blur(lvl)
     k6_call = time_ms(k6, reps=10)
     per_frame = out["plain_calls_per_frame"]
     state["plain_rows"] = [
-        dict(name="ba_solve (K4)", route="plain",
-             source="morb_slam_tpu_torch/optim/ba.py",
-             replaces="morb_slam_tpu/optim/ba.py:125", ms=k4_ms,
-             span_ms=k4_span,
-             plain_ms=time_ms(lambda: ba.ba_solve(
-                 p, n_iters=local_mapping.BA_ITERS), reps=3, inner=2),
-             bound_ms=b4, bound_by=by4, library_ms=None,
-             launches=plain_calls.counts["ba_solve"],
-             launches_per_frame=per_frame["ba_solve"], max_abs_err=None,
-             shape=f"one local BA of this run, {k4_shape}"),
         dict(name="build_pyramid + gaussian_blur (K6)", route="plain",
              source="morb_slam_tpu_torch/ops/image.py",
              replaces="morb_slam_tpu/ops/image.py:33",
@@ -1298,14 +1630,101 @@ def phase_stereo(state):
              pyramid_ms=k6p_ms,
              blur_ms_per_level=k6b_ms, plain_ms=k6_call,
              bound_ms=b6, bound_by=by6, library_ms=None,
-             launches=plain_calls.counts["build_pyramid"],
+             launches=calls.counts["build_pyramid"],
              launches_per_frame=per_frame["build_pyramid"], max_abs_err=None,
-             shape="one 752x480 image, 8 levels")]
-    for r in state["plain_rows"]:
+             shape="one 752x480 image, 8 levels (stereo path)")]
+    _log_plain_rows(state["plain_rows"])
+
+
+def _log_plain_rows(rows):
+    for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms device per call over a "
             f"{r['span_ms']:.3f} ms span, bound "
             f"{r['bound_ms']:.6f} ms by {r['bound_by']}, "
             f"{r['launches_per_frame']:.2f} calls per frame")
+
+
+def _k4_kernel(state, p, per_frame):
+    """K4 on a local BA problem of the stereo path: the blocks in both
+    tangent modes within 1e-4 of the plain assembly relative to each block
+    tensor's max-abs, two launches bitwise equal, and the LM loop over K4
+    against the loop over the plain assembly: the same accept sequence, R
+    within 1e-5, t within 1e-4, the final cost within 1e-3 relative, and
+    the landmarks within 1e-2 chi2 units (dX^T Hll dX at the plain
+    solution).
+    A landmark seen once, or from nearby keyframes, is barely constrained
+    in depth: float32 rounding of its blocks moves it by ~1e-3 m, and
+    moves the plain loop as far when its sums run in float64 (PERF.md)."""
+    from morb_slam_tpu_torch.optim import ba
+    from morb_slam_tpu_torch.pipeline import local_mapping
+    order = ba.obs_order(p)
+    err = 0.0
+    for body in (False, True):
+        got = ba.assemble(p, p.R, p.t, p.X, order, body=body)
+        want = ba.assemble_plain(p, p.R, p.t, p.X, body=body)
+        rel = {}
+        for name, a, b in zip(ba.BlockSums._fields, got, want):
+            rel[name] = float((a - b).abs().max()) / max(
+                float(b.abs().max()), 1e-30)
+        again = ba.assemble(p, p.R, p.t, p.X, order, body=body)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"K4 ba_assemble ({'body' if body else 'camera'} tangent): "
+            f"blocks within {max(rel.values()):.2e} of plain relative to "
+            f"their max-abs ({', '.join(f'{k} {v:.1e}' for k, v in rel.items())}"
+            f"); two launches bitwise equal: {same}")
+        check(max(rel.values()) <= 1e-4 and same, ("K4 blocks", body, rel,
+                                                   same))
+        err = max(err, max(rel.values()))
+    n_it = local_mapping.BA_ITERS
+    got = ba.ba_solve(p, n_iters=n_it)
+    orig = ba.assemble
+    ba.assemble = lambda p_, R, t, X, order=None, body=False: \
+        ba.assemble_plain(p_, R, t, X, body)
+    try:
+        want = ba.ba_solve(p, n_iters=n_it)
+        plain_solve_ms = device_ms(lambda: ba.ba_solve(p, n_iters=n_it), None,
+                                   reps=3)
+    finally:
+        ba.assemble = orig
+    Hll = ba.assemble_plain(p, *want[:3]).Hll
+
+    def diffs(sol):
+        dX = sol[2] - want[2]
+        return (float((sol[0] - want[0]).abs().max()),
+                float((sol[1] - want[1]).abs().max()),
+                float(dX.abs().max()),
+                float(torch.einsum('li,lij,lj->l', dX, Hll, dX).max()),
+                float((sol[3]["costs"][-1] - want[3]["costs"][-1]).abs()
+                      / want[3]["costs"][-1].abs()))
+    e_R, e_t, e_X, e_Xh, e_c = diffs(got)
+    acc_g, acc_w = got[3]["accepted"].tolist(), want[3]["accepted"].tolist()
+    log(f"K4 ba_solve ({n_it} LM iterations over K4 vs the plain assembly): "
+        f"R within {e_R:.2e}, t within {e_t:.2e}, X within {e_X:.2e} m and "
+        f"{e_Xh:.2e} chi2 units, final cost within {e_c:.2e} relative, accepts "
+        f"{acc_g} vs {acc_w}")
+    check(e_R <= 1e-5 and e_t <= 1e-4 and e_Xh <= 1e-2 and e_c <= 1e-3
+          and acc_g == acc_w, ("K4 ba_solve", e_R, e_t, e_X, e_Xh, e_c,
+                               acc_g, acc_w))
+    (b4, by4), shape = _ba_bound(p)
+    call = lambda: ba.assemble(p, p.R, p.t, p.X, order)
+    state["kernel_rows"].append(dict(
+        name="ba_assemble", route="cuda",
+        source="morb_slam_tpu_torch/csrc/ba_assemble.cu",
+        replaces="morb_slam_tpu/optim/ba.py:125", max_abs_err=err,
+        max_abs_err_is="relative to each block tensor's max-abs",
+        ms=device_ms(call, "ba_assemble_kernel"), call_ms=time_ms(call),
+        plain_ms=time_ms(lambda: ba.assemble_plain(p, p.R, p.t, p.X),
+                         reps=5, inner=2),
+        bound_ms=b4, bound_by=by4, library_ms=None,
+        ba_solve_device_ms=device_ms(lambda: ba.ba_solve(p, n_iters=n_it),
+                                     None, reps=3),
+        ba_solve_plain_assembly_device_ms=plain_solve_ms,
+        ba_solve_vs_plain=dict(R=e_R, t=e_t, X_m=e_X, X_chi2=e_Xh,
+                               cost_rel=e_c),
+        ba_solve_ms=time_ms(lambda: ba.ba_solve(p, n_iters=n_it), reps=3,
+                            inner=2),
+        stereo_launches_per_frame=per_frame,
+        shape=f"one local BA problem of the stereo path, {shape}"))
 
 
 def phase_rgbd(state):
@@ -1337,7 +1756,8 @@ def phase_rgbd(state):
         lambda i, ts: sysm.track_rgbd(frames[i][0], frames[i][1], ts),
         N_RGBD, dt, inserts)
     launches = _read_counters(["fast_select", "orb_describe",
-                               "hamming_top2", "pose_opt"], "rgbd", state)
+                               "hamming_top2", "pose_opt", "ba_assemble"],
+                              "rgbd", state)
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
     n_ok = sum(s == "OK" for s in states)
     ate, scale, ate_se3, extent, n_traj = _ate(sysm.tracker, poses, dt)
@@ -1434,8 +1854,8 @@ def phase_reloc(state):
     finally:
         tracking.kfdb.top_candidates = orig_top
     launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
-                               "pose_opt", "vocab_transform", "bow_l1"],
-                              "reloc", state)
+                               "pose_opt", "vocab_transform", "bow_l1",
+                               "ba_assemble"], "reloc", state)
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
     n_map = N_MAP + N_BLANK
     check("RECENTLY_LOST" in states[N_MAP:n_map], "never lost in the blank")
@@ -1512,17 +1932,264 @@ def phase_reloc(state):
     state["reloc"] = out
 
 
+def _vi_batches(seed, n_all):
+    """Each frame's IMU samples since the previous frame, with the noise of
+    `seed`, rotated from camera into body axes (a_b = R_bc a_c; zero lever
+    arm)."""
+    rng = np.random.default_rng(seed)
+    R_bc = R_B_C0.astype(np.float32)
+    batches = []
+    for i in range(n_all):
+        ts_i, acc, gyr = imu_between((i - 1) * VI_DT, i * VI_DT, rng=rng,
+                                     **_imu_noise())
+        batches.append((ts_i, acc @ R_bc.T, gyr @ R_bc.T))
+    return batches
+
+
+def _vi_system(state):
+    import dataclasses
+    from morb_slam_tpu_torch import system
+    from morb_slam_tpu_torch.io import config
+    T_b_c1 = np.eye(4)
+    T_b_c1[:3, :3] = R_B_C0
+    settings = dataclasses.replace(
+        _rig(state)["settings"], sensor="stereo-inertial",
+        imu=config.ImuSettings(**IMU_NOISE, T_b_c1=T_b_c1))
+    return system.System(settings, system.Sensor.IMU_STEREO,
+                         tracker_overrides=dict(max_kf=256, max_lm=16384))
+
+
+def vi_seed_sweep(state, seeds):
+    """The vi path's 120 frames once per IMU noise seed (the routine run
+    uses seed 7): frames OK, the IMU-init stage reached, SE3 and Sim3 ATE
+    and the Sim3 scale of each; no gate, one JSON line."""
+    gt = [analytic_pose(i * VI_DT) for i in range(N_VI)]
+    pairs = [_raw_pair(state, *p) for p in gt]
+    out = []
+    for seed in seeds:
+        batches = _vi_batches(seed, N_VI)
+        sysm = _vi_system(state)
+        t0 = time.perf_counter()
+        states = [sysm.track_stereo(pairs[i][0], pairs[i][1], i * VI_DT,
+                                    imu_batch=batches[i])[0]
+                  for i in range(N_VI)]
+        tr = sysm.tracker
+        tr.flush()
+        ate, scale, ate_se3, extent, _ = _ate(tr, gt, VI_DT)
+        out.append(dict(seed=seed, frames_ok=sum(s == "OK" for s in states),
+                        imu_ready=tr.imu_ready, viba_stage=tr.viba_stage,
+                        ate_se3_m=ate_se3, ate_sim3_m=ate, sim3_scale=scale,
+                        extent_m=extent, gate_se3_m=0.04 * extent,
+                        s=time.perf_counter() - t0))
+        log(f"vi seed {seed}:", json.dumps(out[-1]))
+    log(json.dumps({"vi_seed_sweep": out}))
+
+
+def phase_vi(state):
+    from morb_slam_tpu_torch.optim import ba, inertial, vi_ba
+    from morb_slam_tpu_torch.pipeline import local_mapping
+    n_all = N_VI + 5
+    t0 = time.perf_counter()
+    gt = [analytic_pose(i * VI_DT) for i in range(n_all)]
+    pairs = [_raw_pair(state, *p) for p in gt]
+    batches = _vi_batches(7, n_all)
+    torch.cuda.synchronize()
+    log(f"vi: {n_all} raw pairs rendered on the card and "
+        f"{sum(len(b[0]) for b in batches)} IMU samples made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sysm = _vi_system(state)
+    tracker = sysm.tracker
+    check(tracker.calib is not None and tracker.cfg.inertial,
+          "the System built no IMU calibration")
+    inserts = _timed_inserts(tracker)
+    # every IMU-initialization attempt that was due: time, stage, outcome
+    stages = []
+    orig_init = tracker._maybe_init_imu
+
+    def init_stage(ts):
+        st = tracker.viba_stage
+        due = (tracker.ts_first_kf is not None
+               and st < len(tracker.IMU_STAGES)
+               and ts - tracker.ts_first_kf >= tracker.IMU_STAGES[st][0])
+        if not due:
+            return orig_init(ts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = orig_init(ts)
+        torch.cuda.synchronize()
+        stages.append(dict(ts=ts, stage=st, fired=tracker.viba_stage > st,
+                           ms=(time.perf_counter() - t1) * 1e3))
+        return r
+    tracker._maybe_init_imu = init_stage
+
+    def feed(i, ts):
+        return sysm.track_stereo(pairs[i][0], pairs[i][1], ts,
+                                 imu_batch=batches[i])
+    targets = [(local_mapping, "mapping_step"),
+               (local_mapping, "mapping_step_inertial"),
+               (local_mapping, "full_inertial_ba"), (vi_ba, "vi_ba_solve"),
+               (inertial, "inertial_only_optimize"), (ba, "ba_solve")]
+    timed = ("mapping_step", "mapping_step_inertial", "full_inertial_ba",
+             "inertial_only_optimize")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    with _CountCalls(targets, timed) as calls:
+        states, fm, secs, _ = _track_run(tracker, feed, N_VI, VI_DT, inserts,
+                                         timed_from=VI_TIMED)
+    launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
+                               "pose_opt", "stereo_sad", "remap_bilinear",
+                               "ba_assemble", "preintegrate",
+                               "pose_inertial"], "vi", state)
+    log("states:", "".join("O" if s == "OK" else s[0] for s in states))
+    fired = [s for s in stages if s["fired"]]
+    log(f"vi: IMU-init stages fired {[(s['stage'], s['ts']) for s in fired]}"
+        f" of {len(stages)} due attempts; imu_ready {tracker.imu_ready}, "
+        f"viba_stage {tracker.viba_stage}")
+    n_ok = sum(s == "OK" for s in states)
+    ate, scale, ate_se3, extent, n_traj = _ate(tracker, gt, VI_DT)
+    log(f"vi trajectory: {n_traj} poses, SE3 ATE {ate_se3:.4f} m (gate "
+        f"{0.04 * extent:.4f}), Sim3 ATE {ate:.4f} m, scale {scale:.4f}, "
+        f"over {extent:.3f} m")
+    check(n_ok > 0.85 * N_VI, f"vi: only {n_ok} of {N_VI} OK")
+    check(tracker.imu_ready and tracker.viba_stage >= 2,
+          ("vi: IMU init", tracker.imu_ready, tracker.viba_stage))
+    check(abs(scale - 1.0) < 0.06, ("vi scale", scale))
+    check(ate_se3 < 0.04 * extent, ("vi SE3 ATE", ate_se3, extent))
+
+    def mean(x):
+        return float(np.mean(x)) if x else None
+    out = dict(
+        fps=(N_VI - VI_TIMED) / secs, timed_frames=[VI_TIMED, N_VI - 1],
+        frame_ms_p50=float(np.percentile(fm, 50)),
+        frame_ms_p90=float(np.percentile(fm, 90)),
+        frames_ok=n_ok, imu_ready=tracker.imu_ready,
+        viba_stage=tracker.viba_stage, imu_init_stages=fired,
+        imu_init_attempts=len(stages),
+        inertial_only_optimize_ms=calls.ms["inertial_only_optimize"],
+        full_inertial_ba_ms=calls.ms["full_inertial_ba"],
+        kf_inserts=len(inserts), kf_insert_ms_each=mean(inserts),
+        mapping_step_visual_ms=calls.ms["mapping_step"],
+        mapping_step_inertial_ms=calls.ms["mapping_step_inertial"],
+        mapping_step_visual_ms_mean=mean(calls.ms["mapping_step"]),
+        mapping_step_inertial_ms_mean=mean(calls.ms["mapping_step_inertial"]),
+        local_ba_calls=calls.counts["ba_solve"],
+        vi_ba_solve_calls=calls.counts["vi_ba_solve"],
+        ate_se3_m=ate_se3, ate_sim3_m=ate, sim3_scale=scale,
+        extent_m=extent, landmarks=int(tracker.m.lm_valid.sum()),
+        peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches_per_frame={k: v / N_VI for k, v in launches.items()})
+    log(f"vi: K11 {launches['preintegrate'] / N_VI:.2f} and K12 "
+        f"{launches['pose_inertial'] / N_VI:.2f} launches per frame")
+    table = state.get("profile_out")
+    prof = _path_profile(tracker, lambda i: feed(i, i * VI_DT),
+                         range(N_VI, n_all), "vi", out,
+                         table and table.replace(".txt", "") + "_vi.txt")
+    for name in ("pose_inertial", "preintegrate", "ba_assemble"):
+        ev = [e for e in prof.key_averages() if f"{name}_kernel" in e.key]
+        if ev and ev[0].count:
+            out[f"{name}_on_path"] = dict(
+                device_ms_per_call=ev[0].self_device_time_total
+                / ev[0].count / 1e3, calls_profiled=ev[0].count)
+    log("vi path:", json.dumps(out))
+    state["vi"] = out
+    state["plain_rows"] += _vi_plain_rows(calls)
+    _log_plain_rows(state["plain_rows"][-2:])
+
+
+def _vi_plain_rows(calls):
+    """The plain K13 range and inertial_only_optimize on the vi path's last
+    problems: device time per call under their profiler ranges, the event
+    time of the call that holds them, bounds from these problems' shapes,
+    calls per frame."""
+    from morb_slam_tpu_torch.optim import inertial, vi_ba
+    check(calls.counts["vi_ba_solve"] and
+          calls.counts["inertial_only_optimize"],
+          "no inertial BA or IMU initialization on the vi path")
+
+    (pv,), kw = calls.last_args["vi_ba_solve"]
+
+    def k13_profile():
+        with profiled(cpu=True) as prof:
+            for _ in range(2):
+                vi_ba.vi_ba_solve(pv, **kw)
+        return prof
+    k13_ms, _, k13_span = range_device_ms("K13 vi_ba edges", k13_profile)
+    Wn = pv.R_wb.shape[0]
+    # per edge its two states and constants in (~800 B), the dense (15W)^2
+    # Hessian and its right side out; per edge ~45 kflop of forward-mode
+    # Jacobian (30 tangents through the 9-dof residual) and ~21 kflop of
+    # J^T Omega J
+    b13, by13 = bound(Wn * 800 + (15 * Wn) ** 2 * 4 + 15 * Wn * 4,
+                      Wn * 66e3)
+    k13_calls = sum(k.get("n_iters", 8) for k in calls.kwargs["vi_ba_solve"])
+
+    a, kw_io = calls.last_args["inertial_only_optimize"]
+
+    def io_profile():
+        with profiled(cpu=True) as prof:
+            inertial.inertial_only_optimize(*a, **kw_io)
+        return prof
+    io_ms, _, io_span = range_device_ms("inertial_only_optimize", io_profile)
+    ki, kf_valid = a[0], a[3]
+    prev = torch.clamp(ki.prev, min=0).long()
+    n_e = int((ki.valid & kf_valid & kf_valid[prev]).sum())
+    n_par = 9 + 3 * (n_e + 1)
+    it = kw_io.get("n_iters", 30)
+    K = ki.valid.shape[0]
+    # the preintegration store (~162 floats per keyframe slot) and the
+    # poses in; per iteration and used edge ~60 flops per residual row and
+    # tangent, the normal equations over the used parameters and their
+    # solve
+    b_io, by_io = bound(K * (162 + 12) * 4,
+                        it * (n_par * n_e * 9 * 60 + n_e * 9 * n_par ** 2 * 2
+                              + n_par ** 3 / 3))
+    return [
+        dict(name="vi_ba edges (K13)", route="plain",
+             source="morb_slam_tpu_torch/optim/vi_ba.py",
+             replaces="morb_slam_tpu/optim/vi_ba.py:247", ms=k13_ms,
+             span_ms=k13_span,
+             plain_ms=time_ms(lambda: vi_ba.vi_ba_solve(pv, **kw), reps=3,
+                              inner=1, warmup=1),
+             plain_ms_is="one whole vi_ba_solve of this problem",
+             bound_ms=b13, bound_by=by13, library_ms=None,
+             launches=k13_calls, launches_per_frame=k13_calls / N_VI,
+             max_abs_err=None,
+             shape=f"one LM step's inertial part, W = {Wn} window slots "
+                   f"({int(pv.e_valid.sum())} valid edges), "
+                   f"{kw.get('n_iters')} iterations per solve"),
+        dict(name="inertial_only_optimize", route="plain",
+             source="morb_slam_tpu_torch/optim/inertial.py",
+             replaces="morb_slam_tpu/optim/inertial.py:304", ms=io_ms,
+             span_ms=io_span,
+             plain_ms=time_ms(lambda: inertial.inertial_only_optimize(
+                 *a, **kw_io), reps=2, inner=1, warmup=1),
+             bound_ms=b_io, bound_by=by_io, library_ms=None,
+             launches=calls.counts["inertial_only_optimize"],
+             launches_per_frame=calls.counts["inertial_only_optimize"]
+             / N_VI, max_abs_err=None,
+             shape=f"{K} keyframe slots, {n_e} edges used, {it} "
+                   f"iterations")]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile-out", default=None,
                     help="write the main path's profiler op table here")
+    ap.add_argument("--vi-seeds", default=None,
+                    help="comma-separated IMU noise seeds: run only the vi "
+                         "path once per seed and print its accuracy")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     state = {"profile_out": args.profile_out}
+    if args.vi_seeds:
+        phase_device(state)
+        vi_seed_sweep(state, [int(x) for x in args.vi_seeds.split(",")])
+        return
     for name, phase in (("device", phase_device), ("kernels", phase_kernels),
                         ("main", phase_main), ("stereo", phase_stereo),
-                        ("rgbd", phase_rgbd), ("reloc", phase_reloc)):
+                        ("rgbd", phase_rgbd), ("reloc", phase_reloc),
+                        ("vi", phase_vi)):
         t0 = time.perf_counter()
         log(f"== phase {name}")
         phase(state)
@@ -1530,17 +2197,18 @@ def main():
     rows = state["kernel_rows"]
     by_path = state["launches_by_path"]
     for r in rows:
-        # the count of this slice's path (reloc) for the kernels it runs,
-        # else of the stereo path, which runs the other two
-        r["launches"] = by_path["reloc"].get(r["name"],
-                                             by_path["stereo"].get(r["name"]))
+        # the count of this slice's path (vi) for the kernels it runs, else
+        # of the reloc path, which runs the other two
+        r["launches"] = next(by_path[p][r["name"]] for p in ("vi", "reloc")
+                             if r["name"] in by_path[p])
         r["launches_by_path"] = {p: c.get(r["name"], 0)
                                  for p, c in by_path.items()}
+        r["ms_by"] = ("cuda events" if f"{r['name']}_kernel" in EVENT_TIMED
+                      else "profiler")
     log(json.dumps({"plain_kernel_targets": state["plain_rows"]}))
-    log(json.dumps({"main_path": state["main"]}))
-    log(json.dumps({"stereo_path": state["stereo"]}))
-    log(json.dumps({"rgbd_path": state["rgbd"]}))
-    log(json.dumps({"reloc_path": state["reloc"]}))
+    for name in ("main", "stereo", "rgbd", "reloc", "vi"):
+        key = "main_path" if name == "main" else f"{name}_path"
+        log(json.dumps({key: state[name]}))
     log(json.dumps({"kernels": rows}))
     log(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

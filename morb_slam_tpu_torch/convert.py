@@ -9,7 +9,10 @@ FrameData and Features, `camera_from_numpy` for camera parameters,
 the settings dataclasses (as `dataclasses.asdict` gives them),
 `vocab_from_numpy` / `vocab_to_numpy` for vocabularies (a dict of centers,
 weights and k, as `voc._asdict()` gives it) and `database_from_numpy` for
-the keyframe database.
+the keyframe database; `imu_from_numpy` / `imu_to_numpy` for the
+inertial state types (ImuCalib, Preintegrated, KfImu, VIBAProblem,
+PoseInertialResult: pass the type) and `tracker_imu_state` for a tracker's
+bias, velocity and KfImu store.
 Descriptors cross as the bit-identical int32 view of uint32 words; every
 float array becomes float32.
 """
@@ -18,10 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import cameras
+from . import cameras, imu
 from .frontend import Features
 from .io import config
 from .mapstate.state import MapState
+from .optim import inertial, vi_ba
 from .ops.rectify import RectifyMaps
 from .pipeline.tracking import FrameData
 from .vocab import tree
@@ -114,3 +118,35 @@ def vocab_to_numpy(voc: tree.Vocabulary):
 
 def database_from_numpy(d, device="cpu") -> KeyframeDatabase:
     return _from(KeyframeDatabase, d, device)
+
+
+IMU_TYPES = {"ImuCalib": imu.ImuCalib, "Preintegrated": imu.Preintegrated,
+             "KfImu": inertial.KfImu, "VIBAProblem": vi_ba.VIBAProblem,
+             "PoseInertialResult": vi_ba.PoseInertialResult}
+
+
+def imu_from_numpy(cls, d, device="cpu"):
+    """An inertial state type (a class of IMU_TYPES, or its name) from a
+    dict of numpy arrays keyed by field name (as `x._asdict()` of the
+    reference package's NamedTuple gives it). Booleans stay bool."""
+    cls = IMU_TYPES.get(cls, cls)
+    out = {}
+    for k in cls._fields:
+        a = np.asarray(d[k])
+        out[k] = torch.from_numpy(np.array(a, order="C")).to(device) \
+            if a.dtype == np.bool_ else _to_tensor(a, device)
+    return cls(**out)
+
+
+def imu_to_numpy(x):
+    return _to_numpy(x._asdict())
+
+
+def tracker_imu_state(tr):
+    """A tracker's inertial state as numpy: bias (6,), v_cur (3,) and the
+    KfImu store's fields."""
+    out = {"bias": tr.bias.detach().cpu().numpy(),
+           "v_cur": tr.v_cur.detach().cpu().numpy()}
+    if tr.kf_imu is not None:
+        out["kf_imu"] = imu_to_numpy(tr.kf_imu)
+    return out

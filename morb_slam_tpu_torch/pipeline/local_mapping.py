@@ -1,8 +1,10 @@
-"""Per-keyframe mapping, monocular: triangulation against covisible
-neighbours, fusion, landmark culling, local bundle adjustment and keyframe
-culling (counterpart of the visual part of
+"""Per-keyframe mapping: triangulation against covisible neighbours,
+fusion, landmark culling, local bundle adjustment and keyframe culling, and
+for an IMU-initialized map the visual-inertial variants (local and full
+inertial BA over the temporal keyframe chain, keyframe culling that merges
+the preintegration chain) (counterpart of
 `morb_slam_tpu/pipeline/local_mapping.py`). Every stage is a functional
-update of MapState.
+update of MapState (and of the KfImu store).
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import torch
 
 from .. import cameras, lie, matching
 from ..mapstate import state as ms
-from ..optim import ba
+from ..optim import ba, vi_ba
+from ..optim import inertial as inertial_mod
 from ..solvers import triangulation
 from ..tensor_ops import mask_first, put, put2, topk
 
@@ -358,3 +361,218 @@ def mapping_step(m: ms.MapState, kf_id: int, cam: cameras.Camera,
     if not cfg.inertial:
         m = cull_keyframes(m, kf_id, win=win)
     return ms.update_landmark_stats_window(m, win[0], win[1])
+
+
+# ---------------------------------------------------------------------------
+# visual-inertial mapping
+# ---------------------------------------------------------------------------
+
+def _vi_window_problem(m: ms.MapState, ki: inertial_mod.KfImu, win_idx,
+                       win_ok, opt_pose, opt_vb, cfg: LocalMapConfig,
+                       prior_bias_info, n_local_lm: int):
+    """Gather a VIBAProblem over window keyframes `win_idx` (W,) from the
+    map and the preintegration store. Returns (problem, lm_sel, lm_sel_ok,
+    obs_ok)."""
+    K, F = m.kf_feat_lm.shape
+    L = m.lm_valid.shape[0]
+    W = win_idx.shape[0]
+    dev = m.kf_t.device
+    i32 = torch.int32
+    slot_lm = torch.where(m.kf_feat_lm >= 0, m.kf_feat_lm,
+                          torch.full_like(m.kf_feat_lm, L)).long()
+    win_slots = torch.where(win_ok[:, None], slot_lm[win_idx],
+                            torch.full_like(slot_lm[win_idx], L))
+    lm_in = torch.zeros(L + 1, dtype=torch.bool, device=dev)
+    lm_in[win_slots.reshape(-1)] = True
+    lm_in = lm_in[:L] & m.lm_valid
+    n_local = min(n_local_lm, L)
+    lm_sel = mask_first(lm_in, n_local)
+    lm_sel_ok = lm_in[lm_sel]
+    g2l_lm = put(torch.full((L + 1,), -1, dtype=i32, device=dev), lm_sel,
+                 torch.where(lm_sel_ok, torch.arange(n_local, dtype=i32,
+                                                     device=dev),
+                             torch.full((n_local,), -1, dtype=i32,
+                                        device=dev)))
+    obs_lm_local = g2l_lm[win_slots]
+    obs_ok = (obs_lm_local >= 0) & m.kf_feat_valid[win_idx] & win_ok[:, None]
+    inv_sig2 = cfg.sigma2_inv(dev)[torch.clamp(m.kf_feat_octave[win_idx], 0,
+                                               cfg.n_levels - 1).long()]
+    info = (cfg.focal ** 2) * inv_sig2
+    R_wb, p_wb = lie.se3_inv(m.kf_R[win_idx], m.kf_t[win_idx])
+    # inertial edge at window slot w: g2l[prev[kf_w]] -> w
+    ar_w = torch.arange(W, dtype=i32, device=dev)
+    g2l_kf = put(torch.full((K + 1,), -1, dtype=i32, device=dev),
+                 torch.where(win_ok, win_idx, torch.full_like(win_idx, K)),
+                 torch.where(win_ok, ar_w, torch.full_like(ar_w, -1)))
+    kf_prev = ki.prev[win_idx].long()
+    e_prev_l = g2l_kf[torch.where(kf_prev >= 0, torch.clamp(kf_prev, 0, K - 1),
+                                  torch.full_like(kf_prev, K))]
+    e_valid = ki.valid[win_idx] & win_ok & (e_prev_l >= 0)
+    e_prev_l = torch.where(e_valid, e_prev_l, torch.zeros_like(e_prev_l))
+    prob = vi_ba.VIBAProblem(
+        R_wb=R_wb, p_wb=p_wb, v=m.kf_v[win_idx], bias=m.kf_bias[win_idx],
+        fix_pose=~opt_pose, fix_vb=~opt_vb,
+        X=m.lm_pos[lm_sel], lm_opt=lm_sel_ok,
+        obs_kf=ar_w[:, None].expand(W, F).reshape(-1),
+        obs_lm=torch.clamp(obs_lm_local, min=0).reshape(-1),
+        obs_uv=m.kf_feat_xn[win_idx].reshape(W * F, 2),
+        obs_ur=m.kf_feat_ur[win_idx].reshape(-1),
+        obs_info=info.reshape(-1), obs_mask=obs_ok.reshape(-1),
+        baseline=torch.full((), cfg.baseline, dtype=torch.float32,
+                            device=dev),
+        e_valid=e_valid, e_prev=e_prev_l,
+        e_dt=ki.dt[win_idx], e_dR=ki.dR[win_idx], e_dV=ki.dV[win_idx],
+        e_dP=ki.dP[win_idx], e_JRg=ki.J_Rg[win_idx],
+        e_JVg=ki.J_Vg[win_idx], e_JVa=ki.J_Va[win_idx],
+        e_JPg=ki.J_Pg[win_idx], e_JPa=ki.J_Pa[win_idx],
+        e_info=vi_ba.floor_info(ki.info[win_idx]),
+        e_bias0=ki.bias0[win_idx], e_rw_info=ki.rw_info[win_idx],
+        prior_bias_info=prior_bias_info.expand(W, 6))
+    return prob, lm_sel, lm_sel_ok, obs_ok
+
+
+def _vi_write_back(m: ms.MapState, prob, win_idx, win_ok, opt_pose, opt_vb,
+                   R_wb, p_wb, v, bias, X, lm_sel, lm_sel_ok, obs_ok):
+    W, F = obs_ok.shape
+    R_cw, t_cw = lie.se3_inv(R_wb, p_wb)
+    wp = (opt_pose & win_ok)
+    wv = (opt_vb & win_ok)
+    m = m._replace(
+        kf_R=put(m.kf_R, win_idx, torch.where(wp[:, None, None], R_cw,
+                                              m.kf_R[win_idx])),
+        kf_t=put(m.kf_t, win_idx, torch.where(wp[:, None], t_cw,
+                                              m.kf_t[win_idx])),
+        kf_v=put(m.kf_v, win_idx, torch.where(wv[:, None], v,
+                                              m.kf_v[win_idx])),
+        kf_bias=put(m.kf_bias, win_idx, torch.where(wv[:, None], bias,
+                                                    m.kf_bias[win_idx])),
+        lm_pos=put(m.lm_pos, lm_sel, torch.where(lm_sel_ok[:, None], X,
+                                                 m.lm_pos[lm_sel])))
+    keep = vi_ba.classify_outliers(prob, R_wb, p_wb, X).reshape(W, F)
+    drop = (~keep) & obs_ok
+    old = m.kf_feat_lm[win_idx]
+    new_feat_lm = torch.where(drop, torch.full_like(old, -1), old)
+    return m._replace(kf_feat_lm=put(
+        m.kf_feat_lm, win_idx, torch.where(win_ok[:, None], new_feat_lm, old)))
+
+
+def _chain_window(ki: inertial_mod.KfImu, kf_valid, kf_id, W: int):
+    """Temporal window: walk the preintegration chain `ki.prev` back from
+    `kf_id`. Returns (win_idx oldest -> newest (W,), win_ok)."""
+    K = kf_valid.shape[0]
+    cur = torch.as_tensor(kf_id, device=kf_valid.device).long()
+    newest_first = []
+    for _ in range(W):
+        newest_first.append(cur)
+        c = torch.clamp(cur, 0, K - 1)
+        nxt = ki.prev[c].long()
+        ok = (cur >= 0) & (nxt >= 0) & kf_valid[torch.clamp(nxt, 0, K - 1)]
+        cur = torch.where(ok, nxt, torch.full_like(nxt, -1))
+    win_idx = torch.stack(newest_first[::-1])
+    win_ok = (win_idx >= 0) & kf_valid[torch.clamp(win_idx, 0, K - 1)]
+    return torch.clamp(win_idx, 0, K - 1), win_ok
+
+
+def local_inertial_ba(m: ms.MapState, ki: inertial_mod.KfImu, kf_id,
+                      cfg: LocalMapConfig):
+    """Visual-inertial local BA over the temporal window: the newest 10
+    keyframes optimize pose, velocity and bias, 4 older ones stay fixed;
+    window landmarks refine; outliers detach."""
+    K = m.kf_valid.shape[0]
+    N_OPT, N_FIX = 10, 4
+    W = min(N_OPT + N_FIX, K)
+    win_idx, win_ok = _chain_window(ki, m.kf_valid, kf_id, W)
+    is_opt = (torch.arange(W, device=win_idx.device) >= W - min(N_OPT, W)) \
+        & (win_idx != 0) & win_ok
+    prob, lm_sel, lm_sel_ok, obs_ok = _vi_window_problem(
+        m, ki, win_idx, win_ok, is_opt, is_opt, cfg,
+        torch.zeros(6, dtype=m.kf_t.dtype, device=m.kf_t.device),
+        MAX_LOCAL_LM)
+    R_wb, p_wb, v, bias, X, _ = vi_ba.vi_ba_solve(prob, n_iters=6)
+    return _vi_write_back(m, prob, win_idx, win_ok, is_opt, is_opt,
+                          R_wb, p_wb, v, bias, X, lm_sel, lm_sel_ok, obs_ok)
+
+
+def full_inertial_ba(m: ms.MapState, ki: inertial_mod.KfImu, last_kf,
+                     cfg: LocalMapConfig, window: int = 32,
+                     prior_gyro=1.0, prior_acc=1e4,
+                     fix_landmarks: bool = False):
+    """Visual-inertial BA over up to `window` chained keyframes with bias
+    priors toward zero (the IMU-init stages); keyframe 0's pose stays
+    fixed. Returns (map, per-iteration costs)."""
+    K = m.kf_valid.shape[0]
+    W = min(window, K)
+    win_idx, win_ok = _chain_window(ki, m.kf_valid, last_kf, W)
+    is_opt = win_ok & (win_idx != 0)
+    dev, f32 = m.kf_t.device, m.kf_t.dtype
+    prior = torch.cat([torch.full((3,), float(prior_gyro), dtype=f32,
+                                  device=dev),
+                       torch.full((3,), float(prior_acc), dtype=f32,
+                                  device=dev)])
+    prob, lm_sel, lm_sel_ok, obs_ok = _vi_window_problem(
+        m, ki, win_idx, win_ok, is_opt, win_ok, cfg, prior, MAX_LOCAL_LM)
+    if fix_landmarks:
+        prob = prob._replace(lm_opt=torch.zeros_like(prob.lm_opt))
+    R_wb, p_wb, v, bias, X, info = vi_ba.vi_ba_solve(prob, n_iters=10)
+    m = _vi_write_back(m, prob, win_idx, win_ok, is_opt, win_ok,
+                       R_wb, p_wb, v, bias, X, lm_sel, lm_sel_ok, obs_ok)
+    return m, info["costs"]
+
+
+def cull_keyframes_inertial(m: ms.MapState, ki: inertial_mod.KfImu, kf_id,
+                            win=None):
+    """Redundant-keyframe culling for inertial maps: at most one keyframe
+    per step, whose preintegration merges into its temporal successor (the
+    merged span under 3 s). Returns (map, kf_imu)."""
+    K, F = m.kf_feat_lm.shape
+    dev = m.kf_t.device
+    nc = min(12, K)
+    if win is None:
+        win = ms.local_window(m, kf_id, nc, min_weight=10)
+    cand, cand_ok = win[0][:nc], win[1][:nc]
+    redundant, has = _redundant_rows(m, cand)
+    n_lm_cand = torch.sum(has, dim=1, dtype=torch.int32)
+    frac_cand = torch.sum(redundant, dim=1, dtype=torch.int32) / torch.clamp(
+        n_lm_cand, min=1)
+    frac = put(torch.zeros(K, dtype=torch.float32, device=dev), cand,
+               torch.where(cand_ok, frac_cand, torch.zeros_like(frac_cand)))
+    n_lm_kf = put(torch.zeros(K, dtype=torch.int32, device=dev), cand,
+                  torch.where(cand_ok, n_lm_cand, torch.zeros_like(n_lm_cand)))
+    is_cand = put(torch.zeros(K, dtype=torch.bool, device=dev),
+                  torch.where(cand_ok, cand, torch.zeros_like(cand)), cand_ok)
+    ar = torch.arange(K, device=dev)
+    cull = (is_cand & m.kf_valid & (frac > 0.9) & (n_lm_kf > 20)
+            & (ar != 0) & (ar != kf_id) & ki.valid)
+    score = torch.where(cull, frac, torch.full_like(frac, -1.0))
+    k = torch.argmax(score)
+    nxt_mask = (ki.prev.long() == k) & ki.valid
+    nxt = torch.argmax(nxt_mask.to(torch.int32))
+    can = (score[k] > 0) & torch.any(nxt_mask) & \
+        (ki.dt[k] + ki.dt[nxt] < 3.0)
+    ki2 = inertial_mod.merge_entry_into_next(ki, k, nxt)
+    m2 = m._replace(kf_valid=m.kf_valid & (ar != k),
+                    kf_prev=torch.where(ar == nxt, m.kf_prev[k], m.kf_prev))
+    m2 = ms.reparent_landmark_refs(m2)
+
+    def pick(new, old):
+        return type(old)(*(torch.where(can, a, b) for a, b in zip(new, old)))
+    return pick(m2, m), pick(ki2, ki)
+
+
+def mapping_step_inertial(m: ms.MapState, ki: inertial_mod.KfImu,
+                          kf_id: int, cam: cameras.Camera,
+                          cfg: LocalMapConfig):
+    """Per-keyframe mapping of an IMU-initialized map: the visual steps,
+    then local inertial BA in place of the visual local BA and inertial
+    keyframe culling. Returns (map, kf_imu)."""
+    K = m.kf_valid.shape[0]
+    KW = min(BA_WINDOW + BA_FIXED, K)
+    win = ms.local_window(m, kf_id, KW, min_weight=10)
+    m = create_new_landmarks(m, kf_id, cfg, win=win)
+    m = ms.update_landmark_stats_window(m, win[0], win[1])
+    m = fuse_in_neighbors(m, kf_id, cam, cfg, win=win)
+    m = cull_landmarks(m, kf_id)
+    m = local_inertial_ba(m, ki, kf_id, cfg)
+    win = ms.local_window(m, kf_id, KW, min_weight=10)
+    m, ki = cull_keyframes_inertial(m, ki, kf_id, win=win)
+    return ms.update_landmark_stats_window(m, win[0], win[1]), ki

@@ -1,6 +1,6 @@
 """The frame-rate tracking state machine: monocular, rectified stereo and
-RGB-D, without IMU, with BoW relocalization when the tracker has a
-vocabulary (counterpart of those parts of
+RGB-D, each with or without IMU, with BoW relocalization when the tracker
+has a vocabulary (counterpart of those parts of
 `morb_slam_tpu/pipeline/tracking.py`).
 
 Per frame, `extract_frame` runs extraction (K1, K2, the pyramid and blur);
@@ -20,6 +20,16 @@ the place-recognition database (K9 `transform`), and a frame without
 tracking context first scores the database (K10) and tries PnP +
 `optimize_pose` (K5) against the best three keyframes
 (`relocalize_candidate`) before the reference-keyframe fallback.
+
+With an IMU calibration the tracker runs the inertial state machine: every
+frame's IMU batch extends the since-keyframe preintegration (K11); until
+the IMU is initialized the frames track visually and synchronously, with
+keyframes every 0.25 s; the staged initialization (at 2, 5, 15, 25 and 45
+s) aligns gravity, scale, biases and velocities and runs a full inertial
+BA; from then on `track_step_vi_framedata` predicts from the anchor
+keyframe through the preintegration, tracks visually and refines the pose,
+velocity and bias with `optimize_pose_inertial` (K12), and keyframe inserts
+run `mapping_step_inertial`.
 """
 from __future__ import annotations
 
@@ -30,11 +40,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import cameras, frontend, lie, matching
+from .. import cameras, frontend, imu, lie, matching
 from ..mapstate import state as ms
 from ..ops import hamming
 from ..ops import stereo as stereo_ops
-from ..optim import pose_opt
+from ..optim import inertial as inertial_mod
+from ..optim import pose_opt, vi_ba
 from ..solvers import pnp, two_view
 from ..tensor_ops import add_at, mask_first, put, put2, topk
 from ..vocab import database as kfdb
@@ -74,8 +85,13 @@ class TrackerConfig:
     th_far_points: float = 0.0
     min_stereo_init_feats: int = 400
     ts_jump: float = 1.0       # seconds; a larger gap starts a fresh map
+    # seconds without a successful IMU initialization before a forced reset
+    bad_imu_timeout: float = 20.0
+    # visual dropout survived on IMU dead-reckoning before LOST (seconds)
+    time_recently_lost: float = 5.0
     # frames a dispatched frame's host decision may lag behind
     pipeline_depth: int = 2
+    inertial: bool = False
 
     @property
     def orb(self):
@@ -86,7 +102,12 @@ class TrackerConfig:
     def lm_cfg(self):
         return local_mapping.LocalMapConfig(
             focal=self.focal, scale=self.scale, n_levels=self.n_levels,
-            baseline=self.baseline)
+            baseline=self.baseline, inertial=self.inertial)
+
+
+def tracking_replace_inertial(cfg: TrackerConfig) -> TrackerConfig:
+    import dataclasses
+    return dataclasses.replace(cfg, inertial=True)
 
 
 class FrameData(NamedTuple):
@@ -580,17 +601,121 @@ def create_close_landmarks(m: ms.MapState, kf_id: int, fr: FrameData,
 
 
 # ---------------------------------------------------------------------------
+# visual-inertial per-frame functions
+# ---------------------------------------------------------------------------
+
+def imu_predict(R_cw, t_cw, v, bias, acc, gyro, dts, mask,
+                calib: imu.ImuCalib):
+    """Dead-reckon the last frame's state through this frame's IMU batch.
+    Returns the predicted (R_cw, t_cw, v)."""
+    pre = imu.preintegrate(acc, gyro, dts, mask, bias, calib)
+    R2, p2, v2 = imu.predict_state(*lie.se3_inv(R_cw, t_cw), v, bias, pre)
+    return (*lie.se3_inv(R2, p2), v2)
+
+
+def continue_preintegration(pre: imu.Preintegrated, acc, gyro, dts, mask,
+                            calib: imu.ImuCalib):
+    """Extend the since-keyframe preintegration by one frame's batch."""
+    return imu.preintegrate(acc, gyro, dts, mask, pre.bias, calib, init=pre)
+
+
+def imu_predict_from_kf(m: ms.MapState, anchor_kf, bias,
+                        pre: imu.Preintegrated):
+    """The current camera pose and velocity dead-reckoned from the anchor
+    keyframe's (possibly BA-updated) state through `pre`."""
+    R_wb, p = lie.se3_inv(m.kf_R[anchor_kf], m.kf_t[anchor_kf])
+    R2, p2, v2 = imu.predict_state(R_wb, p, m.kf_v[anchor_kf], bias, pre)
+    return (*lie.se3_inv(R2, p2), v2)
+
+
+def pose_inertial_step(m: ms.MapState, fr: FrameData, feat_lm, R, t, v0,
+                       bias0, anchor_kf, pre: imu.Preintegrated, ref_kf,
+                       cfg: TrackerConfig):
+    """Visual-inertial refinement of the frame (K12) against the anchor
+    keyframe's state, with the since-keyframe preintegration as the edge.
+    Returns (PoseInertialResult, pose relative to ref_kf)."""
+    lm_i = torch.clamp(feat_lm, min=0).long()
+    valid = (feat_lm >= 0) & m.lm_valid[lm_i]
+    R_a_wb, p_a = lie.se3_inv(m.kf_R[anchor_kf], m.kf_t[anchor_kf])
+    eye9 = torch.eye(9, dtype=pre.C.dtype, device=pre.C.device)
+    info9 = torch.linalg.inv_ex(pre.C[:9, :9] + 1e-9 * eye9).inverse
+    info9 = vi_ba.floor_info(0.5 * (info9 + info9.T))
+    rw = 1.0 / torch.clamp(torch.diagonal(pre.C[9:, 9:]), min=1e-12)
+    res = vi_ba.optimize_pose_inertial(
+        R, t, v0, bias0, m.lm_pos[lm_i], fr.xn, _info_of(cfg, fr.octave),
+        valid, fr.ur, torch.full((), cfg.baseline, device=t.device),
+        R_a_wb, p_a, m.kf_v[anchor_kf], m.kf_bias[anchor_kf],
+        pre.dt, pre.dR, pre.dV, pre.dP, pre.J_Rg, pre.J_Vg, pre.J_Va,
+        pre.J_Pg, pre.J_Pa, info9, pre.bias, rw, n_iters=6)
+    Rri, tri = lie.se3_inv(m.kf_R[ref_kf], m.kf_t[ref_kf])
+    return res, lie.se3_mul(res.R_cw, res.t_cw, Rri, tri)
+
+
+def track_step_vi_framedata(fr, m, last, last_feat_lm, R_last, t_last,
+                            ref_kf, cam, cfg: TrackerConfig,
+                            pre: imu.Preintegrated, anchor_kf, bias, acc,
+                            gyro, dts, calib: imu.ImuCalib):
+    """One extracted frame of an IMU-initialized map: extend the
+    since-keyframe preintegration by the frame's batch (K11), predict from
+    the anchor keyframe, track visually with that prediction, refine with
+    `pose_inertial_step` (K12; kept only where finite). Returns
+    `track_step_framedata`'s five outputs, then the refined velocity, bias
+    and the extended preintegration."""
+    pre = imu.preintegrate(acc, gyro, dts, dts > 0, pre.bias, calib,
+                           init=pre)
+    R_pred, t_pred, v_pred = imu_predict_from_kf(m, anchor_kf, bias, pre)
+    Ri, ti = lie.se3_inv(R_last, t_last)
+    vel = lie.se3_mul(R_pred, t_pred, Ri, ti)
+    fr, out, _, _, info = track_step_framedata(
+        fr, m, last, last_feat_lm, R_last, t_last, vel[0], vel[1], True,
+        ref_kf, cam, cfg)
+    res, _ = pose_inertial_step(out.m, fr, out.feat_lm, out.R, out.t, v_pred,
+                                bias, anchor_kf, pre, out.ref_kf, cfg)
+    ok = (torch.isfinite(res.R_cw).all() & torch.isfinite(res.t_cw).all()
+          & torch.isfinite(res.v).all() & torch.isfinite(res.bias).all())
+    R_f = torch.where(ok, res.R_cw, out.R)
+    t_f = torch.where(ok, res.t_cw, out.t)
+    v_f = torch.where(ok, res.v, v_pred)
+    b_f = torch.where(ok, res.bias, bias)
+    out = out._replace(R=R_f, t=t_f)
+    vel_new = lie.se3_mul(R_f, t_f, Ri, ti)
+    Rri, tri = lie.se3_inv(out.m.kf_R[out.ref_kf], out.m.kf_t[out.ref_kf])
+    rel = lie.se3_mul(R_f, t_f, Rri, tri)
+    info = torch.cat([info[:2], torch.isfinite(vel_new[1]).all()
+                      .to(info.dtype)[None], info[3:]])
+    return fr, out, vel_new, rel, info, v_f, b_f, pre
+
+
+def apply_imu_gauge(m: ms.MapState, R_wg, scale, v_kf, bias):
+    """Rotate and rescale the whole map after an IMU-initialization stage:
+    valid keyframes take the new pose, velocity and the common bias."""
+    kf_R2, kf_t2, lm2, v2 = inertial_mod.apply_gauge(
+        m.kf_R, m.kf_t, m.lm_pos, v_kf, R_wg, scale)
+    kv, lv = m.kf_valid, m.lm_valid
+    return m._replace(
+        kf_R=torch.where(kv[:, None, None], kf_R2, m.kf_R),
+        kf_t=torch.where(kv[:, None], kf_t2, m.kf_t),
+        lm_pos=torch.where(lv[:, None], lm2, m.lm_pos),
+        kf_v=torch.where(kv[:, None], v2, m.kf_v),
+        kf_bias=torch.where(kv[:, None], bias[None, :].expand_as(m.kf_bias),
+                            m.kf_bias),
+        lm_dist_max=torch.where(lv, m.lm_dist_max * scale, m.lm_dist_max))
+
+
+# ---------------------------------------------------------------------------
 # host state machine
 # ---------------------------------------------------------------------------
 
 @dataclass
 class StashedMap:
     """An inactive map kept after tracking was lost in a mature map, with
-    its place-recognition database (None without a vocabulary)."""
+    its place-recognition database (None without a vocabulary) and its
+    preintegration store (None without an IMU)."""
     gen: int
     m: ms.MapState
     n_kf: int
     db: Optional[kfdb.KeyframeDatabase] = None
+    kf_imu: Optional[inertial_mod.KfImu] = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -626,7 +751,8 @@ def _host_info(fetch):
 
 class Tracker:
     """Host-side orchestration of monocular, rectified stereo and RGB-D
-    tracking (`cfg.baseline` > 0 for the two depth sensors).
+    tracking (`cfg.baseline` > 0 for the two depth sensors), each with IMU
+    when given `imu_calib` (the `track_*_inertial` feeds).
 
     States: NO_IMAGES -> NOT_INITIALIZED -> OK <-> RECENTLY_LOST -> LOST.
     `device=None` runs on the card and raises without one. With a
@@ -635,14 +761,44 @@ class Tracker:
     None).
     """
 
+    IMU_BUF = 768   # max IMU samples between keyframes
+    FRAME_IMU = 64  # max IMU samples of one frame
+
     def __init__(self, cam: cameras.Camera, cfg: TrackerConfig, device=None,
-                 seed: int = 0, voc: Optional[voctree.Vocabulary] = None):
+                 seed: int = 0, voc: Optional[voctree.Vocabulary] = None,
+                 imu_calib: Optional[imu.ImuCalib] = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.cam = cam.to(self.device)
+        if imu_calib is not None and not cfg.inertial:
+            cfg = tracking_replace_inertial(cfg)
         self.cfg = cfg
+        # inertial state: the since-keyframe preintegration and its anchor
+        # keyframe, the current velocity and bias, the samples since the
+        # last keyframe; the rest is reset with each map
+        self.calib = None if imu_calib is None else \
+            imu_calib.to(self.device)
+        # the host copy of R_bc that rotates each frame's samples
+        self._R_bc_host = None if imu_calib is None else \
+            imu_calib.R_bc.cpu().numpy()
+        self.imu_predict_ok = True
+        self.bias = torch.zeros(6, device=self.device)
+        self.imu_buf = []
+        self.imu_ready = False
+        self.viba_stage = 0
+        self.ts_first_kf = None
+        self.kf_imu = None
+        self._frame_imu = None
+        self.v_cur = torch.zeros(3, device=self.device)
+        self._pre_from_kf = None      # preintegration since the last KF
+        self._anchor_kf = None        # the keyframe it starts from
+        self._vi_suspended = False
+        self._ts_lost_start = None
+        self._prev_pose_for_v = None
+        self._v_pred = None
+        self.kf_seq = 0               # keyframe inserts, for the scale gate
         self.voc = None if voc is None else voc.to(self.device)
         self.loop_closer = None
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -706,6 +862,278 @@ class Tracker:
             return self._try_init_from_depth(fr, ts)
         return self._track(fr, ts)
 
+    # -- inertial feeds -----------------------------------------------------
+
+    def track_mono_inertial(self, img, ts: float, imu_acc, imu_gyro, imu_ts):
+        """A monocular frame with the IMU samples of (last frame, ts]
+        (body-frame acc, gyro (n, 3), timestamps (n,))."""
+        return self._inertial_frame(ts, imu_acc, imu_gyro, imu_ts,
+                                    lambda: self.track_mono(img, ts))
+
+    def track_stereo_inertial(self, img_l, img_r, ts: float, imu_acc,
+                              imu_gyro, imu_ts):
+        return self._inertial_frame(
+            ts, imu_acc, imu_gyro, imu_ts,
+            lambda: self.track_stereo(img_l, img_r, ts))
+
+    def track_rgbd_inertial(self, img, depth_map, ts: float, imu_acc,
+                            imu_gyro, imu_ts):
+        return self._inertial_frame(
+            ts, imu_acc, imu_gyro, imu_ts,
+            lambda: self.track_rgbd(img, depth_map, ts))
+
+    def _inertial_frame(self, ts, acc, gyro, imu_ts, track):
+        self._pre_inertial_frame(ts)
+        self._accumulate_imu(acc, gyro, imu_ts, ts)
+        if not (self._use_vi_fused() and self.last is not None):
+            # a fused frame extends the since-KF chain itself
+            self._update_pre_from_kf()
+        if self.imu_ready and self.imu_predict_ok and \
+                self.state == "OK" and self.last is not None and \
+                not self._use_vi_fused():
+            self._set_imu_prediction()
+        out = self._inertial_lost_fallback(ts, track())
+        self._after_inertial_frame(ts)
+        return out
+
+    def _pre_inertial_frame(self, ts: float):
+        if self.state == "OK":
+            self._ts_lost_start = None
+        elif self._ts_lost_start is None and self.state == "RECENTLY_LOST":
+            self._ts_lost_start = ts
+
+    def _inertial_lost_fallback(self, ts: float, out):
+        """IMU dead-reckoning through RECENTLY_LOST on an initialized map,
+        for up to time_recently_lost seconds; then LOST."""
+        state, _ = out
+        if state != "RECENTLY_LOST" or not self.imu_ready or \
+                self.calib is None or self._pre_from_kf is None or \
+                self._anchor_kf is None or self._vi_suspended:
+            return out
+        if self._ts_lost_start is None:
+            self._ts_lost_start = ts
+        if ts - self._ts_lost_start > self.cfg.time_recently_lost:
+            self.flush()
+            self.state = "LOST"
+            self._drop_lost_map()
+            return self.state, None
+        R_p, t_p, v_p = imu_predict_from_kf(self.m, self._anchor_kf,
+                                            self.bias, self._pre_from_kf)
+        if not bool(torch.isfinite(t_p).all()):
+            return out
+        self.R_last, self.t_last = R_p, t_p
+        self.v_cur = v_p
+        self.frames_lost = 0          # the time budget governs
+        Rri, tri = lie.se3_inv(self.m.kf_R[self.ref_kf],
+                               self.m.kf_t[self.ref_kf])
+        rel = lie.se3_mul(R_p, t_p, Rri, tri)
+        self.trajectory.append((ts, self.map_gen, self.ref_kf, rel[0],
+                                rel[1]))
+        return self.state, (R_p, t_p)
+
+    def _accumulate_imu(self, acc, gyro, ts_arr, frame_ts):
+        """Buffer the frame's samples, rotated from body into camera axes
+        (R_bc^T a; body == camera downstream, lever arm neglected), with
+        per-sample intervals; the last one reaches the frame time."""
+        if self.calib is None or len(ts_arr) == 0:
+            self._frame_imu = None
+            return
+        acc = np.asarray(acc, np.float32)
+        gyro = np.asarray(gyro, np.float32)
+        R_bc = self._R_bc_host
+        if not np.allclose(R_bc, np.eye(3)):
+            acc = acc @ R_bc
+            gyro = gyro @ R_bc
+        ts_arr = np.asarray(ts_arr)
+        prev = getattr(self, "_last_frame_ts", ts_arr[0] - 0.005)
+        dts = np.diff(np.concatenate([[prev], ts_arr])).astype(np.float32)
+        if frame_ts > ts_arr[-1]:
+            dts[-1] += frame_ts - ts_arr[-1]
+        self._frame_imu = (acc, gyro, dts)
+        self.imu_buf.append((frame_ts, acc, gyro, dts))
+        self._last_frame_ts = frame_ts
+
+    def _padded(self, acc, gyro, dts, cap: int):
+        """The newest `cap` samples, zero-padded to `cap`, on the device;
+        dts == 0 marks the padding."""
+        n = len(dts)
+        if n > cap:
+            acc, gyro, dts = acc[-cap:], gyro[-cap:], dts[-cap:]
+            n = cap
+        z = np.zeros((cap - n, 3), np.float32)
+        buf = np.concatenate([np.concatenate([acc, z]),
+                              np.concatenate([gyro, z]),
+                              np.concatenate([dts, np.zeros(cap - n,
+                                                            np.float32)]
+                                             )[:, None]], axis=1)
+        t = torch.from_numpy(buf).to(self.device, non_blocking=True)
+        return t[:, 0:3], t[:, 3:6], t[:, 6], n
+
+    def _padded_frame_imu(self, cap: int = FRAME_IMU):
+        if self._frame_imu is None:
+            return None, None, None
+        return self._padded(*self._frame_imu, cap)[:3]
+
+    def _fused_frame_imu(self, cap: int = FRAME_IMU):
+        """The fused program's padded batch (all padding without
+        samples)."""
+        acc, gyro, dts = self._padded_frame_imu(cap)
+        if acc is None:
+            z = torch.zeros((cap, 3), device=self.device)
+            return z, z, torch.zeros(cap, device=self.device)
+        return acc, gyro, dts
+
+    def _update_pre_from_kf(self):
+        """Extend the since-keyframe preintegration by this frame's batch."""
+        if self._pre_from_kf is None:
+            return
+        acc, gyro, dts = self._padded_frame_imu()
+        if acc is None:
+            return
+        self._pre_from_kf = continue_preintegration(
+            self._pre_from_kf, acc, gyro, dts, dts > 0, self.calib)
+
+    def _reset_pre_from_kf(self, k: int):
+        """Restart the since-keyframe preintegration at keyframe k and the
+        current bias."""
+        if self.calib is None:
+            return
+        z = torch.zeros((1, 3), device=self.device)
+        self._pre_from_kf = imu.preintegrate(
+            z, z, torch.zeros(1, device=self.device),
+            torch.zeros(1, dtype=torch.bool, device=self.device), self.bias,
+            self.calib)
+        self._anchor_kf = k
+
+    def _set_imu_prediction(self):
+        """Motion model from the anchor keyframe through the since-keyframe
+        preintegration (translation only is trusted for the search)."""
+        if self._pre_from_kf is None or self._anchor_kf is None or \
+                self._vi_suspended:
+            return
+        R_pred, t_pred, v_pred = imu_predict_from_kf(
+            self.m, self._anchor_kf, self.bias, self._pre_from_kf)
+        Ri, ti = lie.se3_inv(self.R_last, self.t_last)
+        self.vel = lie.se3_mul(R_pred, t_pred, Ri, ti)
+        self.has_vel = True
+        self._v_pred = v_pred
+
+    def _after_inertial_frame(self, ts: float):
+        if self.calib is None or self.state != "OK":
+            return
+        # finite-difference velocity before the IMU initialization; after
+        # it the pose-inertial refinement maintains the velocity
+        if not self.imu_ready and self._prev_pose_for_v is not None:
+            R0, t0, t_prev = self._prev_pose_for_v
+            dt = max(ts - t_prev, 1e-3)
+            c1 = -lie.matvec(self.R_last.T, self.t_last)
+            c0 = -lie.matvec(R0.T, t0)
+            v = torch.nan_to_num((c1 - c0) / dt, nan=0.0, posinf=0.0,
+                                 neginf=0.0)
+            self.v_cur = torch.clamp(v, -20.0, 20.0)
+        self._prev_pose_for_v = (self.R_last, self.t_last, ts)
+        self._maybe_init_imu(ts)
+
+    # (t_min s, kf_min, prior gyro, prior acc) of InitializeIMU, VIBA1, VIBA2
+    # and the later refinements
+    IMU_STAGES = ((2.0, 10, 1e2, 1e10), (5.0, 10, 1.0, 1e5),
+                  (15.0, 10, 0.0, 0.0), (25.0, 10, 0.0, 0.0),
+                  (45.0, 10, 0.0, 0.0))
+
+    def _maybe_init_imu(self, ts: float):
+        """Staged IMU initialization: closed-form alignment over the 14
+        newest keyframes (scale for monocular maps, behind a two-attempt
+        agreement gate), inertial-only Gauss-Newton at fixed scale, the
+        gauge change, then a full inertial BA with the stage's priors."""
+        if self.calib is None or self.ts_first_kf is None:
+            return
+        elapsed = ts - self.ts_first_kf
+        if not self.imu_ready and elapsed > self.cfg.bad_imu_timeout:
+            self.bad_imu = True
+            self.flush()
+            self.reset_active_map()
+            return
+        if self.viba_stage >= len(self.IMU_STAGES):
+            return
+        t_min, kf_min, pg, pa = self.IMU_STAGES[self.viba_stage]
+        if elapsed < t_min or self.n_kf_host < kf_min:
+            return
+        # the gauge change invalidates in-flight frames: decide them first
+        self.flush()
+        m = self.m
+        R_wb, p_wb = lie.se3_inv(m.kf_R, m.kf_t)
+        mono = self.cfg.baseline == 0.0
+        K = m.kf_valid.shape[0]
+        ts_v = torch.where(m.kf_valid, m.kf_ts,
+                           torch.full_like(m.kf_ts, float("-inf")))
+        thr = topk(ts_v, min(14, K))[0][-1]
+        recent = m.kf_valid & (m.kf_ts >= thr)
+        s_lin, g_lin, v_lin, rms = inertial_mod.linear_alignment(
+            self.kf_imu, R_wb, p_wb, recent)
+        g_norm, rms, s_cand = torch.stack(
+            [torch.linalg.norm(g_lin), rms, s_lin]).tolist()
+        s_f = 1.0
+        if mono and not self.imu_ready:
+            # monocular scale: a tight residual and two consecutive
+            # estimates on different keyframe sets that agree
+            s_prev, seq_prev = getattr(self, "_s_cand_prev", (None, -1))
+            self._s_cand_prev = (s_cand, self.kf_seq)
+            stable = (s_prev is not None and seq_prev != self.kf_seq
+                      and abs(s_cand - s_prev) < 0.15 * max(s_cand, 1e-6))
+            if not (0.05 < s_cand < 50.0 and rms < 0.008 and stable):
+                return
+            s_f = s_cand
+        if not (9.0 < g_norm < 10.6) or rms > 0.03:
+            return
+        R_wg0 = inertial_mod.gravity_rotation(g_lin)
+        R_wg, _, bg, ba_, v_e, _ = inertial_mod.inertial_only_optimize(
+            self.kf_imu, R_wb, p_wb * s_f, recent, n_iters=25,
+            opt_scale=False, prior_gyro=max(pg, 1e-2),
+            prior_acc=max(pa, 1e-2), v0=v_lin, R_wg0=R_wg0)
+        if not bool(torch.isfinite(v_e).all() & torch.isfinite(R_wg).all()
+                    & torch.isfinite(bg).all() & torch.isfinite(ba_).all()):
+            return
+        self.bias = torch.cat([bg, ba_])
+        if self.imu_ready:
+            s_f = 1.0   # later stages refine gravity and bias at fixed scale
+        # re-apply the gravity rotation (and the first scale) on every stage
+        self.m = apply_imu_gauge(m, R_wg, s_f, v_e, self.bias)
+        self.R_last = lie.matmat(self.R_last, R_wg)
+        self.t_last = self.t_last * s_f
+        self.v_cur = lie.matvec(R_wg.T, self.v_cur) * s_f
+        if s_f != 1.0:
+            self.trajectory = [
+                (t_, g_, r_, R_cr, t_cr * s_f) if g_ == self.map_gen
+                else (t_, g_, r_, R_cr, t_cr)
+                for (t_, g_, r_, R_cr, t_cr) in self.trajectory]
+        self.has_vel = False
+        self.imu_ready = True
+        if self.n_kf_host >= 4:
+            last = self.last_kf_id
+            self.m, _ = local_mapping.full_inertial_ba(
+                self.m, self.kf_imu, last, self.cfg.lm_cfg, window=32,
+                prior_gyro=max(pg, 1e-2), prior_acc=max(pa, 1e-2))
+            self.bias = self.m.kf_bias[last]
+            self.has_vel = False
+        self.viba_stage += 1
+
+    def _use_pipeline(self):
+        """Decisions lag the dispatched frames in state OK, except on an
+        inertial map before its IMU initialization (its visual odometry
+        stays synchronous; the staged init flushes before a gauge
+        change)."""
+        if self.calib is not None and not self.imu_ready:
+            return False
+        return self.state == "OK"
+
+    def _use_vi_fused(self):
+        """The fused visual-inertial frame step runs once the IMU is
+        initialized and a since-keyframe chain is live (suspended after a
+        relocalization until the next keyframe)."""
+        return (self.calib is not None and self.imu_ready
+                and self._pre_from_kf is not None
+                and self._anchor_kf is not None and not self._vi_suspended)
+
     # -- init -------------------------------------------------------------
 
     def _try_initialize(self, fr: FrameData, ts: float):
@@ -732,6 +1160,12 @@ class Tracker:
             res.is_good, self.ts_init, ts, cfg)
         self._db_add(k1 - 1, self.fr_init)
         self._db_add(k1, fr)
+        if self.calib is not None:
+            # keyframe 0's time bounds keyframe 1's preintegration window
+            self._last_kf_ts = self.ts_init
+            self.ts_first_kf = self.ts_init
+            self._record_kf_imu(k1, ts)
+        self.kf_seq += 2
         self.last = fr
         self.last_feat_lm = self.m.kf_feat_lm[k1]
         self.R_last = self.m.kf_R[k1]
@@ -757,6 +1191,9 @@ class Tracker:
             return self.state, None
         self.m, k0 = stereo_initialize(self.m, fr, ts, self.cfg,
                                        slot=self.n_kf_host)
+        if self.calib is not None:
+            self._record_kf_imu(k0, ts)   # anchors ts_first_kf and the chain
+        self.kf_seq += 1
         self._db_add(k0, fr)
         self.last = fr
         self.last_feat_lm = self.m.kf_feat_lm[k0]
@@ -780,17 +1217,24 @@ class Tracker:
             if self._recover_lost(fr):
                 return self.state, (self.R_last, self.t_last)
             return self.state, None
-        vel_R, vel_t = self.vel
-        out_tuple = track_step_framedata(
-            fr, self.m, self.last, self.last_feat_lm, self.R_last,
-            self.t_last, vel_R, vel_t, self.has_vel, self.ref_kf, self.cam,
-            self.cfg)
-        if self.state == "OK":
+        if self._use_vi_fused():
+            out_tuple = track_step_vi_framedata(
+                fr, self.m, self.last, self.last_feat_lm, self.R_last,
+                self.t_last, self.ref_kf, self.cam, self.cfg,
+                self._pre_from_kf, self._anchor_kf, self.bias,
+                *self._fused_frame_imu(), self.calib)
+        else:
+            vel_R, vel_t = self.vel
+            out_tuple = track_step_framedata(
+                fr, self.m, self.last, self.last_feat_lm, self.R_last,
+                self.t_last, vel_R, vel_t, self.has_vel, self.ref_kf,
+                self.cam, self.cfg)
+        if self._use_pipeline():
             return self._track_pipelined(out_tuple, ts)
         return self._post_track(out_tuple, ts)
 
     def _track_pipelined(self, out_tuple, ts: float):
-        fr, out, vel_new, rel, info = out_tuple
+        fr, out, vel_new, rel, info = out_tuple[:5]
         self._pending.append([out_tuple, ts, None, _info_to_host(info)])
         # optimistic device-side state for the next dispatch; the decision
         # is made pipeline_depth frames later
@@ -800,6 +1244,9 @@ class Tracker:
         self.R_last, self.t_last = out.R, out.t
         self.vel = vel_new
         self.has_vel = True
+        if len(out_tuple) > 5:
+            # the fused VI step's velocity, bias and extended preintegration
+            self.v_cur, self.bias, self._pre_from_kf = out_tuple[5:8]
         self.frames_since_kf += 1
         while len(self._pending) > self.cfg.pipeline_depth:
             self._decide_pending(*self._pending.pop(0))
@@ -815,7 +1262,8 @@ class Tracker:
         """Deferred host decisions for a dispatched frame: state machine,
         trajectory entry, keyframe insertion."""
         cfg = self.cfg
-        fr, out, vel_new, rel, info = out_tuple
+        fr, out, vel_new, rel, info = out_tuple[:5]
+        v_bias = out_tuple[5:7] if len(out_tuple) > 5 else None
         info_h = _host_info(fetch) if fetch is not None else \
             info.cpu().numpy()
         n_inl = int(info_h[0])
@@ -830,8 +1278,11 @@ class Tracker:
             self.frames_lost += 1
             self._pending = []
             self.last = None
-            self.R_last = self.m.kf_R[self.ref_kf]
-            self.t_last = self.m.kf_t[self.ref_kf]
+            if not self._use_vi_fused():
+                # visual: re-seed the recovery at the reference keyframe;
+                # inertial keeps the pose the IMU fallback replaces
+                self.R_last = self.m.kf_R[self.ref_kf]
+                self.t_last = self.m.kf_t[self.ref_kf]
             if self.frames_lost > 60:
                 self.state = "LOST"
                 self._drop_lost_map()
@@ -852,7 +1303,7 @@ class Tracker:
         need = self._need_new_kf(n_inl, info_h, ts, lag=len(self._pending))
         if need and self._mapping_enabled:
             k = self._insert_keyframe(fr, out, ts, refresh_anchors=False,
-                                      ref_inliers=n_inl)
+                                      ref_inliers=n_inl, v_bias=v_bias)
             if k is not None:
                 # the keyframe's association table was enriched by
                 # triangulation and fusion: it becomes the stage-1 anchor
@@ -877,7 +1328,18 @@ class Tracker:
             (n_inl < 0.25 * ref_tracked or need_close)
         c2 = (n_inl < cfg.kf_ref_ratio * max(self._ref_matches, 1)
               or need_close) and n_inl > 15
-        return (c1a or ((c1b or c1c) and c2)) and n_inl > 15
+        need = c1a or ((c1b or c1c) and c2)
+        if cfg.inertial and self.calib is not None and n_inl > 15:
+            # c3: inertial timer, every 0.25 s before the IMU initialization
+            # (it needs ~10 keyframes in 2 s), every 0.5 s after; c4: weak
+            # monocular-inertial tracking
+            last_ts = getattr(self, "_last_kf_ts", None)
+            if last_ts is not None and \
+                    ts - last_ts >= (0.5 if self.imu_ready else 0.25):
+                need = True
+            if self.imu_ready and not stereoish and c1b and 15 < n_inl < 75:
+                need = True
+        return need and n_inl > 15
 
     def _recompute_vel_rel(self, out):
         Ri, ti = lie.se3_inv(self.R_last, self.t_last)
@@ -889,12 +1351,14 @@ class Tracker:
     def _post_track(self, out_tuple, ts: float):
         """Synchronous decision path (while not in state OK)."""
         cfg = self.cfg
-        fr, out, vel_new, rel, info = out_tuple
+        fr, out, vel_new, rel, info = out_tuple[:5]
+        # the fused VI step already refined the pose, velocity and bias
+        v_bias = out_tuple[5:7] if len(out_tuple) > 5 else None
         info_h = info.cpu().numpy()
         n_inl = int(info_h[0])
         ref_kf_new = int(info_h[1])
         vel_finite = bool(info_h[2] > 0.5)
-        if self.has_vel and n_inl < cfg.min_local_points:
+        if v_bias is None and self.has_vel and n_inl < cfg.min_local_points:
             # the motion-model prediction may have poisoned the window
             # search: retry prediction-free
             _, out2, vel2, rel2, info2 = track_step_framedata(
@@ -906,7 +1370,7 @@ class Tracker:
                 ref_kf_new = int(info2_h[1])
                 vel_finite = bool(info2_h[2] > 0.5)
                 vel_new, rel = vel2, rel2
-        if n_inl < cfg.min_local_points:
+        if v_bias is None and n_inl < cfg.min_local_points:
             Rr, tr_, lm_r, n_r = track_reference_kf(
                 self.m, fr, self.ref_kf, self.R_last, self.t_last, cfg)
             if int(n_r) > n_inl:
@@ -919,10 +1383,15 @@ class Tracker:
                 vel_new, rel = self._recompute_vel_rel(out)
                 vel_finite = bool(torch.isfinite(vel_new[1]).all())
         self.m = out.m
+        if len(out_tuple) > 7:
+            self._pre_from_kf = out_tuple[7]
         if n_inl < cfg.min_track_points:
             self.state = "RECENTLY_LOST"
             self.has_vel = False
             self.frames_lost += 1
+            if v_bias is not None:
+                # an initialized map dead-reckons through the dropout
+                return self.state, None
             if self.frames_lost > 60:
                 self.state = "LOST"
                 self._drop_lost_map()
@@ -935,13 +1404,26 @@ class Tracker:
         else:
             self.has_vel = False
         self.R_last, self.t_last = out.R, out.t
+        if v_bias is not None:
+            self.v_cur, self.bias = v_bias
+        elif (self.calib is not None and self.imu_ready
+                and self._pre_from_kf is not None
+                and self._anchor_kf is not None and not self._vi_suspended):
+            v0 = self.v_cur if self._v_pred is None else self._v_pred
+            res, rel = pose_inertial_step(
+                self.m, fr, out.feat_lm, out.R, out.t, v0, self.bias,
+                self._anchor_kf, self._pre_from_kf, ref_kf_new, cfg)
+            self.R_last, self.t_last = res.R_cw, res.t_cw
+            self.v_cur, self.bias = res.v, res.bias
+            out = out._replace(R=res.R_cw, t=res.t_cw)
         self.last = fr
         self.last_feat_lm = out.feat_lm
         self.ref_kf = ref_kf_new
         self.frames_since_kf += 1
         self.trajectory.append((ts, self.map_gen, self.ref_kf, rel[0], rel[1]))
         if self._need_new_kf(n_inl, info_h, ts) and self._mapping_enabled:
-            self._insert_keyframe(fr, out, ts, ref_inliers=n_inl)
+            self._insert_keyframe(fr, out, ts, ref_inliers=n_inl,
+                                  v_bias=v_bias)
         return self.state, (out.R, out.t)
 
     def _alloc_kf_slot(self):
@@ -955,6 +1437,8 @@ class Tracker:
         if not self._free_kf_slots:
             valid = self.m.kf_valid[:self.n_kf_host].cpu().numpy()
             protect = {0, self.ref_kf, self.last_kf_id}
+            if self._anchor_kf is not None:
+                protect.add(self._anchor_kf)
             self._free_kf_slots = [i for i in range(1, self.n_kf_host)
                                    if not valid[i] and i not in protect]
         if not self._free_kf_slots:
@@ -979,7 +1463,8 @@ class Tracker:
             self.trajectory[i] = (t0, g0, anchor, R2, t2)
 
     def _insert_keyframe(self, fr: FrameData, out: TrackOutput, ts: float,
-                         refresh_anchors: bool = True, ref_inliers=None):
+                         refresh_anchors: bool = True, ref_inliers=None,
+                         v_bias=None):
         k = self._alloc_kf_slot()
         if k is None:
             return None
@@ -987,13 +1472,19 @@ class Tracker:
         self.m, _ = insert_keyframe(self.m, fr, out.feat_lm, out.R, out.t,
                                     ts, slot=k, prev_id=prev)
         self.last_kf_id = k
+        self.kf_seq += 1
         if ref_inliers is not None:
             self._ref_matches = int(ref_inliers)
+        self._record_kf_imu(k, ts, prev=prev, v_bias=v_bias)
         if self.cfg.baseline > 0:
             self.m = create_close_landmarks(self.m, k, fr, self.cfg)
         self._db_add(k, fr)
-        self.m = local_mapping.mapping_step(self.m, k, self.cam,
-                                            self.cfg.lm_cfg)
+        if self.cfg.inertial and self.imu_ready and self.kf_imu is not None:
+            self.m, self.kf_imu = local_mapping.mapping_step_inertial(
+                self.m, self.kf_imu, k, self.cam, self.cfg.lm_cfg)
+        else:
+            self.m = local_mapping.mapping_step(self.m, k, self.cam,
+                                                self.cfg.lm_cfg)
         self.ref_kf = k
         self.frames_since_kf = 0
         if refresh_anchors:
@@ -1012,6 +1503,46 @@ class Tracker:
                 entry[2] = (dR, dt) if entry[2] is None else \
                     lie.se3_mul(entry[2][0], entry[2][1], dR, dt)
         return k
+
+    def _record_kf_imu(self, k: int, ts: float, prev: Optional[int] = None,
+                       v_bias=None):
+        """Keyframe k's preintegration from the previous keyframe (the
+        buffered samples of (previous KF time, ts], K11 on a 768-sample
+        buffer), its velocity and bias; then restart the since-keyframe
+        chain at k and re-apply the batches newer than ts (the pipelined
+        decision lags the dispatched frames)."""
+        if self.calib is None:
+            return
+        if self.ts_first_kf is None:
+            self.ts_first_kf = ts
+        v_rec, b_rec = (self.v_cur, self.bias) if v_bias is None else v_bias
+        prev_ts = getattr(self, "_last_kf_ts", -np.inf)
+        buf = [e for e in self.imu_buf if prev_ts + 1e-9 < e[0] <= ts + 1e-9]
+        leftover = [e for e in self.imu_buf if e[0] > ts + 1e-9]
+        self._last_kf_ts = ts
+        ki = torch.tensor([k], device=self.device)
+        if buf and k > 0:
+            acc, gyro, dts, n = self._padded(
+                *(np.concatenate([e[i] for e in buf]) for i in (1, 2, 3)),
+                self.IMU_BUF)
+            mask = torch.arange(self.IMU_BUF, device=self.device) < n
+            pre = imu.preintegrate(acc, gyro, dts, mask, b_rec, self.calib)
+            self.kf_imu = inertial_mod.set_kf_imu(
+                self.kf_imu, k, pre, k - 1 if prev is None else prev)
+        elif self.kf_imu is not None:
+            # no samples: a recycled slot must not keep its old entry
+            self.kf_imu = self.kf_imu._replace(
+                valid=put(self.kf_imu.valid, ki, False))
+        self.m = self.m._replace(kf_v=put(self.m.kf_v, ki, v_rec[None]),
+                                 kf_bias=put(self.m.kf_bias, ki,
+                                             b_rec[None]))
+        self.imu_buf = leftover
+        self._reset_pre_from_kf(k)
+        for (_, a, g, d) in leftover:
+            acc, gyro, dts, _ = self._padded(a, g, d, self.FRAME_IMU)
+            self._pre_from_kf = continue_preintegration(
+                self._pre_from_kf, acc, gyro, dts, dts > 0, self.calib)
+        self._vi_suspended = False
 
     def _db_add(self, kf_id: int, fr: FrameData):
         """Put the keyframe's BoW vector into the database (with a
@@ -1051,6 +1582,10 @@ class Tracker:
         # re-arm the keyframe trigger: insertion may happen at once
         self._ref_matches = n_inl
         self.frames_since_kf = self.cfg.min_kf_interval
+        if self.calib is not None:
+            # the preintegration across the gap no longer bounds the pose:
+            # the VI step stays off until the next keyframe re-roots it
+            self._vi_suspended = True
         return True
 
     def _recover_lost(self, fr: FrameData):
@@ -1065,9 +1600,16 @@ class Tracker:
             order = sorted((k for k in range(self.n_kf_host)
                             if valid[k] and k != self.ref_kf),
                            key=lambda k: -kts[k])
+            # live IMU dead-reckoning seeds the pose optimization better than
+            # the candidate keyframe's pose
+            imu_seed = (self.calib is not None and self.imu_ready
+                        and not self._vi_suspended
+                        and self._pre_from_kf is not None)
             for k in ([self.ref_kf] + order[:3])[:4]:
-                R, t, lm, n = track_reference_kf(
-                    self.m, fr, k, self.m.kf_R[k], self.m.kf_t[k], self.cfg)
+                R0, t0 = (self.R_last, self.t_last) if imu_seed else \
+                    (self.m.kf_R[k], self.m.kf_t[k])
+                R, t, lm, n = track_reference_kf(self.m, fr, k, R0, t0,
+                                                 self.cfg)
                 if int(n) >= max(15, self.cfg.min_track_points):
                     self.R_last, self.t_last = R, t
                     self.last = fr
@@ -1078,6 +1620,8 @@ class Tracker:
                     self.frames_lost = 0
                     self._ref_matches = int(n)
                     self.frames_since_kf = self.cfg.min_kf_interval
+                    if self.calib is not None:
+                        self._vi_suspended = True
                     return True
         self.state = "RECENTLY_LOST"
         self.frames_lost += 1
@@ -1094,6 +1638,18 @@ class Tracker:
         self.m = ms.empty_map(cfg.max_kf, cfg.n_feat, cfg.max_lm, device=dev)
         self.db = None if self.voc is None else \
             kfdb.empty(cfg.max_kf, self.voc.n_words, device=dev)
+        if self.calib is not None:
+            # a fresh map restarts the IMU initialization; the bias and the
+            # sample buffer carry over
+            self.kf_imu = inertial_mod.empty_kf_imu(cfg.max_kf, device=dev)
+            self.imu_ready = False
+            self.viba_stage = 0
+            self.ts_first_kf = None
+            self.v_cur = torch.zeros(3, device=dev)
+            self._pre_from_kf = None
+            self._anchor_kf = None
+            self._vi_suspended = False
+            self._ts_lost_start = None
         self.state = "NOT_INITIALIZED"
         self.fr_init: Optional[FrameData] = None
         self.ts_init = 0.0
@@ -1130,7 +1686,8 @@ class Tracker:
     def create_map_in_atlas(self):
         """Stash the active map and start a fresh one."""
         self.stash.append(StashedMap(gen=self.map_gen, m=self.m,
-                                     n_kf=self.n_kf_host, db=self.db))
+                                     n_kf=self.n_kf_host, db=self.db,
+                                     kf_imu=self.kf_imu))
         self.map_gen += 1
         self._fresh_map_state()
 

@@ -3,10 +3,13 @@
 One object built from `Settings` (or a YAML path) that owns the tracker and
 feeds it frames: `track_monocular`, `track_stereo` (raw pairs are rectified
 on the card by K8 with maps built once) and `track_rgbd`, plus the
-localization-mode toggles, `reset` and `state`. A vocabulary (`vocabulary=`
-or `vocabulary_path=`, `.npz` or ORBvoc `.txt`) gives the tracker BoW
-relocalization; loop closing on top of it, inertial sensors, trajectory
-writers and atlas save / load belong to later slices of the port and raise
+localization-mode toggles, `reset` and `state`. The inertial sensors
+(IMU_MONOCULAR, IMU_STEREO, IMU_RGBD) build the IMU calibration from
+`settings.imu` (noise densities, random walks, rate, `T_b_c1`) and take
+each frame's samples as `imu_batch=(timestamps, acc, gyro)`. A vocabulary
+(`vocabulary=` or `vocabulary_path=`, `.npz` or ORBvoc `.txt`) gives the
+tracker BoW relocalization; loop closing on top of it, trajectory writers
+and atlas save / load belong to later slices of the port and raise
 `NotImplementedError` here.
 """
 from __future__ import annotations
@@ -14,8 +17,10 @@ from __future__ import annotations
 import enum
 from typing import Optional
 
+import numpy as np
 import torch
 
+from . import imu as imu_mod
 from .io import config as config_mod
 from .io import serialization
 from .ops import rectify as rectify_mod
@@ -53,10 +58,8 @@ class System:
                  tracker_overrides: Optional[dict] = None, device=None):
         if isinstance(settings, str):
             settings = config_mod.load_settings(settings)
-        if sensor.inertial:
-            raise NotImplementedError(
-                "inertial sensors come with the visual-inertial slice of "
-                "the port")
+        if sensor.inertial and settings.imu is None:
+            raise ValueError("an inertial sensor needs settings.imu")
         if (vocabulary is not None or vocabulary_path) and \
                 settings.loop_closing:
             raise NotImplementedError(
@@ -93,6 +96,19 @@ class System:
             cam = self.rectify.cam_new
             focal = float(cam.params[0])
             baseline = float(self.rectify.baseline)
+        calib = None
+        if sensor.inertial:
+            i = settings.imu
+            R_bc, t_bc = np.eye(3), np.zeros(3)
+            if i.T_b_c1 is not None:
+                T = np.asarray(i.T_b_c1, np.float64)
+                R_bc, t_bc = T[:3, :3], T[:3, 3]
+            if self.rectify is not None:
+                # rectification rotates camera 1's frame by R_rect1
+                R_bc = R_bc @ self.rectify.R_rect1.cpu().numpy().T
+            calib = imu_mod.make_calib(R_bc, t_bc, i.noise_gyro, i.noise_acc,
+                                       i.walk_gyro, i.walk_acc, i.frequency,
+                                       device=self.device)
         kw = dict(width=width, height=height, focal=focal,
                   n_feat=settings.n_features, scale=settings.scale_factor,
                   n_levels=settings.n_levels, baseline=baseline,
@@ -101,23 +117,37 @@ class System:
         if tracker_overrides:
             kw.update(tracker_overrides)
         self.tracker = tracking.Tracker(cam, tracking.TrackerConfig(**kw),
-                                        device=self.device, voc=self.voc)
+                                        device=self.device, voc=self.voc,
+                                        imu_calib=calib)
         self.localization_only = False
 
     # ---- frame feeds ----------------------------------------------------
 
-    def track_monocular(self, img, ts: float):
+    def track_monocular(self, img, ts: float, imu_batch=None):
+        """`imu_batch`: (timestamps (n,), acc (n, 3), gyro (n, 3)) of the
+        samples since the previous frame, for an inertial sensor."""
+        if self.sensor.inertial and imu_batch is not None:
+            ts_i, acc, gyro = imu_batch
+            return self.tracker.track_mono_inertial(img, ts, acc, gyro, ts_i)
         return self.tracker.track_mono(img, ts)
 
-    def track_stereo(self, img_l, img_r, ts: float):
+    def track_stereo(self, img_l, img_r, ts: float, imu_batch=None):
         if self.rectify is not None:
             pair = torch.stack([self.tracker._to_device(img_l),
                                 self.tracker._to_device(img_r)])
             img_l, img_r = rectify_mod.remap_bilinear(
                 pair.to(torch.float32), self._maps)
+        if self.sensor.inertial and imu_batch is not None:
+            ts_i, acc, gyro = imu_batch
+            return self.tracker.track_stereo_inertial(img_l, img_r, ts, acc,
+                                                      gyro, ts_i)
         return self.tracker.track_stereo(img_l, img_r, ts)
 
-    def track_rgbd(self, img, depth, ts: float):
+    def track_rgbd(self, img, depth, ts: float, imu_batch=None):
+        if self.sensor.inertial and imu_batch is not None:
+            ts_i, acc, gyro = imu_batch
+            return self.tracker.track_rgbd_inertial(img, depth, ts, acc,
+                                                    gyro, ts_i)
         return self.tracker.track_rgbd(img, depth, ts)
 
     # ---- modes / control ------------------------------------------------
@@ -132,10 +162,11 @@ class System:
         self.tracker._mapping_enabled = True
 
     def reset(self):
-        """Fresh map, same camera, configuration and vocabulary."""
+        """Fresh map, same camera, configuration, vocabulary and IMU
+        calibration."""
         t = self.tracker
         self.tracker = tracking.Tracker(t.cam, t.cfg, device=self.device,
-                                        voc=self.voc)
+                                        voc=self.voc, imu_calib=t.calib)
 
     @property
     def state(self):

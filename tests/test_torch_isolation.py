@@ -3,8 +3,8 @@ nor the JAX package, nor YAML or OpenCV at import time (the card's machine
 has neither); its tracker and System refuse to run without a card unless
 asked for the CPU; and its kernel wrappers never fall back to the plain
 versions for a tensor that is not on the CPU. The walk over the package
-covers every module, among them `vocab/`, `io/serialization.py` and
-`solvers/pnp.py`."""
+covers every module, among them `vocab/`, `io/serialization.py`,
+`solvers/pnp.py`, `imu.py`, `optim/inertial.py` and `optim/vi_ba.py`."""
 import os
 import subprocess
 import sys
@@ -13,11 +13,11 @@ import textwrap
 import pytest
 import torch
 
-from morb_slam_tpu_torch import cameras, system
+from morb_slam_tpu_torch import cameras, imu, system
 from morb_slam_tpu_torch.io import config
 from morb_slam_tpu_torch.ops import (fast, hamming, orb_descriptor, rectify,
                                      stereo)
-from morb_slam_tpu_torch.optim import pose_opt
+from morb_slam_tpu_torch.optim import ba, pose_opt, vi_ba
 from morb_slam_tpu_torch.pipeline import tracking
 from morb_slam_tpu_torch.vocab import tree
 
@@ -48,7 +48,8 @@ def test_imports_without_jax_or_reference_package():
                         if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
         for need in ("vocab.tree", "vocab.database", "io.serialization",
-                     "solvers.pnp", "optim.pose_opt"):
+                     "solvers.pnp", "optim.pose_opt", "imu", "optim.inertial",
+                     "optim.vi_ba", "optim.ba"):
             assert "morb_slam_tpu_torch." + need in names, need
         print(len(names))
     """)
@@ -87,7 +88,8 @@ def _counts():
                               hamming.LAUNCHES, stereo.LAUNCHES,
                               rectify.LAUNCHES, pose_opt.LAUNCHES,
                               tree.LAUNCHES["vocab_transform"],
-                              tree.LAUNCHES["bow_l1"])]
+                              tree.LAUNCHES["bow_l1"], ba.LAUNCHES,
+                              imu.LAUNCHES, vi_ba.LAUNCHES)]
 
 
 def _voc(device):
@@ -105,10 +107,44 @@ def _pose_args(device, n=5):
             torch.ones(n, dtype=torch.bool, device=device))
 
 
+def _ba_args(device, K=2, L=3, O=4):
+    z = lambda *s: torch.zeros(s, device=device)
+    i = lambda n: torch.zeros(n, dtype=torch.int32, device=device)
+    b = lambda n: torch.ones(n, dtype=torch.bool, device=device)
+    p = ba.make_problem(R=torch.eye(3, device=device).expand(K, 3, 3),
+                        t=z(K, 3) + torch.tensor([0.0, 0.0, 2.0],
+                                                 device=device),
+                        X=z(L, 3), obs_kf=i(O), obs_lm=i(O), obs_uv=z(O, 2),
+                        obs_info=z(O) + 1.0, obs_mask=b(O), kf_opt=b(K),
+                        lm_opt=b(L))
+    return p, p.R, p.t, p.X
+
+
+def _imu_args(device, n=4):
+    z = torch.zeros((n, 3), device=device)
+    calib = imu.ImuCalib(*(torch.zeros(s, device=device)
+                           for s in ((3, 3), (3,), (6,), (6,))))
+    return (z, z, torch.full((n,), 0.005, device=device),
+            torch.ones(n, dtype=torch.bool, device=device),
+            torch.zeros(6, device=device), calib)
+
+
+def _pose_inertial_args(device, n=5):
+    R0, t0, X, obs, info, valid = _pose_args(device, n)
+    z = lambda *s: torch.zeros(s, device=device)
+    eye = torch.eye(3, device=device)
+    return (R0, t0, z(3), z(6), X, obs, info, valid, z(n), z(), eye, z(3),
+            z(3), z(6), z() + 0.05, eye, z(3), z(3), z(3, 3), z(3, 3),
+            z(3, 3), z(3, 3), z(3, 3), torch.eye(9, device=device), z(6),
+            z(6) + 1.0)
+
+
 @pytest.mark.parametrize("kernel", ["fast_select", "orb_describe",
                                     "hamming_top2", "stereo_sad",
                                     "remap_bilinear", "pose_opt",
-                                    "vocab_transform", "bow_l1"])
+                                    "vocab_transform", "bow_l1",
+                                    "ba_assemble", "preintegrate",
+                                    "pose_inertial"])
 def test_wrappers_refuse_other_devices(kernel):
     meta = torch.device("meta")
     before = _counts()
@@ -135,6 +171,13 @@ def test_wrappers_refuse_other_devices(kernel):
         elif kernel == "bow_l1":
             tree.l1_score(torch.zeros(4, device=meta),
                           torch.zeros((3, 4), device=meta))
+        elif kernel == "ba_assemble":
+            ba.assemble(*_ba_args(meta))
+        elif kernel == "preintegrate":
+            imu.preintegrate(*_imu_args(meta))
+        elif kernel == "pose_inertial":
+            vi_ba.optimize_pose_inertial(*_pose_inertial_args(meta),
+                                         n_iters=1)
         else:
             rectify.remap_bilinear(torch.empty((48, 64), device=meta),
                                    torch.zeros((8, 8, 2), device=meta))
@@ -155,6 +198,9 @@ def test_wrappers_use_plain_versions_on_cpu():
     pose_opt.optimize_pose(*_pose_args("cpu"), n_rounds=1, n_iters=1)
     tree.transform(_voc("cpu"), torch.zeros((3, 8), dtype=torch.int32))
     tree.l1_score(torch.zeros(4), torch.zeros((3, 4)))
+    ba.assemble(*_ba_args("cpu"))
+    imu.preintegrate(*_imu_args("cpu"))
+    vi_ba.optimize_pose_inertial(*_pose_inertial_args("cpu"), n_iters=1)
     after = _counts()
     for b, a in zip(before, after):
         assert a["plain"] == b["plain"] + 1

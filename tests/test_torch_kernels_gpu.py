@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K3, K5 and K7-K10 of the PyTorch port against their
+"""The CUDA kernels K1-K5 and K7-K12 of the PyTorch port against their
 plain PyTorch versions on the card, on shapes and inputs the main path does
 not reach: image sizes that are no multiple of the 16-px cell, flat images
 where every key ties, empty keypoint and row sets, a single column, fully
@@ -9,7 +9,12 @@ outside; pose problems of 0, 1, 1200 and 16384 observations, all invalid,
 partly behind the camera, mono and mixed stereo; vocabulary descents with
 tied children, no valid descriptor and other branchings and depths; L1
 scores over widths that are no multiple of 4, masked rows and batches of
-queries; and every new wrapper refusing bad dtypes and shapes.
+queries; BA assemblies (K4) of an empty window, one observation, repeated
+(landmark, keyframe) pairs and both tangent modes, bitwise repeatable;
+preintegrations (K11) of an all-padding batch, one sample, fresh and
+continued frame batches and a keyframe buffer; inertial pose problems
+(K12) with a near-identity edge, no visual rows and mixed stereo; and
+every new wrapper refusing bad dtypes and shapes.
 
 Marked `gpu`: each test skips without a CUDA card. On a machine with one
 (and without JAX, so without tests/conftest.py):
@@ -23,7 +28,12 @@ on non-integer images within 1e-3 px; K8 exact (same rounding, no FMA); K5
 R and t within 1e-4 and the inlier count within 1% (the kernel sums the
 normal equations in another order, so a row whose chi2 sits at its gate
 may flip), chi2 as residual norms within 1e-6; K9 exact (integer work); K10 within 1e-5 (float sums in another
-order), masked rows exactly -1.
+order), masked rows exactly -1; K4 blocks within 1e-4 of each block
+tensor's max-abs and bit-identical across two launches, its LM loop with
+the plain loop's accepts, R within 1e-5, t within 1e-4, the final cost
+within 1e-3 relative and the landmarks within 1e-2 chi2 units; K11 dR, dV, dP and
+the Jacobians within 1e-5, C within 1e-5 of its max-abs; K12 R and t
+within 1e-5, v and bias within 1e-4, the same inlier count.
 """
 import math
 
@@ -31,10 +41,10 @@ import numpy as np
 import pytest
 import torch
 
-from morb_slam_tpu_torch import frontend, lie
+from morb_slam_tpu_torch import frontend, imu, lie
 from morb_slam_tpu_torch.ops import (fast, hamming, image, orb_descriptor,
                                      rectify, stereo)
-from morb_slam_tpu_torch.optim import pose_opt
+from morb_slam_tpu_torch.optim import ba, pose_opt, vi_ba
 from morb_slam_tpu_torch.vocab import tree
 
 torch.set_num_threads(1)
@@ -546,3 +556,215 @@ def test_new_wrappers_refuse_bad_inputs_on_the_card(cuda):
         tree.l1_score(torch.zeros(16, device=cuda), db,
                       torch.ones(2, dtype=torch.bool, device=cuda))
     assert [dict(c) for c in counts] == before
+
+
+# ---------------------------------------------------------------------------
+# K4 ba_assemble
+# ---------------------------------------------------------------------------
+
+def _ba_problem(cuda, K, L, per_kf, seed=0, stereo_share=0.3, dup=0.05):
+    """K keyframes looking at L landmarks, per_kf observations each (some
+    repeated (landmark, keyframe) pairs, masked rows, fixed landmarks)."""
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-3, 3, L), rng.uniform(-2, 2, L),
+                  rng.uniform(3, 9, L)], -1)
+    R = np.stack([lie.so3_exp(torch.tensor(rng.normal(0, 0.05, 3),
+                                           dtype=torch.float32)).numpy()
+                  for _ in range(K)])
+    t = rng.normal(0, 0.2, (K, 3))
+    O = K * per_kf
+    obs_kf = np.repeat(np.arange(K), per_kf)
+    obs_lm = rng.integers(0, max(L, 1), O)
+    rep = rng.random(O) < dup
+    obs_lm[1:][rep[1:]] = obs_lm[:-1][rep[1:]]
+    obs_kf[1:][rep[1:]] = obs_kf[:-1][rep[1:]]
+    Xc = np.einsum('oij,oj->oi', R[obs_kf], X[obs_lm]) + t[obs_kf]
+    uv = Xc[:, :2] / Xc[:, 2:] + rng.normal(0, 2.0 / 460, (O, 2))
+    ur = np.where(rng.random(O) < stereo_share,
+                  (Xc[:, 0] - 0.11) / Xc[:, 2], np.nan)
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                  device=cuda)
+    i = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                  device=cuda)
+    b = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.bool,
+                                  device=cuda)
+    return ba.make_problem(
+        R=f(R), t=f(t), X=f(X), obs_kf=i(obs_kf), obs_lm=i(obs_lm),
+        obs_uv=f(uv), obs_info=f(460.0 ** 2 * 1.2 ** (-2.0 * rng.integers(
+            0, 8, O))), obs_mask=b(rng.random(O) < 0.9),
+        kf_opt=b(np.arange(K) >= 2), lm_opt=b(rng.random(L) < 0.85),
+        obs_ur=f(ur), baseline=0.11)
+
+
+def _blocks_close(got, want, tol=1e-4):
+    for name, a, b in zip(ba.BlockSums._fields, got, want):
+        scale = max(float(b.abs().max()) if b.numel() else 0.0, 1e-30)
+        d = float((a - b).abs().max()) / scale if b.numel() else 0.0
+        assert d <= tol, (name, d)
+
+
+@pytest.mark.parametrize("body", [False, True])
+@pytest.mark.parametrize("K,L,per_kf", [(18, 6144, 1200), (3, 40, 30),
+                                        (1, 1, 1), (4, 50, 0)])
+def test_ba_assemble_matches_plain_and_repeats(cuda, K, L, per_kf, body):
+    p = _ba_problem(cuda, K, L, per_kf, seed=K)
+    order = ba.obs_order(p)
+    got = ba.assemble(p, p.R, p.t, p.X, order, body=body)
+    want = ba.assemble_plain(p, p.R, p.t, p.X, body=body)
+    _blocks_close(got, want)
+    again = ba.assemble(p, p.R, p.t, p.X, order, body=body)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_ba_solve_kernel_matches_plain(cuda):
+    """The LM loop over K4: the same accept sequence, R within 1e-5, t
+    within 1e-4, the final cost within 1e-3 relative and the landmarks
+    within 1e-2 chi2 units (dX^T Hll dX) of the plain assembly's loop. Landmarks
+    seen once are barely constrained in depth: float32 rounding of their
+    blocks moves them by ~1e-3 m, in the plain loop too when its sums run
+    in float64."""
+    p = _ba_problem(cuda, 6, 400, 300, seed=3, dup=0.0)
+    dR = lie.so3_exp(torch.tensor([0.01, -0.01, 0.005], device=cuda))
+    p = p._replace(R=dR @ p.R, t=p.t + 0.02)
+    got = ba.ba_solve(p, n_iters=5)
+    orig = ba.assemble
+    try:
+        ba.assemble = lambda p, R, t, X, order=None, body=False: \
+            ba.assemble_plain(p, R, t, X, body)
+        want = ba.ba_solve(p, n_iters=5)
+    finally:
+        ba.assemble = orig
+    assert torch.equal(got[3]["accepted"], want[3]["accepted"])
+    assert torch.allclose(got[0], want[0], atol=1e-5)
+    assert torch.allclose(got[1], want[1], atol=1e-4)
+    cost, cost_p = got[3]["costs"][-1], want[3]["costs"][-1]
+    assert float((cost - cost_p).abs() / cost_p.abs()) <= 1e-3
+    Hll = ba.assemble_plain(p, *want[:3]).Hll
+    dX = got[2] - want[2]
+    assert float(torch.einsum('li,lij,lj->l', dX, Hll, dX).max()) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# K11 preintegrate
+# ---------------------------------------------------------------------------
+
+def _calib(cuda):
+    return imu.make_calib(np.eye(3), np.zeros(3), 1.7e-4, 2e-3, 1.9e-5,
+                          3e-3, 200.0, device=cuda)
+
+
+def _imu_batch(cuda, n, n_valid, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                  device=cuda)
+    acc = rng.normal(0, 1.5, (n, 3)) + [0, 0, 9.81]
+    gyr = rng.normal(0, 0.5, (n, 3))
+    dts = np.where(np.arange(n) < n_valid, 0.005, 0.0)
+    return (f(acc), f(gyr), f(dts), torch.arange(n, device=cuda) < n_valid,
+            f(rng.normal(0, 0.01, 6)))
+
+
+def _pre_close(got, want):
+    for name in ("dR", "dV", "dP", "J_Rg", "J_Vg", "J_Va", "J_Pg", "J_Pa",
+                 "avg_a", "avg_w", "bias", "dt"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert torch.allclose(a, b, atol=1e-5), (name, a, b)
+    scale = max(float(want.C.abs().max()), 1e-30)
+    assert float((got.C - want.C).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("n,n_valid", [(64, 0), (64, 1), (64, 10), (64, 64),
+                                       (768, 512)])
+def test_preintegrate_matches_plain(cuda, n, n_valid):
+    acc, gyr, dts, mask, bias = _imu_batch(cuda, n, n_valid, seed=n_valid)
+    calib = _calib(cuda)
+    got = imu.preintegrate(acc, gyr, dts, mask, bias, calib)
+    want = imu.preintegrate_plain(acc, gyr, dts, mask, bias, calib)
+    _pre_close(got, want)
+    # continued by a second frame batch
+    acc2, gyr2, dts2, mask2, _ = _imu_batch(cuda, 64, 9, seed=n + 1)
+    _pre_close(imu.preintegrate(acc2, gyr2, dts2, mask2, bias, calib,
+                                init=got),
+               imu.preintegrate_plain(acc2, gyr2, dts2, mask2, bias, calib,
+                                      init=want))
+
+
+def test_preintegrate_all_padding_is_identity(cuda):
+    acc, gyr, dts, mask, bias = _imu_batch(cuda, 64, 0)
+    got = imu.preintegrate(acc, gyr, dts, mask, bias, _calib(cuda))
+    assert float(got.dt) == 0.0
+    assert torch.equal(got.dR, torch.eye(3, device=cuda))
+    assert not bool(got.C.any())
+
+
+# ---------------------------------------------------------------------------
+# K12 optimize_pose_inertial
+# ---------------------------------------------------------------------------
+
+def _pose_inertial_problem(cuda, n, stereo_share, seed=0, edge_dt=0.05):
+    """The current frame perturbed from a constant-velocity truth, the
+    anchor keyframe edge_dt earlier, its preintegration from noiseless
+    samples, n visual rows (10% outliers)."""
+    R0, t0, X, uv, info, valid, ur = _pose_problem(
+        cuda, n, stereo_share=stereo_share, seed=seed)
+    calib = _calib(cuda)
+    m = max(int(round(edge_dt / 0.005)), 1)
+    acc = torch.tensor([[0.0, 0.0, 9.81]], device=cuda).expand(m, 3)
+    pre = imu.preintegrate_plain(acc.contiguous(),
+                                 torch.zeros((m, 3), device=cuda),
+                                 torch.full((m,), edge_dt / m, device=cuda),
+                                 torch.ones(m, dtype=torch.bool,
+                                            device=cuda),
+                                 torch.zeros(6, device=cuda), calib)
+    v = torch.tensor([0.3, 0.0, 0.1], device=cuda)
+    R_a = torch.eye(3, device=cuda)
+    p_a = -v * pre.dt
+    eye9 = torch.eye(9, device=cuda)
+    info9 = vi_ba.floor_info(torch.linalg.inv(pre.C[:9, :9] + 1e-9 * eye9))
+    rw = 1.0 / torch.clamp(torch.diagonal(pre.C[9:, 9:]), min=1e-12)
+    if ur is None:
+        ur = torch.full((n,), float("nan"), device=cuda)
+    z6 = torch.zeros(6, device=cuda)
+    return (R0, t0, v + 0.1, z6, X, uv, info, valid, ur,
+            torch.tensor(0.11, device=cuda), R_a, p_a, v, z6, pre.dt, pre.dR,
+            pre.dV, pre.dP, pre.J_Rg, pre.J_Vg, pre.J_Va, pre.J_Pg, pre.J_Pa,
+            info9, pre.bias, rw)
+
+
+@pytest.mark.parametrize("n,stereo_share,edge_dt", [
+    (1200, 0.6, 0.05), (1200, 0.0, 0.05), (300, 0.3, 0.005), (0, 0.0, 0.05),
+    (1, 0.0, 0.05)])
+def test_pose_inertial_matches_plain(cuda, n, stereo_share, edge_dt):
+    args = _pose_inertial_problem(cuda, n, stereo_share, seed=n,
+                                  edge_dt=edge_dt)
+    got = vi_ba.optimize_pose_inertial(*args, n_iters=6)
+    want = vi_ba.optimize_pose_inertial_plain(*args, n_iters=6)
+    assert torch.allclose(got.R_cw, want.R_cw, atol=1e-5), (got.R_cw,
+                                                             want.R_cw)
+    assert torch.allclose(got.t_cw, want.t_cw, atol=1e-5), (got.t_cw,
+                                                             want.t_cw)
+    assert torch.allclose(got.v, want.v, atol=1e-4)
+    assert torch.allclose(got.bias, want.bias, atol=1e-4)
+    assert int(got.n_inliers) == int(want.n_inliers) == \
+        int(got.inliers.sum())
+    assert bool(torch.isfinite(got.H_marg).all())
+
+
+def test_k4_k11_k12_refuse_bad_inputs_on_the_card(cuda):
+    p = _ba_problem(cuda, 3, 40, 30)
+    with pytest.raises(ValueError):
+        ba.assemble(p._replace(obs_kf=p.obs_kf.long()), p.R, p.t, p.X)
+    with pytest.raises(ValueError):
+        ba.assemble(p, p.R.double(), p.t, p.X)
+    acc, gyr, dts, mask, bias = _imu_batch(cuda, 8, 8)
+    with pytest.raises(ValueError):
+        imu.preintegrate(acc, gyr, dts, mask.to(torch.uint8), bias,
+                         _calib(cuda))
+    with pytest.raises(ValueError):
+        imu.preintegrate(acc[:, :2], gyr, dts, mask, bias, _calib(cuda))
+    args = list(_pose_inertial_problem(cuda, 20, 0.0))
+    with pytest.raises(ValueError):
+        vi_ba.optimize_pose_inertial(*args[:4], args[4].double(), *args[5:])
+    with pytest.raises(ValueError):
+        vi_ba.optimize_pose_inertial(*args[:23], args[23][:8], *args[24:])

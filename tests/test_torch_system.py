@@ -1,6 +1,6 @@
 """The PyTorch port's System facade on the CPU (its plain kernel
 versions): settings built in code and from YAML (against the JAX
-package's loader), the sensors of later slices refused, localization mode
+package's loader), the features of later slices refused, localization mode
 and reset, and two end-to-end sequences at the JAX tests' gates:
 
 - raw, rotated-rig stereo rectified by the System (test_rectify.py's
@@ -106,12 +106,17 @@ def test_system_from_yaml_builds_rectification(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(sensor=system.Sensor.IMU_STEREO),
+    dict(sensor=system.Sensor.IMU_STEREO, load_atlas="atlas.osa"),
     dict(sensor=system.Sensor.MONOCULAR, vocabulary=object()),
     dict(sensor=system.Sensor.MONOCULAR, vocabulary_path="voc.txt")])
 def test_later_slices_refused(kw):
+    """Atlas loading and loop closing belong to later slices (the inertial
+    sensors run since the visual-inertial slice)."""
+    kw = dict(kw)
+    settings = config.Settings(cam1=_cam(), imu=config.ImuSettings(),
+                               load_atlas=kw.pop("load_atlas", ""))
     with pytest.raises(NotImplementedError):
-        system.System(config.Settings(cam1=_cam()), device="cpu", **kw)
+        system.System(settings, device="cpu", **kw)
 
 
 def test_localization_mode_and_reset(world):
