@@ -26,7 +26,12 @@ Phases:
                 K12 (pose_inertial) on a tracking-shaped problem (1200
                 observations, 60% stereo) with a noisy 0.05 s edge. K4
                 (ba_assemble) is held against its plain version in the
-                stereo phase, on the local BA problem that path built.
+                stereo phase, on the local BA problem that path built, and
+                in its per-observation mode, with K14 (schur_pcg: S x, the
+                right-hand side and the back-substitution), on a global BA
+                problem at the loop phase's capacities (512 keyframe slots
+                of 1200 features, 32,768 landmark slots; 120 keyframes,
+                ~84,000 active observations).
   3. main   — render the 752x480 synthetic world on the card and run 80
                 frames through `Tracker.track_mono` (1200 features, 8
                 levels), check initialization, the share of OK frames, the
@@ -80,6 +85,27 @@ Phases:
                 initialization, inertial after) and each IMU-init stage;
                 profile 5 more frames, then the plain K13 range and
                 `inertial_only_optimize` on the path's last problems.
+  8. loop     — a live stereo loop through `System(settings,
+                Sensor.STEREO, vocabulary_path=...)` with loop closing on
+                and System's default capacities: the tests' ring world (56
+                panels on a 6 m ring) rendered on the card, the EuRoC rig
+                orbiting inside it, 346 raw pairs (1.5 circuits at the
+                tests' 1.3 circuits per 300 frames), the tests' tracker
+                settings, a k = 8, depth = 3 vocabulary trained in-run.
+                Check >= 1 loop closed, > 90% of frames OK, the loop gap
+                after correction < 0.3 and <= the raw one, the SE3 ATE <
+                1.1 x the raw poses', the last GBA job's 4 slices run (K14
+                in each) and finished by flush(), and that K1-K5, K7-K10,
+                K14 and K4's per-observation mode launched while no plain
+                version ran; time the closing insert's parts and every GBA
+                slice, count host syncs per maybe_close; then hold one GBA
+                slice of the path's own problem against the slice over the
+                plain versions (accepts, costs within 1e-3) and check its
+                peak memory stays under one dense coupling.
+  9. merge    — the bench's multi-session merge: mono 384x288, 500
+                features, the plane world out (28 frames) and back (27), a
+                new map at the turn; the stashed map must weld back and the
+                Sim3 ATE stay under 0.08 x extent.
 
 Any failure raises (nonzero exit). The line before the last is the card's
 `nvidia-smi` name and power limit; the last line is the JSON result.
@@ -140,7 +166,10 @@ R_B_C0 = np.array([
 RANGES = ("K4 ba_solve", "K4 ba_assemble", "K5 optimize_pose",
           "K6 build_pyramid", "K6 gaussian_blur", "K9 vocab_transform",
           "K10 bow_l1", "K11 preintegrate", "K12 optimize_pose_inertial",
-          "K13 vi_ba edges", "inertial_only_optimize")
+          "K13 vi_ba edges", "inertial_only_optimize", "K14 schur_lm_pass",
+          "K14 schur_kf_pass", "ba_solve_pcg", "GBA slice", "GBATotal",
+          "LoopTotal", "maybe_close", "maybe_merge", "correct_loop",
+          "pose_graph.optimize", "guided_sim3_verify", "search_and_fuse")
 # NVIDIA's H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12             # float32 outside the tensor cores
@@ -218,9 +247,13 @@ class PlaneWorld:
                                                         device))
         self.pix = pixel_grid(width, height, device)
 
-    def _add(self, origin, extent, tex):
+    cull = False       # skip planes whose centre is behind the camera
+
+    def _add(self, origin, extent, tex, ex=(1.0, 0, 0), ey=(0, 1.0, 0)):
         self.planes.append(dict(origin=np.asarray(origin, np.float64),
-                                extent=extent, tex=tex))
+                                extent=extent, tex=tex,
+                                ex=np.asarray(ex, np.float64),
+                                ey=np.asarray(ey, np.float64)))
 
     def render(self, R_cw, t_cw):
         return self.render_points(R_cw, t_cw, self.pix, self.K,
@@ -237,8 +270,13 @@ class PlaneWorld:
         depth = torch.zeros_like(img)
         for p in self.planes:
             th, tw = p["tex"].shape
-            a = R @ (np.array([1.0, 0, 0]) * p["extent"][0] / tw)
-            b = R @ (np.array([0, 1.0, 0]) * p["extent"][1] / th)
+            if self.cull:
+                centre = p["origin"] + 0.5 * p["extent"][0] * p["ex"] + \
+                    0.5 * p["extent"][1] * p["ey"]
+                if (R @ centre + t)[2] < 0.5:
+                    continue
+            a = R @ (p["ex"] * p["extent"][0] / tw)
+            b = R @ (p["ey"] * p["extent"][1] / th)
             c = R @ p["origin"] + t
             Hinv = np.linalg.inv(K @ np.stack([a, b, c], axis=1))
             src = pts @ torch.from_numpy(Hinv.T).to(self.device)
@@ -255,6 +293,45 @@ class PlaneWorld:
             # the homography's third coordinate is 1 / z
             depth = torch.where(ok, (1.0 / src[:, 2]).to(torch.float32), depth)
         return img.view(*shape), depth.view(*shape)
+
+
+class RingWorld(PlaneWorld):
+    """The tests' ring world: 56 textured panels on a 6 m ring, their
+    faces towards the centre, rendered with the behind-camera cull."""
+
+    cull = True
+
+    def __init__(self, K, width, height, device, n_panels=56, r_panel=6.0,
+                 seed=0):
+        self.K = np.asarray(K, np.float64)
+        self.w, self.h, self.device = width, height, device
+        rng = np.random.default_rng(seed)
+        self.planes = []
+        up = np.array([0.0, 1.0, 0.0])
+        for k in range(n_panels):
+            phi = 2 * np.pi * k / n_panels
+            tangent = np.array([np.cos(phi), 0.0, -np.sin(phi)])
+            ex_w, ey_h = 1.7, 1.6
+            origin = (r_panel * np.array([np.sin(phi), 0.0, np.cos(phi)])
+                      - 0.5 * ex_w * tangent - 0.5 * ey_h * up
+                      + np.array([0.0, rng.uniform(-0.25, 0.25), 0.0]))
+            self._add(origin, (ex_w, ey_h),
+                      texture(384, seed + 7 * k + 1, device), ex=tangent,
+                      ey=up)
+        self.pix = pixel_grid(width, height, device)
+
+
+def ring_path(n_frames, circuits=1.15, r_cam=2.5):
+    """The tests' orbit inside the ring, looking radially outward."""
+    poses = []
+    for i in range(n_frames):
+        th = 2 * np.pi * circuits * i / n_frames
+        sn, cs = np.sin(th), np.cos(th)
+        R_cw = np.array([[cs, 0.0, sn], [0.0, 1.0, 0.0], [-sn, 0.0, cs]]).T
+        poses.append((R_cw.astype(np.float32),
+                      (-R_cw @ (r_cam * np.array([sn, 0.0, cs])))
+                      .astype(np.float32)))
+    return poses
 
 
 def pixel_grid(width, height, device):
@@ -620,6 +697,7 @@ def phase_kernels(state):
     _stereo_kernels(state, rows)
     _reloc_kernels(state, rows)
     _vi_kernels(rows)
+    _gba_kernels(rows)
     state["kernel_rows"] = rows
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms on the card, "
@@ -641,7 +719,9 @@ def _kernel_counters():
             "remap_bilinear": rectify.LAUNCHES, "pose_opt": pose_opt.LAUNCHES,
             "vocab_transform": tree.LAUNCHES["vocab_transform"],
             "bow_l1": tree.LAUNCHES["bow_l1"], "ba_assemble": ba.LAUNCHES,
-            "preintegrate": imu.LAUNCHES, "pose_inertial": vi_ba.LAUNCHES}
+            "preintegrate": imu.LAUNCHES, "pose_inertial": vi_ba.LAUNCHES,
+            "ba_assemble_per_obs": ba.OBS_LAUNCHES,
+            "schur_pcg": ba.SCHUR_LAUNCHES}
 
 
 def _reset_counters():
@@ -744,10 +824,11 @@ def _rig(state):
     return state["rig"]
 
 
-def _raw_pair(state, R1, t1):
+def _raw_pair(state, R1, t1, world=None):
     """uint8 raw (distorted) left and right images of the rig at cam0 pose
-    T_c0_w = (R1, t1), rendered with grid_sample."""
-    world, _ = _world(state)
+    T_c0_w = (R1, t1), rendered with grid_sample (in `world`, by default
+    the plane world)."""
+    world = world or _world(state)[0]
     rays0, rays1 = _rig(state)["rays"]
     R_10 = T_C0_C1[:3, :3].T
     t_10 = -R_10 @ T_C0_C1[:3, 3]
@@ -1453,27 +1534,33 @@ def _ate(tracker, poses, dt):
             float(torch.linalg.norm(gt[-1] - gt[0])), len(est))
 
 
-def _ba_bound(p):
-    """K4's least time for one assembly of this problem: every observation
-    (25 B), the two sorted orders (8 B per observation and 4 per segment
-    start), poses, points and lm_opt read once; Hpp, bp, the dense
-    (L, K, 6, 3) coupling, Hll, bl and the cost written once. Per active
+def _ba_bound(p, per_obs=False):
+    """K4's least time for one assembly of this problem. The kernel walks
+    the active observations only (masked ones sort past every segment):
+    each one's inputs (25 B) and its places in the two sorted orders (8 B)
+    are read once, the segment starts (4 B each), poses, points and lm_opt
+    once; Hpp, bp, Hll, bl and the cost are written once, and the coupling:
+    the dense (L, K, 6, 3) tensor, written whole, or with `per_obs` one
+    72-byte block per active observation (the wrapper's zero fill of the
+    masked slots is another launch, not timed with the kernel). Per active
     observation ~120 flops for its residual, Jacobians and Huber weight
-    (taken in both the keyframe and the landmark pass) and per residual
-    row ~114 for its block products (Hpp 42, bp 12, coupling 36, Hll 18,
-    bl 6)."""
+    (taken in both the keyframe and the landmark pass) and per residual row
+    ~114 for its block products (Hpp 42, bp 12, coupling 36, Hll 18, bl
+    6)."""
     from morb_slam_tpu_torch.optim import ba
     O = p.obs_uv.shape[0]
     K, L = p.R.shape[0], p.X.shape[0]
     act = p.obs_mask
     n_obs = int(act.sum())
     n_st = int((act & torch.isfinite(p.obs_ur)).sum())
-    nbytes = (O * (25 + 8) + 4 * (K + L + 2) + K * 48 + L * 13
-              + K * (144 + 24) + L * K * 72 + L * 48 + 4)
+    coupling = n_obs * 72 if per_obs else L * K * 72
+    nbytes = (n_obs * (25 + 8) + 4 * (K + L + 2) + K * 48 + L * 13
+              + K * (144 + 24) + coupling + L * 48 + 4)
     nops = n_obs * 120 + (2 * n_obs + n_st) * 114
     return bound(nbytes, nops), dict(obs=O, active_obs=n_obs, kfs=K,
                                      points=L, ba_assemble_outputs=list(
-                                         ba.BlockSums._fields))
+                                         (ba.ObsBlocks if per_obs else
+                                          ba.BlockSums)._fields))
 
 
 def _path_profile(tracker, step, frames, name, out, table_path=None):
@@ -1494,7 +1581,8 @@ def _path_profile(tracker, step, frames, name, out, table_path=None):
     torch.cuda.set_sync_debug_mode(0)
     nf = len(frames)
     n_kern, dev_us, ours_us = 0, 0.0, 0.0
-    ours = tuple(f"{k}_kernel" for k in _kernel_counters())
+    ours = tuple(f"{k}_kernel" for k in _kernel_counters()) + (
+        "schur_lm_kernel", "schur_kf_kernel")
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA and \
                 ev.key not in RANGES:
@@ -2171,6 +2259,664 @@ def _vi_plain_rows(calls):
                    f"iterations")]
 
 
+# ---------------------------------------------------------------------------
+# loop closing, Atlas merge and the detached global BA
+# ---------------------------------------------------------------------------
+
+# System's default capacities (tracking.TrackerConfig)
+LOOP_K, LOOP_F, LOOP_L = 512, 1200, 32768
+# the tests' ring orbit: 1.3 circuits per 300 frames; run to 1.5 circuits
+# (346 frames): at the rig's 79-degree field of view tracking re-finds the
+# first keyframes' landmarks from ~frame 215, which hides the loop from the
+# BoW query until late: 300 frames end before either package closes it
+# reliably (PERF.md)
+N_LOOP, LOOP_DT, LOOP_PERIOD = 346, 0.05, 300 / 1.3
+LOOP_VOC_K, LOOP_VOC_DEPTH = 8, 3
+# the bench's multi_session_merge_run: 28 frames out, 27 back
+MERGE_W, MERGE_H, MERGE_FX, MERGE_OUT = 384, 288, 300.0, 28
+
+
+def _global_problem(seed=0, n_valid_kf=120, n_valid_lm=20000, per_kf=700,
+                    stereo_share=0.3):
+    """A global BA problem at the loop phase's capacities, laid out as
+    `global_ba._build_global_problem` lays out a map: K = 512 keyframe
+    slots of 1200 feature slots (120 keyframes valid, keyframe 0 fixed),
+    L = 32,768 landmark slots (20,000 valid); each valid keyframe observes
+    700 landmarks of a window that slides along the path, 30% of them in
+    stereo, 2 px noise."""
+    from morb_slam_tpu_torch import lie
+    from morb_slam_tpu_torch.optim import ba
+    rng = np.random.default_rng(seed)
+    K, F, L = LOOP_K, LOOP_F, LOOP_L
+    X = np.zeros((L, 3))
+    X[:n_valid_lm] = np.stack([rng.uniform(-4, 4, n_valid_lm),
+                               rng.uniform(-2, 2, n_valid_lm),
+                               rng.uniform(3, 9, n_valid_lm)], -1)
+    R = np.tile(np.eye(3), (K, 1, 1))
+    t = np.zeros((K, 3))
+    R[:n_valid_kf] = lie.so3_exp(torch.tensor(rng.normal(
+        0, 0.03, (n_valid_kf, 3)), dtype=torch.float32)).numpy()
+    t[:n_valid_kf] = rng.normal(0, 0.1, (n_valid_kf, 3))
+    obs_lm = np.zeros((K, F), np.int64)
+    mask = np.zeros((K, F), bool)
+    win = 3000
+    for k in range(n_valid_kf):
+        lo = int((n_valid_lm - win) * k / max(n_valid_kf - 1, 1))
+        obs_lm[k, :per_kf] = lo + rng.choice(win, per_kf, replace=False)
+        mask[k, :per_kf] = True
+    kf = np.repeat(np.arange(K), F)
+    lm = obs_lm.reshape(-1)
+    Xc = np.einsum('oij,oj->oi', R[kf], X[lm]) + t[kf]
+    z = np.where(np.abs(Xc[:, 2]) < 1e-6, 1.0, Xc[:, 2])
+    uv = Xc[:, :2] / z[:, None] + rng.normal(0, 2.0 / FX, (K * F, 2))
+    ur = np.where(rng.random(K * F) < stereo_share,
+                  (Xc[:, 0] - 0.11) / z, np.nan)
+    dev = DEV
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                  device=dev)
+    i = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                  device=dev)
+    b = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.bool, device=dev)
+    kf_valid = np.arange(K) < n_valid_kf
+    return ba.make_problem(
+        R=f(R), t=f(t), X=f(X), obs_kf=i(kf), obs_lm=i(lm), obs_uv=f(uv),
+        obs_info=f(FX ** 2 * 1.2 ** (-2.0 * rng.integers(0, 8, K * F))),
+        obs_mask=b(mask.reshape(-1)), kf_opt=b(kf_valid & (np.arange(K) > 0)),
+        lm_opt=b(np.arange(L) < n_valid_lm), obs_ur=f(ur), baseline=0.11)
+
+
+def _schur_bound(p):
+    """K14's least time for one S x: every active observation's 72-byte
+    block, its keyframe and landmark ids and its place in the two sorted
+    orders (16 B) read once, the segment starts, Hpp, Hll^-1, x and the
+    flags read once, S x written once (y is internal); 36 flops per
+    observation and pass, 15 per landmark, 72 per keyframe."""
+    K, L = p.R.shape[0], p.X.shape[0]
+    n_obs = int(p.obs_mask.sum())
+    nbytes = n_obs * (72 + 16) + 4 * (K + L + 2) + K * (144 + 24 + 1) \
+        + L * (36 + 1) + K * 24
+    return bound(nbytes, n_obs * 72 + L * 15 + K * 72), n_obs
+
+
+def _gba_kernels(rows):
+    """K4's per-observation mode and K14 against their plain versions at
+    the loop phase's capacities: max relative errors, two launches bitwise
+    equal, times and bounds."""
+    from morb_slam_tpu_torch.optim import ba, linalg
+    t0 = time.perf_counter()
+    p = _global_problem()
+    order = ba.obs_order(p)
+    got = ba.assemble(p, p.R, p.t, p.X, order, per_obs=True)
+    want = ba.assemble_obs_plain(p, p.R, p.t, p.X)
+    rel = {}
+    for name, a, b in zip(ba.ObsBlocks._fields, got, want):
+        rel[name] = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+    again = ba.assemble(p, p.R, p.t, p.X, order, per_obs=True)
+    same4 = all(torch.equal(a, b) for a, b in zip(got, again))
+    n_obs = int(p.obs_mask.sum())
+    log(f"K4 per-observation mode ({n_obs} of {p.obs_mask.numel()} "
+        f"observations active): blocks within {max(rel.values()):.2e} of "
+        f"plain relative to their max-abs ({', '.join(f'{k} {v:.1e}' for k, v in rel.items())}); "
+        f"Wpl against _obs_terms' Jp^T w Jl {rel['Wpl']:.2e}; two launches "
+        f"bitwise equal: {same4}")
+    check(max(rel.values()) <= 1e-4 and same4, ("K4 per-obs", rel, same4))
+    lam = torch.tensor(1e-3, device=DEV)
+    Hpp = ba._damp(want.Hpp, lam)
+    Hll_inv = linalg.inv3x3(torch.where(
+        p.lm_opt[:, None, None], ba._damp(want.Hll, lam),
+        torch.eye(3, device=DEV).expand(want.Hll.shape)))
+    bl = want.bl * p.lm_opt.float()[:, None]
+    x = torch.randn(p.R.shape[0], 6, device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(3))
+    y0 = torch.einsum('lab,lb->la', Hll_inv, bl)
+    W, Wa, xa, Ha = want.Wpl, want.Wpl.abs(), x.abs(), Hll_inv.abs()
+    ya = ba.schur_lm_pass_plain(p, Wa, xa, Ha)
+    kf = p.kf_opt.float()[:, None]
+    # (kernel, plain, the magnitude of each entry's summed terms: the
+    # same sums over absolute values; the back-substitution's
+    # bl - B^T x cancels, so its rounding is bounded by the terms, which
+    # -|x| makes it add)
+    uses = {
+        "S x": (lambda: ba.schur_matvec(p, W, Hpp, Hll_inv, x, order),
+                lambda: ba.schur_kf_pass_plain(
+                    p, W, ba.schur_lm_pass_plain(p, W, x, Hll_inv),
+                    Hpp=Hpp, x=x),
+                -ba.schur_kf_pass_plain(p, Wa, ya, a=-torch.einsum(
+                    'kab,kb->ka', Hpp.abs(), xa * kf))),
+        "rhs": (lambda: ba.schur_kf_pass(p, W, y0, order, a=want.bp),
+                lambda: ba.schur_kf_pass_plain(p, W, y0, a=want.bp),
+                -ba.schur_kf_pass_plain(p, Wa, y0.abs(),
+                                        a=-want.bp.abs())),
+        "back-substitution": (
+            lambda: ba.schur_lm_pass(p, W, x, Hll_inv, order, c=bl),
+            lambda: ba.schur_lm_pass_plain(p, W, x, Hll_inv, c=bl),
+            ba.schur_lm_pass_plain(p, Wa, -xa, Ha, c=bl.abs()))}
+    err14, same14 = {}, True
+    for use, (kern, plain, mag) in uses.items():
+        a, b = kern(), plain()
+        err14[use] = float(((a - b).abs() / mag.clamp(min=1e-30)).max())
+        same14 &= torch.equal(a, kern())
+    log(f"K14 schur_pcg: within {max(err14.values()):.2e} of plain relative "
+        f"to each entry's term magnitude ({', '.join(f'{k} {v:.1e}' for k, v in err14.items())}); "
+        f"two launches bitwise equal: {same14}")
+    check(max(err14.values()) <= 1e-5 and same14, ("K14", err14, same14))
+    (b14, by14), _ = _schur_bound(p)
+    matvec = uses["S x"][0]
+    ms14 = device_ms(matvec, "schur_lm_kernel") + \
+        device_ms(matvec, "schur_kf_kernel")
+    rows.append(dict(
+        name="schur_pcg", route="cuda",
+        source="morb_slam_tpu_torch/csrc/schur_pcg.cu",
+        replaces="morb_slam_tpu/optim/ba.py:373", max_abs_err=max(
+            err14.values()),
+        max_abs_err_is="relative to each output entry's term magnitude "
+                       "(S x, the right-hand side, the back-substitution)",
+        ms=ms14, ms_is="one S x: the landmark pass and the keyframe pass",
+        ms_by="profiler" if not EVENT_TIMED & {"schur_lm_kernel",
+                                               "schur_kf_kernel"}
+        else "cuda events",
+        call_ms=time_ms(matvec), plain_ms=time_ms(uses["S x"][1], reps=5,
+                                                  inner=2),
+        bound_ms=b14, bound_by=by14, library_ms=None,
+        library_note="none: no single PyTorch call computes the implicit "
+                     "Schur product",
+        shape=f"K = {LOOP_K}, L = {LOOP_L}, O = {p.obs_mask.numel()} "
+              f"({n_obs} active, 30% stereo)"))
+    call4 = lambda: ba.assemble(p, p.R, p.t, p.X, order, per_obs=True)
+    (b4, by4), _ = _ba_bound(p, per_obs=True)
+    rows.append(dict(
+        name="ba_assemble_per_obs", route="cuda",
+        source="morb_slam_tpu_torch/csrc/ba_assemble.cu",
+        replaces="morb_slam_tpu/optim/ba.py:305", max_abs_err=max(
+            rel.values()),
+        max_abs_err_is="relative to each block tensor's max-abs",
+        ms=device_ms(call4, "ba_assemble_kernel"),
+        ms_is="the assembly kernel alone (the wrapper's zero fill of Wpl "
+              "is another launch)",
+        ms_by="profiler" if "ba_assemble_kernel" not in EVENT_TIMED
+        else "cuda events",
+        call_ms=time_ms(call4),
+        plain_ms=time_ms(lambda: ba.assemble_obs_plain(p, p.R, p.t, p.X),
+                         reps=5, inner=2),
+        bound_ms=b4, bound_by=by4, library_ms=None,
+        library_note="none: no single call does a robust BA assembly",
+        shape=f"K = {LOOP_K}, L = {LOOP_L}, O = {p.obs_mask.numel()} "
+              f"({n_obs} active, 30% stereo), Wpl (O, 6, 3)"))
+    log(f"global BA kernels checked in {time.perf_counter() - t0:.1f} s")
+
+
+class _PlainPCG:
+    """ba_solve_pcg over the plain versions of K4's per-observation mode
+    and K14 (module attributes swapped for the duration)."""
+
+    def __enter__(self):
+        from morb_slam_tpu_torch.optim import ba
+        self.saved = (ba.assemble, ba.schur_lm_pass, ba.schur_kf_pass)
+        ba.assemble = lambda p, R, t, X, order=None, body=False, \
+            per_obs=False: (ba.assemble_obs_plain if per_obs else
+                            ba.assemble_plain)(p, R, t, X, body)
+        ba.schur_lm_pass = lambda p, W, x, Hi, order=None, c=None: \
+            ba.schur_lm_pass_plain(p, W, x, Hi, c)
+        ba.schur_kf_pass = lambda p, W, y, order=None, Hpp=None, x=None, \
+            a=None: ba.schur_kf_pass_plain(p, W, y, Hpp, x, a)
+        return self
+
+    def __exit__(self, *exc):
+        from morb_slam_tpu_torch.optim import ba
+        ba.assemble, ba.schur_lm_pass, ba.schur_kf_pass = self.saved
+
+
+def _loop_vocabulary(state, pairs):
+    """The k = 8, depth = 3 vocabulary trained on the host (the port's
+    numpy `train`) from the descriptors of every 25th rectified left
+    image, extracted by the port on the card, saved to a temporary .npz."""
+    import tempfile
+    from morb_slam_tpu_torch import frontend
+    from morb_slam_tpu_torch.io import serialization
+    from morb_slam_tpu_torch.ops import rectify
+    from morb_slam_tpu_torch.vocab import tree
+    maps = _rig(state)["maps"]
+    mm = torch.stack([maps.map1, maps.map2])
+    cfg = frontend.OrbConfig(n_features=1200, n_levels=8)
+    descs = []
+    for left, right in pairs[::25]:
+        img = rectify.remap_bilinear(torch.stack([left, right]).float(),
+                                     mm)[0]
+        f = frontend.extract_orb(img, cfg)
+        descs.append(f.desc[f.valid].cpu().numpy())
+    descs = np.concatenate(descs)
+    t0 = time.perf_counter()
+    voc = tree.train(descs.view(np.uint32), k=LOOP_VOC_K,
+                     depth=LOOP_VOC_DEPTH, iters=4)
+    secs = time.perf_counter() - t0
+    path = os.path.join(tempfile.mkdtemp(), "ring_voc.npz")
+    serialization.save_vocabulary(path, voc)
+    log(f"loop vocabulary: k {LOOP_VOC_K}, depth {LOOP_VOC_DEPTH}, "
+        f"{voc.n_words} words from {descs.shape[0]} descriptors of "
+        f"{len(pairs[::25])} frames in {secs:.1f} s")
+    return path
+
+
+class _LoopProbe:
+    """Instrument one loop-phase run: each maybe_close's milliseconds and
+    host syncs (the card synchronized around it), the milliseconds of
+    correct_loop, the pose graph, search_and_fuse and each GBA slice (with
+    the K14 launches in it and whether it ran inside the closing
+    maybe_close), the GBA jobs' problems and carries."""
+
+    def __init__(self, inserts):
+        from morb_slam_tpu_torch.optim import ba, pose_graph
+        from morb_slam_tpu_torch.pipeline import global_ba, loop_closing
+        self.targets = [(loop_closing.LoopCloser, "maybe_close"),
+                        (loop_closing, "correct_loop"),
+                        (pose_graph, "optimize"),
+                        (loop_closing, "search_and_fuse"),
+                        (loop_closing, "verify_candidate"),
+                        (loop_closing, "guided_sim3_verify"),
+                        (global_ba.GBAJob, "advance")]
+        self.ms = collections.defaultdict(list)
+        self.syncs = []
+        self.counts = collections.defaultdict(list)   # verification counts
+        self.slices = []
+        self.jobs = []
+        self.in_close = False
+        self.last_args = {}
+        self.ba = ba
+        self.inserts = inserts      # ms of each keyframe insert so far
+
+    def __enter__(self):
+        import warnings
+        self.saved = [getattr(m, n) for m, n in self.targets]
+        for (mod, name), fn in zip(self.targets, self.saved):
+            def wrap(*a, _fn=fn, _name=name, **kw):
+                self.last_args[_name] = (a, kw)
+                if _name == "advance":
+                    job = a[0]
+                    if job not in self.jobs:
+                        self.jobs.append(job)
+                    job.__dict__.setdefault("carries", []).append(job.carry)
+                    k14 = self.ba.SCHUR_LAUNCHES["kernel"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if _name == "maybe_close":
+                    torch.cuda.set_sync_debug_mode("warn")
+                    with warnings.catch_warnings(record=True) as rec:
+                        warnings.simplefilter("always")
+                        self.in_close = True
+                        try:
+                            r = _fn(*a, **kw)
+                        finally:
+                            self.in_close = False
+                            torch.cuda.set_sync_debug_mode(0)
+                    sites = [w for w in rec
+                             if "synchroniz" in str(w.message)]
+                    self.syncs.append(len(sites))
+                    self.sync_sites = collections.Counter(
+                        "/".join(os.path.normpath(w.filename)
+                                 .split(os.sep)[-2:]) + f":{w.lineno}"
+                        for w in sites)
+                else:
+                    r = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                self.ms[_name].append(ms)
+                if _name in ("verify_candidate", "guided_sim3_verify"):
+                    # the caller reads this count on the host anyway
+                    self.counts[_name].append(int(r[3]))
+                if _name == "advance":
+                    self.slices.append(dict(
+                        job=self.jobs.index(a[0]), ms=ms,
+                        in_close=self.in_close,
+                        k14=self.ba.SCHUR_LAUNCHES["kernel"] - k14))
+                if _name == "maybe_close" and r:
+                    # the insert calling it is the next one to be timed
+                    self.closing = dict(maybe_close_ms=ms,
+                                        syncs=self.syncs[-1],
+                                        sync_sites=dict(
+                                            self.sync_sites.most_common(8)),
+                                        insert=len(self.inserts))
+                return r
+            setattr(mod, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.targets, self.saved):
+            setattr(mod, name, fn)
+
+
+def _loop_gap(est_of, n, period):
+    gaps = [np.linalg.norm(est_of[i] - est_of[i - period])
+            for i in range(period, n) if i in est_of and i - period in est_of]
+    return float(np.mean(gaps)) if gaps else float("inf")
+
+
+def phase_loop(state, variant=None):
+    """A live stereo loop through System with loop closing on: the tests'
+    ring world at the EuRoC rig, 1.5 circuits in 346 frames, at the JAX
+    loop test's tracker settings, every frame decided at once. A `variant`
+    (settings, pipelined) runs it at the "test" settings or the System's
+    own ("system": no tracker overrides), pipelined or not, and reports the
+    loop's gates without enforcing them."""
+    from morb_slam_tpu_torch import alignment, system
+    from morb_slam_tpu_torch.optim import ba
+    from morb_slam_tpu_torch.pipeline import loop_closing
+    gated = variant is None
+    settings, pipelined = variant or ("test", False)
+    rig = _rig(state)
+    t0 = time.perf_counter()
+    world = RingWorld(np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]]),
+                      W, H, DEV)
+    poses = ring_path(N_LOOP, circuits=N_LOOP / LOOP_PERIOD)
+    pairs = [_raw_pair(state, R, t, world=world) for R, t in poses]
+    torch.cuda.synchronize()
+    log(f"loop: ring world and {N_LOOP} raw pairs rendered on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    voc_path = _loop_vocabulary(state, pairs)
+    sysm = system.System(rig["settings"], system.Sensor.STEREO,
+                         vocabulary_path=voc_path,
+                         tracker_overrides=None if settings == "system"
+                         else dict(th_depth=60.0, vel_rot_damp=0.9,
+                                   min_stereo_init_feats=150))
+    tr = sysm.tracker
+    gates = {}
+
+    def gate(name, ok, what):
+        gates[name] = bool(ok)
+        if gated:
+            check(ok, what)
+    check(tr.loop_closer is not None, "System built no loop closer")
+    check((tr.cfg.max_kf, tr.cfg.n_feat, tr.cfg.max_lm) ==
+          (LOOP_K, LOOP_F, LOOP_L), "System's capacities changed")
+    tr.pipelined = pipelined
+    inserts = _timed_inserts(tr)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    states, live_of = [], {}
+    with _LoopProbe(inserts) as probe:
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        for i in range(N_LOOP):
+            st, pose = sysm.track_stereo(pairs[i][0], pairs[i][1],
+                                         i * LOOP_DT)
+            states.append(st)
+            if pose is not None and st == "OK":
+                Rc, tc = (x.cpu().numpy() for x in pose)
+                live_of[i] = -Rc.T @ tc
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t_run
+        n_slices_before_flush = len(probe.slices)
+        tr.flush()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log("states:", "".join("O" if s == "OK" else s[0] for s in states))
+    log(f"loop: {tr.kf_seq} keyframe inserts, {len(probe.ms['maybe_close'])} "
+        f"maybe_close calls, Sim3 RANSAC inliers per verified candidate "
+        f"{probe.counts['verify_candidate']}, guided matches "
+        f"{probe.counts['guided_sim3_verify']} (gates "
+        f"{loop_closing.MIN_SIM3_INLIERS} / "
+        f"{loop_closing.MIN_ACCEPT_MATCHES})")
+    gba_kernels = ["schur_pcg", "ba_assemble_per_obs"]
+    launches = _read_counters(
+        ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
+         "stereo_sad", "remap_bilinear", "ba_assemble", "vocab_transform",
+         "bow_l1"] + (gba_kernels if gated else []), "loop", state)
+    launches.update({k: _kernel_counters()[k]["kernel"] for k in gba_kernels})
+    n_ok = sum(s == "OK" for s in states)
+    gate("loop closed", tr.n_loops_closed >= 1,
+         "no loop closed on the ring circuit")
+    gate("frames OK", n_ok > 0.9 * N_LOOP,
+         f"loop: only {n_ok} of {N_LOOP} frames OK")
+    check(tr._gba_job is None, "flush() left the global BA running")
+    for j in range(len(probe.jobs)):
+        n_sl = sum(1 for sl in probe.slices if sl["job"] == j)
+        log(f"GBA job {j}: {n_sl} slices")
+    last_job = len(probe.jobs) - 1
+    gate("GBA slices", last_job >= 0 and sum(
+        1 for sl in probe.slices if sl["job"] == last_job) == 4,
+        "the last GBA job did not run its 4 slices")
+    check(all(sl["k14"] > 0 for sl in probe.slices),
+          "a GBA slice launched no K14")
+    post_of = {int(round(ts / LOOP_DT)): p for ts, p in
+               tr.trajectory_world()}
+    period = int(round(LOOP_PERIOD))
+    gap_raw = _loop_gap(live_of, N_LOOP, period)
+    gap_post = _loop_gap(post_of, N_LOOP, period)
+    gt = {i: -(np.asarray(R, np.float64).T @ t) for i, (R, t) in
+          enumerate(poses)}
+    common = sorted(set(live_of) & set(post_of))
+
+    def ate(est_of):
+        est = torch.tensor(np.stack([est_of[i] for i in common]),
+                           dtype=torch.float32)
+        ref = torch.tensor(np.stack([gt[i] for i in common]),
+                           dtype=torch.float32)
+        return float(alignment.ate_rmse(est, ref, with_scale=False)[0])
+    ate_raw, ate_post = ate(live_of), ate(post_of)
+    log(f"loop: {tr.n_loops_closed} closed, {n_ok}/{N_LOOP} OK, loop gap "
+        f"{gap_post:.4f} after correction vs {gap_raw:.4f} raw (gate 0.3), "
+        f"SE3 ATE {ate_post:.4f} vs raw {ate_raw:.4f} m (gate 1.1 x raw)")
+    gate("loop gap", gap_post < 0.3 and gap_post <= gap_raw + 1e-6,
+         ("loop gap", gap_post, gap_raw))
+    gate("SE3 ATE", ate_post < 1.1 * ate_raw,
+         ("loop SE3 ATE", ate_post, ate_raw))
+
+    close = getattr(probe, "closing", {})
+    first = [sl for sl in probe.slices if sl["in_close"]]
+    later = [sl for sl in probe.slices if not sl["in_close"]]
+    out = dict(
+        fps=N_LOOP / secs, frames_ok=n_ok, loops_closed=tr.n_loops_closed,
+        kf_inserts=len(inserts),
+        kf_insert_ms_p50=float(np.percentile(inserts, 50)),
+        kf_insert_ms_max=float(np.max(inserts)),
+        loop_gap=gap_post, loop_gap_raw=gap_raw, ate_se3_m=ate_post,
+        ate_se3_raw_m=ate_raw,
+        closing=dict(insert_ms=inserts[close["insert"]] if close else None,
+                     maybe_close_ms=close.get("maybe_close_ms"),
+                     correct_loop_ms=probe.ms["correct_loop"],
+                     pose_graph_ms=probe.ms["optimize"],
+                     search_and_fuse_ms=probe.ms["search_and_fuse"],
+                     first_two_gba_slices_ms=[sl["ms"] for sl in first]),
+        maybe_close_calls=len(probe.ms["maybe_close"]),
+        maybe_close_ms_p50=float(np.percentile(probe.ms["maybe_close"], 50)),
+        host_syncs_per_maybe_close=dict(
+            mean=float(np.mean(probe.syncs)), max=int(np.max(probe.syncs)),
+            closing=close.get("syncs"),
+            closing_sites=close.get("sync_sites")),
+        sim3_inliers=probe.counts["verify_candidate"],
+        guided_matches=probe.counts["guided_sim3_verify"],
+        later_gba_slices_ms=[sl["ms"] for sl in later],
+        k14_launches_per_slice=[sl["k14"] for sl in probe.slices],
+        slices_before_flush=n_slices_before_flush,
+        gba_jobs=len(probe.jobs),
+        peak_device_mem_gib=peak / 2 ** 30,
+        launches={k: v for k, v in launches.items()}, gates=gates)
+    if not gated:
+        log(f"loop path, {settings} settings, pipelined {pipelined}:",
+            json.dumps(out))
+        return
+
+    # one GBA slice on the path's own problem: device time, the kernels'
+    # slice against the plain versions' slice, peak memory of a slice
+    job = probe.jobs[-1]
+    carry = job.carries[1]           # the state before the second slice
+    p = job.prob
+    slice_fn = lambda: ba.ba_solve_pcg(p, n_iters=job.slice_iters,
+                                       cg_iters=job.cg_iters, carry=carry)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = slice_fn()
+    torch.cuda.synchronize()
+    slice_peak = torch.cuda.max_memory_allocated() - base
+    dense_bt = p.R.shape[0] * p.X.shape[0] * 72
+    with _PlainPCG():
+        want = slice_fn()
+    acc_g, acc_w = got[3]["accepted"].tolist(), want[3]["accepted"].tolist()
+    c_rel = float(((got[3]["costs"] - want[3]["costs"]).abs()
+                   / want[3]["costs"].abs()).max())
+    log(f"GBA slice over K4 + K14 vs the plain versions: accepts {acc_g} vs "
+        f"{acc_w}, costs within {c_rel:.2e} relative; the slice's peak "
+        f"device memory {slice_peak / 2 ** 20:.1f} MiB over its inputs (a "
+        f"dense coupling would be {dense_bt / 2 ** 20:.0f} MiB)")
+    check(acc_g == acc_w and c_rel <= 1e-3, ("GBA slice vs plain", acc_g,
+                                             acc_w, c_rel))
+    check(slice_peak < dense_bt, ("a GBA slice allocated as much as a "
+                                  "dense coupling", slice_peak, dense_bt))
+    slice_dev = device_ms(slice_fn, None, reps=2)
+    # each later slice replayed from its own start state
+    later_dev = [device_ms(lambda c=c: ba.ba_solve_pcg(
+        p, n_iters=job.slice_iters, cg_iters=job.cg_iters, carry=c), None,
+        reps=1) for c in job.carries[2:]]
+    out["gba_slice"] = dict(
+        device_ms=slice_dev, later_slices_device_ms=later_dev,
+        ms=time_ms(slice_fn, reps=3, inner=1),
+        active_obs=int(p.obs_mask.sum()), kfs=int(p.kf_opt.sum()) + 1,
+        landmarks=int(p.lm_opt.sum()), vs_plain_cost_rel=c_rel,
+        accepts=acc_g, peak_mib=slice_peak / 2 ** 20,
+        dense_coupling_mib=dense_bt / 2 ** 20)
+    log("loop path:", json.dumps(out))
+    state["loop"] = out
+    state["plain_rows"] += _loop_plain_rows(probe, len(inserts))
+    _log_plain_rows(state["plain_rows"][-2:])
+
+
+def _loop_plain_rows(probe, n_inserts):
+    """The plain pose graph and guided_sim3_verify on the loop path's last
+    calls: device time per call under their profiler ranges, the range's
+    span, bounds from these inputs, calls per keyframe insert."""
+    from morb_slam_tpu_torch.optim import pose_graph
+    from morb_slam_tpu_torch.pipeline import loop_closing
+    (g,), kw = probe.last_args["optimize"]
+
+    def pg_profile():
+        with profiled(cpu=True) as prof:
+            pose_graph.optimize(g, **kw)
+        return prof
+    pg_ms, _, pg_span = range_device_ms("pose_graph.optimize", pg_profile)
+    K, E = g.s.shape[0], g.edge_i.shape[0]
+    it = kw.get("n_iters", 15)
+    # nodes and edges in (~56 B each), the poses out; per iteration and
+    # edge ~600 flops of residual for the primal and each of the 14
+    # tangents and ~3.4 kflop of block products, and the dense (7K)^3 / 3
+    # Cholesky
+    b_pg, by_pg = bound(K * 56 + E * 64 + K * 52,
+                        it * (E * (15 * 600 + 3400) + (7 * K) ** 3 / 3))
+    a, kw_g = probe.last_args["guided_sim3_verify"]
+
+    def gv_profile():
+        with profiled(cpu=True) as prof:
+            loop_closing.guided_sim3_verify(*a, **kw_g)
+        return prof
+    gv_ms, _, gv_span = range_device_ms("guided_sim3_verify", gv_profile)
+    F = a[0].kf_feat_lm.shape[1]
+    # the two keyframes' features and landmarks in (~80 B a slot); the
+    # F x F window gate (~8 flops a pair), K3's two searches, 12 GN steps
+    # of 8 residual evaluations (primal + 7 tangents) of ~120 flops per
+    # feature
+    b_gv, by_gv = bound(2 * F * 80, F * F * (8 + 2 * 8 * 6) + 12 * 8 * 120 * F)
+    return [
+        dict(name="pose_graph.optimize", route="plain",
+             source="morb_slam_tpu_torch/optim/pose_graph.py",
+             replaces="morb_slam_tpu/optim/pose_graph.py:80", ms=pg_ms,
+             span_ms=pg_span,
+             plain_ms=time_ms(lambda: pose_graph.optimize(g, **kw), reps=2,
+                              inner=1, warmup=1),
+             bound_ms=b_pg, bound_by=by_pg, library_ms=None,
+             launches=len(probe.ms["optimize"]),
+             launches_per_frame=len(probe.ms["optimize"]) / N_LOOP,
+             launches_per_insert=len(probe.ms["optimize"]) / max(n_inserts,
+                                                                 1),
+             max_abs_err=None,
+             shape=f"K = {K} nodes, E = {E} edges, {it} iterations"),
+        dict(name="guided_sim3_verify", route="plain",
+             source="morb_slam_tpu_torch/pipeline/loop_closing.py",
+             replaces="morb_slam_tpu/pipeline/loop_closing.py:78",
+             ms=gv_ms, span_ms=gv_span,
+             plain_ms=time_ms(lambda: loop_closing.guided_sim3_verify(
+                 *a, **kw_g), reps=3, inner=1, warmup=1),
+             bound_ms=b_gv, bound_by=by_gv, library_ms=None,
+             launches=len(probe.ms["guided_sim3_verify"]),
+             launches_per_frame=len(probe.ms["guided_sim3_verify"])
+             / N_LOOP,
+             launches_per_insert=len(probe.ms["guided_sim3_verify"])
+             / max(n_inserts, 1),
+             max_abs_err=None, shape=f"F = {F} feature slots per keyframe")]
+
+
+def phase_merge(state):
+    """The bench's multi-session merge on the card: mono, the plane world
+    out and back, a new map at the turn; the stashed map must weld back."""
+    from morb_slam_tpu_torch import alignment, frontend, system
+    from morb_slam_tpu_torch.io import config
+    from morb_slam_tpu_torch.vocab import tree
+    K = np.array([[MERGE_FX, 0, MERGE_W / 2], [0, MERGE_FX, MERGE_H / 2],
+                  [0, 0, 1.0]])
+    world = PlaneWorld(K, MERGE_W, MERGE_H, DEV)
+    fwd = camera_path(MERGE_OUT)
+    seq = fwd + fwd[-2::-1]
+    frames = [world.render(*p).clamp(0, 255).to(torch.uint8) for p in seq]
+    ocfg = frontend.OrbConfig(n_features=300, n_levels=4)
+    descs = [frontend.extract_orb(frames[i].float(), ocfg)
+             for i in range(0, len(seq), 6)]
+    descs = np.concatenate([f.desc[f.valid].cpu().numpy() for f in descs])
+    voc = tree.train(descs.view(np.uint32), k=6, depth=3, iters=3)
+    settings = config.Settings(
+        cam1=config.CameraSettings(model="PinHole", fx=MERGE_FX, fy=MERGE_FX,
+                                   cx=MERGE_W / 2, cy=MERGE_H / 2,
+                                   width=MERGE_W, height=MERGE_H),
+        n_features=500, n_levels=4, scale_factor=1.2)
+    sysm = system.System(settings, system.Sensor.MONOCULAR, vocabulary=voc,
+                         tracker_overrides=dict(max_kf=64, max_lm=8000,
+                                                min_init_matches=60,
+                                                min_init_points=40))
+    tr = sysm.tracker
+    merges = []
+    orig = tr.loop_closer.maybe_merge
+
+    def merge(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig(*a, **kw)
+        torch.cuda.synchronize()
+        merges.append(((time.perf_counter() - t0) * 1e3, r))
+        return r
+    tr.loop_closer.maybe_merge = merge
+    states = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(len(seq)):
+        if i == len(fwd):
+            tr.flush()
+            tr.create_map_in_atlas()
+        states.append(sysm.track_monocular(frames[i], ts=float(i))[0])
+    tr.flush()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    merged = any(st.merged_into_gen >= 0 for st in tr.stash)
+    traj = tr.trajectory_world()
+    est = torch.tensor(np.asarray([p for _, p in traj]), dtype=torch.float32)
+    gt = torch.tensor(np.asarray([-(seq[int(round(ts))][0].T
+                                    @ seq[int(round(ts))][1])
+                                  for ts, _ in traj]), dtype=torch.float32)
+    rmse = float(alignment.ate_rmse(est, gt, with_scale=True)[0])
+    extent = MERGE_OUT * 0.05
+    n_ok = sum(s == "OK" for s in states)
+    log("states:", "".join("O" if s == "OK" else s[0] for s in states))
+    out = dict(frames=len(seq), frames_ok=n_ok, merged=merged,
+               ate_sim3_m=rmse, extent_m=extent, gate_m=0.08 * extent,
+               trajectory_poses=len(traj), seconds=secs,
+               maybe_merge_calls=len(merges),
+               merge_ms=[ms for ms, r in merges if r],
+               maybe_merge_ms_p50=float(np.percentile(
+                   [ms for ms, _ in merges], 50)) if merges else None)
+    log("merge path:", json.dumps(out))
+    check(merged, "the stashed map was never merged back")
+    check(rmse < 0.08 * extent, ("merge Sim3 ATE", rmse, extent))
+    state["merge"] = out
+
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile-out", default=None,
@@ -2178,6 +2924,11 @@ def main():
     ap.add_argument("--vi-seeds", default=None,
                     help="comma-separated IMU noise seeds: run only the vi "
                          "path once per seed and print its accuracy")
+    ap.add_argument("--loop-variants", action="store_true",
+                    help="run only the loop path, at the System's own "
+                         "tracker settings pipelined and not, and at the "
+                         "loop test's settings pipelined, and print which "
+                         "of its gates each run meets")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -2186,10 +2937,17 @@ def main():
         phase_device(state)
         vi_seed_sweep(state, [int(x) for x in args.vi_seeds.split(",")])
         return
+    if args.loop_variants:
+        phase_device(state)
+        for variant in (("system", True), ("system", False), ("test", True)):
+            phase_loop(state, variant)
+            torch.cuda.empty_cache()
+        return
     for name, phase in (("device", phase_device), ("kernels", phase_kernels),
                         ("main", phase_main), ("stereo", phase_stereo),
                         ("rgbd", phase_rgbd), ("reloc", phase_reloc),
-                        ("vi", phase_vi)):
+                        ("vi", phase_vi), ("loop", phase_loop),
+                        ("merge", phase_merge)):
         t0 = time.perf_counter()
         log(f"== phase {name}")
         phase(state)
@@ -2197,16 +2955,17 @@ def main():
     rows = state["kernel_rows"]
     by_path = state["launches_by_path"]
     for r in rows:
-        # the count of this slice's path (vi) for the kernels it runs, else
-        # of the reloc path, which runs the other two
-        r["launches"] = next(by_path[p][r["name"]] for p in ("vi", "reloc")
+        # the count of this slice's path (loop) for the kernels it runs,
+        # else of the vi path, else of the reloc path
+        r["launches"] = next(by_path[p][r["name"]]
+                             for p in ("loop", "vi", "reloc")
                              if r["name"] in by_path[p])
         r["launches_by_path"] = {p: c.get(r["name"], 0)
                                  for p, c in by_path.items()}
-        r["ms_by"] = ("cuda events" if f"{r['name']}_kernel" in EVENT_TIMED
-                      else "profiler")
+        r.setdefault("ms_by", "cuda events" if f"{r['name']}_kernel"
+                     in EVENT_TIMED else "profiler")
     log(json.dumps({"plain_kernel_targets": state["plain_rows"]}))
-    for name in ("main", "stereo", "rgbd", "reloc", "vi"):
+    for name in ("main", "stereo", "rgbd", "reloc", "vi", "loop", "merge"):
         key = "main_path" if name == "main" else f"{name}_path"
         log(json.dumps({key: state[name]}))
     log(json.dumps({"kernels": rows}))

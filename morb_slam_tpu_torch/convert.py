@@ -12,7 +12,10 @@ weights and k, as `voc._asdict()` gives it) and `database_from_numpy` for
 the keyframe database; `imu_from_numpy` / `imu_to_numpy` for the
 inertial state types (ImuCalib, Preintegrated, KfImu, VIBAProblem,
 PoseInertialResult: pass the type) and `tracker_imu_state` for a tracker's
-bias, velocity and KfImu store.
+bias, velocity and KfImu store; `pose_graph_from_numpy`, `pcg_carry_from_numpy`
+and `stashed_from_numpy` / `stashed_to_numpy` for the pose graph, the PCG
+solve's resumable carry (R, t, X, lam, cost) and a stashed map (map,
+database, keyframe count, the merge's generation and offset).
 Descriptors cross as the bit-identical int32 view of uint32 words; every
 float array becomes float32.
 """
@@ -24,8 +27,9 @@ import torch
 from . import cameras, imu
 from .frontend import Features
 from .io import config
+from .mapstate.atlas import StashedMap
 from .mapstate.state import MapState
-from .optim import inertial, vi_ba
+from .optim import inertial, pose_graph, vi_ba
 from .ops.rectify import RectifyMaps
 from .pipeline.tracking import FrameData
 from .vocab import tree
@@ -150,3 +154,32 @@ def tracker_imu_state(tr):
     if tr.kf_imu is not None:
         out["kf_imu"] = imu_to_numpy(tr.kf_imu)
     return out
+
+
+def pose_graph_from_numpy(d, device="cpu") -> pose_graph.PoseGraph:
+    """PoseGraph from a dict of its fields (fixed stays bool)."""
+    return imu_from_numpy(pose_graph.PoseGraph, d, device)
+
+
+def pcg_carry_from_numpy(carry, device="cpu"):
+    """The PCG carry (R, t, X, lam, cost) from numpy arrays."""
+    return tuple(_to_tensor(x, device) for x in carry)
+
+
+def stashed_from_numpy(d, device="cpu") -> StashedMap:
+    """StashedMap from a dict of gen, m (a map dict), n_kf, db (a database
+    dict or None), merged_into_gen and kf_offset."""
+    return StashedMap(
+        gen=int(d["gen"]), m=map_from_numpy(d["m"], device),
+        n_kf=int(d["n_kf"]),
+        db=None if d.get("db") is None else database_from_numpy(d["db"],
+                                                                device),
+        merged_into_gen=int(d.get("merged_into_gen", -1)),
+        kf_offset=int(d.get("kf_offset", 0)))
+
+
+def stashed_to_numpy(st: StashedMap):
+    return {"gen": st.gen, "m": map_to_numpy(st.m), "n_kf": st.n_kf,
+            "db": None if st.db is None else _to_numpy(st.db._asdict()),
+            "merged_into_gen": st.merged_into_gen,
+            "kf_offset": st.kf_offset}

@@ -1,7 +1,11 @@
 // K4: the bundle adjustment's observation assembly at one state, in one
 // launch: every observation's residual, Jacobians and Huber weight, and
 // their block sums Hpp (K, 6, 6), bp (K, 6), the dense coupling
-// Bt (L, K, 6, 3), Hll (L, 3, 3), bl (L, 3), with the robust cost.
+// Bt (L, K, 6, 3), Hll (L, 3, 3), bl (L, 3), with the robust cost. In its
+// per-observation mode (`per_obs` = 1, the global BA's PCG solve) it
+// writes the coupling per observation instead, Wpl (O, 6, 3) = Jp^T w Jl
+// in observation order, unweighted by lm_opt (the reference's
+// optim/ba.py:_assemble_blocks), and no dense Bt exists.
 //
 // Replaces the assembly of morb_slam_tpu/optim/ba.py:ba_solve (terms_of and
 // the block sums of lm_step) and the visual blocks of
@@ -27,7 +31,11 @@
 // walks its observations in (landmark, keyframe) order, adding each one's
 // coupling block into Bt[l, k] and its Hll and bl terms. Masked observations
 // sort past every segment and add nothing; the plain version adds them with
-// weight 0.
+// weight 0. Per-observation mode skips the row zeroing and stores each
+// observation's block at Wpl[o]: observation order is the layout of the
+// reference's Wpl, needs no index map, and in the global problem (laid out
+// keyframe-major) it is the keyframe pass's reading order; the wrapper
+// zeroes Wpl, so masked observations hold zero blocks.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -107,7 +115,8 @@ ba_assemble_kernel(const float* __restrict__ R, const float* __restrict__ t,
                    const int* __restrict__ kf_start,
                    const int* __restrict__ lm_perm,
                    const int* __restrict__ lm_start,
-                   const float* __restrict__ baseline_p, int body, int K,
+                   const float* __restrict__ baseline_p, int body,
+                   int per_obs, int K,
                    int L, float* __restrict__ Hpp, float* __restrict__ bp,
                    float* __restrict__ Bt, float* __restrict__ Hll,
                    float* __restrict__ bl, float* __restrict__ cost,
@@ -184,18 +193,20 @@ ba_assemble_kernel(const float* __restrict__ R, const float* __restrict__ t,
     // ---- landmark l: Bt[l], Hll[l], bl[l]
     const int l = (blockIdx.x - K) * NWARPS + warp;
     if (l >= L) return;
-    float* Brow = Bt + (size_t)l * K * 18;
-    for (int q = lane; q < K * 18; q += 32) Brow[q] = 0.0f;
-    __syncwarp();
+    float* Brow = per_obs ? Bt : Bt + (size_t)l * K * 18;
+    if (!per_obs) {
+        for (int q = lane; q < K * 18; q += 32) Brow[q] = 0.0f;
+        __syncwarp();
+    }
     if (lane != 0) return;
-    const float lmw = lm_opt[l] ? 1.0f : 0.0f;
+    const float lmw = (per_obs || lm_opt[l]) ? 1.0f : 0.0f;
     float h[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0}, g[3] = {0, 0, 0};
     for (int s = lm_start[l]; s < lm_start[l + 1]; ++s) {
         const int o = lm_perm[s];
         Terms T;
         obs_terms(o, R, t, X, obs_kf, obs_lm, obs_uv, obs_ur, obs_info,
                   obs_mask, baseline, sign, T);
-        float* Bk = Brow + 18 * obs_kf[o];
+        float* Bk = per_obs ? Bt + 18 * (size_t)o : Brow + 18 * obs_kf[o];
         const float wb = T.w * lmw;
         for (int a = 0; a < 6; ++a)
             for (int b = 0; b < 3; ++b) {
@@ -225,7 +236,8 @@ extern "C" int ba_assemble(const void* R, const void* t, const void* X,
                            const void* lm_opt, const void* kf_perm,
                            const void* kf_start, const void* lm_perm,
                            const void* lm_start, const void* baseline,
-                           int body, int K, int L, int O, void* Hpp,
+                           int body, int per_obs, int K, int L, int O,
+                           void* Hpp,
                            void* bp, void* Bt, void* Hll, void* bl,
                            void* cost, void* scratch, void* stream) {
     (void)O;
@@ -237,7 +249,7 @@ extern "C" int ba_assemble(const void* R, const void* t, const void* X,
         (const float*)obs_ur, (const float*)obs_info,
         (const uint8_t*)obs_mask, (const uint8_t*)lm_opt,
         (const int*)kf_perm, (const int*)kf_start, (const int*)lm_perm,
-        (const int*)lm_start, (const float*)baseline, body, K, L,
+        (const int*)lm_start, (const float*)baseline, body, per_obs, K, L,
         (float*)Hpp, (float*)bp, (float*)Bt, (float*)Hll, (float*)bl,
         (float*)cost, (float*)scratch);
     return (int)cudaGetLastError();

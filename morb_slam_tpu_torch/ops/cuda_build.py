@@ -21,7 +21,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 SOURCES = ("fast_select", "orb_describe", "hamming_top2", "stereo_sad",
            "remap_bilinear", "pose_opt", "vocab_transform", "bow_l1",
-           "ba_assemble", "preintegrate", "pose_inertial")
+           "ba_assemble", "preintegrate", "pose_inertial", "schur_pcg")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

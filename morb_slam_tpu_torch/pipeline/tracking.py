@@ -21,6 +21,13 @@ tracking context first scores the database (K10) and tries PnP +
 `optimize_pose` (K5) against the best three keyframes
 (`relocalize_candidate`) before the reference-keyframe fallback.
 
+With a vocabulary the tracker also closes loops: after every keyframe
+insert `LoopCloser.maybe_close` (`loop_closing.py`) detects, verifies and
+corrects a loop and starts the detached global BA, whose slices then
+advance one per insert (K4 per-observation mode and K14); while a stashed
+map exists, `maybe_merge` tries to weld it back. `pipelined = False` makes
+every frame's decision at once (deterministic per-frame decisions).
+
 With an IMU calibration the tracker runs the inertial state machine: every
 frame's IMU batch extends the since-keyframe preintegration (K11); until
 the IMU is initialized the frames track visually and synchronously, with
@@ -39,9 +46,11 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import cameras, frontend, imu, lie, matching
 from ..mapstate import state as ms
+from ..mapstate.atlas import StashedMap
 from ..ops import hamming
 from ..ops import stereo as stereo_ops
 from ..optim import inertial as inertial_mod
@@ -50,7 +59,7 @@ from ..solvers import pnp, two_view
 from ..tensor_ops import add_at, mask_first, put, put2, topk
 from ..vocab import database as kfdb
 from ..vocab import tree as voctree
-from . import local_mapping
+from . import local_mapping, loop_closing
 
 MAX_LOCAL_LM = 4096
 LOCAL_KFS = 10
@@ -706,18 +715,6 @@ def apply_imu_gauge(m: ms.MapState, R_wg, scale, v_kf, bias):
 # host state machine
 # ---------------------------------------------------------------------------
 
-@dataclass
-class StashedMap:
-    """An inactive map kept after tracking was lost in a mature map, with
-    its place-recognition database (None without a vocabulary) and its
-    preintegration store (None without an IMU)."""
-    gen: int
-    m: ms.MapState
-    n_kf: int
-    db: Optional[kfdb.KeyframeDatabase] = None
-    kf_imu: Optional[inertial_mod.KfImu] = None
-
-
 def resolve_device(device=None) -> torch.device:
     """None means the card; without CUDA that is an error, never a silent
     fallback to the CPU (pass device="cpu" to run there)."""
@@ -756,9 +753,9 @@ class Tracker:
 
     States: NO_IMAGES -> NOT_INITIALIZED -> OK <-> RECENTLY_LOST -> LOST.
     `device=None` runs on the card and raises without one. With a
-    vocabulary `voc` the tracker keeps a keyframe database and relocalizes
-    by BoW; loop closing is not part of the port yet (`loop_closer` stays
-    None).
+    vocabulary `voc` the tracker keeps a keyframe database, relocalizes by
+    BoW and closes loops and merges maps (`loop_closer`; set it to None to
+    keep relocalization only).
     """
 
     IMU_BUF = 768   # max IMU samples between keyframes
@@ -800,7 +797,13 @@ class Tracker:
         self._v_pred = None
         self.kf_seq = 0               # keyframe inserts, for the scale gate
         self.voc = None if voc is None else voc.to(self.device)
-        self.loop_closer = None
+        self.loop_closer = None if voc is None else \
+            loop_closing.LoopCloser(cfg)
+        self.n_loops_closed = 0
+        # decisions lag the dispatched frames in state OK (False: every
+        # frame decided at once)
+        self.pipelined = True
+        self._kf_prev_override = None   # set by a merge (chain splice)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.stash = []
         self.map_gen = 0
@@ -1118,13 +1121,13 @@ class Tracker:
         self.viba_stage += 1
 
     def _use_pipeline(self):
-        """Decisions lag the dispatched frames in state OK, except on an
-        inertial map before its IMU initialization (its visual odometry
-        stays synchronous; the staged init flushes before a gauge
+        """Decisions lag the dispatched frames in state OK when `pipelined`,
+        except on an inertial map before its IMU initialization (its visual
+        odometry stays synchronous; the staged init flushes before a gauge
         change)."""
         if self.calib is not None and not self.imu_ready:
             return False
-        return self.state == "OK"
+        return self.pipelined and self.state == "OK"
 
     def _use_vi_fused(self):
         """The fused visual-inertial frame step runs once the IMU is
@@ -1253,10 +1256,17 @@ class Tracker:
         return self.state, (out.R, out.t)
 
     def flush(self):
-        """Resolve the in-flight frames' deferred decisions (call at the end
-        of a sequence or before reading the trajectory or map)."""
+        """Resolve the in-flight frames' deferred decisions and finish a
+        running detached global BA (call at the end of a sequence or before
+        reading the trajectory or map)."""
         while self._pending:
             self._decide_pending(*self._pending.pop(0))
+        if self._gba_job is not None:
+            with record_function("GBATotal"):
+                while not self._gba_job.advance():
+                    pass
+                self.m = self._gba_job.reconcile(self.m)
+            self._gba_job = None
 
     def _decide_pending(self, out_tuple, ts: float, corr=None, fetch=None):
         """Deferred host decisions for a dispatched frame: state machine,
@@ -1302,9 +1312,18 @@ class Tracker:
         self.trajectory.append((ts, self.map_gen, ref_kf_new, rel[0], rel[1]))
         need = self._need_new_kf(n_inl, info_h, ts, lag=len(self._pending))
         if need and self._mapping_enabled:
+            loops_before = self.n_loops_closed
             k = self._insert_keyframe(fr, out, ts, refresh_anchors=False,
                                       ref_inliers=n_inl, v_bias=v_bias)
-            if k is not None:
+            if k is None:
+                pass
+            elif self.n_loops_closed != loops_before:
+                # a loop correction or a merge moved the whole map: the
+                # in-flight frames' results are stale, so drop them and
+                # re-anchor at the corrected keyframe
+                self._pending = []
+                self.last = None
+            else:
                 # the keyframe's association table was enriched by
                 # triangulation and fusion: it becomes the stage-1 anchor
                 self.last = fr
@@ -1445,6 +1464,14 @@ class Tracker:
             return None
         k = self._free_kf_slots.pop(0)
         self._rebase_trajectory(k)
+        lc = self.loop_closer
+        if lc is not None:
+            # a recycled slot must not revive a past loop edge or a carried
+            # candidate Sim(3) anchored on the culled keyframe
+            lc.past_loop_edges = [e for e in lc.past_loop_edges
+                                  if k not in e]
+            if k in (lc._pending_slot, lc._pending_cand):
+                lc._reset_pending()
         return k
 
     def _rebase_trajectory(self, slot: int):
@@ -1468,7 +1495,11 @@ class Tracker:
         k = self._alloc_kf_slot()
         if k is None:
             return None
-        prev = self.last_kf_id
+        # the temporal predecessor: the newest keyframe, or after a merge
+        # the active map's keyframe the weld was made from
+        prev = self.last_kf_id if self._kf_prev_override is None else \
+            self._kf_prev_override
+        self._kf_prev_override = None
         self.m, _ = insert_keyframe(self.m, fr, out.feat_lm, out.R, out.t,
                                     ts, slot=k, prev_id=prev)
         self.last_kf_id = k
@@ -1478,13 +1509,27 @@ class Tracker:
         self._record_kf_imu(k, ts, prev=prev, v_bias=v_bias)
         if self.cfg.baseline > 0:
             self.m = create_close_landmarks(self.m, k, fr, self.cfg)
-        self._db_add(k, fr)
+        bow = self._db_add(k, fr)
         if self.cfg.inertial and self.imu_ready and self.kf_imu is not None:
             self.m, self.kf_imu = local_mapping.mapping_step_inertial(
                 self.m, self.kf_imu, k, self.cam, self.cfg.lm_cfg)
         else:
             self.m = local_mapping.mapping_step(self.m, k, self.cam,
                                                 self.cfg.lm_cfg)
+        if self.loop_closer is not None and bow is not None:
+            with record_function("LoopTotal"):
+                if self.loop_closer.maybe_close(self, k, bow) or (
+                        self.stash and
+                        self.loop_closer.maybe_merge(self, k, bow)):
+                    self.n_loops_closed += 1
+        if self._gba_job is not None:
+            # one slice of the detached global BA per insert, folded into
+            # the live map at once
+            with record_function("GBATotal"):
+                done = self._gba_job.advance()
+                self.m = self._gba_job.reconcile(self.m)
+                if done:
+                    self._gba_job = None
         self.ref_kf = k
         self.frames_since_kf = 0
         if refresh_anchors:
@@ -1546,12 +1591,13 @@ class Tracker:
 
     def _db_add(self, kf_id: int, fr: FrameData):
         """Put the keyframe's BoW vector into the database (with a
-        vocabulary)."""
+        vocabulary) and return it (None without one)."""
         if self.db is None:
-            return
+            return None
         bow = voctree.bow_vector(
             self.voc, voctree.transform(self.voc, fr.desc, fr.valid))
         self.db = kfdb.add_keyframe(self.db, kf_id, bow)
+        return bow
 
     def _try_relocalize(self, fr: FrameData):
         """BoW candidates (the top 3 by L1 score) + PnP RANSAC + pose
@@ -1635,6 +1681,7 @@ class Tracker:
     def _fresh_map_state(self):
         cfg = self.cfg
         dev = self.device
+        self._gba_job = None          # a running global BA is meaningless
         self.m = ms.empty_map(cfg.max_kf, cfg.n_feat, cfg.max_lm, device=dev)
         self.db = None if self.voc is None else \
             kfdb.empty(cfg.max_kf, self.voc.n_words, device=dev)
@@ -1692,13 +1739,22 @@ class Tracker:
         self._fresh_map_state()
 
     def resolve_ref_pose(self, gen, ref):
-        """World->camera pose of keyframe `ref` of map generation `gen`
-        (a stashed map resolves in its own gauge); None if gone."""
-        m = self.m if gen == self.map_gen else next(
-            (s.m for s in self.stash if s.gen == gen), None)
-        if m is None or ref >= m.kf_valid.shape[0]:
+        """World->camera pose of keyframe `ref` of map generation `gen`,
+        following merge offsets into the map it was welded into; an
+        unmerged stashed map resolves in its own gauge. None if gone."""
+        while gen != self.map_gen:
+            st = next((s for s in self.stash if s.gen == gen), None)
+            if st is None:
+                return None
+            if st.merged_into_gen < 0:
+                if ref >= st.m.kf_valid.shape[0]:
+                    return None
+                return st.m.kf_R[ref], st.m.kf_t[ref]
+            ref += st.kf_offset
+            gen = st.merged_into_gen
+        if ref >= self.m.kf_valid.shape[0]:
             return None
-        return m.kf_R[ref], m.kf_t[ref]
+        return self.m.kf_R[ref], self.m.kf_t[ref]
 
     def trajectory_world(self):
         """[(ts, camera centre (3,) numpy)], chaining each relative pose

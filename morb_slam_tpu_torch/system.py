@@ -8,9 +8,11 @@ localization-mode toggles, `reset` and `state`. The inertial sensors
 `settings.imu` (noise densities, random walks, rate, `T_b_c1`) and take
 each frame's samples as `imu_batch=(timestamps, acc, gyro)`. A vocabulary
 (`vocabulary=` or `vocabulary_path=`, `.npz` or ORBvoc `.txt`) gives the
-tracker BoW relocalization; loop closing on top of it, trajectory writers
-and atlas save / load belong to later slices of the port and raise
-`NotImplementedError` here.
+tracker BoW relocalization and, with `settings.loop_closing` (the
+default), loop closing, the Atlas merge and the detached global BA;
+`loopClosing: 0` keeps relocalization only. Atlas save / load (and the
+trajectory writers) belong to the persistence slice of the port;
+`settings.load_atlas` raises `NotImplementedError` here.
 """
 from __future__ import annotations
 
@@ -60,12 +62,6 @@ class System:
             settings = config_mod.load_settings(settings)
         if sensor.inertial and settings.imu is None:
             raise ValueError("an inertial sensor needs settings.imu")
-        if (vocabulary is not None or vocabulary_path) and \
-                settings.loop_closing:
-            raise NotImplementedError(
-                "loop closing comes with item 13 (loop closing, merge and "
-                "global BA) of the port; a vocabulary with loopClosing: 0 "
-                "(settings.loop_closing = False) runs relocalization today")
         if settings.load_atlas:
             raise NotImplementedError(
                 "atlas load / save comes with the persistence slice of the "
@@ -119,7 +115,13 @@ class System:
         self.tracker = tracking.Tracker(cam, tracking.TrackerConfig(**kw),
                                         device=self.device, voc=self.voc,
                                         imu_calib=calib)
+        self._drop_loop_closer()
         self.localization_only = False
+
+    def _drop_loop_closer(self):
+        """loopClosing: 0 keeps the database for relocalization only."""
+        if not self.settings.loop_closing:
+            self.tracker.loop_closer = None
 
     # ---- frame feeds ----------------------------------------------------
 
@@ -167,6 +169,7 @@ class System:
         t = self.tracker
         self.tracker = tracking.Tracker(t.cam, t.cfg, device=self.device,
                                         voc=self.voc, imu_calib=t.calib)
+        self._drop_loop_closer()
 
     @property
     def state(self):

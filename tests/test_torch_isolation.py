@@ -4,7 +4,10 @@ has neither); its tracker and System refuse to run without a card unless
 asked for the CPU; and its kernel wrappers never fall back to the plain
 versions for a tensor that is not on the CPU. The walk over the package
 covers every module, among them `vocab/`, `io/serialization.py`,
-`solvers/pnp.py`, `imu.py`, `optim/inertial.py` and `optim/vi_ba.py`."""
+`solvers/pnp.py`, `imu.py`, `optim/inertial.py`, `optim/vi_ba.py` and the
+loop-closing slice's `solvers/sim3.py`, `optim/pose_graph.py`,
+`mapstate/atlas.py`, `pipeline/global_ba.py` and
+`pipeline/loop_closing.py`."""
 import os
 import subprocess
 import sys
@@ -49,7 +52,9 @@ def test_imports_without_jax_or_reference_package():
         assert not loaded, loaded
         for need in ("vocab.tree", "vocab.database", "io.serialization",
                      "solvers.pnp", "optim.pose_opt", "imu", "optim.inertial",
-                     "optim.vi_ba", "optim.ba"):
+                     "optim.vi_ba", "optim.ba", "solvers.sim3",
+                     "optim.pose_graph", "mapstate.atlas",
+                     "pipeline.global_ba", "pipeline.loop_closing"):
             assert "morb_slam_tpu_torch." + need in names, need
         print(len(names))
     """)
@@ -89,7 +94,8 @@ def _counts():
                               rectify.LAUNCHES, pose_opt.LAUNCHES,
                               tree.LAUNCHES["vocab_transform"],
                               tree.LAUNCHES["bow_l1"], ba.LAUNCHES,
-                              imu.LAUNCHES, vi_ba.LAUNCHES)]
+                              imu.LAUNCHES, vi_ba.LAUNCHES,
+                              ba.SCHUR_LAUNCHES)]
 
 
 def _voc(device):
@@ -144,7 +150,8 @@ def _pose_inertial_args(device, n=5):
                                     "remap_bilinear", "pose_opt",
                                     "vocab_transform", "bow_l1",
                                     "ba_assemble", "preintegrate",
-                                    "pose_inertial"])
+                                    "pose_inertial", "ba_assemble_per_obs",
+                                    "schur_lm_pass", "schur_kf_pass"])
 def test_wrappers_refuse_other_devices(kernel):
     meta = torch.device("meta")
     before = _counts()
@@ -173,6 +180,18 @@ def test_wrappers_refuse_other_devices(kernel):
                           torch.zeros((3, 4), device=meta))
         elif kernel == "ba_assemble":
             ba.assemble(*_ba_args(meta))
+        elif kernel == "ba_assemble_per_obs":
+            ba.assemble(*_ba_args(meta), per_obs=True)
+        elif kernel == "schur_lm_pass":
+            p = _ba_args(meta)[0]
+            ba.schur_lm_pass(p, torch.zeros((4, 6, 3), device=meta),
+                             torch.zeros((2, 6), device=meta),
+                             torch.zeros((3, 3, 3), device=meta))
+        elif kernel == "schur_kf_pass":
+            p = _ba_args(meta)[0]
+            ba.schur_kf_pass(p, torch.zeros((4, 6, 3), device=meta),
+                             torch.zeros((3, 3), device=meta),
+                             a=torch.zeros((2, 6), device=meta))
         elif kernel == "preintegrate":
             imu.preintegrate(*_imu_args(meta))
         elif kernel == "pose_inertial":
@@ -201,7 +220,25 @@ def test_wrappers_use_plain_versions_on_cpu():
     ba.assemble(*_ba_args("cpu"))
     imu.preintegrate(*_imu_args("cpu"))
     vi_ba.optimize_pose_inertial(*_pose_inertial_args("cpu"), n_iters=1)
+    ba.schur_lm_pass(_ba_args("cpu")[0], torch.zeros((4, 6, 3)),
+                     torch.zeros((2, 6)), torch.eye(3).expand(3, 3, 3))
     after = _counts()
     for b, a in zip(before, after):
         assert a["plain"] == b["plain"] + 1
         assert a["kernel"] == b["kernel"]
+
+
+def test_k4_per_obs_and_k14_use_plain_versions_on_cpu():
+    """The global BA's kernels: K4's per-observation mode and each K14
+    pass run their plain versions for CPU tensors."""
+    p = _ba_args("cpu")[0]
+    before = [dict(ba.LAUNCHES), dict(ba.SCHUR_LAUNCHES)]
+    ob = ba.assemble(p, p.R, p.t, p.X, per_obs=True)
+    assert ob.Wpl.shape == (4, 6, 3) and isinstance(ob, ba.ObsBlocks)
+    y = ba.schur_lm_pass(p, ob.Wpl, torch.ones((2, 6)),
+                         torch.eye(3).expand(3, 3, 3))
+    ba.schur_kf_pass(p, ob.Wpl, y, a=torch.zeros((2, 6)))
+    assert ba.LAUNCHES["plain"] == before[0]["plain"] + 1
+    assert ba.SCHUR_LAUNCHES["plain"] == before[1]["plain"] + 2
+    assert ba.LAUNCHES["kernel"] == before[0]["kernel"]
+    assert ba.SCHUR_LAUNCHES["kernel"] == before[1]["kernel"]

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K5 and K7-K12 of the PyTorch port against their
+"""The CUDA kernels K1-K5 and K7-K12, K14 of the PyTorch port against their
 plain PyTorch versions on the card, on shapes and inputs the main path does
 not reach: image sizes that are no multiple of the 16-px cell, flat images
 where every key ties, empty keypoint and row sets, a single column, fully
@@ -10,7 +10,11 @@ partly behind the camera, mono and mixed stereo; vocabulary descents with
 tied children, no valid descriptor and other branchings and depths; L1
 scores over widths that are no multiple of 4, masked rows and batches of
 queries; BA assemblies (K4) of an empty window, one observation, repeated
-(landmark, keyframe) pairs and both tangent modes, bitwise repeatable;
+(landmark, keyframe) pairs and both tangent modes, bitwise repeatable,
+and in its per-observation mode; the implicit Schur passes (K14) with
+segment lengths that are no multiple of 32, landmarks and a keyframe with
+no observation, every observation masked and nothing optimized, bitwise
+repeatable, and the PCG LM loop over both kernels;
 preintegrations (K11) of an all-padding batch, one sample, fresh and
 continued frame batches and a keyframe buffer; inertial pose problems
 (K12) with a near-identity edge, no visual rows and mixed stereo; and
@@ -33,7 +37,10 @@ tensor's max-abs and bit-identical across two launches, its LM loop with
 the plain loop's accepts, R within 1e-5, t within 1e-4, the final cost
 within 1e-3 relative and the landmarks within 1e-2 chi2 units; K11 dR, dV, dP and
 the Jacobians within 1e-5, C within 1e-5 of its max-abs; K12 R and t
-within 1e-5, v and bias within 1e-4, the same inlier count.
+within 1e-5, v and bias within 1e-4, the same inlier count; K14 within
+1e-5 of each output entry's term magnitude (the same sums over absolute
+values: the back-substitution's bl - B^T x cancels, so the rounding of
+its sums is bounded by the terms, not the result).
 """
 import math
 
@@ -643,6 +650,152 @@ def test_ba_solve_kernel_matches_plain(cuda):
     Hll = ba.assemble_plain(p, *want[:3]).Hll
     dX = got[2] - want[2]
     assert float(torch.einsum('li,lij,lj->l', dX, Hll, dX).max()) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# K4 per-observation mode and K14 schur_pcg
+# ---------------------------------------------------------------------------
+
+def _pcg_problem(cuda, case):
+    """Problems for the global BA's kernels: `odd` segment lengths (no
+    multiple of 32, landmarks with no observation), `empty_kf` (a keyframe
+    whose observations are all masked, one with none at all),
+    `all_masked`, `none_opt` (kf_opt and lm_opt all False) and `large`
+    (the loop phase's K and L with 700 observations per keyframe)."""
+    if case == "large":
+        p = _ba_problem(cuda, 40, 8000, 700, seed=11)
+    else:
+        p = _ba_problem(cuda, 7, 300, 45, seed=5)
+    if case == "empty_kf":
+        p = p._replace(obs_mask=p.obs_mask & (p.obs_kf != 2))
+        keep = p.obs_kf != 4
+        p = p._replace(**{f: getattr(p, f)[keep] for f in (
+            "obs_kf", "obs_lm", "obs_uv", "obs_ur", "obs_info",
+            "obs_mask")})
+    elif case == "all_masked":
+        p = p._replace(obs_mask=torch.zeros_like(p.obs_mask))
+    elif case == "none_opt":
+        p = p._replace(kf_opt=torch.zeros_like(p.kf_opt),
+                       lm_opt=torch.zeros_like(p.lm_opt))
+    return p
+
+
+def _rel(a, b):
+    scale = max(float(b.abs().max()) if b.numel() else 0.0, 1e-30)
+    return float((a - b).abs().max()) / scale if b.numel() else 0.0
+
+
+PCG_CASES = ["odd", "empty_kf", "all_masked", "none_opt", "large"]
+
+
+@pytest.mark.parametrize("case", PCG_CASES)
+def test_ba_assemble_per_obs_matches_plain_and_repeats(cuda, case):
+    p = _pcg_problem(cuda, case)
+    order = ba.obs_order(p)
+    got = ba.assemble(p, p.R, p.t, p.X, order, per_obs=True)
+    want = ba.assemble_obs_plain(p, p.R, p.t, p.X)
+    for name, a, b in zip(ba.ObsBlocks._fields, got, want):
+        assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+    assert not bool(got.Wpl[~p.obs_mask].any())
+    again = ba.assemble(p, p.R, p.t, p.X, order, per_obs=True)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def _schur_uses(p, ob, Hpp, Hll_inv, bl, x, order):
+    """K14's three uses, each as (kernel call, plain call, the magnitude
+    of the summed terms: the same sums over absolute values; -|x| makes
+    the back-substitution's c - W^T x add its terms)."""
+    W, Wa, xa, Ha = ob.Wpl, ob.Wpl.abs(), x.abs(), Hll_inv.abs()
+    kf = p.kf_opt.float()[:, None]
+    y0 = torch.einsum('lab,lb->la', Hll_inv, bl)
+    ya = ba.schur_lm_pass_plain(p, Wa, xa, Ha)
+    return [
+        (lambda: ba.schur_matvec(p, W, Hpp, Hll_inv, x, order),
+         lambda: ba.schur_kf_pass_plain(
+             p, W, ba.schur_lm_pass_plain(p, W, x, Hll_inv), Hpp=Hpp, x=x),
+         -ba.schur_kf_pass_plain(p, Wa, ya, a=-torch.einsum(
+             'kab,kb->ka', Hpp.abs(), xa * kf))),
+        (lambda: ba.schur_kf_pass(p, W, y0, order, a=ob.bp),
+         lambda: ba.schur_kf_pass_plain(p, W, y0, a=ob.bp),
+         -ba.schur_kf_pass_plain(p, Wa, y0.abs(), a=-ob.bp.abs())),
+        (lambda: ba.schur_lm_pass(p, W, x, Hll_inv, order, c=bl),
+         lambda: ba.schur_lm_pass_plain(p, W, x, Hll_inv, c=bl),
+         ba.schur_lm_pass_plain(p, Wa, -xa, Ha, c=bl.abs()))]
+
+
+def _err_by_magnitude(got, want, mag):
+    """max |got - want| over the magnitude of each entry's summed terms:
+    the float32 rounding of a sum is bounded by its terms, not its value
+    (the back-substitution's bl - B^T x cancels)."""
+    return float(((got - want).abs() / mag.clamp(min=1e-30)).max()) \
+        if got.numel() else 0.0
+
+
+@pytest.mark.parametrize("case", PCG_CASES)
+def test_schur_pcg_matches_plain_and_repeats(cuda, case):
+    """K14's two passes in each of their uses (S x, the right-hand side,
+    the back-substitution) against the plain passes on the same blocks,
+    within 1e-5 of each entry's term magnitude; two launches bitwise
+    equal."""
+    from morb_slam_tpu_torch.optim import linalg
+    p = _pcg_problem(cuda, case)
+    order = ba.obs_order(p)
+    ob = ba.assemble_obs_plain(p, p.R, p.t, p.X)
+    lam = torch.tensor(1e-3, device=cuda)
+    Hpp = ba._damp(ob.Hpp, lam)
+    Hll_inv = linalg.inv3x3(torch.where(
+        p.lm_opt[:, None, None], ba._damp(ob.Hll, lam),
+        torch.eye(3, device=cuda).expand(ob.Hll.shape)))
+    bl = ob.bl * p.lm_opt.float()[:, None]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(p.R.shape[0], 6, device=cuda, generator=g)
+    uses = _schur_uses(p, ob, Hpp, Hll_inv, bl, x, order)
+    for kernel, plain, mag in uses:
+        got, want = kernel(), plain()
+        err = _err_by_magnitude(got, want, mag)
+        assert err <= 1e-5, err
+        assert torch.equal(got, kernel())
+    if case == "none_opt":
+        assert not bool(uses[0][0]().any())
+
+
+def test_ba_solve_pcg_kernels_match_plain(cuda, monkeypatch):
+    """The PCG LM loop over K4 (per-observation) and K14 against the loop
+    over their plain versions: the same accepts, costs within 1e-3
+    relative."""
+    p = _ba_problem(cuda, 8, 600, 300, seed=7, dup=0.0)
+    dR = lie.so3_exp(torch.tensor([0.01, -0.01, 0.005], device=cuda))
+    p = p._replace(R=dR @ p.R, t=p.t + 0.02)
+    got = ba.ba_solve_pcg(p, n_iters=4, cg_iters=40)
+    monkeypatch.setattr(ba, "assemble", lambda p_, R, t, X, order=None,
+                        body=False, per_obs=False:
+                        ba.assemble_obs_plain(p_, R, t, X))
+    monkeypatch.setattr(ba, "schur_lm_pass", lambda p_, W, x, Hi, order=None,
+                        c=None: ba.schur_lm_pass_plain(p_, W, x, Hi, c))
+    monkeypatch.setattr(ba, "schur_kf_pass", lambda p_, W, y, order=None,
+                        Hpp=None, x=None, a=None:
+                        ba.schur_kf_pass_plain(p_, W, y, Hpp, x, a))
+    want = ba.ba_solve_pcg(p, n_iters=4, cg_iters=40)
+    assert torch.equal(got[3]["accepted"], want[3]["accepted"])
+    assert _rel(got[3]["costs"], want[3]["costs"]) <= 1e-3
+
+
+def test_k14_refuses_bad_inputs_on_the_card(cuda):
+    p = _pcg_problem(cuda, "odd")
+    order = ba.obs_order(p)
+    ob = ba.assemble_obs_plain(p, p.R, p.t, p.X)
+    Hi = torch.eye(3, device=cuda).expand(p.X.shape[0], 3, 3)
+    x = torch.zeros(p.R.shape[0], 6, device=cuda)
+    with pytest.raises(ValueError):
+        ba.schur_lm_pass(p, ob.Wpl.double(), x, Hi, order)
+    with pytest.raises(ValueError):
+        ba.schur_lm_pass(p, ob.Wpl, x[:, :3], Hi, order)
+    with pytest.raises(ValueError):
+        ba.schur_lm_pass(p, ob.Wpl, x, Hi, None)
+    with pytest.raises(ValueError):
+        ba.schur_kf_pass(p, ob.Wpl, torch.zeros(p.X.shape[0], 3,
+                                                device=cuda), order)
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@ and K10 versions):
   0.15 m of the mapped keyframe nearest the revisited pose. The recovery
   must come from the BoW branch (`_try_relocalize`). The JAX tracker on the
   same sequence is in test_torch_relocalization_jax.py;
-- a System with a vocabulary needs loopClosing off (loop closing is not
-  ported yet).
+- a System with a vocabulary relocalizes only with loopClosing off, and
+  closes loops too with it on.
 """
 import jax
 import jax.numpy as jnp
@@ -165,16 +165,21 @@ def test_port_relocalizes_through_bow(port_run):
 
 
 def test_system_with_vocabulary_needs_loop_closing_off(scene):
+    """Relocalization alone needs loopClosing: 0; with loop closing on (the
+    default) the System's tracker closes loops too."""
     voc = scene[1]
     settings = config.Settings(cam1=config.CameraSettings(
         fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W, height=H))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        system.System(settings, system.Sensor.MONOCULAR, vocabulary=voc,
-                      device="cpu")
+    s = system.System(settings, system.Sensor.MONOCULAR, vocabulary=voc,
+                      device="cpu", tracker_overrides=dict(max_kf=8,
+                                                           max_lm=500))
+    assert s.tracker.loop_closer is not None
     settings.loop_closing = False
     s = system.System(settings, system.Sensor.MONOCULAR, vocabulary=voc,
                       device="cpu", tracker_overrides=dict(max_kf=8,
                                                            max_lm=500))
     assert s.tracker.db.bow.shape == (8, voc.n_words)
+    assert s.tracker.loop_closer is None
     s.reset()
     assert s.tracker.voc is not None and s.tracker.db is not None
+    assert s.tracker.loop_closer is None

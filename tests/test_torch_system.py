@@ -106,16 +106,16 @@ def test_system_from_yaml_builds_rectification(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(sensor=system.Sensor.IMU_STEREO, load_atlas="atlas.osa"),
+    dict(sensor=system.Sensor.IMU_STEREO),
     dict(sensor=system.Sensor.MONOCULAR, vocabulary=object()),
     dict(sensor=system.Sensor.MONOCULAR, vocabulary_path="voc.txt")])
 def test_later_slices_refused(kw):
-    """Atlas loading and loop closing belong to later slices (the inertial
-    sensors run since the visual-inertial slice)."""
-    kw = dict(kw)
+    """Atlas loading belongs to the persistence slice, with or without
+    loop closing (the inertial sensors run since the visual-inertial slice,
+    loop closing since the loop-closing slice)."""
     settings = config.Settings(cam1=_cam(), imu=config.ImuSettings(),
-                               load_atlas=kw.pop("load_atlas", ""))
-    with pytest.raises(NotImplementedError):
+                               load_atlas="atlas.osa")
+    with pytest.raises(NotImplementedError, match="persistence"):
         system.System(settings, device="cpu", **kw)
 
 
