@@ -79,12 +79,12 @@ Phases:
                 force and rate in body axes, zero lever arm, seeded noise).
                 Check > 85% of frames OK, the IMU initialized with
                 viba_stage >= 2, the Sim3 scale within 0.06 of 1 and the SE3
-                ATE under 0.04 x extent, and that K1-K5, K7, K8, K11 and K12
+                ATE under 0.04 x extent, and that K1-K5, K7, K8, K11-K13
                 launched while no plain version ran; time frames 60-119,
                 each keyframe insert's mapping step (visual until the IMU
                 initialization, inertial after) and each IMU-init stage;
-                profile 5 more frames, then the plain K13 range and
-                `inertial_only_optimize` on the path's last problems.
+                profile 5 more frames, then the plain
+                `inertial_only_optimize` on the path's last problem.
   8. loop     — a live stereo loop through `System(settings,
                 Sensor.STEREO, vocabulary_path=...)` with loop closing on
                 and System's default capacities: the tests' ring world (56
@@ -97,15 +97,50 @@ Phases:
                 1.1 x the raw poses', the last GBA job's 4 slices run (K14
                 in each) and finished by flush(), and that K1-K5, K7-K10,
                 K14 and K4's per-observation mode launched while no plain
-                version ran; time the closing insert's parts and every GBA
-                slice, count host syncs per maybe_close; then hold one GBA
-                slice of the path's own problem against the slice over the
-                plain versions (accepts, costs within 1e-3) and check its
-                peak memory stays under one dense coupling.
+                version ran (K15 in the correction's pose graph too); time
+                the closing insert's parts and every GBA slice, count host
+                syncs per maybe_close; then hold one GBA slice of the path's
+                own problem against the slice over the plain versions
+                (accepts, costs within 1e-3) and check its peak memory stays
+                under one dense coupling.
   9. merge    — the bench's multi-session merge: mono 384x288, 500
                 features, the plane world out (28 frames) and back (27), a
                 new map at the turn; the stashed map must weld back and the
                 Sim3 ATE stay under 0.08 x extent.
+ 10. vi_loop  — the JAX stereo-inertial ring-circuit test
+                (tests/test_inertial_e2e.py:136) through `System(settings,
+                Sensor.IMU_STEREO, vocabulary=...)` at its configuration
+                (rectified 384x288, fx 300, baseline 0.1, 500 features, 4
+                levels, max_kf 128, max_lm 16000, th_depth 60, IMU at
+                200 Hz with noise seed 2, a k = 8, depth = 3 vocabulary
+                trained in-run, unpipelined): 300 frames at 1.3 circuits,
+                then flush(); > 90% OK, imu_ready, finite velocities and
+                biases, every keyframe's pitch / roll < 0.01 rad, circuit
+                gap < 0.2; K13 on every LM step. Then the inertial loop
+                branch on the drifted inertial map (the numpy construction
+                below): no loop on the first detection, one on the second,
+                the four_dof pose graph through K15 and full_inertial_ba
+                through K13, the late keyframes' centre RMSE < 0.4 x its
+                value before, tilts < 0.01 rad, poses within 1e-3 of the
+                same calls on the CPU with the plain versions.
+ 11. fisheye  — bench.py:185 mono_inertial_fisheye_run through
+                `System(settings, Sensor.IMU_MONOCULAR)` with a
+                KannalaBrandt8 cam1 (384x288, f 170): a 640x480 pinhole
+                render of the plane world (seed 3) remapped into the
+                fisheye by K8 with the bench's map, 100 frames, IMU seed 4;
+                > 75% OK, imu_ready with viba_stage >= 1, a finite
+                trajectory, Sim3 ATE < 0.04 x extent; fps over frames
+                70-99.
+ 12. new kernels — K13 (vi_edges) on the vi path's last window problem and
+                K15 (pose_graph) on the loop path's essential graph
+                against their plain versions (H under Jacobi scaling, b,
+                the cost, within 1e-5; two launches bitwise equal), their
+                times and bounds, and an LM step / the whole pose graph
+                over kernel and plain; then bench.py:398's ba_iters_per_s
+                problem through the port's ba_solve.
+
+`--only vi_loop,fisheye` (any phase names) runs the device phase and those
+phases alone, without the kernels line.
 
 Any failure raises (nonzero exit). The line before the last is the card's
 `nvidia-smi` name and power limit; the last line is the JSON result.
@@ -166,7 +201,9 @@ R_B_C0 = np.array([
 RANGES = ("K4 ba_solve", "K4 ba_assemble", "K5 optimize_pose",
           "K6 build_pyramid", "K6 gaussian_blur", "K9 vocab_transform",
           "K10 bow_l1", "K11 preintegrate", "K12 optimize_pose_inertial",
-          "K13 vi_ba edges", "inertial_only_optimize", "K14 schur_lm_pass",
+          "K13 vi_ba edges", "K13 inertial_system", "K13 inertial_cost",
+          "K15 normal_equations", "inertial_only_optimize",
+          "K14 schur_lm_pass",
           "K14 schur_kf_pass", "ba_solve_pcg", "GBA slice", "GBATotal",
           "LoopTotal", "maybe_close", "maybe_merge", "correct_loop",
           "pose_graph.optimize", "guided_sim3_verify", "search_and_fuse")
@@ -398,21 +435,24 @@ def analytic_pose(t, speed=1.0):
     return R_cw, -R_cw @ center
 
 
-def imu_between(t0, t1, freq=200.0, rng=None, noise_g=0.0, noise_a=0.0):
+def imu_between(t0, t1, freq=200.0, rng=None, noise_g=0.0, noise_a=0.0,
+                pose_fn=None):
     """The tests' IMU samples in (t0, t1]: camera-frame angular rate and
-    specific force of the analytic path by finite differences (float64),
-    plus seeded Gaussian noise. Returns (timestamps, acc, gyro)."""
+    specific force of the analytic path (or `pose_fn`'s) by finite
+    differences (float64), plus seeded Gaussian noise. Returns
+    (timestamps, acc, gyro)."""
     from scipy.spatial.transform import Rotation
+    pose_fn = pose_fn or analytic_pose
     h = 2e-3
     ts = np.arange(np.floor(t0 * freq) + 1, np.floor(t1 * freq) + 1) / freq
 
     def center(tt):
-        Rc, tc = analytic_pose(tt)
+        Rc, tc = pose_fn(tt)
         return -Rc.T @ tc
     acc, gyr = [], []
     for t in ts:
-        R_wb = analytic_pose(t)[0].T
-        W_ = R_wb.T @ analytic_pose(t + h)[0].T
+        R_wb = pose_fn(t)[0].T
+        W_ = R_wb.T @ pose_fn(t + h)[0].T
         gyr.append(Rotation.from_matrix(W_).as_rotvec() / h)
         a_w = (center(t + h) - 2 * center(t) + center(t - h)) / h ** 2
         acc.append(R_wb.T @ (a_w - GRAVITY_W))
@@ -711,7 +751,7 @@ def _kernel_counters():
     from morb_slam_tpu_torch import imu
     from morb_slam_tpu_torch.ops import (fast, hamming, orb_descriptor,
                                          rectify, stereo)
-    from morb_slam_tpu_torch.optim import ba, pose_opt, vi_ba
+    from morb_slam_tpu_torch.optim import ba, pose_graph, pose_opt, vi_ba
     from morb_slam_tpu_torch.vocab import tree
     return {"fast_select": fast.LAUNCHES,
             "orb_describe": orb_descriptor.LAUNCHES,
@@ -721,7 +761,9 @@ def _kernel_counters():
             "bow_l1": tree.LAUNCHES["bow_l1"], "ba_assemble": ba.LAUNCHES,
             "preintegrate": imu.LAUNCHES, "pose_inertial": vi_ba.LAUNCHES,
             "ba_assemble_per_obs": ba.OBS_LAUNCHES,
-            "schur_pcg": ba.SCHUR_LAUNCHES}
+            "schur_pcg": ba.SCHUR_LAUNCHES,
+            "vi_edges": vi_ba.INERTIAL_LAUNCHES,
+            "pose_graph": pose_graph.LAUNCHES}
 
 
 def _reset_counters():
@@ -2127,7 +2169,7 @@ def phase_vi(state):
     launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
                                "pose_opt", "stereo_sad", "remap_bilinear",
                                "ba_assemble", "preintegrate",
-                               "pose_inertial"], "vi", state)
+                               "pose_inertial", "vi_edges"], "vi", state)
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
     fired = [s for s in stages if s["fired"]]
     log(f"vi: IMU-init stages fired {[(s['stage'], s['ts']) for s in fired]}"
@@ -2180,37 +2222,21 @@ def phase_vi(state):
                 / ev[0].count / 1e3, calls_profiled=ev[0].count)
     log("vi path:", json.dumps(out))
     state["vi"] = out
-    state["plain_rows"] += _vi_plain_rows(calls)
-    _log_plain_rows(state["plain_rows"][-2:])
+    state["plain_rows"] += _vi_plain_rows(calls, state)
+    _log_plain_rows(state["plain_rows"][-1:])
 
 
-def _vi_plain_rows(calls):
-    """The plain K13 range and inertial_only_optimize on the vi path's last
-    problems: device time per call under their profiler ranges, the event
-    time of the call that holds them, bounds from these problems' shapes,
-    calls per frame."""
-    from morb_slam_tpu_torch.optim import inertial, vi_ba
+def _vi_plain_rows(calls, state):
+    """The plain inertial_only_optimize on the vi path's last problem:
+    device time per call under its profiler range, the event time of the
+    call that holds it, the bound from this problem's shape, calls per
+    frame. The vi path's last vi_ba_solve problem is kept for K13's row."""
+    from morb_slam_tpu_torch.optim import inertial
     check(calls.counts["vi_ba_solve"] and
           calls.counts["inertial_only_optimize"],
           "no inertial BA or IMU initialization on the vi path")
-
     (pv,), kw = calls.last_args["vi_ba_solve"]
-
-    def k13_profile():
-        with profiled(cpu=True) as prof:
-            for _ in range(2):
-                vi_ba.vi_ba_solve(pv, **kw)
-        return prof
-    k13_ms, _, k13_span = range_device_ms("K13 vi_ba edges", k13_profile)
-    Wn = pv.R_wb.shape[0]
-    # per edge its two states and constants in (~800 B), the dense (15W)^2
-    # Hessian and its right side out; per edge ~45 kflop of forward-mode
-    # Jacobian (30 tangents through the 9-dof residual) and ~21 kflop of
-    # J^T Omega J
-    b13, by13 = bound(Wn * 800 + (15 * Wn) ** 2 * 4 + 15 * Wn * 4,
-                      Wn * 66e3)
-    k13_calls = sum(k.get("n_iters", 8) for k in calls.kwargs["vi_ba_solve"])
-
+    state["k13_problem"] = (pv, kw)
     a, kw_io = calls.last_args["inertial_only_optimize"]
 
     def io_profile():
@@ -2232,19 +2258,6 @@ def _vi_plain_rows(calls):
                         it * (n_par * n_e * 9 * 60 + n_e * 9 * n_par ** 2 * 2
                               + n_par ** 3 / 3))
     return [
-        dict(name="vi_ba edges (K13)", route="plain",
-             source="morb_slam_tpu_torch/optim/vi_ba.py",
-             replaces="morb_slam_tpu/optim/vi_ba.py:247", ms=k13_ms,
-             span_ms=k13_span,
-             plain_ms=time_ms(lambda: vi_ba.vi_ba_solve(pv, **kw), reps=3,
-                              inner=1, warmup=1),
-             plain_ms_is="one whole vi_ba_solve of this problem",
-             bound_ms=b13, bound_by=by13, library_ms=None,
-             launches=k13_calls, launches_per_frame=k13_calls / N_VI,
-             max_abs_err=None,
-             shape=f"one LM step's inertial part, W = {Wn} window slots "
-                   f"({int(pv.e_valid.sum())} valid edges), "
-                   f"{kw.get('n_iters')} iterations per solve"),
         dict(name="inertial_only_optimize", route="plain",
              source="morb_slam_tpu_torch/optim/inertial.py",
              replaces="morb_slam_tpu/optim/inertial.py:304", ms=io_ms,
@@ -2656,7 +2669,7 @@ def phase_loop(state, variant=None):
         f"{probe.counts['guided_sim3_verify']} (gates "
         f"{loop_closing.MIN_SIM3_INLIERS} / "
         f"{loop_closing.MIN_ACCEPT_MATCHES})")
-    gba_kernels = ["schur_pcg", "ba_assemble_per_obs"]
+    gba_kernels = ["schur_pcg", "ba_assemble_per_obs", "pose_graph"]
     launches = _read_counters(
         ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
          "stereo_sad", "remap_bilinear", "ba_assemble", "vocab_transform",
@@ -2777,31 +2790,18 @@ def phase_loop(state, variant=None):
         dense_coupling_mib=dense_bt / 2 ** 20)
     log("loop path:", json.dumps(out))
     state["loop"] = out
-    state["plain_rows"] += _loop_plain_rows(probe, len(inserts))
-    _log_plain_rows(state["plain_rows"][-2:])
+    state["plain_rows"] += _loop_plain_rows(probe, len(inserts), state)
+    _log_plain_rows(state["plain_rows"][-1:])
 
 
-def _loop_plain_rows(probe, n_inserts):
-    """The plain pose graph and guided_sim3_verify on the loop path's last
-    calls: device time per call under their profiler ranges, the range's
-    span, bounds from these inputs, calls per keyframe insert."""
-    from morb_slam_tpu_torch.optim import pose_graph
+def _loop_plain_rows(probe, n_inserts, state):
+    """The plain guided_sim3_verify on the loop path's last call: device
+    time per call under its profiler range, the range's span, the bound
+    from these inputs, calls per keyframe insert. The path's last essential
+    graph is kept for K15's row."""
     from morb_slam_tpu_torch.pipeline import loop_closing
     (g,), kw = probe.last_args["optimize"]
-
-    def pg_profile():
-        with profiled(cpu=True) as prof:
-            pose_graph.optimize(g, **kw)
-        return prof
-    pg_ms, _, pg_span = range_device_ms("pose_graph.optimize", pg_profile)
-    K, E = g.s.shape[0], g.edge_i.shape[0]
-    it = kw.get("n_iters", 15)
-    # nodes and edges in (~56 B each), the poses out; per iteration and
-    # edge ~600 flops of residual for the primal and each of the 14
-    # tangents and ~3.4 kflop of block products, and the dense (7K)^3 / 3
-    # Cholesky
-    b_pg, by_pg = bound(K * 56 + E * 64 + K * 52,
-                        it * (E * (15 * 600 + 3400) + (7 * K) ** 3 / 3))
+    state["k15_graph"] = (g, kw)
     a, kw_g = probe.last_args["guided_sim3_verify"]
 
     def gv_profile():
@@ -2816,19 +2816,6 @@ def _loop_plain_rows(probe, n_inserts):
     # feature
     b_gv, by_gv = bound(2 * F * 80, F * F * (8 + 2 * 8 * 6) + 12 * 8 * 120 * F)
     return [
-        dict(name="pose_graph.optimize", route="plain",
-             source="morb_slam_tpu_torch/optim/pose_graph.py",
-             replaces="morb_slam_tpu/optim/pose_graph.py:80", ms=pg_ms,
-             span_ms=pg_span,
-             plain_ms=time_ms(lambda: pose_graph.optimize(g, **kw), reps=2,
-                              inner=1, warmup=1),
-             bound_ms=b_pg, bound_by=by_pg, library_ms=None,
-             launches=len(probe.ms["optimize"]),
-             launches_per_frame=len(probe.ms["optimize"]) / N_LOOP,
-             launches_per_insert=len(probe.ms["optimize"]) / max(n_inserts,
-                                                                 1),
-             max_abs_err=None,
-             shape=f"K = {K} nodes, E = {E} edges, {it} iterations"),
         dict(name="guided_sim3_verify", route="plain",
              source="morb_slam_tpu_torch/pipeline/loop_closing.py",
              replaces="morb_slam_tpu/pipeline/loop_closing.py:78",
@@ -2917,6 +2904,730 @@ def phase_merge(state):
 
 
 
+# ---------------------------------------------------------------------------
+# the inertial loop branch and KB8 fisheye mono-inertial; K13 and K15
+# ---------------------------------------------------------------------------
+
+# test_stereo_inertial_ring_circuit_gauge (tests/test_inertial_e2e.py:136):
+# a 384x288 rectified pinhole pair, baseline 0.1, 300 frames at 1.3
+# circuits, IMU at 200 Hz with per-sample noise 2.4e-3 / 2.8e-2, seed 2
+VL_N, VL_CIRC, VL_DT, VL_B = 300, 1.3, 0.05, 0.1
+VL_W, VL_H, VL_FX = 384, 288, 300.0
+# bench.py:185 mono_inertial_fisheye_run: KB8 cam1, a 640x480 pinhole
+# render (focal 240) remapped into it, IMU seed 4, frames 70-99 timed
+FE_W, FE_H, FE_F, FE_KS = 384, 288, 170.0, (0.03, -0.012, 0.004, -0.001)
+FE_WP, FE_HP, FE_FP = 640, 480, 240.0
+FE_N, FE_WARM = 100, 70
+# the inertial drifted-revisit map (as tests/test_torch_loop_inertial.py
+# builds it): 20 keyframes 0.5 s apart out and back along x, the second
+# half drifted by a yaw and a translation (scale drift 1)
+LD_N, LD_DT, LD_T, LD_XM = 20, 0.5, 9.5, 3.8
+LD_K, LD_F, LD_L = 24, 256, 1024
+LD_W, LD_H, LD_FX = 384, 288, 300.0
+
+
+def ring_pose(t, circuits=VL_CIRC, n_frames=VL_N, r_cam=2.5, fps=20.0):
+    """The tests' continuous ring orbit (frame i = t * fps), float64."""
+    th = 2 * np.pi * circuits * (t * fps) / n_frames
+    sn, cs = np.sin(th), np.cos(th)
+    R_cw = np.array([[cs, 0.0, sn], [0.0, 1.0, 0.0], [-sn, 0.0, cs]]).T
+    return R_cw, -R_cw @ (r_cam * np.array([sn, 0.0, cs]))
+
+
+def _tilts(R_true_of, R_est_of):
+    """Pitch / roll of each estimated camera rotation against the true one:
+    the angle the world z (gravity) axis makes after R_est^T R_true, as
+    the JAX ring test measures it (by atan2, exact below 1e-4 rad too)."""
+    out = []
+    for k in R_est_of:
+        A = np.asarray(R_true_of[k], np.float64).T @ np.asarray(
+            R_est_of[k], np.float64)
+        v = A.T @ [0, 0, 1.0]
+        out.append(float(np.arctan2(np.hypot(v[0], v[1]), v[2])))
+    return out
+
+
+def _scaled_gaps(H, b, H0, b0):
+    """K13 / K15 against plain under Jacobi scaling: max |dH_ij| /
+    sqrt(H_ii H_jj), and max |db_i| / sqrt(H_ii) over the scaled max-abs
+    of b0 (the plain version's diagonal; a zero diagonal counts as 1)."""
+    d = torch.sqrt(torch.clamp(torch.diagonal(H0), min=0.0))
+    d = torch.where(d > 0, d, torch.ones_like(d))
+    eH = float(((H - H0).abs() / d[:, None] / d[None, :]).max())
+    eb = float(((b - b0).abs() / d).max() / (b0 / d).abs().max().clamp(
+        min=1e-30))
+    return eH, eb
+
+
+def _rotvec(w):
+    w = np.asarray(w, np.float64)
+    th = np.linalg.norm(w)
+    if th < 1e-12:
+        return np.eye(3)
+    k = w / th
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+
+
+def ld_pose(t):
+    """The drifted map's true path: identity orientation, the centre out
+    and back along x by a raised cosine (LD_XM at t = LD_T / 2)."""
+    x = LD_XM * 0.5 * (1.0 - np.cos(2 * np.pi * t / LD_T))
+    return np.eye(3), -np.array([x, 0.0, 0.0])
+
+
+def inertial_drifted_map(m_np, rot_drift=(0.0, 0.0, 0.04),
+                         t_drift=(0.25, -0.1, 0.15), seed=7):
+    """Fill an empty map's numpy arrays (LD_K keyframe slots of LD_F
+    features, LD_L landmarks) with the inertial drifted-revisit state:
+    keyframes 0-9 map a corridor outbound with clean landmarks, 10-19
+    revisit the same points through duplicate landmarks whose positions,
+    poses and world velocities carry a rigid drift (R_d, t_d); kf_v the
+    path's velocity (rotated by R_d on the late side), kf_bias 0. Returns
+    (m_np, descriptors, true centres)."""
+    rng = np.random.default_rng(seed)
+    NP_ = 400
+    Xw = np.stack([np.linspace(0, 12, NP_), rng.uniform(-1.2, 1.2, NP_),
+                   rng.uniform(4.0, 6.0, NP_)], axis=1).astype(np.float32)
+    desc = rng.integers(0, 2 ** 32, (NP_, 8), dtype=np.uint32)
+    R_d = _rotvec(rot_drift).astype(np.float32)
+    t_d = np.asarray(t_drift, np.float32)
+    X_dup = (Xw @ R_d.T + t_d).astype(np.float32)
+    centers, views = {}, {}
+    for i in range(LD_N):
+        late = i >= LD_N // 2
+        t = i * LD_DT
+        c = -ld_pose(t)[1].astype(np.float32)
+        v = np.array([LD_XM * np.pi / LD_T * np.sin(2 * np.pi * t / LD_T),
+                      0.0, 0.0], np.float32)
+        centers[i] = c
+        vis = np.where(np.abs(Xw[:, 0] - c[0] - 1.2) < 2.2)[0][:LD_F]
+        views[i] = vis
+        Xc = Xw[vis] - c                          # R_cw = I (true pose)
+        if late:
+            m_np["kf_R"][i] = R_d.T
+            m_np["kf_t"][i] = -c - R_d.T @ t_d
+            m_np["kf_v"][i] = R_d @ v
+            lm_ids = 512 + vis
+        else:
+            m_np["kf_R"][i] = np.eye(3, dtype=np.float32)
+            m_np["kf_t"][i] = -c
+            m_np["kf_v"][i] = v
+            lm_ids = vis
+        n = len(vis)
+        m_np["kf_valid"][i] = True
+        m_np["kf_ts"][i] = t
+        m_np["kf_prev"][i] = i - 1
+        xn = Xc[:, :2] / Xc[:, 2:3]
+        m_np["kf_feat_xn"][i, :n] = xn
+        m_np["kf_feat_uv"][i, :n] = xn * LD_FX + np.array(
+            [LD_W / 2, LD_H / 2], np.float32)
+        m_np["kf_feat_desc"][i, :n] = desc[vis]
+        m_np["kf_feat_valid"][i, :n] = True
+        m_np["kf_feat_lm"][i, :n] = lm_ids
+    half = LD_N // 2
+    early = np.unique(np.concatenate([views[i] for i in range(half)]))
+    late_ = np.unique(np.concatenate([views[i] for i in range(half, LD_N)]))
+    m_np["lm_pos"][early] = Xw[early]
+    m_np["lm_valid"][early] = True
+    m_np["lm_desc"][early] = desc[early]
+    m_np["lm_pos"][512 + late_] = X_dup[late_]
+    m_np["lm_valid"][512 + late_] = True
+    m_np["lm_desc"][512 + late_] = desc[late_]
+    m_np["lm_normal"][:, 2] = -1.0
+    m_np["lm_dist_max"][:] = 12.0
+    for i in range(LD_N):
+        ids = views[i] if i < half else 512 + views[i]
+        first = m_np["lm_ref_kf"][ids] < 0
+        m_np["lm_ref_kf"][ids[first]] = i
+        m_np["lm_first_ts"][ids[first]] = i * LD_DT
+    m_np["n_kf"] = np.asarray(LD_N)
+    m_np["n_lm"] = np.asarray(912)
+    return m_np, desc, centers
+
+
+def ld_imu_samples():
+    """Each keyframe k >= 1's noiseless IMU samples over (t_{k-1}, t_k]
+    of the drifted map's true path: (timestamps, acc, gyro)."""
+    return [imu_between((k - 1) * LD_DT, k * LD_DT, pose_fn=ld_pose)
+            for k in range(1, LD_N)]
+
+
+def _ld_tracker(dev, rot_drift=(0.0, 0.0, 0.04)):
+    """The port's inertial tracker on the drifted map (imu_ready, the
+    KfImu chain preintegrated by the port on `dev`, the database filled)
+    and the keyframes' BoW vectors."""
+    from morb_slam_tpu_torch import cameras, convert, imu
+    from morb_slam_tpu_torch.mapstate import state as ms
+    from morb_slam_tpu_torch.optim import inertial
+    from morb_slam_tpu_torch.pipeline import tracking
+    from morb_slam_tpu_torch.vocab import database as kfdb
+    from morb_slam_tpu_torch.vocab import tree
+    m_np = {k: v.numpy().copy() for k, v in
+            ms.empty_map(LD_K, LD_F, LD_L)._asdict().items()}
+    m_np, desc, centers = inertial_drifted_map(m_np, rot_drift)
+    voc = tree.train(desc, k=6, depth=3, iters=4)
+    calib = imu.make_calib(np.eye(3), np.zeros(3), 1.7e-4, 2e-3, 1.9e-5,
+                           3e-3, 200.0)
+    cfg = tracking.TrackerConfig(width=LD_W, height=LD_H, focal=LD_FX,
+                                 n_feat=LD_F, max_kf=LD_K, max_lm=LD_L,
+                                 n_levels=4)
+    tr = tracking.Tracker(cameras.pinhole(LD_FX, LD_FX, LD_W / 2, LD_H / 2),
+                          cfg, device=dev, voc=voc, imu_calib=calib)
+    tr.m = convert.map_from_numpy(m_np, device=dev)
+    ki = inertial.empty_kf_imu(LD_K, device=dev)
+    for k, (ts, acc, gyr) in enumerate(ld_imu_samples(), start=1):
+        n = len(ts)
+        pre = imu.preintegrate(
+            torch.tensor(acc, device=dev), torch.tensor(gyr, device=dev),
+            torch.full((n,), 1.0 / IMU_NOISE["frequency"], device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev),
+            torch.zeros(6, device=dev), tr.calib)
+        ki = inertial.set_kf_imu(ki, k, pre, k - 1)
+    tr.kf_imu, tr.imu_ready, tr.n_kf_host = ki, True, LD_N
+    bows = []
+    for i in range(LD_N):
+        bow = tree.bow_vector(tr.voc, tree.transform(
+            tr.voc, tr.m.kf_feat_desc[i], tr.m.kf_feat_valid[i]))
+        tr.db = kfdb.add_keyframe(tr.db, i, bow)
+        bows.append(bow)
+    return tr, bows, centers
+
+
+def _ld_close(dev):
+    """maybe_close for keyframes 18 and 19 on the drifted inertial map:
+    (fired, centre RMSE of keyframes 10-19 before and after, tilts after,
+    the poses and velocities after)."""
+    from morb_slam_tpu_torch.pipeline import loop_closing
+    tr, bows, centers = _ld_tracker(dev)
+
+    def rmse():
+        R = tr.m.kf_R[10:20].cpu().numpy().astype(np.float64)
+        t = tr.m.kf_t[10:20].cpu().numpy().astype(np.float64)
+        c = -np.einsum('kji,kj->ki', R, t)
+        gt = np.stack([centers[i] for i in range(10, 20)])
+        return float(np.sqrt(np.mean(np.sum((c - gt) ** 2, axis=1))))
+    before = rmse()
+    closer = loop_closing.LoopCloser(tr.cfg)
+    fired = [closer.maybe_close(tr, k, bows[k]) for k in (18, 19)]
+    R = tr.m.kf_R[:LD_N].cpu().numpy()
+    tilts = _tilts({k: np.eye(3) for k in range(LD_N)},
+                   {k: R[k] for k in range(LD_N)})
+    return dict(fired=fired, rmse_before=before, rmse_after=rmse(),
+                tilts=tilts, R=R, t=tr.m.kf_t[:LD_N].cpu().numpy(),
+                v=tr.m.kf_v[:LD_N].cpu().numpy())
+
+
+def _vl_frames(dev):
+    """The ring world's rectified pairs (uint8, on the card) and each
+    frame's IMU samples since the previous frame (noise seed 2)."""
+    K = np.array([[VL_FX, 0, VL_W / 2], [0, VL_FX, VL_H / 2], [0, 0, 1.0]])
+    world = RingWorld(K, VL_W, VL_H, dev)
+    poses = ring_path(VL_N, circuits=VL_CIRC)
+    rng = np.random.default_rng(2)
+    pairs, batches = [], []
+    for i, (R, t) in enumerate(poses):
+        c = -R.T @ t
+        t_r = (-R @ (c + R.T @ np.array([VL_B, 0, 0], np.float32))).astype(
+            np.float32)
+        pairs.append(tuple(world.render(R, tt).clamp(0, 255).to(torch.uint8)
+                           for tt in (t, t_r)))
+        batches.append(imu_between((i - 1) * VL_DT, i * VL_DT, rng=rng,
+                                   noise_g=2.4e-3, noise_a=2.8e-2,
+                                   pose_fn=ring_pose))
+    return pairs, batches
+
+
+def _PLAIN_TARGETS():
+    """The call sites counted on the vi_loop and fisheye paths: the LM
+    solves (K13 inside) and the loops still plain (K6,
+    inertial_only_optimize, guided_sim3_verify)."""
+    from morb_slam_tpu_torch.ops import image
+    from morb_slam_tpu_torch.optim import inertial, vi_ba
+    from morb_slam_tpu_torch.pipeline import loop_closing
+    return [(vi_ba, "vi_ba_solve"), (image, "build_pyramid"),
+            (image, "gaussian_blur"), (inertial, "inertial_only_optimize"),
+            (loop_closing, "guided_sim3_verify")]
+
+
+def _plain_calls(calls):
+    return {k: v for k, v in calls.counts.items() if k != "vi_ba_solve"}
+
+
+def phase_vi_loop(state):
+    """The JAX stereo-inertial ring-circuit test through the port's System
+    (IMU_STEREO with a vocabulary, loop closing on, unpipelined) at the
+    test's configuration, then the inertial loop branch driven on the
+    drifted inertial map: on the card and, for the poses, on the CPU."""
+    from morb_slam_tpu_torch import frontend, system
+    from morb_slam_tpu_torch.io import config
+    from morb_slam_tpu_torch.optim import pose_graph, vi_ba
+    from morb_slam_tpu_torch.vocab import tree
+    t0 = time.perf_counter()
+    pairs, batches = _vl_frames(DEV)
+    torch.cuda.synchronize()
+    log(f"vi_loop: {VL_N} ring pairs rendered on the card and "
+        f"{sum(len(b[0]) for b in batches)} IMU samples in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ocfg = frontend.OrbConfig(n_features=500, n_levels=4)
+    descs = []
+    for left, _ in pairs[::25]:
+        f = frontend.extract_orb(left.float(), ocfg)
+        descs.append(f.desc[f.valid].cpu().numpy())
+    voc = tree.train(np.concatenate(descs).view(np.uint32), k=8, depth=3,
+                     iters=4)
+    settings = config.Settings(
+        sensor="stereo-inertial",
+        cam1=config.CameraSettings(model="Rectified", fx=VL_FX, fy=VL_FX,
+                                   cx=VL_W / 2, cy=VL_H / 2, width=VL_W,
+                                   height=VL_H),
+        baseline=VL_B, th_depth=60.0, imu=config.ImuSettings(),
+        n_features=500, n_levels=4, scale_factor=1.2)
+    sysm = system.System(settings, system.Sensor.IMU_STEREO, vocabulary=voc,
+                         tracker_overrides=dict(
+                             max_kf=128, max_lm=16000,
+                             min_stereo_init_feats=150, vel_rot_damp=0.9))
+    tr = sysm.tracker
+    check(tr.loop_closer is not None and tr.cfg.inertial,
+          "vi_loop: System built no loop closer or no IMU calibration")
+    tr.pipelined = False
+    inserts = _timed_inserts(tr)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    with _CountCalls(_PLAIN_TARGETS()) as calls:
+        states, fm = [], []
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        for i in range(VL_N):
+            t1 = time.perf_counter()
+            states.append(sysm.track_stereo(pairs[i][0], pairs[i][1],
+                                            i * VL_DT,
+                                            imu_batch=batches[i])[0])
+            fm.append((time.perf_counter() - t1) * 1e3)
+        tr.flush()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t_run
+    lm_steps = sum(kw.get("n_iters", 8) for kw in calls.kwargs["vi_ba_solve"])
+    k13 = vi_ba.INERTIAL_LAUNCHES["kernel"]
+    launches = _read_counters(
+        ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
+         "stereo_sad", "ba_assemble", "preintegrate", "pose_inertial",
+         "vocab_transform", "bow_l1", "vi_edges"], "vi_loop", state)
+    log("states:", "".join("O" if s == "OK" else s[0] for s in states))
+    m = tr.m
+    valid = m.kf_valid.cpu().numpy()
+    kts = m.kf_ts.cpu().numpy()
+    kR = m.kf_R.cpu().numpy()
+    kt = m.kf_t.cpu().numpy()
+    ks = [k for k in range(valid.shape[0]) if valid[k]]
+    tilts = _tilts({k: ring_pose(float(kts[k]))[0] for k in ks},
+                   {k: kR[k] for k in ks})
+    C = {k: -kR[k].T @ kt[k] for k in ks}
+    period = VL_N / VL_CIRC * VL_DT
+    gaps = [float(np.linalg.norm(C[a] - C[b])) for a in ks for b in ks
+            if abs((kts[a] - kts[b]) - period) < 0.15]
+    gap = float(np.mean(gaps)) if gaps else float("inf")
+    n_ok = sum(s == "OK" for s in states)
+    finite = bool(torch.isfinite(m.kf_v).all() and
+                  torch.isfinite(m.kf_bias).all())
+    fm = np.asarray(fm)
+    out = dict(
+        fps=VL_N / secs, frame_ms_p50=float(np.percentile(fm, 50)),
+        frame_ms_p90=float(np.percentile(fm, 90)), frames_ok=n_ok,
+        imu_ready=tr.imu_ready, viba_stage=tr.viba_stage,
+        kf_v_bias_finite=finite, max_tilt_rad=max(tilts),
+        keyframes=len(ks), circuit_gap=gap, gap_pairs=len(gaps),
+        kf_inserts=len(inserts),
+        kf_insert_ms_each=float(np.mean(inserts)) if inserts else None,
+        kf_insert_ms_p90=float(np.percentile(inserts, 90)) if inserts
+        else None,
+        vi_ba_solve_calls=calls.counts["vi_ba_solve"], lm_steps=lm_steps,
+        k13_launches=k13, bow_loop_fired=tr.n_loops_closed > 0,
+        plain_target_calls=_plain_calls(calls),
+        loops_closed=tr.n_loops_closed,
+        peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches=launches)
+    log(f"vi_loop: {n_ok}/{VL_N} OK, imu_ready {tr.imu_ready}, max tilt "
+        f"{max(tilts):.5f} rad over {len(ks)} keyframes, circuit gap "
+        f"{gap:.4f} over {len(gaps)} pairs, {VL_N / secs:.2f} fps, "
+        f"{lm_steps} LM steps, K13 launches {k13}, loops closed "
+        f"{tr.n_loops_closed}")
+    check(n_ok > 0.9 * VL_N, f"vi_loop: only {n_ok} of {VL_N} OK")
+    check(tr.imu_ready, "vi_loop: the IMU never initialized")
+    check(finite, "vi_loop: non-finite keyframe velocities or biases")
+    check(max(tilts) < 0.01, ("vi_loop tilt", max(tilts)))
+    check(gap < 0.2, ("vi_loop circuit gap", gap))
+
+    # the inertial loop branch, driven on the drifted inertial map
+    _reset_counters()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = _ld_close(DEV)
+    torch.cuda.synchronize()
+    ms_card = (time.perf_counter() - t1) * 1e3
+    pg, k13b = pose_graph.LAUNCHES["kernel"], vi_ba.INERTIAL_LAUNCHES[
+        "kernel"]
+    branch_launches = _read_counters(["pose_graph", "vi_edges"],
+                                     "vi_loop branch", state)
+    t1 = time.perf_counter()
+    want = _ld_close("cpu")
+    ms_cpu = (time.perf_counter() - t1) * 1e3
+    dpose = max(float(np.abs(got[k] - want[k]).max()) for k in ("R", "t"))
+    ratio = got["rmse_after"] / got["rmse_before"]
+    out["branch"] = dict(
+        fired=got["fired"], fired_cpu=want["fired"],
+        rmse_before=got["rmse_before"], rmse_after=got["rmse_after"],
+        rmse_ratio=ratio, max_tilt_rad=max(got["tilts"]),
+        k15_launches=pg, k13_launches=k13b, vs_cpu_pose_max_abs=dpose,
+        vs_cpu_v_max_abs=float(np.abs(got["v"] - want["v"]).max()),
+        ms_card=ms_card, ms_cpu_plain=ms_cpu, launches=branch_launches)
+    log(f"vi_loop branch on the drifted inertial map: fired {got['fired']}"
+        f" (CPU {want['fired']}), centre RMSE {got['rmse_before']:.4f} -> "
+        f"{got['rmse_after']:.4f} (x{ratio:.3f}), max tilt "
+        f"{max(got['tilts']):.2e} rad, K15 {pg} and K13 {k13b} launches, "
+        f"poses within {dpose:.2e} of the CPU's plain run")
+    check(got["fired"] == [False, True], ("branch fire sequence",
+                                          got["fired"]))
+    check(want["fired"] == [False, True], ("CPU branch fire sequence",
+                                           want["fired"]))
+    check(ratio < 0.4, ("branch centre RMSE ratio", ratio))
+    check(max(got["tilts"]) < 0.01, ("branch tilt", max(got["tilts"])))
+    check(dpose <= 1e-3, ("branch poses vs CPU", dpose))
+    log("vi_loop path:", json.dumps(out))
+    state["vi_loop"] = out
+
+
+def fisheye_map():
+    """bench.py:204-219's fisheye-pixel -> pinhole-source map (numpy,
+    float64, then float32): KB8 theta_d(theta) inverted by 10 Newton
+    steps, the source pixel through the 640x480 pinhole of focal 240."""
+    u, v = np.meshgrid(np.arange(FE_W, dtype=np.float64),
+                       np.arange(FE_H, dtype=np.float64))
+    dx = (u - FE_W / 2) / FE_F
+    dy = (v - FE_H / 2) / FE_F
+    r_d = np.sqrt(dx ** 2 + dy ** 2)
+    th = r_d.copy()
+    k1, k2, k3, k4 = FE_KS
+    for _ in range(10):
+        t2 = th * th
+        f = th * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4)))) - r_d
+        fp = 1 + t2 * (3 * k1 + t2 * (5 * k2 + t2 * (7 * k3 + t2 * 9 * k4)))
+        th = th - f / np.clip(fp, 0.5, None)
+    r_p = np.tan(np.clip(th, 0, 1.45))
+    scale = np.where(r_d > 1e-9, r_p / np.clip(r_d, 1e-9, None), 1.0)
+    return np.stack([(FE_WP / 2 + FE_FP * dx * scale).astype(np.float32),
+                     (FE_HP / 2 + FE_FP * dy * scale).astype(np.float32)],
+                    -1)
+
+
+def phase_fisheye(state):
+    """bench.py's mono-inertial fisheye run through the port's System
+    (IMU_MONOCULAR, a KannalaBrandt8 cam1): the plane world (seed 3)
+    rendered at 640x480 on the card, remapped into the fisheye by K8,
+    truncated to uint8 as the bench does; the mono-inertial e2e test's
+    gates."""
+    from morb_slam_tpu_torch import cameras, system
+    from morb_slam_tpu_torch.io import config
+    from morb_slam_tpu_torch.ops import rectify
+    from morb_slam_tpu_torch.optim import vi_ba
+    Kp = np.array([[FE_FP, 0, FE_WP / 2], [0, FE_FP, FE_HP / 2],
+                   [0, 0, 1.0]])
+    world = PlaneWorld(Kp, FE_WP, FE_HP, DEV, seed=3)
+    fmap = torch.tensor(fisheye_map(), device=DEV)
+    k8 = rectify.LAUNCHES["kernel"]
+    rng = np.random.default_rng(4)
+    gt, frames, batches = [], [], []
+    for i in range(FE_N):
+        R, tc = analytic_pose(i * 0.05)
+        gt.append((R, tc))
+        src = world.render(R.astype(np.float32), tc.astype(np.float32))
+        frames.append(rectify.remap_bilinear(src.float(), fmap)
+                      .clamp(0, 255).to(torch.uint8))
+        batches.append(imu_between((i - 1) * 0.05, i * 0.05, rng=rng,
+                                   noise_g=2.4e-3, noise_a=2.8e-2))
+    k8 = rectify.LAUNCHES["kernel"] - k8
+    settings = config.Settings(
+        sensor="monocular-inertial",
+        cam1=config.CameraSettings(model="KannalaBrandt8", fx=FE_F, fy=FE_F,
+                                   cx=FE_W / 2, cy=FE_H / 2, dist=FE_KS,
+                                   width=FE_W, height=FE_H),
+        imu=config.ImuSettings(), n_features=500, n_levels=4,
+        scale_factor=1.2)
+    sysm = system.System(settings, system.Sensor.IMU_MONOCULAR,
+                         tracker_overrides=dict(max_kf=96, max_lm=8000,
+                                                min_init_matches=60,
+                                                min_init_points=40))
+    tr = sysm.tracker
+    check(tr.cam.kind == cameras.CAM_FISHEYE,
+          "fisheye: the System built no KB8 camera")
+    inserts = _timed_inserts(tr)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    with _CountCalls(_PLAIN_TARGETS()) as calls:
+        states, fm, secs, _ = _track_run(
+            tr, lambda i, ts: sysm.track_monocular(frames[i], ts,
+                                                   imu_batch=batches[i]),
+            FE_N, 0.05, inserts, timed_from=FE_WARM)
+    launches = _read_counters(
+        ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
+         "ba_assemble", "preintegrate", "pose_inertial", "vi_edges"],
+        "fisheye", state)
+    log("states:", "".join("O" if s == "OK" else s[0] for s in states))
+    n_ok = sum(s == "OK" for s in states)
+    ate, scale, ate_se3, extent, n_traj = _ate(tr, gt, 0.05)
+    traj = np.asarray([p for _, p in tr.trajectory_world()])
+    out = dict(
+        mono_inertial_fisheye_fps=(FE_N - FE_WARM) / secs,
+        timed_frames=[FE_WARM, FE_N - 1],
+        frame_ms_p50=float(np.percentile(fm, 50)),
+        frame_ms_p90=float(np.percentile(fm, 90)), frames_ok=n_ok,
+        imu_ready=tr.imu_ready, viba_stage=tr.viba_stage,
+        ate_sim3_m=ate, sim3_scale=scale, ate_se3_m=ate_se3,
+        extent_m=extent, gate_m=0.04 * extent, trajectory_poses=n_traj,
+        kf_inserts=len(inserts),
+        kf_insert_ms_each=float(np.mean(inserts)) if inserts else None,
+        vi_ba_solve_calls=calls.counts["vi_ba_solve"],
+        lm_steps=sum(kw.get("n_iters", 8)
+                     for kw in calls.kwargs["vi_ba_solve"]),
+        k8_render_launches=k8, plain_target_calls=_plain_calls(calls),
+        peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches=launches)
+    log(f"fisheye: {n_ok}/{FE_N} OK, imu_ready {tr.imu_ready} (stage "
+        f"{tr.viba_stage}), Sim3 ATE {ate:.4f} m (gate {0.04 * extent:.4f}"
+        f"), {out['mono_inertial_fisheye_fps']:.2f} fps over frames "
+        f"{FE_WARM}-{FE_N - 1}")
+    check(n_ok > 0.75 * FE_N, f"fisheye: only {n_ok} of {FE_N} OK")
+    check(tr.imu_ready and tr.viba_stage >= 1,
+          ("fisheye IMU init", tr.imu_ready, tr.viba_stage))
+    check(bool(np.isfinite(traj).all()), "fisheye: non-finite trajectory")
+    check(ate < 0.04 * extent, ("fisheye Sim3 ATE", ate, extent))
+    log("fisheye path:", json.dumps(out))
+    state["fisheye"] = out
+
+
+def _k13_row(pv, kw):
+    """K13 against its plain version on the vi path's last window problem:
+    H and b under Jacobi scaling, the cost, two launches bitwise equal;
+    device and call times, the bound, and one LM step of vi_ba_solve over
+    the kernel and over the plain version."""
+    from morb_slam_tpu_torch import lie
+    from morb_slam_tpu_torch.optim import ba, vi_ba
+    bap = vi_ba._ba_problem(pv)
+    R_cw, t_cw = lie.se3_inv(pv.R_wb, pv.p_wb)
+    vis = ba.assemble(bap, R_cw, t_cw, pv.X, ba.obs_order(bap), body=True)
+    st = (pv.R_wb, pv.p_wb, pv.v, pv.bias)
+
+    def sys_k():
+        return vi_ba.inertial_system(pv, *st, vis.Hpp, vis.bp)
+
+    def sys_p():
+        return vi_ba.inertial_system_plain(pv, *st, vis.Hpp, vis.bp)
+
+    def cost_k():
+        return vi_ba.inertial_cost(pv, *st)
+
+    def cost_p():
+        return vi_ba.inertial_cost_plain(pv, *st)
+    (H, b), (H2, b2), (H0, b0) = sys_k(), sys_k(), sys_p()
+    c, c2, c0 = cost_k(), cost_k(), cost_p()
+    eH, eb = _scaled_gaps(H, b, H0, b0)
+    ec = abs(float(c) - float(c0)) / max(abs(float(c0)), 1e-30)
+    same = torch.equal(H, H2) and torch.equal(b, b2) and torch.equal(c, c2)
+    Wn = pv.R_wb.shape[0]
+    n_e = int(pv.e_valid.sum())
+    log(f"K13 vi_edges (W = {Wn}, {n_e} valid edges): H within {eH:.2e} "
+        f"and b within {eb:.2e} of plain under Jacobi scaling, the cost "
+        f"within {ec:.2e} relative; two launches bitwise equal: {same}")
+    check(eH <= 1e-5 and eb <= 1e-5 and ec <= 1e-5 and same,
+          ("K13 vs plain", eH, eb, ec, same))
+    n_it = kw.get("n_iters", 8)
+
+    def solve():
+        return vi_ba.vi_ba_solve(pv, **kw)
+    step_ms = time_ms(solve, reps=3, inner=1, warmup=1) / n_it
+    step_dev = device_ms(solve, None, reps=2) / n_it
+    saved = vi_ba.inertial_system, vi_ba.inertial_cost
+    vi_ba.inertial_system = vi_ba.inertial_system_plain
+    vi_ba.inertial_cost = vi_ba.inertial_cost_plain
+    try:
+        step_ms_plain = time_ms(solve, reps=3, inner=1, warmup=1) / n_it
+        step_dev_plain = device_ms(solve, None, reps=2) / n_it
+    finally:
+        vi_ba.inertial_system, vi_ba.inertial_cost = saved
+    # inputs: each slot's state (84 B), edge constants (640 B), visual pose
+    # blocks (168 B) and e_prev / e_valid (5 B); out the dense (15W)^2 H
+    # and b; per valid edge ~45 kflop of dual-number Jacobian (30 tangents
+    # through the residual) and ~21 kflop of J^T Omega J and gradient
+    D = 15 * Wn
+    b13, by13 = bound(Wn * (84 + 640 + 168 + 5) + (D * D + D) * 4,
+                      n_e * 66e3)
+    bc, byc = bound(Wn * (84 + 640 + 5) + 4, n_e * 2.2e3)
+    ms_sys = device_ms(sys_k, "vi_edge_kernel") + \
+        device_ms(sys_k, "vi_assemble_kernel")
+    return dict(
+        name="vi_edges", route="cuda",
+        source="morb_slam_tpu_torch/csrc/vi_edges.cu",
+        replaces="morb_slam_tpu/optim/vi_ba.py:247", max_abs_err=max(eH, eb),
+        max_abs_err_is="H: max |dH_ij| / sqrt(H_ii H_jj); b: max |db_i| / "
+                       "sqrt(H_ii) over the scaled max-abs",
+        err_H_jacobi=eH, err_b_scaled=eb, err_cost_rel=ec, bitwise=same,
+        ms=ms_sys, ms_is="one inertial_system: the edge and assembly "
+                         "kernels",
+        ms_by="profiler" if not EVENT_TIMED & {"vi_edge_kernel",
+                                               "vi_assemble_kernel"}
+        else "cuda events",
+        call_ms=time_ms(sys_k), plain_ms=time_ms(sys_p, reps=5, inner=2),
+        cost_ms=device_ms(cost_k, "vi_cost_kernel"),
+        cost_call_ms=time_ms(cost_k),
+        cost_plain_ms=time_ms(cost_p, reps=5, inner=2),
+        bound_ms=b13, bound_by=by13, cost_bound_ms=bc, cost_bound_by=byc,
+        library_ms=None,
+        library_note="none: no single PyTorch call computes the inertial "
+                     "edge Jacobians and their dense assembly",
+        lm_step_ms=step_ms, lm_step_ms_plain=step_ms_plain,
+        lm_step_device_ms=step_dev, lm_step_device_ms_plain=step_dev_plain,
+        ptxas=_ptxas("vi_edges"),
+        shape=f"W = {Wn} window slots ({n_e} valid edges), H "
+              f"({D}, {D}), {n_it} LM iterations per solve")
+
+
+def _k15_row(g, kw):
+    """K15 against its plain version on the loop path's essential graph:
+    H and b under Jacobi scaling, the cost, two launches bitwise equal;
+    device and call times (the zero fill counted), the bound, and the
+    whole optimize over the kernel and over the plain version."""
+    from morb_slam_tpu_torch.optim import pose_graph
+    fd = bool(kw.get("four_dof", False))
+    order = pose_graph.block_order(g)
+
+    def call():
+        return pose_graph.normal_equations(g, g.s, g.R, g.t, fd, order)
+
+    def plain():
+        return pose_graph.normal_equations_plain(g, g.s, g.R, g.t, fd)
+    (H, b, c), (H2, b2, c2), (H0, b0, c0) = call(), call(), plain()
+    eH, eb = _scaled_gaps(H, b, H0, b0)
+    ec = abs(float(c) - float(c0)) / max(abs(float(c0)), 1e-30)
+    same = torch.equal(H, H2) and torch.equal(b, b2) and torch.equal(c, c2)
+    K, E = g.s.shape[0], g.edge_i.shape[0]
+    n_act, nb = order.edges.shape[0], order.blk_row.shape[0]
+    log(f"K15 pose_graph (K = {K}, {n_act} of {E} edges weighted, {nb} "
+        f"blocks, four_dof {fd}): H within {eH:.2e} and b within {eb:.2e} "
+        f"of plain under Jacobi scaling, the cost within {ec:.2e} "
+        f"relative; two launches bitwise equal: {same}")
+    check(eH <= 1e-5 and eb <= 1e-5 and ec <= 1e-5 and same,
+          ("K15 vs plain", eH, eb, ec, same))
+    it = kw.get("n_iters", 15)
+
+    def opt():
+        return pose_graph.optimize(g, **kw)
+
+    def opt_profile():
+        with profiled(cpu=True) as prof:
+            opt()
+        return prof
+    opt_dev, _, opt_span = range_device_ms("pose_graph.optimize",
+                                           opt_profile)
+    opt_ms = time_ms(opt, reps=2, inner=1, warmup=1)
+    saved = pose_graph.normal_equations
+    pose_graph.normal_equations = lambda g_, s, R, t, f, order=None: \
+        pose_graph.normal_equations_plain(g_, s, R, t, f)
+    try:
+        opt_ms_plain = time_ms(opt, reps=1, inner=1, warmup=0)
+    finally:
+        pose_graph.normal_equations = saved
+    D = 7 * K
+    # nodes (52 B) and weighted edges (64 B) in, the dense H (its zero
+    # fill) and b out; per weighted edge 14 tangents of ~1.4 kflop through
+    # the Sim(3) chain and ~4 kflop of block products
+    b15, by15 = bound(K * 52 + n_act * 64 + (D * D + D + 1) * 4,
+                      n_act * 24e3)
+    parts = {k: device_ms(call, k) for k in ("pg_edge_kernel",
+                                              "pg_block_kernel",
+                                              "pg_cost_kernel", "Memset")}
+    ms15 = sum(parts.values())
+    return dict(
+        name="pose_graph", route="cuda",
+        source="morb_slam_tpu_torch/csrc/pose_graph.cu",
+        replaces="morb_slam_tpu/optim/pose_graph.py:80",
+        max_abs_err=max(eH, eb),
+        max_abs_err_is="H: max |dH_ij| / sqrt(H_ii H_jj); b: max |db_i| / "
+                       "sqrt(H_ii) over the scaled max-abs",
+        err_H_jacobi=eH, err_b_scaled=eb, err_cost_rel=ec, bitwise=same,
+        ms=ms15, ms_is="one normal_equations: the zero fill of H and b, "
+                       "the edge, block and cost kernels",
+        ms_parts=parts,
+        ms_by="profiler" if not EVENT_TIMED & {
+            "pg_edge_kernel", "pg_block_kernel", "pg_cost_kernel",
+            "Memset"} else "cuda events",
+        call_ms=time_ms(call), plain_ms=time_ms(plain, reps=3, inner=1),
+        bound_ms=b15, bound_by=by15, library_ms=None,
+        library_note="none: no single PyTorch call computes the Sim(3) "
+                     "edge Jacobians and their block assembly",
+        optimize_ms=opt_ms, optimize_ms_plain=opt_ms_plain,
+        optimize_device_ms=opt_dev, optimize_span_ms=opt_span,
+        ptxas=_ptxas("pose_graph"),
+        shape=f"K = {K} nodes, E = {E} edges ({n_act} weighted), {nb} "
+              f"touched blocks, {it} iterations, four_dof {fd}")
+
+
+def _ptxas(name):
+    from morb_slam_tpu_torch.ops import cuda_build
+    return cuda_build.ptxas_report(name).strip().replace("\n", " | ")
+
+
+def phase_new_kernels(state):
+    """K13 on the vi path's last window problem and K15 on the loop path's
+    last essential graph (their rows join the kernels line)."""
+    rows = state.setdefault("kernel_rows", [])
+    pv, kw = state.pop("k13_problem")
+    rows.append(_k13_row(pv, kw))
+    g, kw = state.pop("k15_graph")
+    rows.append(_k15_row(g, kw))
+    for r in state["kernel_rows"][-2:]:
+        log(f"  {r['name']}: {r['ms']:.4f} ms on the card, "
+            f"{r['call_ms']:.4f} ms per call by events (plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']})")
+
+
+def ba_iters_row():
+    """bench.py:398's ba_iters_per_s problem (K 20, L 6,144, O 24,000, 10
+    LM iterations, seed 0) through the port's ba_solve on the card."""
+    from morb_slam_tpu_torch.optim import ba
+    rng = np.random.default_rng(0)
+    K, L, O = 20, 6144, 24000
+    kf_opt = torch.ones(K, dtype=torch.bool, device=DEV)
+    kf_opt[:2] = False
+    p = ba.make_problem(
+        R=torch.eye(3, device=DEV).expand(K, 3, 3).contiguous(),
+        t=torch.zeros((K, 3), device=DEV),
+        X=torch.tensor(rng.normal(0, 1, (L, 3)), dtype=torch.float32,
+                       device=DEV) + torch.tensor([0, 0, 5.0], device=DEV),
+        obs_kf=torch.tensor(rng.integers(0, K, O), dtype=torch.int32,
+                            device=DEV),
+        obs_lm=torch.tensor(rng.integers(0, L, O), dtype=torch.int32,
+                            device=DEV),
+        obs_uv=torch.tensor(rng.normal(0, 0.2, (O, 2)), dtype=torch.float32,
+                            device=DEV),
+        obs_info=torch.full((O,), 1e5, device=DEV),
+        obs_mask=torch.ones(O, dtype=torch.bool, device=DEV), kf_opt=kf_opt,
+        lm_opt=torch.ones(L, dtype=torch.bool, device=DEV))
+
+    def solve():
+        return ba.ba_solve(p, n_iters=10)
+    ms = time_ms(solve, reps=5, inner=1, warmup=1)
+    row = dict(name="ba_iters_per_s", route="cuda (K4 in ba_solve)",
+               source="morb_slam_tpu_torch/optim/ba.py",
+               replaces="bench.py:398 ba_iters_per_s", ms_per_solve=ms,
+               iters_per_s=10.0 / ms * 1e3,
+               device_ms_per_solve=device_ms(solve, None, reps=3),
+               shape=f"K = {K}, L = {L}, O = {O}, 10 LM iterations, seed 0")
+    log(f"ba_iters_per_s: {row['iters_per_s']:.1f} iterations/s, {ms:.2f} "
+        f"ms per 10-iteration solve")
+    return row
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile-out", default=None,
@@ -2929,6 +3640,9 @@ def main():
                          "tracker settings pipelined and not, and at the "
                          "loop test's settings pipelined, and print which "
                          "of its gates each run meets")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run after the device "
+                         "phase (no kernels line; for trying one path)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -2943,29 +3657,40 @@ def main():
             phase_loop(state, variant)
             torch.cuda.empty_cache()
         return
-    for name, phase in (("device", phase_device), ("kernels", phase_kernels),
-                        ("main", phase_main), ("stereo", phase_stereo),
-                        ("rgbd", phase_rgbd), ("reloc", phase_reloc),
-                        ("vi", phase_vi), ("loop", phase_loop),
-                        ("merge", phase_merge)):
+    phases = (("device", phase_device), ("kernels", phase_kernels),
+              ("main", phase_main), ("stereo", phase_stereo),
+              ("rgbd", phase_rgbd), ("reloc", phase_reloc), ("vi", phase_vi),
+              ("loop", phase_loop), ("merge", phase_merge),
+              ("vi_loop", phase_vi_loop), ("fisheye", phase_fisheye),
+              ("new_kernels", phase_new_kernels))
+    only = args.only and ["device"] + args.only.split(",")
+    state["plain_rows"] = []
+    for name, phase in phases:
+        if only and name not in only:
+            continue
         t0 = time.perf_counter()
         log(f"== phase {name}")
         phase(state)
         log(f"== phase {name} done in {time.perf_counter() - t0:.1f} s")
+    if only:
+        return
+    state["plain_rows"].append(ba_iters_row())
     rows = state["kernel_rows"]
     by_path = state["launches_by_path"]
     for r in rows:
         # the count of this slice's path (loop) for the kernels it runs,
         # else of the vi path, else of the reloc path
         r["launches"] = next(by_path[p][r["name"]]
-                             for p in ("loop", "vi", "reloc")
+                             for p in ("loop", "vi_loop", "vi", "fisheye",
+                                       "reloc")
                              if r["name"] in by_path[p])
         r["launches_by_path"] = {p: c.get(r["name"], 0)
                                  for p, c in by_path.items()}
         r.setdefault("ms_by", "cuda events" if f"{r['name']}_kernel"
                      in EVENT_TIMED else "profiler")
     log(json.dumps({"plain_kernel_targets": state["plain_rows"]}))
-    for name in ("main", "stereo", "rgbd", "reloc", "vi", "loop", "merge"):
+    for name in ("main", "stereo", "rgbd", "reloc", "vi", "loop", "merge",
+                 "vi_loop", "fisheye"):
         key = "main_path" if name == "main" else f"{name}_path"
         log(json.dumps({key: state[name]}))
     log(json.dumps({"kernels": rows}))

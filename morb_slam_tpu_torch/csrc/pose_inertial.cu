@@ -23,11 +23,12 @@
 //    tangent Jacobian rows J_pt [-I | hat(Xc)] and Huber weights, and
 //    accumulates the 21 upper entries of H_v and the 6 of J^T w r; a fixed-
 //    order warp butterfly and a pass over the 16 warps reduce them.
-//  - The inertial edge Jacobian in forward mode: lane d of warp 0 (d < 30)
-//    evaluates vi_ba._edge_residual on (value, derivative) pairs seeded with
-//    the unit tangent e_d, through so3_exp, so3_log and the 3x3 products with
-//    the port's lie.py branches (the clamp of cos(theta) passes no
-//    derivative, as torch's clamp), giving column d of Je (9 x 30).
+//  - The inertial edge Jacobian in forward mode (imu_edge.cuh, shared with
+//    K13): lane d of warp 0 (d < 30) evaluates vi_ba._edge_residual on
+//    (value, derivative) pairs seeded with the unit tangent e_d, through
+//    so3_exp, so3_log and the 3x3 products with the port's lie.py branches
+//    (the clamp of cos(theta) passes no derivative, as torch's clamp),
+//    giving column d of Je (9 x 30).
 //  - Assembly: Je^T Omega Je and -Je^T Omega r one entry per thread; the
 //    visual block on dims 15:21, the bias random walk, the mask that fixes
 //    the anchor, symmetrization, Jacobi scaling + 1e-6 I; warp 0
@@ -38,12 +39,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "imu_edge.cuh"
+
 #define THREADS 512
 #define NWARPS (THREADS / 32)
 #define NACC 27
 #define HUBER2_MONO 5.991f
 #define HUBER2_STEREO 7.815f
-#define PI_F 3.14159265358979f
 
 // offsets into the packed constants (optim/vi_ba.py optimize_pose_inertial)
 #define C_R0 0
@@ -68,210 +70,6 @@
 #define C_RW 190
 #define C_BASE 196
 #define N_CONST 197
-
-// ---------------------------------------------------------------------------
-// forward-mode dual numbers
-// ---------------------------------------------------------------------------
-struct Dl {
-    float v, d;
-};
-__device__ __forceinline__ Dl dl(float v) { return Dl{v, 0.0f}; }
-__device__ __forceinline__ Dl operator+(Dl a, Dl b) {
-    return Dl{a.v + b.v, a.d + b.d};
-}
-__device__ __forceinline__ Dl operator-(Dl a, Dl b) {
-    return Dl{a.v - b.v, a.d - b.d};
-}
-__device__ __forceinline__ Dl operator-(Dl a) { return Dl{-a.v, -a.d}; }
-__device__ __forceinline__ Dl operator*(Dl a, Dl b) {
-    return Dl{a.v * b.v, a.d * b.v + a.v * b.d};
-}
-__device__ __forceinline__ Dl operator*(float s, Dl a) {
-    return Dl{s * a.v, s * a.d};
-}
-__device__ __forceinline__ Dl operator/(Dl a, Dl b) {
-    return Dl{a.v / b.v, (a.d * b.v - a.v * b.d) / (b.v * b.v)};
-}
-__device__ __forceinline__ Dl dsqrt(Dl a) {
-    const float s = sqrtf(a.v);
-    return Dl{s, a.d / (2.0f * s)};
-}
-__device__ __forceinline__ Dl dsin(Dl a) {
-    return Dl{sinf(a.v), cosf(a.v) * a.d};
-}
-__device__ __forceinline__ Dl dcos(Dl a) {
-    return Dl{cosf(a.v), -sinf(a.v) * a.d};
-}
-// clamp: the derivative passes only inside [lo, hi]
-__device__ __forceinline__ Dl dclamp(Dl a, float lo, float hi) {
-    if (a.v < lo) return Dl{lo, 0.0f};
-    if (a.v > hi) return Dl{hi, 0.0f};
-    return a;
-}
-__device__ __forceinline__ Dl dclamp_min(Dl a, float lo) {
-    if (a.v < lo) return Dl{lo, 0.0f};
-    return a;
-}
-__device__ __forceinline__ Dl dacos(Dl a) {
-    return Dl{acosf(a.v), -a.d / sqrtf(1.0f - a.v * a.v)};
-}
-
-// lie.py _sinc / _cosc with their |x| < 1e-4 series branches
-__device__ Dl dsinc(Dl x) {
-    if (fabsf(x.v) < 1e-4f) return dl(1.0f) - (1.0f / 6.0f) * (x * x);
-    return dsin(x) / x;
-}
-__device__ Dl dcosc(Dl x) {
-    if (fabsf(x.v) < 1e-4f) return dl(0.5f) - (1.0f / 24.0f) * (x * x);
-    return (dl(1.0f) - dcos(x)) / (x * x);
-}
-
-__device__ void dhat(const Dl* w, Dl* W) {
-    W[0] = dl(0.0f); W[1] = -w[2];    W[2] = w[1];
-    W[3] = w[2];     W[4] = dl(0.0f); W[5] = -w[0];
-    W[6] = -w[1];    W[7] = w[0];     W[8] = dl(0.0f);
-}
-
-__device__ void dexp(const Dl* w, Dl* R) {
-    const Dl n2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
-    const Dl theta = dsqrt(n2 + dl(1e-24f));
-    Dl W[9];
-    dhat(w, W);
-    const Dl a = dsinc(theta), b = dcosc(theta);
-    for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) {
-            const Dl W2 = w[i] * w[j] - (i == j ? n2 : dl(0.0f));
-            R[3 * i + j] = dl(i == j ? 1.0f : 0.0f) + a * W[3 * i + j] +
-                           b * W2;
-        }
-}
-
-__device__ void dmm(const Dl* A, const Dl* B, Dl* C) {
-    for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j)
-            C[3 * i + j] = A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j] +
-                           A[3 * i + 2] * B[6 + j];
-}
-__device__ void dmv(const Dl* A, const Dl* x, Dl* y) {
-    for (int i = 0; i < 3; ++i)
-        y[i] = A[3 * i] * x[0] + A[3 * i + 1] * x[1] + A[3 * i + 2] * x[2];
-}
-__device__ void dT(const Dl* A, Dl* B) {
-    for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) B[3 * i + j] = A[3 * j + i];
-}
-
-// lie.so3_log, robust near 0 and pi
-__device__ void dlog(const Dl* R, Dl* out) {
-    const Dl tr = R[0] + R[4] + R[8];
-    const Dl c = dclamp((tr - dl(1.0f)) * dl(0.5f), -1.0f + 1e-7f,
-                        1.0f - 1e-7f);
-    const Dl theta = dacos(c);
-    Dl wg[3] = {0.5f * (R[7] - R[5]), 0.5f * (R[2] - R[6]),
-                0.5f * (R[3] - R[1])};
-    if (PI_F - theta.v >= 1e-3f) {
-        const Dl scale = theta.v < 1e-4f
-            ? dl(1.0f) + (1.0f / 6.0f) * (theta * theta)
-            : theta / dsin(theta);
-        for (int q = 0; q < 3; ++q) out[q] = wg[q] * scale;
-        return;
-    }
-    Dl Bm[9];
-    for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j)
-            Bm[3 * i + j] = 0.5f * (R[3 * i + j] + R[3 * j + i]);
-    const Dl om = dclamp_min(dl(1.0f) - c, 1e-8f);
-    Dl a2[3], a[3];
-    for (int q = 0; q < 3; ++q) {
-        a2[q] = dclamp_min((Bm[4 * q] - c) / om, 1e-12f);
-        a[q] = dsqrt(a2[q]);
-    }
-    int idx = 0;
-    for (int q = 1; q < 3; ++q)
-        if (a2[q].v > a2[idx].v) idx = q;
-    const Dl row[3] = {idx == 0 ? Bm[0] : Bm[3 * idx], Bm[3 * idx + 1],
-                       Bm[3 * idx + 2]};
-    Dl as[3];
-    float dot = 0.0f;
-    for (int q = 0; q < 3; ++q) {
-        const float sg = (q == idx) ? 1.0f : (row[q].v < 0.0f ? -1.0f : 1.0f);
-        as[q] = sg * a[q];
-    }
-    Dl dotd = as[0] * wg[0] + as[1] * wg[1] + as[2] * wg[2];
-    dot = dotd.v;
-    for (int q = 0; q < 3; ++q) out[q] = (dot < 0.0f ? -1.0f : 1.0f) *
-                                         (as[q] * theta);
-}
-
-// vi_ba._edge_residual at the zero perturbation with tangent e_lane
-// (lane < 30): r (value, derivative) for the 9 residuals
-__device__ void edge_residual(int lane, const float* S, const float* Cst,
-                              Dl* r) {
-    Dl x[30];
-    for (int q = 0; q < 30; ++q) x[q] = Dl{0.0f, q == lane ? 1.0f : 0.0f};
-    // S layout: Ra 0, pa 9, va 12, ba 15, R 21, p 30, v 33, b 36
-    Dl Ri[9], Rj[9], E[9], Ri_[9], Rj_[9], t3[3];
-    for (int k = 0; k < 9; ++k) {
-        Ri[k] = dl(S[k]);
-        Rj[k] = dl(S[21 + k]);
-    }
-    dexp(x + 3, E);
-    dmm(Ri, E, Ri_);
-    dexp(x + 18, E);
-    dmm(Rj, E, Rj_);
-    Dl pi_[3], vi_[3], pj_[3], vj_[3], dbg[3], dba[3];
-    dmv(Ri, x + 0, t3);
-    for (int q = 0; q < 3; ++q) pi_[q] = dl(S[9 + q]) + t3[q];
-    dmv(Rj, x + 15, t3);
-    for (int q = 0; q < 3; ++q) pj_[q] = dl(S[30 + q]) + t3[q];
-    for (int q = 0; q < 3; ++q) {
-        vi_[q] = dl(S[12 + q]) + x[6 + q];
-        vj_[q] = dl(S[33 + q]) + x[21 + q];
-        dbg[q] = (dl(S[15 + q]) + x[9 + q]) - dl(Cst[C_BIAS0 + q]);
-        dba[q] = (dl(S[18 + q]) + x[12 + q]) - dl(Cst[C_BIAS0 + 3 + q]);
-    }
-    Dl J[9], u[3], w[3], dR[9], dRc[9];
-    for (int k = 0; k < 9; ++k) {
-        J[k] = dl(Cst[C_JRG + k]);
-        dR[k] = dl(Cst[C_DR + k]);
-    }
-    dmv(J, dbg, u);
-    dexp(u, E);
-    dmm(dR, E, dRc);
-    Dl dVc[3], dPc[3];
-    for (int q = 0; q < 3; ++q) {
-        dVc[q] = dl(Cst[C_DV + q]);
-        dPc[q] = dl(Cst[C_DP + q]);
-    }
-    const int offs[4] = {C_JVG, C_JVA, C_JPG, C_JPA};
-    for (int m = 0; m < 4; ++m) {
-        for (int k = 0; k < 9; ++k) J[k] = dl(Cst[offs[m] + k]);
-        dmv(J, (m % 2 == 0) ? dbg : dba, u);
-        for (int q = 0; q < 3; ++q) {
-            if (m < 2) dVc[q] = dVc[q] + u[q];
-            else dPc[q] = dPc[q] + u[q];
-        }
-    }
-    Dl RiT[9], M1[9], dRcT[9], M2[9];
-    dT(Ri_, RiT);
-    dmm(RiT, Rj_, M1);
-    dT(dRc, dRcT);
-    dmm(dRcT, M1, M2);
-    dlog(M2, r);
-    const float dt = Cst[C_DT];
-    const float g[3] = {0.0f, 0.0f, -9.81f};
-    Dl a[3], b[3];
-    for (int q = 0; q < 3; ++q) {
-        a[q] = vj_[q] - vi_[q] - dl(g[q] * dt);
-        b[q] = pj_[q] - pi_[q] - dt * vi_[q] - dl(0.5f * g[q] * dt * dt);
-    }
-    dmv(RiT, a, u);
-    dmv(RiT, b, w);
-    for (int q = 0; q < 3; ++q) {
-        r[3 + q] = u[q] - dVc[q];
-        r[6 + q] = w[q] - dPc[q];
-    }
-}
 
 // ---------------------------------------------------------------------------
 // plain float helpers for the state update
@@ -462,8 +260,11 @@ pose_inertial_kernel(const float* __restrict__ cst_g,
         }
         // ---- the inertial edge Jacobian, one tangent per lane of warp 0
         if (warp == 0 && lane < 30) {
+            const ImuEdge E{C[C_DT], C + C_DR, C + C_DV, C + C_DP,
+                            C + C_JRG, C + C_JVG, C + C_JVA, C + C_JPG,
+                            C + C_JPA, C + C_BIAS0};
             Dl r[9];
-            edge_residual(lane, S, C, r);
+            edge_residual(lane, S, S + 21, E, r);
             for (int a = 0; a < 9; ++a) Je[a][lane] = r[a].d;
             if (lane == 0)
                 for (int a = 0; a < 9; ++a) re[a] = r[a].v;

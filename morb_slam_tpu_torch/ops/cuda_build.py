@@ -3,7 +3,8 @@
 Each `.cu` file compiles with `nvcc` into its own shared library with a plain
 C interface, loaded with `ctypes`. Builds run at first use, all sources in
 parallel, into `morb_slam_tpu_torch/_build/` (listed in `.gitignore`), keyed
-by a hash of the source and the flags, so an unchanged source is not rebuilt.
+by a hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so
+an unchanged source is not rebuilt.
 Nothing here runs at import time: this module imports on a machine without
 `nvcc` or a card.
 """
@@ -21,7 +22,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 SOURCES = ("fast_select", "orb_describe", "hamming_top2", "stereo_sad",
            "remap_bilinear", "pose_opt", "vocab_transform", "bow_l1",
-           "ba_assemble", "preintegrate", "pose_inertial", "schur_pcg")
+           "ba_assemble", "preintegrate", "pose_inertial", "schur_pcg",
+           "vi_edges", "pose_graph")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -40,8 +42,12 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for fn in [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
+                                      if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, fn), "rb") as f:
+            h.update(f.read())
+    h = h.hexdigest()
     return os.path.join(BUILD_DIR, f"{name}-{h[:16]}.so")
 
 

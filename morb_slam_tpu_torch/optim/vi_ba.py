@@ -6,9 +6,12 @@ Each keyframe carries a 15-dof body-frame state [dp, phi, dv, dbg, dba]
 b' = b + db. The window BA (`vi_ba_solve`) is Levenberg-Marquardt over a
 dense (15W)^2 system with the landmarks Schur-reduced: its visual blocks and
 visual cost come from K4 (`optim.ba.assemble`) in body-tangent mode; the
-inertial edges (9-dof residual, (9, 30) Jacobian by forward-mode autodiff,
-`torch.func.vmap(jacfwd)`), the bias random walk and the bias priors are
-plain PyTorch (the K13 range).
+inertial edges (9-dof residual, (9, 30) Jacobian at zero tangent), the bias
+random walk and the bias priors assembled into that system, and the
+inertial cost of the accept test, are kernel K13 (`inertial_system`,
+`inertial_cost`: `csrc/vi_edges.cu` on CUDA tensors; on CPU tensors
+`inertial_system_plain` / `inertial_cost_plain`, whose Jacobian is
+`torch.func.vmap(jacfwd)`).
 
 `optimize_pose_inertial` is kernel K12: on CUDA tensors one launch of
 `csrc/pose_inertial.cu` runs every Gauss-Newton step and reclassification
@@ -32,6 +35,8 @@ HUBER2_MONO = 5.991
 HUBER2_STEREO = 7.815
 
 LAUNCHES = {"kernel": 0, "plain": 0}
+# K13 (inertial_system and inertial_cost)
+INERTIAL_LAUNCHES = {"kernel": 0, "plain": 0}
 
 
 class VIBAProblem(NamedTuple):
@@ -169,8 +174,9 @@ def _edge_residuals(p: VIBAProblem, R_wb, p_wb, v, bias):
     return r * p.e_valid.to(p_wb.dtype)[:, None]
 
 
-def _quad_costs(p: VIBAProblem, R_wb, p_wb, v, bias):
-    """Inertial + bias random walk + bias prior costs."""
+def inertial_cost_plain(p: VIBAProblem, R_wb, p_wb, v, bias):
+    """Inertial + bias random walk + bias prior costs (K13's cost mode)."""
+    INERTIAL_LAUNCHES["plain"] += 1
     r = _edge_residuals(p, R_wb, p_wb, v, bias)
     c_in = torch.sum(torch.einsum('ei,eij,ej->e', r, p.e_info, r))
     prev = torch.clamp(p.e_prev, min=0).long()
@@ -183,7 +189,7 @@ def _quad_costs(p: VIBAProblem, R_wb, p_wb, v, bias):
 def _total_cost(p: VIBAProblem, vis: ba.BlockSums, R_wb, p_wb, v, bias):
     """The robust visual cost (K4's, from the blocks `vis` assembled at this
     state) plus the inertial, random-walk and bias-prior costs."""
-    return vis.cost + _quad_costs(p, R_wb, p_wb, v, bias)
+    return vis.cost + inertial_cost(p, R_wb, p_wb, v, bias)
 
 
 def _free_mask(p: VIBAProblem):
@@ -203,23 +209,21 @@ def _add_blocks(H, rb, cb, r0, c0, vals):
     H.index_put_((rows[:, :, None], cols[:, None, :]), vals, accumulate=True)
 
 
-def _lm_step(p: VIBAProblem, R_wb, p_wb, v, bias, X, lam,
-             vis: ba.BlockSums):
-    """One damped LM step of the window system; `vis` holds K4's visual
-    blocks at (R_wb, p_wb, X)."""
+def inertial_system_plain(p: VIBAProblem, R_wb, p_wb, v, bias, Hpp, bp):
+    """The dense window system of `_lm_step` before the landmark Schur step:
+    H (15W, 15W) and b (15W,) holding the visual pose blocks Hpp (W, 6, 6)
+    and bp (W, 6), the inertial edges' J^T Omega J and -J^T Omega r, the
+    bias random walk and the bias priors (K13's function)."""
+    INERTIAL_LAUNCHES["plain"] += 1
     W = p.R_wb.shape[0]
-    L = p.X.shape[0]
     D = 15 * W
     f32, dev = p.p_wb.dtype, p.p_wb.device
-    lm_opt_f = p.lm_opt.to(f32)
-    eyeL = torch.eye(3, dtype=f32, device=dev)
-    free = _free_mask(p)
     prev = torch.clamp(p.e_prev, min=0).long()
     ks = torch.arange(W, device=dev)
     H = torch.zeros((D, D), dtype=f32, device=dev)
     b = torch.zeros((W, 15), dtype=f32, device=dev)
-    _add_blocks(H, ks, ks, 0, 0, vis.Hpp)
-    b[:, 0:6] += vis.bp
+    _add_blocks(H, ks, ks, 0, 0, Hpp)
+    b[:, 0:6] += bp
 
     with record_function("K13 vi_ba edges"):
         re, Je = _edge_terms(p, R_wb, p_wb, v, bias)         # (W,9),(W,9,30)
@@ -248,7 +252,123 @@ def _lm_step(p: VIBAProblem, R_wb, p_wb, v, bias, X, lam,
         # bias priors toward zero
         _add_blocks(H, ks, ks, 9, 9, torch.diag_embed(p.prior_bias_info))
         b[:, 9:15] += -p.prior_bias_info * bias
-    b = b.reshape(D)
+    return H, b.reshape(D)
+
+
+def _edge_consts(p: VIBAProblem):
+    """Each edge's constants in K13's layout (W, 160): dt, dR, dV, dP, the
+    five bias Jacobians, Omega, bias0, the random-walk and the prior
+    information."""
+    W = p.R_wb.shape[0]
+    return torch.cat([p.e_dt[:, None], p.e_dR.reshape(W, 9), p.e_dV, p.e_dP,
+                      *(J.reshape(W, 9) for J in (p.e_JRg, p.e_JVg, p.e_JVa,
+                                                   p.e_JPg, p.e_JPa)),
+                      p.e_info.reshape(W, 81), p.e_bias0, p.e_rw_info,
+                      p.prior_bias_info], dim=1).contiguous()
+
+
+def _k13_inputs(p: VIBAProblem, R_wb, p_wb, v, bias):
+    """Check and pack K13's inputs: the body states (W, 21), the edge
+    constants, int32 e_prev and bool e_valid, contiguous on one card."""
+    W = p.R_wb.shape[0]
+    dev = p_wb.device
+    if dev.type != "cuda":
+        raise ValueError(f"vi_edges: unsupported device {dev}")
+    f32 = torch.float32
+    shapes = {"R_wb": (R_wb, (W, 3, 3)), "p_wb": (p_wb, (W, 3)),
+              "v": (v, (W, 3)), "bias": (bias, (W, 6)),
+              "e_dt": (p.e_dt, (W,)), "e_dR": (p.e_dR, (W, 3, 3)),
+              "e_dV": (p.e_dV, (W, 3)), "e_dP": (p.e_dP, (W, 3)),
+              "e_JRg": (p.e_JRg, (W, 3, 3)), "e_JVg": (p.e_JVg, (W, 3, 3)),
+              "e_JVa": (p.e_JVa, (W, 3, 3)), "e_JPg": (p.e_JPg, (W, 3, 3)),
+              "e_JPa": (p.e_JPa, (W, 3, 3)), "e_info": (p.e_info, (W, 9, 9)),
+              "e_bias0": (p.e_bias0, (W, 6)),
+              "e_rw_info": (p.e_rw_info, (W, 6)),
+              "prior_bias_info": (p.prior_bias_info, (W, 6))}
+    bad = [k for k, (x, s) in shapes.items()
+           if x.dtype != f32 or x.device != dev or tuple(x.shape) != s]
+    if bad or p.e_valid.dtype != torch.bool or p.e_valid.shape != (W,) or \
+            p.e_prev.shape != (W,) or p.e_prev.dtype.is_floating_point or \
+            p.e_valid.device != dev or p.e_prev.device != dev:
+        raise ValueError(f"vi_edges: needs float32 states and edge tensors "
+                         f"of the window's shapes, int e_prev and bool "
+                         f"e_valid (W,) on one card (bad: {bad})")
+    state = torch.cat([R_wb.reshape(W, 9), p_wb, v, bias], dim=1).contiguous()
+    return (state, _edge_consts(p), p.e_prev.to(torch.int32).contiguous(),
+            p.e_valid.contiguous())
+
+
+@record_function("K13 inertial_system")
+def inertial_system(p: VIBAProblem, R_wb, p_wb, v, bias, Hpp, bp):
+    """K13: `inertial_system_plain`'s function. CUDA tensors: two launches
+    of `csrc/vi_edges.cu` (a warp per edge, then a thread per entry of H and
+    b); CPU tensors: the plain version."""
+    if p_wb.device.type == "cpu":
+        return inertial_system_plain(p, R_wb, p_wb, v, bias, Hpp, bp)
+    W = p.R_wb.shape[0]
+    state, cst, prev, valid = _k13_inputs(p, R_wb, p_wb, v, bias)
+    if Hpp.shape != (W, 6, 6) or bp.shape != (W, 6) or \
+            Hpp.dtype != torch.float32 or bp.dtype != torch.float32 or \
+            Hpp.device != p_wb.device or bp.device != p_wb.device:
+        raise ValueError("vi_edges: needs float32 Hpp (W, 6, 6) and bp "
+                         "(W, 6) on the window's card")
+    Hpp, bp = Hpp.contiguous(), bp.contiguous()
+    D = 15 * W
+    dev = p_wb.device
+    He = torch.empty((W, 30, 30), dtype=torch.float32, device=dev)
+    ge = torch.empty((W, 30), dtype=torch.float32, device=dev)
+    H = torch.empty((D, D), dtype=torch.float32, device=dev)
+    b = torch.empty(D, dtype=torch.float32, device=dev)
+    rc = _k13_lib().vi_edges_system(
+        state.data_ptr(), cst.data_ptr(), prev.data_ptr(), valid.data_ptr(),
+        Hpp.data_ptr(), bp.data_ptr(), W, He.data_ptr(), ge.data_ptr(),
+        H.data_ptr(), b.data_ptr(), cuda_build.stream_ptr(p_wb))
+    cuda_build.check(rc, "vi_edges_system")
+    INERTIAL_LAUNCHES["kernel"] += 1
+    return H, b
+
+
+@record_function("K13 inertial_cost")
+def inertial_cost(p: VIBAProblem, R_wb, p_wb, v, bias):
+    """K13's cost mode: `inertial_cost_plain`'s function. CUDA tensors: one
+    launch (a warp, fixed-order reduction); CPU tensors: the plain
+    version."""
+    if p_wb.device.type == "cpu":
+        return inertial_cost_plain(p, R_wb, p_wb, v, bias)
+    state, cst, prev, valid = _k13_inputs(p, R_wb, p_wb, v, bias)
+    out = torch.empty((), dtype=torch.float32, device=p_wb.device)
+    rc = _k13_lib().vi_edges_cost(
+        state.data_ptr(), cst.data_ptr(), prev.data_ptr(), valid.data_ptr(),
+        p.R_wb.shape[0], out.data_ptr(), cuda_build.stream_ptr(p_wb))
+    cuda_build.check(rc, "vi_edges_cost")
+    INERTIAL_LAUNCHES["kernel"] += 1
+    return out
+
+
+def _k13_lib():
+    lib = cuda_build.library("vi_edges")
+    if lib.vi_edges_system.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.vi_edges_system.argtypes = [P, P, P, P, P, P, I, P, P, P, P, P]
+        lib.vi_edges_system.restype = I
+        lib.vi_edges_cost.argtypes = [P, P, P, P, I, P, P]
+        lib.vi_edges_cost.restype = I
+    return lib
+
+
+def _lm_step(p: VIBAProblem, R_wb, p_wb, v, bias, X, lam,
+             vis: ba.BlockSums):
+    """One damped LM step of the window system; `vis` holds K4's visual
+    blocks at (R_wb, p_wb, X)."""
+    W = p.R_wb.shape[0]
+    L = p.X.shape[0]
+    D = 15 * W
+    f32, dev = p.p_wb.dtype, p.p_wb.device
+    lm_opt_f = p.lm_opt.to(f32)
+    eyeL = torch.eye(3, dtype=f32, device=dev)
+    free = _free_mask(p)
+    ks = torch.arange(W, device=dev)
+    H, b = inertial_system(p, R_wb, p_wb, v, bias, vis.Hpp, vis.bp)
 
     # landmark Schur complement
     Hll_d = vis.Hll + lam * eyeL * torch.clamp(

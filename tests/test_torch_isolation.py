@@ -7,7 +7,9 @@ covers every module, among them `vocab/`, `io/serialization.py`,
 `solvers/pnp.py`, `imu.py`, `optim/inertial.py`, `optim/vi_ba.py` and the
 loop-closing slice's `solvers/sim3.py`, `optim/pose_graph.py`,
 `mapstate/atlas.py`, `pipeline/global_ba.py` and
-`pipeline/loop_closing.py`."""
+`pipeline/loop_closing.py`; K13's wrappers (`optim/vi_ba.py`
+inertial_system, inertial_cost) and K15's (`optim/pose_graph.py`
+normal_equations) are held to the same device rules."""
 import os
 import subprocess
 import sys
@@ -20,7 +22,7 @@ from morb_slam_tpu_torch import cameras, imu, system
 from morb_slam_tpu_torch.io import config
 from morb_slam_tpu_torch.ops import (fast, hamming, orb_descriptor, rectify,
                                      stereo)
-from morb_slam_tpu_torch.optim import ba, pose_opt, vi_ba
+from morb_slam_tpu_torch.optim import ba, pose_graph, pose_opt, vi_ba
 from morb_slam_tpu_torch.pipeline import tracking
 from morb_slam_tpu_torch.vocab import tree
 
@@ -95,7 +97,8 @@ def _counts():
                               tree.LAUNCHES["vocab_transform"],
                               tree.LAUNCHES["bow_l1"], ba.LAUNCHES,
                               imu.LAUNCHES, vi_ba.LAUNCHES,
-                              ba.SCHUR_LAUNCHES)]
+                              ba.SCHUR_LAUNCHES, vi_ba.INERTIAL_LAUNCHES,
+                              pose_graph.LAUNCHES)]
 
 
 def _voc(device):
@@ -145,13 +148,49 @@ def _pose_inertial_args(device, n=5):
             z(6) + 1.0)
 
 
+def _vi_args(device, W=2):
+    """A W-slot inertial window without visual rows, its state and K4's
+    visual pose blocks."""
+    z = lambda *s: torch.zeros(s, device=device)
+    eye = lambda *s: torch.eye(3, device=device).expand(*s, 3, 3)
+    f = lambda n: torch.zeros(n, dtype=torch.bool, device=device)
+    i = lambda n: torch.zeros(n, dtype=torch.int32, device=device)
+    p = vi_ba.VIBAProblem(
+        R_wb=eye(W), p_wb=z(W, 3), v=z(W, 3), bias=z(W, 6), fix_pose=f(W),
+        fix_vb=f(W), X=z(1, 3), lm_opt=f(1), obs_kf=i(0), obs_lm=i(0),
+        obs_uv=z(0, 2), obs_ur=z(0), obs_info=z(0), obs_mask=f(0),
+        baseline=z(), e_valid=~f(W), e_prev=i(W), e_dt=z(W) + 0.1,
+        e_dR=eye(W), e_dV=z(W, 3), e_dP=z(W, 3), e_JRg=z(W, 3, 3),
+        e_JVg=z(W, 3, 3), e_JVa=z(W, 3, 3), e_JPg=z(W, 3, 3),
+        e_JPa=z(W, 3, 3), e_info=torch.eye(9, device=device).expand(W, 9, 9),
+        e_bias0=z(W, 6), e_rw_info=z(W, 6) + 1.0,
+        prior_bias_info=z(W, 6) + 1.0)
+    return p, (p.R_wb, p.p_wb, p.v, p.bias), z(W, 6, 6), z(W, 6)
+
+
+def _graph_args(device, K=3):
+    ar = torch.arange(K, dtype=torch.int32, device=device)
+    g = pose_graph.PoseGraph(
+        s=torch.ones(K, device=device),
+        R=torch.eye(3, device=device).expand(K, 3, 3),
+        t=torch.zeros((K, 3), device=device), edge_i=ar,
+        edge_j=torch.roll(ar, 1), edge_s=torch.ones(K, device=device),
+        edge_R=torch.eye(3, device=device).expand(K, 3, 3),
+        edge_t=torch.ones((K, 3), device=device),
+        edge_w=torch.ones(K, device=device),
+        fixed=torch.zeros(K, dtype=torch.bool, device=device))
+    return g, g.s, g.R, g.t
+
+
 @pytest.mark.parametrize("kernel", ["fast_select", "orb_describe",
                                     "hamming_top2", "stereo_sad",
                                     "remap_bilinear", "pose_opt",
                                     "vocab_transform", "bow_l1",
                                     "ba_assemble", "preintegrate",
                                     "pose_inertial", "ba_assemble_per_obs",
-                                    "schur_lm_pass", "schur_kf_pass"])
+                                    "schur_lm_pass", "schur_kf_pass",
+                                    "inertial_system", "inertial_cost",
+                                    "normal_equations"])
 def test_wrappers_refuse_other_devices(kernel):
     meta = torch.device("meta")
     before = _counts()
@@ -197,6 +236,14 @@ def test_wrappers_refuse_other_devices(kernel):
         elif kernel == "pose_inertial":
             vi_ba.optimize_pose_inertial(*_pose_inertial_args(meta),
                                          n_iters=1)
+        elif kernel == "inertial_system":
+            p, st, Hpp, bp = _vi_args(meta)
+            vi_ba.inertial_system(p, *st, Hpp, bp)
+        elif kernel == "inertial_cost":
+            p, st, _, _ = _vi_args(meta)
+            vi_ba.inertial_cost(p, *st)
+        elif kernel == "normal_equations":
+            pose_graph.normal_equations(*_graph_args(meta))
         else:
             rectify.remap_bilinear(torch.empty((48, 64), device=meta),
                                    torch.zeros((8, 8, 2), device=meta))
@@ -222,6 +269,11 @@ def test_wrappers_use_plain_versions_on_cpu():
     vi_ba.optimize_pose_inertial(*_pose_inertial_args("cpu"), n_iters=1)
     ba.schur_lm_pass(_ba_args("cpu")[0], torch.zeros((4, 6, 3)),
                      torch.zeros((2, 6)), torch.eye(3).expand(3, 3, 3))
+    p, st, Hpp, bp = _vi_args("cpu")
+    H, b = vi_ba.inertial_system(p, *st, Hpp, bp)
+    assert H.shape == (30, 30) and b.shape == (30,)
+    H, b, c = pose_graph.normal_equations(*_graph_args("cpu"))
+    assert H.shape == (21, 21) and b.shape == (21,) and c.dim() == 0
     after = _counts()
     for b, a in zip(before, after):
         assert a["plain"] == b["plain"] + 1

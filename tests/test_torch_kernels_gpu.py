@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K5 and K7-K12, K14 of the PyTorch port against their
+"""The CUDA kernels K1-K5 and K7-K15 of the PyTorch port against their
 plain PyTorch versions on the card, on shapes and inputs the main path does
 not reach: image sizes that are no multiple of the 16-px cell, flat images
 where every key ties, empty keypoint and row sets, a single column, fully
@@ -17,8 +17,13 @@ no observation, every observation masked and nothing optimized, bitwise
 repeatable, and the PCG LM loop over both kernels;
 preintegrations (K11) of an all-padding batch, one sample, fresh and
 continued frame batches and a keyframe buffer; inertial pose problems
-(K12) with a near-identity edge, no visual rows and mixed stereo; and
-every new wrapper refusing bad dtypes and shapes.
+(K12) with a near-identity edge, no visual rows and mixed stereo; the
+inertial assembly of a VI-BA step (K13) over windows of 1, 14 and 32
+slots with invalid slots, a chain that skips a slot and no bias prior,
+and the LM loop over it; the pose-graph normal equations (K15) of graphs
+with zero-weight edges, padding nodes and both parametrizations, and
+the Gauss-Newton loop over them; and every new wrapper refusing bad
+dtypes and shapes.
 
 Marked `gpu`: each test skips without a CUDA card. On a machine with one
 (and without JAX, so without tests/conftest.py):
@@ -40,7 +45,12 @@ the Jacobians within 1e-5, C within 1e-5 of its max-abs; K12 R and t
 within 1e-5, v and bias within 1e-4, the same inlier count; K14 within
 1e-5 of each output entry's term magnitude (the same sums over absolute
 values: the back-substitution's bl - B^T x cancels, so the rounding of
-its sums is bounded by the terms, not the result).
+its sums is bounded by the terms, not the result); K13 and K15 H within
+1e-5 under Jacobi scaling (|dH_ij| / sqrt(H_ii H_jj)), b within 1e-5 of
+its scaled max-abs, the cost within 1e-5 relative, both bitwise repeatable
+(the plain K13 Jacobian carries some tangents in float64, the kernel's
+dual numbers float32), their loops with states within 1e-4 and costs
+within 1e-3 relative.
 """
 import math
 
@@ -921,3 +931,250 @@ def test_k4_k11_k12_refuse_bad_inputs_on_the_card(cuda):
         vi_ba.optimize_pose_inertial(*args[:4], args[4].double(), *args[5:])
     with pytest.raises(ValueError):
         vi_ba.optimize_pose_inertial(*args[:23], args[23][:8], *args[24:])
+
+
+# ---------------------------------------------------------------------------
+# K13 vi_edges, K15 pose_graph
+# ---------------------------------------------------------------------------
+
+def _vi_window(dev, W, seed=0, skip=None, invalid=(), prior=1.0,
+               noise=None):
+    """A W-slot inertial window (no visual rows): random body states, a
+    chain of edges (slot 0 and the `invalid` slots without one, slot `skip`
+    chained to skip - 2), preintegration constants of plausible size and
+    information near the floor_info scale (1e4-1e8); K4-shaped visual pose
+    blocks Hpp (W, 6, 6) at the 1e5 scale and bp. With `noise`, the
+    preintegrations are those of the states (zero residual at bias0) and
+    the states are then perturbed by `noise`."""
+    from morb_slam_tpu_torch.optim import vi_ba as v
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, sc=1.0):
+        return (torch.randn(*shape, generator=g) * sc).to(dev)
+    prev = torch.arange(W) - 1
+    valid = prev >= 0
+    if skip is not None:
+        prev[skip] = skip - 2
+    for k in invalid:
+        valid[k] = False
+    prev = torch.where(valid, prev, torch.zeros_like(prev))
+    A = rn(W, 9, 9)
+    info = v.floor_info(A @ A.transpose(1, 2) * 1e6 +
+                        1e4 * torch.eye(9, device=dev))
+    f = torch.zeros(0, dtype=torch.float32, device=dev)
+    i32 = torch.zeros(0, dtype=torch.int32, device=dev)
+    p = v.VIBAProblem(
+        R_wb=lie.so3_exp(rn(W, 3, sc=0.5)), p_wb=rn(W, 3), v=rn(W, 3),
+        bias=rn(W, 6, sc=0.01),
+        fix_pose=torch.arange(W, device=dev) == 0,
+        fix_vb=torch.zeros(W, dtype=torch.bool, device=dev),
+        X=torch.zeros((1, 3), device=dev),
+        lm_opt=torch.zeros(1, dtype=torch.bool, device=dev), obs_kf=i32,
+        obs_lm=i32, obs_uv=f.reshape(0, 2), obs_ur=f, obs_info=f,
+        obs_mask=torch.zeros(0, dtype=torch.bool, device=dev),
+        baseline=torch.tensor(0.0, device=dev), e_valid=valid.to(dev),
+        e_prev=prev.to(torch.int32).to(dev),
+        e_dt=(0.1 + 0.4 * torch.rand(W, generator=g)).to(dev),
+        e_dR=lie.so3_exp(rn(W, 3, sc=0.1)), e_dV=rn(W, 3), e_dP=rn(W, 3),
+        e_JRg=rn(W, 3, 3, sc=0.1), e_JVg=rn(W, 3, 3, sc=0.1),
+        e_JVa=rn(W, 3, 3, sc=0.1), e_JPg=rn(W, 3, 3, sc=0.1),
+        e_JPa=rn(W, 3, 3, sc=0.1), e_info=info, e_bias0=rn(W, 6, sc=0.01),
+        e_rw_info=(1e6 * (1 + torch.rand(W, 6, generator=g))).to(dev),
+        prior_bias_info=torch.full((W, 6), float(prior), device=dev))
+    if noise is not None:
+        pv = p.e_prev.long()
+        Ri, dt = p.R_wb[pv], p.e_dt[:, None]
+        gv = torch.tensor([0.0, 0.0, -9.81], device=dev)
+        RiT = Ri.transpose(1, 2)
+        p = p._replace(
+            e_dR=lie.matmat(RiT, p.R_wb), e_bias0=p.bias[pv],
+            e_dV=lie.matvec(RiT, p.v - p.v[pv] - gv * dt),
+            e_dP=lie.matvec(RiT, p.p_wb - p.p_wb[pv] - p.v[pv] * dt
+                            - 0.5 * gv * dt * dt),
+            R_wb=lie.matmat(p.R_wb, lie.so3_exp(rn(W, 3, sc=noise))),
+            p_wb=p.p_wb + rn(W, 3, sc=noise), v=p.v + rn(W, 3, sc=noise))
+    B = rn(W, 6, 6)
+    Hpp = 1e5 * (B @ B.transpose(1, 2) + torch.eye(6, device=dev))
+    return p, Hpp, rn(W, 6, sc=1e3)
+
+
+def _scaled_errs(H, b, H0, b0):
+    """Jacobi-scaled gaps: max |dH_ij| / sqrt(H_ii H_jj) and max |db_i| /
+    sqrt(H_ii) over max |b_i| / sqrt(H_ii), with the reference's diagonal
+    (entries whose diagonal is 0 must match exactly)."""
+    d = torch.sqrt(torch.clamp(torch.diagonal(H0), min=0.0))
+    zero = d == 0
+    ds = torch.where(zero, torch.ones_like(d), d)
+    eH = ((H - H0).abs() / ds[:, None] / ds[None, :]).max()
+    bs = b0 / ds
+    eb = ((b - b0).abs() / ds).max() / bs.abs().max().clamp(min=1e-30)
+    assert bool(((H - H0)[zero].abs() == 0).all())
+    return float(eH), float(eb)
+
+
+@pytest.mark.parametrize("W,skip,invalid,prior", [
+    (14, None, (), 1.0), (14, 6, (9,), 1e4), (32, 5, (3, 17, 31), 1.0),
+    (32, None, (), 0.0), (1, None, (), 1.0)])
+def test_vi_edges_match_plain_and_repeat(cuda, W, skip, invalid, prior):
+    p, Hpp, bp = _vi_window(cuda, W, seed=W, skip=skip, invalid=invalid,
+                            prior=prior)
+    st = (p.R_wb, p.p_wb, p.v, p.bias)
+    H, b = vi_ba.inertial_system(p, *st, Hpp, bp)
+    H2, b2 = vi_ba.inertial_system(p, *st, Hpp, bp)
+    H0, b0 = vi_ba.inertial_system_plain(p, *st, Hpp, bp)
+    assert torch.equal(H, H2) and torch.equal(b, b2)
+    eH, eb = _scaled_errs(H, b, H0, b0)
+    assert eH < 1e-5 and eb < 1e-5, (eH, eb)
+    c, c2 = vi_ba.inertial_cost(p, *st), vi_ba.inertial_cost(p, *st)
+    c0 = vi_ba.inertial_cost_plain(p, *st)
+    assert torch.equal(c, c2)
+    assert abs(float(c) - float(c0)) <= 1e-5 * abs(float(c0)), (c, c0)
+
+
+def test_vi_ba_lm_step_kernel_matches_plain(cuda, monkeypatch):
+    """One LM step of vi_ba_solve over K13 against the step over its plain
+    version (K4 in both) on a consistent window perturbed by 0.01, with
+    visual rows of the unperturbed states: the stepped states within 1e-4,
+    the solve's first cost within 1e-5 and its first iteration's within
+    1e-4 relative; the 6-iteration solves end within 2% of each other's
+    cost, at the pixel-noise floor. (A state 1e-4 away moves this cost by
+    ~0.5% through the 4,200 visual rows at information 1e5, so later
+    iterations' accept decisions, and their costs, part between any two
+    float32 roundings: on an H100 the two solves' costs were 7946.23 /
+    7946.16 after one iteration, 2624.1 / 2607.3 after two, 2423.6 /
+    2444.1 at the end.)"""
+    from morb_slam_tpu_torch.optim import ba as ba_mod
+    W, L = 14, 300
+    p0, _, _ = _vi_window(cuda, W, seed=3, skip=7, invalid=(11,), noise=0.0)
+    p, _, _ = _vi_window(cuda, W, seed=3, skip=7, invalid=(11,), noise=0.01)
+    g = torch.Generator().manual_seed(5)
+    R_cw, t_cw = lie.se3_inv(p0.R_wb, p0.p_wb)
+    Xc = torch.rand(L, 3, generator=g).to(cuda) * torch.tensor(
+        [4.0, 3.0, 6.0], device=cuda) + torch.tensor([-2.0, -1.5, 3.0],
+                                                     device=cuda)
+    X = lie.se3_apply(p0.R_wb[0], p0.p_wb[0], Xc)
+    kf = torch.arange(W, device=cuda).repeat_interleave(L)
+    lm = torch.arange(L, device=cuda).repeat(W)
+    Xk = lie.se3_apply(R_cw[kf], t_cw[kf], X[lm])
+    uv = Xk[:, :2] / Xk[:, 2:3]
+    p = p._replace(X=X, lm_opt=torch.ones(L, dtype=torch.bool, device=cuda),
+                   obs_kf=kf.to(torch.int32), obs_lm=lm.to(torch.int32),
+                   obs_uv=uv + 0.002 * torch.randn(uv.shape, generator=g)
+                   .to(cuda), obs_ur=torch.full((W * L,), float("nan"),
+                                                device=cuda),
+                   obs_info=torch.full((W * L,), 1e5, device=cuda),
+                   obs_mask=Xk[:, 2] > 0.5)
+    bap = vi_ba._ba_problem(p)
+    R_cw, t_cw = lie.se3_inv(p.R_wb, p.p_wb)
+    vis = ba_mod.assemble(bap, R_cw, t_cw, p.X, ba_mod.obs_order(bap),
+                          body=True)
+    lam = torch.tensor(1e-3, device=cuda)
+    st = (p.R_wb, p.p_wb, p.v, p.bias, p.X)
+    step = vi_ba._lm_step(p, *st, lam, vis)
+    got = vi_ba.vi_ba_solve(p, n_iters=6)
+    monkeypatch.setattr(vi_ba, "inertial_system", vi_ba.inertial_system_plain)
+    monkeypatch.setattr(vi_ba, "inertial_cost", vi_ba.inertial_cost_plain)
+    step0 = vi_ba._lm_step(p, *st, lam, vis)
+    want = vi_ba.vi_ba_solve(p, n_iters=6)
+    for a, b_ in zip(step, step0):
+        assert torch.allclose(a, b_, atol=1e-4), (a - b_).abs().max()
+    costs = (got[5]["costs"], want[5]["costs"])
+    assert torch.allclose(got[5]["cost0"], want[5]["cost0"], rtol=1e-5)
+    assert torch.allclose(costs[0][0], costs[1][0], rtol=1e-4), costs
+    assert torch.allclose(costs[0][-1], costs[1][-1], rtol=2e-2), costs
+
+
+def _graph(dev, K, n_valid, seed=0, zero_share=0.5):
+    """A pose graph of K nodes (n_valid on a drifting path, the rest
+    identity padding): the chain, random covisibility edges (zero_share of
+    them at weight 0, as the essential graph's masked slots), a loop edge of
+    weight 20 with a drifted measurement, node 0 fixed; an edge from a node
+    to itself has weight 0, as in the essential graph."""
+    from morb_slam_tpu_torch.optim import pose_graph as pg
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, sc=1.0):
+        return torch.randn(*shape, generator=g) * sc
+    s = torch.ones(K)
+    R = torch.eye(3).repeat(K, 1, 1)
+    t = torch.zeros(K, 3)
+    R[:n_valid] = lie.so3_exp(rn(n_valid, 3, sc=0.6))
+    t[:n_valid] = rn(n_valid, 3, sc=2.0)
+    s[:n_valid] = torch.exp(rn(n_valid, sc=0.05))
+    ar = torch.arange(K)
+    ei = [ar, torch.randint(0, K, (K * 4,), generator=g),
+          torch.tensor([n_valid - 1])]
+    ej = [torch.clamp(ar - 1, min=0), torch.randint(0, K, (K * 4,),
+                                                    generator=g),
+          torch.tensor([0])]
+    w = [((ar < n_valid) & (ar > 0)).float(),
+         (torch.rand(K * 4, generator=g) > zero_share).float() * 0.5,
+         torch.tensor([20.0])]
+    ei, ej, w = torch.cat(ei), torch.cat(ej), torch.cat(w)
+    w = torch.where(ei == ej, torch.zeros_like(w), w)     # no self-loops
+    sij, Rij, tij = pg.relative_sim3(s[ei], R[ei], t[ei], s[ej], R[ej],
+                                     t[ej])
+    drift = lie.so3_exp(rn(ei.shape[0], 3, sc=0.02))
+    Rij = lie.matmat(drift, Rij)
+    tij = tij + rn(ei.shape[0], 3, sc=0.05)
+    return pg.PoseGraph(
+        s=s.to(dev), R=R.to(dev), t=t.to(dev),
+        edge_i=ei.to(torch.int32).to(dev), edge_j=ej.to(torch.int32).to(dev),
+        edge_s=sij.to(dev), edge_R=Rij.to(dev), edge_t=tij.to(dev),
+        edge_w=w.to(dev), fixed=(ar == 0).to(dev))
+
+
+@pytest.mark.parametrize("K,n_valid,four_dof", [
+    (40, 40, False), (40, 40, True), (512, 34, True), (512, 120, False),
+    (3, 1, False)])
+def test_pose_graph_normal_equations_match_plain(cuda, K, n_valid, four_dof):
+    from morb_slam_tpu_torch.optim import pose_graph as pg
+    g = _graph(cuda, K, n_valid, seed=K + n_valid)
+    H, b, c = pg.normal_equations(g, g.s, g.R, g.t, four_dof)
+    H2, b2, c2 = pg.normal_equations(g, g.s, g.R, g.t, four_dof,
+                                     pg.block_order(g))
+    H0, b0, c0 = pg.normal_equations_plain(g, g.s, g.R, g.t, four_dof)
+    assert torch.equal(H, H2) and torch.equal(b, b2) and torch.equal(c, c2)
+    eH, eb = _scaled_errs(H, b, H0, b0)
+    assert eH < 1e-5 and eb < 1e-5, (eH, eb)
+    assert abs(float(c) - float(c0)) <= 1e-5 * abs(float(c0)), (c, c0)
+
+
+@pytest.mark.parametrize("four_dof", [False, True])
+def test_pose_graph_optimize_kernel_matches_plain(cuda, monkeypatch,
+                                                  four_dof):
+    from morb_slam_tpu_torch.optim import pose_graph as pg
+    g = _graph(cuda, 64, 48, seed=11)
+    before = dict(pg.LAUNCHES)
+    got = pg.optimize(g, n_iters=8, four_dof=four_dof)
+    assert pg.LAUNCHES["kernel"] - before["kernel"] == 8
+    assert pg.LAUNCHES["plain"] == before["plain"]
+    monkeypatch.setattr(pg, "normal_equations",
+                        lambda g, s, R, t, f, order=None:
+                        pg.normal_equations_plain(g, s, R, t, f))
+    want = pg.optimize(g, n_iters=8, four_dof=four_dof)
+    for a, b_ in zip(got[:3], want[:3]):
+        assert torch.allclose(a, b_, atol=1e-4), (a - b_).abs().max()
+    assert torch.allclose(got[3], want[3], rtol=1e-3)
+
+
+def test_k13_k15_refuse_bad_inputs_on_the_card(cuda):
+    from morb_slam_tpu_torch.optim import pose_graph as pg
+    before = (dict(vi_ba.INERTIAL_LAUNCHES), dict(pg.LAUNCHES))
+    p, Hpp, bp = _vi_window(cuda, 6)
+    st = (p.R_wb, p.p_wb, p.v, p.bias)
+    with pytest.raises(ValueError):
+        vi_ba.inertial_system(p, p.R_wb.double(), *st[1:], Hpp, bp)
+    with pytest.raises(ValueError):
+        vi_ba.inertial_system(p, *st, Hpp[:, :5], bp)
+    with pytest.raises(ValueError):
+        vi_ba.inertial_cost(p._replace(e_valid=p.e_valid.int()), *st)
+    with pytest.raises(ValueError):
+        vi_ba.inertial_cost(p._replace(e_info=p.e_info[:, :8]), *st)
+    g = _graph(cuda, 8, 8)
+    with pytest.raises(ValueError):
+        pg.normal_equations(g._replace(edge_i=g.edge_i.long()), g.s, g.R,
+                            g.t)
+    with pytest.raises(ValueError):
+        pg.normal_equations(g, g.s, g.R.double(), g.t)
+    assert (vi_ba.INERTIAL_LAUNCHES, pg.LAUNCHES) == before

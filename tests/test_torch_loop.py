@@ -7,7 +7,11 @@ the CPU (plain kernel versions), on the same numpy-seeded inputs:
   (Sim3, and `fix_scale`) and tests/test_global_ba.py's yaw-drift ring
   (`four_dof`): poses within 1e-4; the 7 x 14 edge Jacobian at zero
   tangent finite and within 1e-5 of `jax.jacfwd`'s (a pure-translation
-  edge among them);
+  edge among them); K15's plain version `normal_equations_plain` against
+  H, b and the cost assembled in numpy (float64) from JAX's
+  `_edge_residual` and `jax.jacfwd`, camera side and world side: H within
+  1e-5 under Jacobi scaling (|dH_ij| / sqrt(H_ii H_jj)), b within 1e-5 of
+  its scaled max-abs, the cost within 1e-5 relative;
 - `ba_solve_pcg` on tests/test_global_ba.py's `_synthetic_problem`: the
   per-iteration costs within 1e-3 relative; the same accept sequence over
   the first four iterations (after them the cost sits at its float32 noise
@@ -165,6 +169,51 @@ def test_edge_jacobian_at_zero(world_side):
                                  tuple(map(_t, Sij)), world_side)
     assert J.shape == (E, 7, 14) and torch.isfinite(J).all()
     np.testing.assert_allclose(J.numpy(), _np(jJ), atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["sim3", "four_dof"])
+def test_normal_equations_match_reference(name):
+    make, _ = GRAPHS[name]
+    g = make()
+    world_side = name == "four_dof"
+    ei, ej = _np(g.edge_i), _np(g.edge_j)
+    S = [tuple(jnp.asarray(_np(x)[idx]) for x in (g.s, g.R, g.t))
+         for idx in (ei, ej)]
+    Sij = (g.edge_s, g.edge_R, g.edge_t)
+
+    def res(x, a, b, c):
+        return j_pg._edge_residual(x[:7], x[7:], a, b, c,
+                                   world_side=world_side)
+    z = jnp.zeros(14, jnp.float32)
+    ax = ((0, 0, 0),) * 3
+    r, J = jax.jit(jax.vmap(lambda a, b, c: (res(z, a, b, c),
+                                             jax.jacfwd(res)(z, a, b, c)),
+                            in_axes=ax))(S[0], S[1], Sij)
+    r, J = np.asarray(r, np.float64), np.asarray(J, np.float64)
+    K = g.s.shape[0]
+    w = _np(g.edge_w).astype(np.float64)
+    H0 = np.zeros((K, 7, K, 7))
+    b0 = np.zeros((K, 7))
+    for e in range(ei.shape[0]):
+        Ji, Jj = J[e, :, :7] * w[e], J[e, :, 7:] * w[e]
+        H0[ei[e], :, ei[e], :] += Ji.T @ J[e, :, :7]
+        H0[ej[e], :, ej[e], :] += Jj.T @ J[e, :, 7:]
+        H0[ei[e], :, ej[e], :] += Ji.T @ J[e, :, 7:]
+        H0[ej[e], :, ei[e], :] += Jj.T @ J[e, :, :7]
+        b0[ei[e]] -= Ji.T @ r[e]
+        b0[ej[e]] -= Jj.T @ r[e]
+    H0, b0 = H0.reshape(7 * K, 7 * K), b0.reshape(7 * K)
+    c0 = float(np.sum(w * np.sum(r * r, axis=-1)))
+    tg = convert.pose_graph_from_numpy({k: _np(v) for k, v in
+                                        g._asdict().items()})
+    H, b, c = pose_graph.normal_equations_plain(tg, tg.s, tg.R, tg.t,
+                                                world_side)
+    d = np.sqrt(np.clip(np.diagonal(H0), 1e-30, None))
+    eH = np.max(np.abs(H.double().numpy() - H0) / d[:, None] / d[None, :])
+    eb = np.max(np.abs(b.double().numpy() - b0) / d) / \
+        np.max(np.abs(b0) / d)
+    assert eH < 1e-5 and eb < 1e-5, (eH, eb)
+    assert abs(float(c) - c0) <= 1e-5 * c0, (float(c), c0)
 
 
 # ---------------------------------------------------------------------------
