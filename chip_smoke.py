@@ -45,10 +45,10 @@ Phases:
                 1200 features, 8 levels; rectification built by the port,
                 K8 every frame, K7 in every match); check initialization
                 on frame 0, >= 90% of frames OK, the Sim3 scale within 5%,
-                the SE3 ATE under 0.03 x extent, and that K1-K3, K5, K7 and
-                K8 launched while no plain version ran. Profile 5 more
-                frames for kernels and syncs per frame, K5's device time on
-                the path and the device time of the plain K6 ranges. Then
+                the SE3 ATE under 0.03 x extent, and that K1-K3, K5-K8
+                launched while no plain version ran. Profile 5 more
+                frames for kernels and syncs per frame and K5's device time
+                on the path. Then
                 K4 on the path's last local BA problem: its blocks in both
                 tangent modes against the plain assembly, two launches
                 bitwise equal, and the whole LM loop against the loop over
@@ -138,9 +138,29 @@ Phases:
                 times and bounds, and an LM step / the whole pose graph
                 over kernel and plain; then bench.py:398's ba_iters_per_s
                 problem through the port's ba_solve.
+ 13. persist  — the JAX lifecycle test (tests/test_system.py:24) at the
+                main path's size through `System(settings,
+                Sensor.MONOCULAR, vocabulary=...)`: 80 frames, every
+                trajectory writer, the TUM file read back and scored by
+                eval.ate against a ground truth written by the same writer
+                (Sim3 ATE < 0.023 x extent), the map's points, save_atlas;
+                fresh Systems load it (load_atlas and settings.load_atlas),
+                enter localization mode and relocalize on revisit frames
+                without a keyframe insert; then tests/test_atlas.py:134:
+                24 frames out, a stashed map, 6 frames, save, reload into a
+                fresh System, and the stash merges back on the way back.
+ 14. euroc_synth — the bench's euroc cell function
+                (`run_dataset.evaluate_sequence(root, "mono")`) on 80 raw
+                EuRoC-cam0 renders of the main path written as 8-bit PNGs
+                in EuRoC's layout (Python's zlib and struct only); the
+                port's native loader decodes them; >= 70% OK and the mono
+                Sim3 gate.
 
-`--only vi_loop,fisheye` (any phase names) runs the device phase and those
-phases alone, without the kernels line.
+K6 (pyramid_blur) is held against its plain pyramid and blur in the
+kernels phase, on the main path's first image, and through extract_orb.
+`--only vi_loop,fisheye` (any phase names; `persist,euroc_synth` for the
+persistence slice) runs the device phase and those phases alone, without
+the kernels line.
 
 Any failure raises (nonzero exit). The line before the last is the card's
 `nvidia-smi` name and power limit; the last line is the JSON result.
@@ -194,19 +214,20 @@ R_B_C0 = np.array([
     [0.0148655429818, -0.999880929698, 0.00414029679422],
     [0.999557249008, 0.0149672133247, 0.025715529948],
     [-0.0257744366974, 0.00375618835797, 0.999660727178]])
-# the port's profiler ranges (the plain K6, K13 and inertial_only_optimize,
-# K4's LM loop, the kernel wrappers); the profiler also lists each as a
-# device-side annotation spanning its kernels and the idle time between
-# them, which per-frame device sums must skip
+# the port's profiler ranges (K13 and inertial_only_optimize, K4's LM
+# loop, the kernel wrappers, the tracker's stage timers); the profiler also
+# lists each as a device-side annotation spanning its kernels and the idle
+# time between them, which per-frame device sums must skip
 RANGES = ("K4 ba_solve", "K4 ba_assemble", "K5 optimize_pose",
-          "K6 build_pyramid", "K6 gaussian_blur", "K9 vocab_transform",
+          "K6 build_pyramid", "K6 blur_levels", "K9 vocab_transform",
           "K10 bow_l1", "K11 preintegrate", "K12 optimize_pose_inertial",
           "K13 vi_ba edges", "K13 inertial_system", "K13 inertial_cost",
           "K15 normal_equations", "inertial_only_optimize",
           "K14 schur_lm_pass",
           "K14 schur_kf_pass", "ba_solve_pcg", "GBA slice", "GBATotal",
           "LoopTotal", "maybe_close", "maybe_merge", "correct_loop",
-          "pose_graph.optimize", "guided_sim3_verify", "search_and_fuse")
+          "pose_graph.optimize", "guided_sim3_verify", "search_and_fuse",
+          "TrackTotal", "LMTotal")
 # NVIDIA's H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12             # float32 outside the tensor cores
@@ -734,6 +755,7 @@ def phase_kernels(state):
                      bound_ms=b_ms, bound_by=b_by, library_ms=None,
                      ms_1200x1200=kernel_small, call_ms_1200x1200=ms_small,
                      shape="4096x1200 (one launch)"))
+    rows.append(_k6_row(frames[0], cfg))
     _stereo_kernels(state, rows)
     _reloc_kernels(state, rows)
     _vi_kernels(rows)
@@ -746,11 +768,97 @@ def phase_kernels(state):
             f"{r['bound_by']})")
 
 
+PYR_TOL = 1e-3   # K6 pyramid against the plain pyramid, grey levels
+
+
+def _k6_row(img, cfg):
+    """K6 on the mono path's first 752x480 image, 8 levels: the blur
+    bitwise equal to the plain blur of the same levels, the pyramid within
+    PYR_TOL of the plain pyramid (cuBLAS, TF32 off), and extract_orb with
+    the kernel and with the plain K6 forced in agreement on >= 99% of the
+    (yx, octave) slots and >= 99.9% of their descriptor bits."""
+    from morb_slam_tpu_torch import frontend
+    from morb_slam_tpu_torch.ops import image, orb_descriptor
+    L, sc = cfg.n_levels, cfg.scale
+    lk = image.build_pyramid(img, L, sc)
+    lp = image.build_pyramid_plain(img, L, sc)
+    pyr_err = max(float((a - b).abs().max()) for a, b in zip(lk, lp))
+    blur_k = image.blur_levels(lk)
+    blur_bitwise = all(torch.equal(a, image.gaussian_blur_plain(b))
+                       for a, b in zip(blur_k, lk))
+    again = image.build_pyramid(img, L, sc)
+    repeatable = all(torch.equal(a, b) for a, b in zip(again, lk)) and all(
+        torch.equal(a, b) for a, b in zip(image.blur_levels(again), blur_k))
+    log(f"K6 pyramid_blur: pyramid max |kernel - plain| {pyr_err:.3e} grey "
+        f"levels (tolerance {PYR_TOL}), blur bitwise equal {blur_bitwise}, "
+        f"bitwise repeatable {repeatable}")
+    check(pyr_err < PYR_TOL and blur_bitwise and repeatable,
+          ("K6", pyr_err, blur_bitwise, repeatable))
+
+    f_k = frontend.extract_orb(img, cfg)
+    saved = image.build_pyramid, image.blur_levels
+    image.build_pyramid = image.build_pyramid_plain
+    image.blur_levels = lambda ls: [image.gaussian_blur_plain(l) for l in ls]
+    try:
+        f_p = frontend.extract_orb(img, cfg)
+    finally:
+        image.build_pyramid, image.blur_levels = saved
+    same = (f_k.uv == f_p.uv).all(-1) & (f_k.octave == f_p.octave) & \
+        (f_k.valid == f_p.valid)
+    slots = float(same.float().mean())
+    ok = same & f_p.valid
+    bits = float((orb_descriptor.unpack_bits(f_k.desc[ok])
+                  == orb_descriptor.unpack_bits(f_p.desc[ok])).float().mean())
+    log(f"K6 in extract_orb: {slots:.5f} of the (yx, octave) slots and "
+        f"{bits:.6f} of their descriptor bits agree with the plain K6")
+    check(slots >= 0.99 and bits >= 0.999, ("K6 extract_orb", slots, bits))
+
+    def k6():
+        image.blur_levels(image.build_pyramid(img, L, sc))
+
+    def plain():
+        for l in image.build_pyramid_plain(img, L, sc):
+            image.gaussian_blur_plain(l)
+    shapes = image.level_shapes(img.shape[0], img.shape[1], L, sc)
+    npx = [h * w for h, w in shapes]
+    # the image in once; levels 1.. and every blurred level out once; ~12
+    # flops per resized and 28 per blurred pixel
+    b_ms, b_by = bound(4 * (npx[0] + sum(npx[1:]) + sum(npx)),
+                       12 * sum(npx[1:]) + 28 * sum(npx))
+    n0 = image.LAUNCHES["kernel"]
+    k6()
+    per_image = image.LAUNCHES["kernel"] - n0
+    EVENT_TIMED.discard(None)
+    ms = {k: device_ms(k6, k) for k in (None, "pyramid_level_kernel",
+                                        "blur_levels_kernel")}
+    by_events = bool(EVENT_TIMED & set(ms))
+    return dict(name="pyramid_blur", route="cuda",
+                source="morb_slam_tpu_torch/csrc/pyramid_blur.cu",
+                replaces="morb_slam_tpu/ops/image.py:33",
+                replaces_also="morb_slam_tpu/ops/image.py:55",
+                max_abs_err=pyr_err, max_abs_err_is="pyramid, grey levels; "
+                "the blur is bitwise equal", pyramid_tolerance=PYR_TOL,
+                blur_bitwise=blur_bitwise, bitwise_repeatable=repeatable,
+                extract_orb_slots_agree=slots, extract_orb_bits_agree=bits,
+                ms=ms[None],
+                ms_is="one image: the level-0 copy, 7 level launches and "
+                      "the blur launch",
+                ms_by="cuda events" if by_events else "profiler",
+                pyramid_ms=ms["pyramid_level_kernel"],
+                blur_ms=ms["blur_levels_kernel"],
+                call_ms=time_ms(k6), plain_ms=time_ms(plain, reps=10),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                library_note="none: F.interpolate(antialias=True) is another "
+                             "filter, and no single call blurs a pyramid",
+                launches_per_image=per_image, ptxas=_ptxas("pyramid_blur"),
+                shape=f"one {img.shape[1]}x{img.shape[0]} image, {L} levels")
+
+
 def _kernel_counters():
     """The launch counter of each hand-written kernel, by kernel name."""
     from morb_slam_tpu_torch import imu
-    from morb_slam_tpu_torch.ops import (fast, hamming, orb_descriptor,
-                                         rectify, stereo)
+    from morb_slam_tpu_torch.ops import (fast, hamming, image,
+                                         orb_descriptor, rectify, stereo)
     from morb_slam_tpu_torch.optim import ba, pose_graph, pose_opt, vi_ba
     from morb_slam_tpu_torch.vocab import tree
     return {"fast_select": fast.LAUNCHES,
@@ -763,7 +871,8 @@ def _kernel_counters():
             "ba_assemble_per_obs": ba.OBS_LAUNCHES,
             "schur_pcg": ba.SCHUR_LAUNCHES,
             "vi_edges": vi_ba.INERTIAL_LAUNCHES,
-            "pose_graph": pose_graph.LAUNCHES}
+            "pose_graph": pose_graph.LAUNCHES,
+            "pyramid_blur": image.LAUNCHES}
 
 
 def _reset_counters():
@@ -807,7 +916,8 @@ def phase_main(state):
     states, fm, secs, n_ins_20 = _track_run(tracker, feed, N_FRAMES, 1.0,
                                             inserts)
     launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
-                               "pose_opt", "ba_assemble"], "mono", state)
+                               "pose_opt", "ba_assemble", "pyramid_blur"],
+                              "mono", state)
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
     check("OK" in states, "never initialized")
     n_ok = sum(s == "OK" for s in states)
@@ -828,7 +938,7 @@ def phase_main(state):
         launches_per_frame={k: v / N_FRAMES for k, v in launches.items()})
     log("main path:", json.dumps(main))
     _path_profile(tracker, lambda i: feed(i, float(i)),
-                  range(N_FRAMES, N_FRAMES + 5), "mono", main,
+                  range(N_FRAMES, N_FRAMES + 5), "mono", main, inserts,
                   state.get("profile_out"))
     state["main"] = main
 
@@ -1453,17 +1563,15 @@ def _vi_kernels(rows):
 class _CountCalls:
     """Count the calls of module functions during one path's run by
     wrapping the module attributes the path looks up (by default K4's LM
-    loop `ba.ba_solve` and the plain K6 functions); keep each one's last
+    loop `ba.ba_solve`); keep each one's last
     arguments, every call's keyword arguments and, for the names in
     `timed`, its milliseconds per call with the card synchronized before
     and after."""
 
     def __init__(self, targets=None, timed=()):
         if targets is None:
-            from morb_slam_tpu_torch.ops import image
             from morb_slam_tpu_torch.optim import ba
-            targets = [(ba, "ba_solve"), (image, "build_pyramid"),
-                       (image, "gaussian_blur")]
+            targets = [(ba, "ba_solve")]
         self.targets = targets
         self.timed = set(timed)
         self.counts = {name: 0 for _, name in targets}
@@ -1605,60 +1713,81 @@ def _ba_bound(p, per_obs=False):
                                           ba.BlockSums)._fields))
 
 
-def _path_profile(tracker, step, frames, name, out, table_path=None):
-    """Profile `frames` more frames: CUDA kernels, device ms (all, and in
-    the hand-written kernels), busy share, implicit host syncs and their
-    sites per frame; the op table goes to table_path if given."""
+def _path_profile(tracker, step, frames, name, out, inserts,
+                  table_path=None):
+    """Profile `frames` more frames, each in its own trace, and keep the
+    frames in whose step no keyframe was inserted (`inserts` grows in
+    each insert): CUDA kernels, device ms (all, and in the hand-written
+    kernels), busy share, implicit host syncs and their sites per kept
+    frame. The op table of the last kept frame goes to table_path if given.
+    Returns {kernel name: (count, device us)} summed over the kept frames."""
     import warnings
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as syncs, \
-            profiled(cpu=True) as prof:
-        warnings.simplefilter("always")
-        t0 = time.perf_counter()
-        for i in frames:
-            step(i)
-        tracker.flush()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    torch.cuda.set_sync_debug_mode(0)
-    nf = len(frames)
-    n_kern, dev_us, ours_us = 0, 0.0, 0.0
     ours = tuple(f"{k}_kernel" for k in _kernel_counters()) + (
-        "schur_lm_kernel", "schur_kf_kernel")
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and \
-                ev.key not in RANGES:
-            n_kern += ev.count
-            dev_us += ev.self_device_time_total
-            if any(k in ev.key for k in ours):
-                ours_us += ev.self_device_time_total
-    syncs = [w for w in syncs if "synchroniz" in str(w.message)]
+        "schur_lm_kernel", "schur_kf_kernel", "pyramid_level_kernel",
+        "blur_levels_kernel")
+    n_kern, dev_us, ours_us, wall, nf, skipped = 0, 0.0, 0.0, 0.0, 0, []
+    kern = collections.Counter(), collections.Counter()
+    sync_sites = collections.Counter()
+    n_sync = 0
+    for i in frames:
+        n_ins = len(inserts)
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as syncs, \
+                profiled(cpu=True) as prof:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            step(i)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode(0)
+        if len(inserts) > n_ins:
+            skipped.append(i)
+            continue
+        nf += 1
+        wall += t1 - t0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                    ev.key not in RANGES:
+                n_kern += ev.count
+                dev_us += ev.self_device_time_total
+                kern[0][ev.key] += ev.count
+                kern[1][ev.key] += ev.self_device_time_total
+                if any(k in ev.key for k in ours):
+                    ours_us += ev.self_device_time_total
+        syncs = [w for w in syncs if "synchroniz" in str(w.message)]
+        n_sync += len(syncs)
+        sync_sites.update(
+            "/".join(os.path.normpath(w.filename).split(os.sep)[-2:])
+            + f":{w.lineno}" for w in syncs)
+        if table_path:
+            os.makedirs(os.path.dirname(table_path) or ".", exist_ok=True)
+            with open(table_path, "w") as f:
+                f.write(prof.key_averages().table(
+                    sort_by="self_device_time_total", row_limit=60))
+    tracker.flush()
+    torch.cuda.synchronize()
+    check(nf > 0, f"{name}: every profiled frame inserted a keyframe")
+    out["profiled_frames"] = nf
+    out["profiled_frames_skipped_for_insert"] = skipped
     out["cuda_kernels_per_frame_profiler"] = n_kern / nf
     out["device_ms_per_frame_profiler"] = dev_us / nf / 1e3
     out["hand_kernels_device_ms_per_frame_profiler"] = ours_us / nf / 1e3
     out["device_busy_share_profiler"] = dev_us / 1e6 / wall
     # device time per frame over the unprofiled frame time of frames 20..
     out["device_busy_share_unprofiled"] = dev_us / nf / 1e6 * out["fps"]
-    out["host_syncs_per_frame"] = len(syncs) / nf
-    out["host_sync_sites"] = dict(collections.Counter(
-        "/".join(os.path.normpath(w.filename).split(os.sep)[-2:])
-        + f":{w.lineno}" for w in syncs).most_common(10))
-    log(f"{name} profiler: {n_kern / nf:.0f} CUDA kernels, "
+    out["host_syncs_per_frame"] = n_sync / nf
+    out["host_sync_sites"] = dict(sync_sites.most_common(10))
+    log(f"{name} profiler, {nf} frames without a keyframe insert (skipped "
+        f"{skipped}): {n_kern / nf:.0f} CUDA kernels, "
         f"{dev_us / nf / 1e3:.2f} ms device time ({ours_us / nf / 1e3:.3f} "
-        f"ms in the hand-written kernels) and {len(syncs) / nf:.1f} host "
+        f"ms in the hand-written kernels) and {n_sync / nf:.1f} host "
         f"syncs per frame; device busy {dev_us / 1e6 / wall:.3f} of the "
-        f"profiled wall time; sync sites {out['host_sync_sites']}")
-    if table_path:
-        os.makedirs(os.path.dirname(table_path) or ".", exist_ok=True)
-        with open(table_path, "w") as f:
-            f.write(prof.key_averages().table(
-                sort_by="self_device_time_total", row_limit=60))
-    return prof
+        f"profiled step time; sync sites {out['host_sync_sites']}")
+    return {k: (kern[0][k], kern[1][k]) for k in kern[0]}
 
 
 def phase_stereo(state):
     from morb_slam_tpu_torch import system
-    from morb_slam_tpu_torch.ops import image
     _, poses = _world(state)
     rig = _rig(state)
     pairs = [_raw_pair(state, *poses[i]) for i in range(N_FRAMES + 5)]
@@ -1680,7 +1809,8 @@ def phase_stereo(state):
                                          inserts)
     launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
                                "pose_opt", "stereo_sad", "remap_bilinear",
-                               "ba_assemble"], "stereo", state)
+                               "ba_assemble", "pyramid_blur"], "stereo",
+                              state)
     check(launches["remap_bilinear"] == N_FRAMES,
           ("K8 once per pair", launches["remap_bilinear"]))
     check(launches["stereo_sad"] >= N_FRAMES,
@@ -1706,64 +1836,26 @@ def phase_stereo(state):
         extent_m=extent, landmarks=int(tracker.m.lm_valid.sum()),
         peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         launches_per_frame={k: v / N_FRAMES for k, v in launches.items()},
-        local_ba_per_frame=calls.counts["ba_solve"] / N_FRAMES,
-        plain_calls_per_frame={k: calls.counts[k] / N_FRAMES
-                               for k in ("build_pyramid", "gaussian_blur")})
+        local_ba_per_frame=calls.counts["ba_solve"] / N_FRAMES)
 
     table = state.get("profile_out")
-    prof = _path_profile(tracker, lambda i: feed(i, i * dt),
+    kern = _path_profile(tracker, lambda i: feed(i, i * dt),
                          range(N_FRAMES, N_FRAMES + 5), "stereo", out,
+                         inserts,
                          table and table.replace(".txt", "") + "_stereo.txt")
     # K5 on the path: the kernel's own device time per launch (the
     # profiler does not tie a ctypes launch to the CPU side of its range)
     # (the launch counts above show that it ran)
-    k5 = [ev for ev in prof.key_averages() if "pose_opt_kernel" in ev.key]
+    k5 = [v for k, v in kern.items() if "pose_opt_kernel" in k]
     out["pose_opt_on_path"] = dict(
-        device_ms_per_call=k5[0].self_device_time_total / k5[0].count / 1e3,
-        calls_profiled=k5[0].count) if k5 and k5[0].count else None
+        device_ms_per_call=k5[0][1] / k5[0][0] / 1e3,
+        calls_profiled=k5[0][0]) if k5 and k5[0][0] else None
     log("stereo path:", json.dumps(out))
     state["stereo"] = out
 
     check("ba_solve" in calls.last_args, "no local BA ran on the stereo path")
     _k4_kernel(state, calls.last_args["ba_solve"][0][0],
                out["launches_per_frame"]["ba_assemble"])
-
-    # the plain K6 row: device time per call under its profiler ranges,
-    # event time per call, the bound from this run's shapes
-    img0 = pairs[0][0].float()
-
-    def k6():
-        for lvl in image.build_pyramid(img0, 8, 1.2):
-            image.gaussian_blur(lvl)
-
-    def k6_profile():
-        with profiled(cpu=True) as p6:
-            k6()
-        return p6
-    k6p_ms, _, k6p_span = range_device_ms("K6 build_pyramid", k6_profile,
-                                          prof)
-    k6b_ms, _, k6b_span = range_device_ms("K6 gaussian_blur", k6_profile,
-                                          prof)
-    # K6 per image: the level-0 image in, levels 1-7 and 8 blurred levels
-    # out; ~12 flops per resized and 28 per blurred pixel
-    shapes = image.level_shapes(H, W, 8, 1.2)
-    npx = [h * w for h, w in shapes]
-    b6, by6 = bound(4 * (npx[0] + sum(npx[1:]) + sum(npx)),
-                    12 * sum(npx[1:]) + 28 * sum(npx))
-    k6_call = time_ms(k6, reps=10)
-    per_frame = out["plain_calls_per_frame"]
-    state["plain_rows"] = [
-        dict(name="build_pyramid + gaussian_blur (K6)", route="plain",
-             source="morb_slam_tpu_torch/ops/image.py",
-             replaces="morb_slam_tpu/ops/image.py:33",
-             ms=k6p_ms + 8 * k6b_ms, span_ms=k6p_span + 8 * k6b_span,
-             pyramid_ms=k6p_ms,
-             blur_ms_per_level=k6b_ms, plain_ms=k6_call,
-             bound_ms=b6, bound_by=by6, library_ms=None,
-             launches=calls.counts["build_pyramid"],
-             launches_per_frame=per_frame["build_pyramid"], max_abs_err=None,
-             shape="one 752x480 image, 8 levels (stereo path)")]
-    _log_plain_rows(state["plain_rows"])
 
 
 def _log_plain_rows(rows):
@@ -1886,8 +1978,8 @@ def phase_rgbd(state):
         lambda i, ts: sysm.track_rgbd(frames[i][0], frames[i][1], ts),
         N_RGBD, dt, inserts)
     launches = _read_counters(["fast_select", "orb_describe",
-                               "hamming_top2", "pose_opt", "ba_assemble"],
-                              "rgbd", state)
+                               "hamming_top2", "pose_opt", "ba_assemble",
+                               "pyramid_blur"], "rgbd", state)
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
     n_ok = sum(s == "OK" for s in states)
     ate, scale, ate_se3, extent, n_traj = _ate(sysm.tracker, poses, dt)
@@ -1985,7 +2077,8 @@ def phase_reloc(state):
         tracking.kfdb.top_candidates = orig_top
     launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
                                "pose_opt", "vocab_transform", "bow_l1",
-                               "ba_assemble"], "reloc", state)
+                               "ba_assemble", "pyramid_blur"], "reloc",
+                              state)
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
     n_map = N_MAP + N_BLANK
     check("RECENTLY_LOST" in states[N_MAP:n_map], "never lost in the blank")
@@ -2169,7 +2262,8 @@ def phase_vi(state):
     launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
                                "pose_opt", "stereo_sad", "remap_bilinear",
                                "ba_assemble", "preintegrate",
-                               "pose_inertial", "vi_edges"], "vi", state)
+                               "pose_inertial", "vi_edges", "pyramid_blur"],
+                              "vi", state)
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
     fired = [s for s in stages if s["fired"]]
     log(f"vi: IMU-init stages fired {[(s['stage'], s['ts']) for s in fired]}"
@@ -2211,15 +2305,15 @@ def phase_vi(state):
     log(f"vi: K11 {launches['preintegrate'] / N_VI:.2f} and K12 "
         f"{launches['pose_inertial'] / N_VI:.2f} launches per frame")
     table = state.get("profile_out")
-    prof = _path_profile(tracker, lambda i: feed(i, i * VI_DT),
-                         range(N_VI, n_all), "vi", out,
+    kern = _path_profile(tracker, lambda i: feed(i, i * VI_DT),
+                         range(N_VI, n_all), "vi", out, inserts,
                          table and table.replace(".txt", "") + "_vi.txt")
     for name in ("pose_inertial", "preintegrate", "ba_assemble"):
-        ev = [e for e in prof.key_averages() if f"{name}_kernel" in e.key]
-        if ev and ev[0].count:
+        ev = [v for k, v in kern.items() if f"{name}_kernel" in k]
+        if ev and ev[0][0]:
             out[f"{name}_on_path"] = dict(
-                device_ms_per_call=ev[0].self_device_time_total
-                / ev[0].count / 1e3, calls_profiled=ev[0].count)
+                device_ms_per_call=ev[0][1] / ev[0][0] / 1e3,
+                calls_profiled=ev[0][0])
     log("vi path:", json.dumps(out))
     state["vi"] = out
     state["plain_rows"] += _vi_plain_rows(calls, state)
@@ -2672,6 +2766,7 @@ def phase_loop(state, variant=None):
     gba_kernels = ["schur_pcg", "ba_assemble_per_obs", "pose_graph"]
     launches = _read_counters(
         ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
+         "pyramid_blur",
          "stereo_sad", "remap_bilinear", "ba_assemble", "vocab_transform",
          "bow_l1"] + (gba_kernels if gated else []), "loop", state)
     launches.update({k: _kernel_counters()[k]["kernel"] for k in gba_kernels})
@@ -3140,13 +3235,11 @@ def _vl_frames(dev):
 
 def _PLAIN_TARGETS():
     """The call sites counted on the vi_loop and fisheye paths: the LM
-    solves (K13 inside) and the loops still plain (K6,
-    inertial_only_optimize, guided_sim3_verify)."""
-    from morb_slam_tpu_torch.ops import image
+    solves (K13 inside) and the loops still plain (inertial_only_optimize,
+    guided_sim3_verify)."""
     from morb_slam_tpu_torch.optim import inertial, vi_ba
     from morb_slam_tpu_torch.pipeline import loop_closing
-    return [(vi_ba, "vi_ba_solve"), (image, "build_pyramid"),
-            (image, "gaussian_blur"), (inertial, "inertial_only_optimize"),
+    return [(vi_ba, "vi_ba_solve"), (inertial, "inertial_only_optimize"),
             (loop_closing, "guided_sim3_verify")]
 
 
@@ -3211,6 +3304,7 @@ def phase_vi_loop(state):
     k13 = vi_ba.INERTIAL_LAUNCHES["kernel"]
     launches = _read_counters(
         ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
+         "pyramid_blur",
          "stereo_sad", "ba_assemble", "preintegrate", "pose_inertial",
          "vocab_transform", "bow_l1", "vi_edges"], "vi_loop", state)
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
@@ -3370,7 +3464,8 @@ def phase_fisheye(state):
             FE_N, 0.05, inserts, timed_from=FE_WARM)
     launches = _read_counters(
         ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
-         "ba_assemble", "preintegrate", "pose_inertial", "vi_edges"],
+         "ba_assemble", "preintegrate", "pose_inertial", "vi_edges",
+         "pyramid_blur"],
         "fisheye", state)
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
     n_ok = sum(s == "OK" for s in states)
@@ -3571,6 +3666,279 @@ def _k15_row(g, kw):
               f"touched blocks, {it} iterations, four_dof {fd}")
 
 
+# ---------------------------------------------------------------------------
+# persistence, trajectory output and the dataset entry point
+# ---------------------------------------------------------------------------
+
+PERSIST_DT = 0.05
+PERSIST_REVISIT = (10, 11, 12, 13)     # the JAX lifecycle test's revisit
+ATLAS_FWD = 24                         # test_atlas.py:134: 24 out, 23 back
+
+
+def _persist_settings(**kw):
+    from morb_slam_tpu_torch.io import config
+    return config.Settings(
+        cam1=config.CameraSettings(model="PinHole", fx=FX, fy=FX, cx=W / 2,
+                                   cy=H / 2, width=W, height=H),
+        n_features=1200, n_levels=8, scale_factor=1.2, **kw)
+
+
+PERSIST_OVERRIDES = dict(max_kf=256, max_lm=16384, min_init_matches=80,
+                         min_init_points=50)
+
+
+def _atlas_mb(path):
+    return sum(os.path.getsize(path + ext) for ext in (".npz", ".json")) / 2**20
+
+
+def _timed(fn, *a):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn(*a)
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3
+
+
+def phase_persist(state):
+    """The JAX lifecycle test (tests/test_system.py:24) at the mono path's
+    size through `System(..., Sensor.MONOCULAR, vocabulary=...)` on the
+    card: track, write every trajectory format, score the TUM file with
+    eval.ate against a ground truth written by the same writer, save the
+    Atlas, load it into fresh Systems (load_atlas and settings.load_atlas)
+    and relocalize in localization mode; then test_atlas.py:134's stash,
+    save, reload and merge on revisit."""
+    import dataclasses
+    import tempfile
+    from morb_slam_tpu_torch import system
+    from morb_slam_tpu_torch.eval import ate as ate_mod
+    from morb_slam_tpu_torch.io import trajectory
+    world, poses = _world(state)
+    voc = _vocabulary(state)
+    frames = [world.render(*p).clamp(0, 255).to(torch.uint8) for p in poses]
+    torch.cuda.synchronize()
+    out = {}
+    _reset_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        sys1 = system.System(_persist_settings(), system.Sensor.MONOCULAR,
+                             vocabulary=voc,
+                             tracker_overrides=PERSIST_OVERRIDES)
+        inserts = _timed_inserts(sys1.tracker)
+        states, fm, secs, _ = _track_run(
+            sys1.tracker, lambda i, ts: sys1.track_monocular(frames[i], ts),
+            N_FRAMES, PERSIST_DT, inserts)
+        n_ok = sum(s == "OK" for s in states)
+        check(states[-1] == "OK" and n_ok >= 0.7 * N_FRAMES,
+              ("persist: tracking", n_ok, states[-1]))
+        f = {k: os.path.join(tmp, k) for k in (
+            "traj.txt", "traj.csv", "traj.kitti", "kf.txt", "sub.txt",
+            "gt.txt", "atlas", "atlas2")}
+        _, tum_ms = _timed(sys1.save_trajectory_tum, f["traj.txt"])
+        sys1.save_trajectory_euroc(f["traj.csv"])
+        sys1.save_trajectory_kitti(f["traj.kitti"])
+        sys1.save_keyframe_trajectory_tum(f["kf.txt"])
+        sys1.save_sub_trajectory(f["sub.txt"], 1.0, 2.0)
+        trajectory.write_tum(f["gt.txt"], [
+            (i * PERSIST_DT, R, t) for i, (R, t) in
+            enumerate(poses[:N_FRAMES])])
+        ts_r, pos_r, _ = trajectory.read_tum(f["traj.txt"])
+        n_lines = {k: sum(1 for line in open(f[k]) if line.strip()
+                          and not line.startswith("#"))
+                   for k in ("traj.txt", "traj.csv", "traj.kitti", "kf.txt",
+                             "sub.txt")}
+        res = ate_mod.evaluate(f["gt.txt"], f["traj.txt"], with_scale=True)
+        c = [-(np.asarray(R, np.float64).T @ t) for R, t in poses[:N_FRAMES]]
+        extent = float(np.linalg.norm(c[-1] - c[0]))
+        log(f"persist: {n_ok}/{N_FRAMES} OK, {len(ts_r)} TUM poses, lines "
+            f"{n_lines}, eval.ate Sim3 RMSE {res['rmse']:.5f} m over "
+            f"{res['pairs']} pairs (gate {0.023 * extent:.5f})")
+        check(n_lines["traj.txt"] == n_lines["traj.csv"] ==
+              n_lines["traj.kitti"] > 0.7 * N_FRAMES, ("lines", n_lines))
+        check(0 < n_lines["sub.txt"] < n_lines["traj.txt"], n_lines)
+        check(n_lines["kf.txt"] == int(sys1.tracker.m.kf_valid.sum()),
+              ("keyframe lines", n_lines["kf.txt"]))
+        check(res["rmse"] < 0.023 * extent, ("persist ATE", res, extent))
+        pc = sys1.map_point_cloud()
+        check(pc.ndim == 2 and pc.shape[1] == 3 and pc.shape[0] > 200 and
+              np.isfinite(pc).all(), ("point cloud", pc.shape))
+        _, save_ms = _timed(sys1.save_atlas, f["atlas"])
+        mb = _atlas_mb(f["atlas"])
+
+        def relocalize(sm):
+            t_before = sm.tracker.n_kf_host
+            sm.activate_localization_mode()
+            check(sm.state == "RECENTLY_LOST", ("after load", sm.state))
+            st = [sm.track_monocular(frames[i], 100.0 + i)[0]
+                  for i in PERSIST_REVISIT]
+            check("OK" in st, ("no relocalization after load", st))
+            check(sm.tracker.n_kf_host == t_before,
+                  ("localization mode added keyframes",
+                   sm.tracker.n_kf_host, t_before))
+            return st.index("OK"), st
+
+        sys2 = system.System(_persist_settings(), system.Sensor.MONOCULAR,
+                             vocabulary=voc,
+                             tracker_overrides=PERSIST_OVERRIDES)
+        _, load_ms = _timed(sys2.load_atlas, f["atlas"])
+        t1, t2 = sys1.tracker, sys2.tracker
+        check((t2.n_kf_host, t2.map_gen, len(t2.trajectory)) ==
+              (t1.n_kf_host, t1.map_gen, len(t1.trajectory)),
+              "the loaded Atlas's counters differ")
+        check(all(a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+                  for a, b in zip(t1.m, t2.m)),
+              "the loaded map differs from the saved one")
+        first_ok, st2 = relocalize(sys2)
+        sys3 = system.System(
+            _persist_settings(load_atlas=f["atlas"]),
+            system.Sensor.MONOCULAR, vocabulary=voc,
+            tracker_overrides=PERSIST_OVERRIDES)
+        first_ok3, st3 = relocalize(sys3)
+        log(f"persist: Atlas {mb:.2f} MB saved in {save_ms:.1f} ms, loaded "
+            f"in {load_ms:.1f} ms; revisit states {st2} (settings.load_atlas"
+            f": {st3})")
+        out.update(
+            fps=(N_FRAMES - 20) / secs, frames_ok=n_ok,
+            kf_inserts=len(inserts), keyframes=t1.n_kf_host,
+            ate_sim3_m=res["rmse"], ate_pairs=res["pairs"], extent_m=extent,
+            trajectory_lines=n_lines, save_tum_ms=tum_ms,
+            point_cloud_points=int(pc.shape[0]), atlas_mb=mb,
+            save_atlas_ms=save_ms, load_atlas_ms=load_ms,
+            first_ok_revisit_after_load=first_ok,
+            first_ok_revisit_after_settings_load=first_ok3,
+            revisit_states=st2)
+
+        # test_atlas.py:134 at this size: 24 frames out, a new map at the
+        # turn, 6 frames, save, reload into a fresh System, the rest back
+        seq = list(range(ATLAS_FWD)) + list(range(ATLAS_FWD - 2, -1, -1))
+        cut = ATLAS_FWD
+        sa = system.System(_persist_settings(), system.Sensor.MONOCULAR,
+                           vocabulary=voc,
+                           tracker_overrides=PERSIST_OVERRIDES)
+        for i, k in enumerate(seq[:cut + 6]):
+            if i == cut:
+                sa.tracker.create_map_in_atlas()
+            sa.track_monocular(frames[k], float(i))
+        check(len(sa.tracker.stash) == 1, "persist: no stashed map")
+        sa.tracker.flush()
+        n_traj = len(sa.tracker.trajectory)
+        _, save2_ms = _timed(sa.save_atlas, f["atlas2"])
+        sb = system.System(_persist_settings(), system.Sensor.MONOCULAR,
+                           vocabulary=voc,
+                           tracker_overrides=PERSIST_OVERRIDES)
+        _, load2_ms = _timed(sb.load_atlas, f["atlas2"])
+        tb = sb.tracker
+        check(len(tb.stash) == 1 and tb.stash[0].db is not None and
+              tb.map_gen == sa.tracker.map_gen and
+              len(tb.trajectory) == n_traj and tb.state == "RECENTLY_LOST",
+              "persist: the stash did not survive the round trip")
+        merged_at = None
+        for i, k in enumerate(seq[cut + 6:], start=cut + 6):
+            sb.track_monocular(frames[k], float(i))
+            if merged_at is None and any(st.merged_into_gen >= 0
+                                         for st in tb.stash):
+                merged_at = i
+        tb.flush()
+        traj = tb.trajectory_world()
+        log(f"persist: stash Atlas {_atlas_mb(f['atlas2']):.2f} MB, saved in "
+            f"{save2_ms:.1f} ms, loaded in {load2_ms:.1f} ms; merged on "
+            f"frame {merged_at}, {len(traj)} poses resolved")
+        check(merged_at is not None, "restored stash never merged on revisit")
+        check(len(traj) > 0.5 * len(seq), ("resolved poses", len(traj)))
+        out.update(stash_atlas_mb=_atlas_mb(f["atlas2"]),
+                   stash_save_ms=save2_ms, stash_load_ms=load2_ms,
+                   merged_on_frame=merged_at, merged_poses=len(traj),
+                   sequence_frames=len(seq))
+    out["launches"] = _read_counters(
+        ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
+         "ba_assemble", "pyramid_blur", "vocab_transform", "bow_l1"],
+        "persist", state)
+    log("persist path:", json.dumps(out))
+    state["persist"] = out
+
+
+def write_png_gray(path, a):
+    """An 8-bit grey PNG of a uint8 (H, W) array, with Python's zlib and
+    struct only (the card's machine has no image library)."""
+    import struct
+    import zlib
+    a = np.ascontiguousarray(a, np.uint8)
+    raw = b"".join(b"\x00" + a[y].tobytes() for y in range(a.shape[0]))
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xffffffff))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", a.shape[1],
+                                             a.shape[0], 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def phase_euroc_synth(state):
+    """The bench's euroc cell function (`run_dataset.evaluate_sequence`)
+    on a sequence this script writes: the mono path's poses rendered with
+    the stereo rig's raw, radtan-distorted EuRoC cam0 as 8-bit PNGs in
+    EuRoC's layout (mav0/cam0/data/*.png, data.csv,
+    state_groundtruth_estimate0/data.csv); read back by the port's native
+    loader, tracked by System on the card, aligned to the ground truth."""
+    import tempfile
+    from morb_slam_tpu_torch import lie
+    from morb_slam_tpu_torch.examples import run_dataset
+    world, poses = _world(state)
+    rays0, _ = _rig(state)["rays"]
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "mav0", "cam0", "data")
+        gt_dir = os.path.join(root, "mav0", "state_groundtruth_estimate0")
+        os.makedirs(data)
+        os.makedirs(gt_dir)
+        t0 = time.perf_counter()
+        rows, gt = [], []
+        for i, (R, t) in enumerate(poses[:N_FRAMES]):
+            ts_ns = i * 50_000_000
+            img = world.render_points(np.asarray(R, np.float64),
+                                      np.asarray(t, np.float64), rays0,
+                                      np.eye(3), (H, W))[0]
+            write_png_gray(os.path.join(data, f"{ts_ns}.png"),
+                           img.clamp(0, 255).to(torch.uint8).cpu().numpy())
+            rows.append(f"{ts_ns},{ts_ns}.png")
+            Rwc = np.asarray(R, np.float64).T
+            c = -Rwc @ np.asarray(t, np.float64)
+            q = lie.rotmat_to_quat(torch.tensor(Rwc)).numpy()
+            gt.append(f"{ts_ns},{c[0]:.9f},{c[1]:.9f},{c[2]:.9f},{q[3]:.9f},"
+                      f"{q[0]:.9f},{q[1]:.9f},{q[2]:.9f}")
+        with open(os.path.join(root, "mav0", "cam0", "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n" + "\n".join(rows) + "\n")
+        with open(os.path.join(gt_dir, "data.csv"), "w") as f:
+            f.write("#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], "
+                    "q_RS_w [], q_RS_x [], q_RS_y [], q_RS_z []\n"
+                    + "\n".join(gt) + "\n")
+        write_s = time.perf_counter() - t0
+        png_mb = sum(os.path.getsize(os.path.join(data, n))
+                     for n in os.listdir(data)) / 2 ** 20
+        _reset_counters()
+        t0 = time.perf_counter()
+        res = run_dataset.evaluate_sequence(root, "mono", device=DEV)
+        run_s = time.perf_counter() - t0
+    launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
+                               "pose_opt", "ba_assemble", "pyramid_blur"],
+                              "euroc_synth", state)
+    c0 = -(np.asarray(poses[0][0]).T @ poses[0][1])
+    c1 = -(np.asarray(poses[N_FRAMES - 1][0]).T @ poses[N_FRAMES - 1][1])
+    extent = float(np.linalg.norm(c1 - c0))
+    out = dict(res, extent_m=extent, ate_gate_m=0.023 * extent,
+               png_write_s=write_s, png_mb=png_mb, evaluate_s=run_s,
+               launches=launches)
+    log(f"euroc_synth: {res['ok_frames']}/{res['frames']} OK, "
+        f"{res['keyframes']} keyframes, {res['fps']} fps (decode included), "
+        f"Sim3 ATE {res.get('ate_rmse')} m (gate {0.023 * extent:.5f}); "
+        f"{N_FRAMES} PNGs ({png_mb:.1f} MB) written in {write_s:.1f} s")
+    check(res["ok_frames"] >= 0.7 * res["frames"],
+          ("euroc_synth OK frames", res))
+    check("ate_rmse" in res and res["ate_rmse"] < 0.023 * extent,
+          ("euroc_synth ATE", res, extent))
+    log("euroc_synth path:", json.dumps(out))
+    state["euroc_synth"] = out
+
+
 def _ptxas(name):
     from morb_slam_tpu_torch.ops import cuda_build
     return cuda_build.ptxas_report(name).strip().replace("\n", " | ")
@@ -3662,6 +4030,7 @@ def main():
               ("rgbd", phase_rgbd), ("reloc", phase_reloc), ("vi", phase_vi),
               ("loop", phase_loop), ("merge", phase_merge),
               ("vi_loop", phase_vi_loop), ("fisheye", phase_fisheye),
+              ("persist", phase_persist), ("euroc_synth", phase_euroc_synth),
               ("new_kernels", phase_new_kernels))
     only = args.only and ["device"] + args.only.split(",")
     state["plain_rows"] = []
@@ -3678,19 +4047,19 @@ def main():
     rows = state["kernel_rows"]
     by_path = state["launches_by_path"]
     for r in rows:
-        # the count of this slice's path (loop) for the kernels it runs,
-        # else of the vi path, else of the reloc path
-        r["launches"] = next(by_path[p][r["name"]]
-                             for p in ("loop", "vi_loop", "vi", "fisheye",
-                                       "reloc")
-                             if r["name"] in by_path[p])
+        # the count of this slice's persist path for the kernels it runs,
+        # else of the first earlier path that runs the kernel
+        r["launches_from"] = next(p for p in ("persist", "loop", "vi_loop",
+                                              "vi", "fisheye", "reloc")
+                                  if r["name"] in by_path[p])
+        r["launches"] = by_path[r["launches_from"]][r["name"]]
         r["launches_by_path"] = {p: c.get(r["name"], 0)
                                  for p, c in by_path.items()}
         r.setdefault("ms_by", "cuda events" if f"{r['name']}_kernel"
                      in EVENT_TIMED else "profiler")
     log(json.dumps({"plain_kernel_targets": state["plain_rows"]}))
     for name in ("main", "stereo", "rgbd", "reloc", "vi", "loop", "merge",
-                 "vi_loop", "fisheye"):
+                 "vi_loop", "fisheye", "persist", "euroc_synth"):
         key = "main_path" if name == "main" else f"{name}_path"
         log(json.dumps({key: state[name]}))
     log(json.dumps({"kernels": rows}))

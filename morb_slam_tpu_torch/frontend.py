@@ -1,10 +1,12 @@
 """ORB feature extraction: pyramid, FAST, grid-balanced selection,
 orientation and rotated BRIEF (counterpart of `morb_slam_tpu/frontend.py`).
 
-Per level: K1 (`ops.fast.fast_select`) scores every pixel and keeps the two
-best keys of each 16x16 cell; a stable descending sort keeps the level's
-best `n_keep` of those; the 7x7 blur runs in plain PyTorch; K2
-(`ops.orb_descriptor.orb_describe`) computes angles and descriptors.
+K6 (`ops.image.build_pyramid`, `blur_levels`) builds the pyramid and
+blurs every level (7x7) in one call before the level loop. Per level: K1
+(`ops.fast.fast_select`) scores every pixel and keeps the two best keys of
+each 16x16 cell; a stable descending sort keeps the level's best `n_keep`
+of those; K2 (`ops.orb_descriptor.orb_describe`) computes angles and
+descriptors on the raw and the blurred level.
 Outputs are fixed-capacity masked tensors, as in the reference package.
 """
 from __future__ import annotations
@@ -83,15 +85,14 @@ def select_level_keypoints(level, n_keep: int, cfg: OrbConfig):
 def extract_orb(img, cfg: OrbConfig = OrbConfig()) -> Features:
     """Grayscale (H, W) float32 in [0, 255] -> Features."""
     levels = image_ops.build_pyramid(img, cfg.n_levels, cfg.scale)
+    blurred = image_ops.blur_levels(levels)
     counts = cfg.per_level_counts()
     out = {k: [] for k in Features._fields}
     for l, (lvl, n_keep) in enumerate(zip(levels, counts)):
         if n_keep == 0:
             continue
-        lvl = lvl.contiguous()
         yx, _, resp, valid = select_level_keypoints(lvl, n_keep, cfg)
-        blurred = image_ops.gaussian_blur(lvl).contiguous()
-        ang, desc = orb_desc.orb_describe(lvl, blurred, yx.contiguous())
+        ang, desc = orb_desc.orb_describe(lvl, blurred[l], yx.contiguous())
         s = cfg.scale ** l
         out["uv"].append(torch.stack([yx[:, 1].to(torch.float32) * s,
                                       yx[:, 0].to(torch.float32) * s], dim=-1))

@@ -23,7 +23,7 @@ BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 SOURCES = ("fast_select", "orb_describe", "hamming_top2", "stereo_sad",
            "remap_bilinear", "pose_opt", "vocab_transform", "bow_l1",
            "ba_assemble", "preintegrate", "pose_inertial", "schur_pcg",
-           "vi_edges", "pose_graph")
+           "vi_edges", "pose_graph", "pyramid_blur")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

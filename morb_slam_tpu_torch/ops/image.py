@@ -1,23 +1,42 @@
-"""Image-level ops: pyramid construction and the separable Gaussian blur
-(counterpart of `morb_slam_tpu/ops/image.py`; K6 of the kernel table, plain
-PyTorch).
+"""Image-level ops: the pyramid and the separable Gaussian blur, kernel K6
+(counterpart of `morb_slam_tpu/ops/image.py`).
 
-The pyramid applies the same triangle-kernel weight matrices that
-`jax.image.resize(..., "linear")` builds (antialiased on downscale), computed
-here once per level shape in numpy float32 and applied as two float32
-matmuls. `F.interpolate(antialias=True)` differs from that filter in the
-last digits, enough to flip FAST selections on the coarse levels. The blur
-is the reference's seven shifted adds per axis with edge replication, not a
-`conv2d`, which cuDNN would run in TF32.
+`build_pyramid` and `blur_levels` launch `csrc/pyramid_blur.cu` for a CUDA
+tensor (one launch per pyramid level, one for the blur of every level;
+the levels and the blurred levels are contiguous views of one buffer each)
+and run their plain versions, `build_pyramid_plain` and
+`gaussian_blur_plain`, for a CPU tensor.
+
+The plain pyramid applies the triangle-kernel weight matrices that
+`jax.image.resize(..., "linear")` builds (antialiased on downscale),
+computed once per level shape in numpy float32, as two float32 matmuls.
+`F.interpolate(antialias=True)` differs from that filter in the last
+digits, enough to flip FAST selections on the coarse levels. The kernel
+sums each output's few non-zero taps of the same weights in ascending input
+order, and agrees with the plain pyramid to float32 rounding. The blur is
+the reference's seven shifted adds per axis with edge replication, not a
+`conv2d` (cuDNN would run that in TF32); the kernel repeats those adds and
+is bitwise equal to the plain blur.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from . import cuda_build
+
+LAUNCHES = {"kernel": 0, "plain": 0}
+MAX_TAPS = 8      # csrc/pyramid_blur.cu
+TILE_X = 32
+TILE_SPAN = 64    # input columns one pyramid tile may read
+MAX_LEVELS = 16
+
 _weights: dict = {}
+_bands: dict = {}
 
 
 def level_shapes(h: int, w: int, n_levels: int, scale: float):
@@ -69,10 +88,10 @@ def resize_bilinear(img, out_hw):
     return out
 
 
-@record_function("K6 build_pyramid")
-def build_pyramid(img, n_levels: int, scale: float):
-    """(H, W) float32 -> list of per-level images, each level downscaled
-    from the previous one like the reference."""
+def build_pyramid_plain(img, n_levels: int, scale: float):
+    """Plain K6 pyramid: (H, W) float32 -> list of per-level images, each
+    level downscaled from the previous one like the reference."""
+    LAUNCHES["plain"] += 1
     h, w = img.shape
     shapes = level_shapes(h, w, n_levels, scale)
     levels = [img]
@@ -91,10 +110,11 @@ def gaussian_kernel1d(ksize: int = 7, sigma: float = 2.0):
 _KERNEL7 = gaussian_kernel1d()
 
 
-@record_function("K6 gaussian_blur")
-def gaussian_blur(img):
-    """7x7 sigma=2 separable blur with edge replication: seven shifted adds
-    per axis in the reference's order, so the sums round the same way."""
+def gaussian_blur_plain(img):
+    """Plain K6 blur: 7x7 sigma=2 separable blur with edge replication,
+    seven shifted adds per axis in the reference's order, so the sums round
+    the same way."""
+    LAUNCHES["plain"] += 1
     h, w = img.shape
     k = [float(v) for v in _KERNEL7]
     r = len(k) // 2
@@ -107,3 +127,142 @@ def gaussian_blur(img):
     for i in range(len(k)):
         out2 = out2 + k[i] * p[:, i:i + w]
     return out2
+
+
+def _band(n_in: int, n_out: int):
+    """(start, count, weights (n_out, MAX_TAPS)) of each output's run of
+    non-zero taps in resize_weights, in ascending input order."""
+    if n_in == n_out:
+        wt = np.zeros((n_out, MAX_TAPS), np.float32)
+        wt[:, 0] = 1.0
+        return (np.arange(n_out, dtype=np.int32), np.ones(n_out, np.int32),
+                wt)
+    W = resize_weights(n_in, n_out)
+    start = np.zeros(n_out, np.int32)
+    count = np.zeros(n_out, np.int32)
+    wt = np.zeros((n_out, MAX_TAPS), np.float32)
+    for o in range(n_out):
+        nz = np.nonzero(W[:, o])[0]
+        if len(nz) == 0:
+            start[o] = start[o - 1] if o else 0
+            continue
+        s, c = int(nz[0]), int(nz[-1]) - int(nz[0]) + 1
+        if c > MAX_TAPS:
+            raise ValueError(f"K6: {c} taps per output (at most {MAX_TAPS})")
+        start[o], count[o] = s, c
+        wt[o, :c] = W[s:s + c, o]
+    return start, count, wt
+
+
+def band_tables(h: int, w: int, n_levels: int, scale: float, device):
+    """Per level 1..n_levels-1: one int32 device tensor holding the row and
+    column bands (start, count, then the weights' bits) that
+    `pyramid_level` reads; built once per image shape and device."""
+    key = (h, w, n_levels, float(scale), str(device))
+    tables = _bands.get(key)
+    if tables is not None:
+        return tables
+    shapes = level_shapes(h, w, n_levels, scale)
+    tables = []
+    for (hi, wi), (ho, wo) in zip(shapes[:-1], shapes[1:]):
+        rs, rc, rw = _band(hi, ho)
+        cs, cc, cw = _band(wi, wo)
+        ends = cs + cc
+        for x0 in range(0, wo, TILE_X):
+            if int(ends[x0:x0 + TILE_X].max()) - int(cs[x0]) > TILE_SPAN:
+                raise ValueError("K6: a pyramid tile spans more than "
+                                 f"{TILE_SPAN} input columns")
+        blob = np.concatenate([rs, rc, cs, cc, rw.reshape(-1).view(np.int32),
+                               cw.reshape(-1).view(np.int32)])
+        tables.append(torch.from_numpy(blob).to(device))
+    _bands[key] = tables
+    return tables
+
+
+@record_function("K6 build_pyramid")
+def build_pyramid(img, n_levels: int, scale: float):
+    """K6 pyramid: (H, W) float32 -> list of n_levels images. CUDA tensors:
+    one kernel launch per level 1.., the levels contiguous views of one
+    buffer (raises if the kernel cannot run); CPU tensors: the plain
+    version."""
+    if img.device.type == "cpu":
+        return build_pyramid_plain(img, n_levels, scale)
+    if img.device.type != "cuda":
+        raise ValueError(f"build_pyramid: unsupported device {img.device}")
+    if img.dtype != torch.float32 or img.dim() != 2 or \
+            not 1 <= n_levels <= MAX_LEVELS:
+        raise ValueError("build_pyramid: needs one float32 (H, W) image and "
+                         f"1..{MAX_LEVELS} levels")
+    h, w = img.shape
+    shapes = level_shapes(h, w, n_levels, scale)
+    sizes = [a * b for a, b in shapes]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=img.device)
+    levels = list(torch.split(buf, sizes))
+    levels = [v.view(s) for v, s in zip(levels, shapes)]
+    levels[0].copy_(img)
+    lib = _lib()
+    stream = cuda_build.stream_ptr(img)
+    for l, band in enumerate(band_tables(h, w, n_levels, scale, img.device),
+                             start=1):
+        (hi, wi), (ho, wo) = shapes[l - 1], shapes[l]
+        rc = lib.pyramid_level(levels[l - 1].data_ptr(), hi, wi,
+                               levels[l].data_ptr(), ho, wo, band.data_ptr(),
+                               stream)
+        cuda_build.check(rc, "pyramid_level")
+        LAUNCHES["kernel"] += 1
+    return levels
+
+
+@record_function("K6 blur_levels")
+def blur_levels(levels):
+    """K6 blur of every level. CUDA tensors: one launch over all levels,
+    which must be consecutive contiguous views of one buffer, as
+    `build_pyramid` returns them; the results are contiguous views of one
+    buffer. CPU tensors: the plain blur per level."""
+    levels = list(levels)
+    dev = levels[0].device
+    if dev.type == "cpu":
+        return [gaussian_blur_plain(l) for l in levels]
+    if dev.type != "cuda":
+        raise ValueError(f"blur_levels: unsupported device {dev}")
+    if len(levels) > MAX_LEVELS or any(
+            l.dtype != torch.float32 or l.dim() != 2 or l.device != dev
+            for l in levels):
+        raise ValueError("blur_levels: needs float32 (H, W) images on one "
+                         f"device, at most {MAX_LEVELS}")
+    shapes = [tuple(l.shape) for l in levels]
+    sizes = [a * b for a, b in shapes]
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    src = levels[0]
+    if not all(l.is_contiguous() and
+               l.data_ptr() == src.data_ptr() + 4 * int(o)
+               for l, o in zip(levels, offs)):
+        raise ValueError("blur_levels: the levels must be consecutive "
+                         "contiguous views of one buffer (build_pyramid's)")
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    I = ctypes.c_int * len(levels)
+    rc = _lib().blur_levels(
+        src.data_ptr(), out.data_ptr(), len(levels), I(*offs.tolist()),
+        I(*[s[0] for s in shapes]), I(*[s[1] for s in shapes]),
+        (ctypes.c_float * 7)(*_KERNEL7.tolist()), cuda_build.stream_ptr(src))
+    cuda_build.check(rc, "blur_levels")
+    LAUNCHES["kernel"] += 1
+    return [v.view(s) for v, s in zip(torch.split(out, sizes), shapes)]
+
+
+def gaussian_blur(img):
+    """K6 blur of one image (`blur_levels` of one level)."""
+    return blur_levels([img.contiguous()])[0]
+
+
+def _lib():
+    lib = cuda_build.library("pyramid_blur")
+    if lib.pyramid_level.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        IP = ctypes.POINTER(ctypes.c_int)
+        lib.pyramid_level.argtypes = [P, I, I, P, I, I, P, P]
+        lib.pyramid_level.restype = I
+        lib.blur_levels.argtypes = [P, P, I, IP, IP, IP,
+                                    ctypes.POINTER(ctypes.c_float), P]
+        lib.blur_levels.restype = I
+    return lib

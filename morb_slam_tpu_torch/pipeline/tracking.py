@@ -46,7 +46,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import cameras, frontend, imu, lie, matching
 from ..mapstate import state as ms
@@ -57,6 +56,7 @@ from ..optim import inertial as inertial_mod
 from ..optim import pose_opt, vi_ba
 from ..solvers import pnp, two_view
 from ..tensor_ops import add_at, mask_first, put, put2, topk
+from ..utils import profiling
 from ..vocab import database as kfdb
 from ..vocab import tree as voctree
 from . import local_mapping, loop_closing
@@ -765,6 +765,9 @@ class Tracker:
                  seed: int = 0, voc: Optional[voctree.Vocabulary] = None,
                  imu_calib: Optional[imu.ImuCalib] = None):
         self.device = resolve_device(device)
+        # stage timers (TrackTotal, LMTotal, LoopTotal, GBATotal), each also
+        # a profiler range
+        self.timers = profiling.global_timers()
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -1220,21 +1223,22 @@ class Tracker:
             if self._recover_lost(fr):
                 return self.state, (self.R_last, self.t_last)
             return self.state, None
-        if self._use_vi_fused():
-            out_tuple = track_step_vi_framedata(
-                fr, self.m, self.last, self.last_feat_lm, self.R_last,
-                self.t_last, self.ref_kf, self.cam, self.cfg,
-                self._pre_from_kf, self._anchor_kf, self.bias,
-                *self._fused_frame_imu(), self.calib)
-        else:
-            vel_R, vel_t = self.vel
-            out_tuple = track_step_framedata(
-                fr, self.m, self.last, self.last_feat_lm, self.R_last,
-                self.t_last, vel_R, vel_t, self.has_vel, self.ref_kf,
-                self.cam, self.cfg)
-        if self._use_pipeline():
-            return self._track_pipelined(out_tuple, ts)
-        return self._post_track(out_tuple, ts)
+        with self.timers.stage("TrackTotal", self.device):
+            if self._use_vi_fused():
+                out_tuple = track_step_vi_framedata(
+                    fr, self.m, self.last, self.last_feat_lm, self.R_last,
+                    self.t_last, self.ref_kf, self.cam, self.cfg,
+                    self._pre_from_kf, self._anchor_kf, self.bias,
+                    *self._fused_frame_imu(), self.calib)
+            else:
+                vel_R, vel_t = self.vel
+                out_tuple = track_step_framedata(
+                    fr, self.m, self.last, self.last_feat_lm, self.R_last,
+                    self.t_last, vel_R, vel_t, self.has_vel, self.ref_kf,
+                    self.cam, self.cfg)
+            if self._use_pipeline():
+                return self._track_pipelined(out_tuple, ts)
+            return self._post_track(out_tuple, ts)
 
     def _track_pipelined(self, out_tuple, ts: float):
         fr, out, vel_new, rel, info = out_tuple[:5]
@@ -1262,7 +1266,7 @@ class Tracker:
         while self._pending:
             self._decide_pending(*self._pending.pop(0))
         if self._gba_job is not None:
-            with record_function("GBATotal"):
+            with self.timers.stage("GBATotal", self.device):
                 while not self._gba_job.advance():
                     pass
                 self.m = self._gba_job.reconcile(self.m)
@@ -1510,14 +1514,16 @@ class Tracker:
         if self.cfg.baseline > 0:
             self.m = create_close_landmarks(self.m, k, fr, self.cfg)
         bow = self._db_add(k, fr)
-        if self.cfg.inertial and self.imu_ready and self.kf_imu is not None:
-            self.m, self.kf_imu = local_mapping.mapping_step_inertial(
-                self.m, self.kf_imu, k, self.cam, self.cfg.lm_cfg)
-        else:
-            self.m = local_mapping.mapping_step(self.m, k, self.cam,
-                                                self.cfg.lm_cfg)
+        with self.timers.stage("LMTotal", self.device):
+            if self.cfg.inertial and self.imu_ready and \
+                    self.kf_imu is not None:
+                self.m, self.kf_imu = local_mapping.mapping_step_inertial(
+                    self.m, self.kf_imu, k, self.cam, self.cfg.lm_cfg)
+            else:
+                self.m = local_mapping.mapping_step(self.m, k, self.cam,
+                                                    self.cfg.lm_cfg)
         if self.loop_closer is not None and bow is not None:
-            with record_function("LoopTotal"):
+            with self.timers.stage("LoopTotal", self.device):
                 if self.loop_closer.maybe_close(self, k, bow) or (
                         self.stash and
                         self.loop_closer.maybe_merge(self, k, bow)):
@@ -1525,7 +1531,7 @@ class Tracker:
         if self._gba_job is not None:
             # one slice of the detached global BA per insert, folded into
             # the live map at once
-            with record_function("GBATotal"):
+            with self.timers.stage("GBATotal", self.device):
                 done = self._gba_job.advance()
                 self.m = self._gba_job.reconcile(self.m)
                 if done:

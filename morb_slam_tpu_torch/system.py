@@ -10,9 +10,12 @@ each frame's samples as `imu_batch=(timestamps, acc, gyro)`. A vocabulary
 (`vocabulary=` or `vocabulary_path=`, `.npz` or ORBvoc `.txt`) gives the
 tracker BoW relocalization and, with `settings.loop_closing` (the
 default), loop closing, the Atlas merge and the detached global BA;
-`loopClosing: 0` keeps relocalization only. Atlas save / load (and the
-trajectory writers) belong to the persistence slice of the port;
-`settings.load_atlas` raises `NotImplementedError` here.
+`loopClosing: 0` keeps relocalization only. The results come back as
+trajectory files (`save_trajectory_tum` / `_euroc` / `_kitti`,
+`save_keyframe_trajectory_tum`, `save_sub_trajectory`), the map's points
+(`map_point_cloud`) and whole-Atlas checkpoints (`save_atlas` /
+`load_atlas`, in the reference package's file format); `settings.load_atlas`
+loads one at construction.
 """
 from __future__ import annotations
 
@@ -23,8 +26,9 @@ import numpy as np
 import torch
 
 from . import imu as imu_mod
+from . import lie
 from .io import config as config_mod
-from .io import serialization
+from .io import serialization, trajectory
 from .ops import rectify as rectify_mod
 from .pipeline import tracking
 
@@ -62,10 +66,6 @@ class System:
             settings = config_mod.load_settings(settings)
         if sensor.inertial and settings.imu is None:
             raise ValueError("an inertial sensor needs settings.imu")
-        if settings.load_atlas:
-            raise NotImplementedError(
-                "atlas load / save comes with the persistence slice of the "
-                "port")
         self.settings = settings
         self.sensor = sensor
         self.device = tracking.resolve_device(device)
@@ -117,6 +117,8 @@ class System:
                                         imu_calib=calib)
         self._drop_loop_closer()
         self.localization_only = False
+        if settings.load_atlas:
+            self.load_atlas(settings.load_atlas)
 
     def _drop_loop_closer(self):
         """loopClosing: 0 keeps the database for relocalization only."""
@@ -174,3 +176,77 @@ class System:
     @property
     def state(self):
         return self.tracker.state
+
+    # ---- output ---------------------------------------------------------
+
+    def _frame_poses(self):
+        """[(ts, R_cw, t_cw)] of every frame whose anchor keyframe still
+        resolves, each relative pose chained through its (possibly
+        BA-updated or welded) reference keyframe."""
+        self.tracker.flush()
+        out = []
+        for ts, gen, ref, R_cr, t_cr in self.tracker.trajectory:
+            resolved = self.tracker.resolve_ref_pose(gen, ref)
+            if resolved is None:
+                continue
+            out.append((ts,) + lie.se3_mul(R_cr, t_cr, *resolved))
+        return out
+
+    def _keyframe_poses(self):
+        m = self.tracker.m
+        n = int(m.n_kf)
+        valid = m.kf_valid[:n].cpu().numpy()
+        ts = m.kf_ts[:n].cpu().numpy()
+        return [(float(ts[k]), m.kf_R[k], m.kf_t[k]) for k in range(n)
+                if valid[k]]
+
+    def save_trajectory_tum(self, path):
+        trajectory.write_tum(path, self._frame_poses())
+
+    def save_trajectory_euroc(self, path):
+        trajectory.write_euroc(path, self._frame_poses())
+
+    def save_trajectory_kitti(self, path):
+        trajectory.write_kitti(path, self._frame_poses())
+
+    def save_keyframe_trajectory_tum(self, path):
+        trajectory.write_tum(path, self._keyframe_poses())
+
+    def save_sub_trajectory(self, path, t_start: float, t_end: float,
+                            fmt: str = "tum"):
+        """The frame trajectory restricted to [t_start, t_end]."""
+        poses = [p for p in self._frame_poses() if t_start <= p[0] <= t_end]
+        writer = {"tum": trajectory.write_tum,
+                  "euroc": trajectory.write_euroc,
+                  "kitti": trajectory.write_kitti}[fmt]
+        writer(path, poses)
+
+    def save_atlas(self, path):
+        """Whole-Atlas checkpoint: <path>.npz + <path>.json."""
+        serialization.save_atlas(path, self.tracker,
+                                 meta={"sensor": self.sensor.value},
+                                 voc=self.voc)
+
+    def load_atlas(self, path):
+        """Restore an Atlas checkpoint, or else a single-map checkpoint
+        (`save_map`), whose database is rebuilt from its keyframes; either
+        way the session resumes RECENTLY_LOST and relocalizes."""
+        try:
+            serialization.load_atlas(path, self.tracker, voc=self.voc)
+            return
+        except ValueError as e:
+            if "not an atlas" not in str(e):
+                raise
+        t = self.tracker
+        t.m = serialization.load_map(path, voc=self.voc, device=self.device)
+        t.n_kf_host = int(t.m.n_kf)
+        if self.voc is not None and t.db is not None:
+            serialization.rebuild_database(t, self.voc, t.n_kf_host)
+        if t.n_kf_host > 0:
+            t.state = "RECENTLY_LOST"
+            t.last = None
+
+    def map_point_cloud(self):
+        """(N, 3) numpy world points of the active map's valid landmarks."""
+        m = self.tracker.m
+        return m.lm_pos[m.lm_valid].cpu().numpy()

@@ -7,21 +7,28 @@ covers every module, among them `vocab/`, `io/serialization.py`,
 `solvers/pnp.py`, `imu.py`, `optim/inertial.py`, `optim/vi_ba.py` and the
 loop-closing slice's `solvers/sim3.py`, `optim/pose_graph.py`,
 `mapstate/atlas.py`, `pipeline/global_ba.py` and
-`pipeline/loop_closing.py`; K13's wrappers (`optim/vi_ba.py`
-inertial_system, inertial_cost) and K15's (`optim/pose_graph.py`
-normal_equations) are held to the same device rules."""
+`pipeline/loop_closing.py`, and the persistence and CLI slice's
+`io/trajectory.py`, `io/datasets.py`, `io/native_loader.py`,
+`eval/ate.py`, `utils/`, `viz.py`, `examples/` and `tools/`; K13's
+wrappers (`optim/vi_ba.py` inertial_system, inertial_cost), K15's
+(`optim/pose_graph.py` normal_equations) and K6's (`ops/image.py`
+build_pyramid, blur_levels) are held to the same device rules. The native
+image loader builds only from the port's own
+`morb_slam_tpu_torch/native/loader.cc` and reads nothing of the repository's
+`native/` directory."""
 import os
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
 from morb_slam_tpu_torch import cameras, imu, system
 from morb_slam_tpu_torch.io import config
-from morb_slam_tpu_torch.ops import (fast, hamming, orb_descriptor, rectify,
-                                     stereo)
+from morb_slam_tpu_torch.ops import (fast, hamming, image, orb_descriptor,
+                                     rectify, stereo)
 from morb_slam_tpu_torch.optim import ba, pose_graph, pose_opt, vi_ba
 from morb_slam_tpu_torch.pipeline import tracking
 from morb_slam_tpu_torch.vocab import tree
@@ -56,7 +63,11 @@ def test_imports_without_jax_or_reference_package():
                      "solvers.pnp", "optim.pose_opt", "imu", "optim.inertial",
                      "optim.vi_ba", "optim.ba", "solvers.sim3",
                      "optim.pose_graph", "mapstate.atlas",
-                     "pipeline.global_ba", "pipeline.loop_closing"):
+                     "pipeline.global_ba", "pipeline.loop_closing",
+                     "io.trajectory", "io.datasets", "io.native_loader",
+                     "eval.ate", "utils.profiling", "utils.verbose", "viz",
+                     "examples.run_dataset", "examples.run_live",
+                     "tools.process_imu"):
             assert "morb_slam_tpu_torch." + need in names, need
         print(len(names))
     """)
@@ -90,6 +101,20 @@ def test_system_default_device_needs_cuda(monkeypatch):
     assert sm.tracker.device.type == "cpu"
 
 
+def test_ate_default_device_needs_cuda(monkeypatch, tmp_path):
+    """eval.ate aligns on the card unless the caller asks for the CPU."""
+    from morb_slam_tpu_torch.eval import ate
+    from morb_slam_tpu_torch.io import trajectory
+    poses = [(0.1 * i, np.eye(3), np.array([0.1 * i, 0.02 * i * i, 0.0]))
+             for i in range(5)]
+    path = str(tmp_path / "t.txt")
+    trajectory.write_tum(path, poses)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ate.evaluate(path, path)
+    assert ate.evaluate(path, path, device="cpu")["pairs"] == 5
+
+
 def _counts():
     return [dict(c) for c in (fast.LAUNCHES, orb_descriptor.LAUNCHES,
                               hamming.LAUNCHES, stereo.LAUNCHES,
@@ -98,7 +123,7 @@ def _counts():
                               tree.LAUNCHES["bow_l1"], ba.LAUNCHES,
                               imu.LAUNCHES, vi_ba.LAUNCHES,
                               ba.SCHUR_LAUNCHES, vi_ba.INERTIAL_LAUNCHES,
-                              pose_graph.LAUNCHES)]
+                              pose_graph.LAUNCHES, image.LAUNCHES)]
 
 
 def _voc(device):
@@ -190,7 +215,8 @@ def _graph_args(device, K=3):
                                     "pose_inertial", "ba_assemble_per_obs",
                                     "schur_lm_pass", "schur_kf_pass",
                                     "inertial_system", "inertial_cost",
-                                    "normal_equations"])
+                                    "normal_equations", "build_pyramid",
+                                    "blur_levels"])
 def test_wrappers_refuse_other_devices(kernel):
     meta = torch.device("meta")
     before = _counts()
@@ -244,6 +270,11 @@ def test_wrappers_refuse_other_devices(kernel):
             vi_ba.inertial_cost(p, *st)
         elif kernel == "normal_equations":
             pose_graph.normal_equations(*_graph_args(meta))
+        elif kernel == "build_pyramid":
+            image.build_pyramid(torch.empty((48, 64), device=meta), 3, 1.2)
+        elif kernel == "blur_levels":
+            image.blur_levels([torch.empty((48, 64), device=meta),
+                               torch.empty((40, 53), device=meta)])
         else:
             rectify.remap_bilinear(torch.empty((48, 64), device=meta),
                                    torch.zeros((8, 8, 2), device=meta))
@@ -274,6 +305,8 @@ def test_wrappers_use_plain_versions_on_cpu():
     assert H.shape == (30, 30) and b.shape == (30,)
     H, b, c = pose_graph.normal_equations(*_graph_args("cpu"))
     assert H.shape == (21, 21) and b.shape == (21,) and c.dim() == 0
+    levels = image.build_pyramid(img, 3, 1.2)
+    assert [tuple(l.shape) for l in levels] == [(48, 64), (40, 53), (33, 44)]
     after = _counts()
     for b, a in zip(before, after):
         assert a["plain"] == b["plain"] + 1
@@ -294,3 +327,46 @@ def test_k4_per_obs_and_k14_use_plain_versions_on_cpu():
     assert ba.SCHUR_LAUNCHES["plain"] == before[1]["plain"] + 2
     assert ba.LAUNCHES["kernel"] == before[0]["kernel"]
     assert ba.SCHUR_LAUNCHES["kernel"] == before[1]["kernel"]
+
+
+def test_k6_blur_uses_plain_version_on_cpu():
+    """blur_levels on CPU tensors: the plain blur once per level, equal to
+    gaussian_blur_plain of each level."""
+    img = torch.rand((48, 64)) * 255
+    levels = image.build_pyramid_plain(img, 3, 1.2)
+    before = dict(image.LAUNCHES)
+    out = image.blur_levels(levels)
+    assert image.LAUNCHES == {"kernel": before["kernel"],
+                              "plain": before["plain"] + 3}
+    for o, l in zip(out, levels):
+        assert torch.equal(o, image.gaussian_blur_plain(l))
+
+
+def test_native_loader_builds_from_the_ports_source(tmp_path):
+    """A fresh build of the image loader compiles the port's own
+    native/loader.cc into the given build directory and loads that library:
+    no path under the repository's native/ directory is compiled, linked or
+    loaded."""
+    script = textwrap.dedent(f"""
+        import ctypes, os, subprocess
+        from morb_slam_tpu_torch.io import native_loader as nl
+        seen = []
+        run, cdll = subprocess.run, ctypes.CDLL
+        def spy_run(cmd, *a, **k):
+            seen.extend(cmd)
+            return run(cmd, *a, **k)
+        def spy_cdll(name, *a, **k):
+            seen.append(name)
+            return cdll(name, *a, **k)
+        subprocess.run, ctypes.CDLL = spy_run, spy_cdll
+        nl.BUILD_DIR = {str(tmp_path)!r}
+        assert nl.get_lib() is not None, nl.build_error()
+        native = os.path.join({REPO!r}, "native") + os.sep
+        assert nl.SRC in seen, seen
+        assert not [p for p in seen if str(p).startswith(native)], seen
+        assert any(str(p).startswith({str(tmp_path)!r}) for p in seen), seen
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr

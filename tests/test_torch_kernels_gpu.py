@@ -22,8 +22,9 @@ inertial assembly of a VI-BA step (K13) over windows of 1, 14 and 32
 slots with invalid slots, a chain that skips a slot and no bias prior,
 and the LM loop over it; the pose-graph normal equations (K15) of graphs
 with zero-weight edges, padding nodes and both parametrizations, and
-the Gauss-Newton loop over them; and every new wrapper refusing bad
-dtypes and shapes.
+the Gauss-Newton loop over them; the pyramid and blur (K6) at the main
+path's shapes, odd and tiny sizes and levels that are no views of one
+buffer; and every new wrapper refusing bad dtypes and shapes.
 
 Marked `gpu`: each test skips without a CUDA card. On a machine with one
 (and without JAX, so without tests/conftest.py):
@@ -50,7 +51,11 @@ its sums is bounded by the terms, not the result); K13 and K15 H within
 its scaled max-abs, the cost within 1e-5 relative, both bitwise repeatable
 (the plain K13 Jacobian carries some tangents in float64, the kernel's
 dual numbers float32), their loops with states within 1e-4 and costs
-within 1e-3 relative.
+within 1e-3 relative; K6's blur bitwise equal to the plain blur (the same
+adds, no FMA), its pyramid within 1e-3 grey levels of the plain pyramid
+(cuBLAS sums the dense product in another order; ~5e-5 seen), and
+`extract_orb` with the kernel and with the plain K6 in agreement on >= 99%
+of (yx, octave) slots and >= 99.9% of the descriptor bits there.
 """
 import math
 
@@ -1178,3 +1183,85 @@ def test_k13_k15_refuse_bad_inputs_on_the_card(cuda):
     with pytest.raises(ValueError):
         pg.normal_equations(g, g.s, g.R.double(), g.t)
     assert (vi_ba.INERTIAL_LAUNCHES, pg.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("shape,n_levels", [((480, 752), 8), ((288, 384), 4),
+                                            ((131, 97), 5), ((7, 5), 2),
+                                            ((1, 1), 1)])
+def test_k6_pyramid_and_blur(cuda, shape, n_levels):
+    rng = np.random.default_rng(sum(shape))
+    img = image.gaussian_blur_plain(torch.from_numpy(
+        rng.integers(0, 256, shape).astype(np.float32))).to(cuda)
+    before = dict(image.LAUNCHES)
+    got = image.build_pyramid(img, n_levels, 1.2)
+    blurred = image.blur_levels(got)
+    assert image.LAUNCHES["kernel"] == before["kernel"] + n_levels
+    assert image.LAUNCHES["plain"] == before["plain"]
+    want = image.build_pyramid_plain(img, n_levels, 1.2)
+    assert torch.equal(got[0], img)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        assert float((g - w).abs().max()) < 1e-3
+    for b, g in zip(blurred, got):
+        assert torch.equal(b, image.gaussian_blur_plain(g))
+    # bitwise repeatable
+    again = image.build_pyramid(img, n_levels, 1.2)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_k6_blur_refuses_unpacked_levels(cuda):
+    """blur_levels takes only consecutive contiguous views of one buffer;
+    gaussian_blur blurs a strided view as its contiguous copy."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.uniform(0, 255, (40, 70)).astype(
+        np.float32)).to(cuda)
+    b = torch.from_numpy(rng.uniform(0, 255, (33, 64)).astype(
+        np.float32)).to(cuda)[:, ::2]
+    before = dict(image.LAUNCHES)
+    for levels in ([a, b.contiguous()], [b]):
+        with pytest.raises(ValueError):
+            image.blur_levels(levels)
+    assert image.LAUNCHES == before
+    assert torch.equal(image.gaussian_blur(b),
+                       image.gaussian_blur_plain(b.contiguous()))
+
+
+def test_k6_refuses_bad_inputs(cuda):
+    before = dict(image.LAUNCHES)
+    with pytest.raises(ValueError):
+        image.build_pyramid(torch.zeros((8, 8), dtype=torch.float64,
+                                        device=cuda), 2, 1.2)
+    with pytest.raises(ValueError):
+        image.build_pyramid(torch.zeros((2, 8, 8), device=cuda), 2, 1.2)
+    with pytest.raises(ValueError):
+        image.build_pyramid(torch.zeros((64, 64), device=cuda), 17, 1.2)
+    with pytest.raises(ValueError):
+        image.blur_levels([torch.zeros((8, 8), dtype=torch.int32,
+                                       device=cuda)])
+    assert image.LAUNCHES == before
+
+
+def test_k6_extract_orb_agrees_with_plain(cuda, monkeypatch):
+    """extract_orb on a 480x752 frame with the K6 kernel and with the plain
+    K6 forced: >= 99% of the (yx, octave) slots and >= 99.9% of their
+    descriptor bits agree."""
+    rng = np.random.default_rng(11)
+    img = image.gaussian_blur_plain(torch.from_numpy(
+        _image((480, 752), "noise")))
+    img = image.gaussian_blur_plain(img) + torch.from_numpy(
+        rng.normal(0, 4, (480, 752)).astype(np.float32))
+    img = img.to(cuda)
+    cfg = frontend.OrbConfig(n_features=1200, n_levels=8)
+    got = frontend.extract_orb(img, cfg)
+    monkeypatch.setattr(image, "build_pyramid", image.build_pyramid_plain)
+    monkeypatch.setattr(image, "blur_levels", lambda ls: [
+        image.gaussian_blur_plain(l) for l in ls])
+    want = frontend.extract_orb(img, cfg)
+    same = (got.uv == want.uv).all(-1) & (got.octave == want.octave) & \
+        (got.valid == want.valid)
+    assert float(same.float().mean()) >= 0.99
+    ok = same & want.valid
+    assert int(ok.sum()) > 600
+    bits = orb_descriptor.unpack_bits(got.desc[ok]) != \
+        orb_descriptor.unpack_bits(want.desc[ok])
+    assert float(bits.float().mean()) <= 1e-3

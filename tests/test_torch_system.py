@@ -1,7 +1,8 @@
 """The PyTorch port's System facade on the CPU (its plain kernel
 versions): settings built in code and from YAML (against the JAX
-package's loader), the features of later slices refused, localization mode
-and reset, and two end-to-end sequences at the JAX tests' gates:
+package's loader), `settings.load_atlas` loaded at construction,
+localization mode and reset, and two end-to-end sequences at the JAX
+tests' gates:
 
 - raw, rotated-rig stereo rectified by the System (test_rectify.py's
   test_unrectified_stereo_e2e: > 80% of 40 frames OK, > 25 trajectory
@@ -18,8 +19,9 @@ from scipy.spatial.transform import Rotation as Rot
 
 from morb_slam_tpu.io import config as j_config
 from morb_slam_tpu_torch import alignment, convert, system
-from morb_slam_tpu_torch.io import config
+from morb_slam_tpu_torch.io import config, serialization
 from morb_slam_tpu_torch.ops import rectify
+from morb_slam_tpu_torch.vocab import tree
 
 from synthetic_world import PlaneWorld, camera_path
 from test_rgbd_e2e import render_depth
@@ -105,18 +107,37 @@ def test_system_from_yaml_builds_rectification(tmp_path):
     assert s.state == "NO_IMAGES"
 
 
-@pytest.mark.parametrize("kw", [
-    dict(sensor=system.Sensor.IMU_STEREO),
-    dict(sensor=system.Sensor.MONOCULAR, vocabulary=object()),
-    dict(sensor=system.Sensor.MONOCULAR, vocabulary_path="voc.txt")])
-def test_later_slices_refused(kw):
-    """Atlas loading belongs to the persistence slice, with or without
-    loop closing (the inertial sensors run since the visual-inertial slice,
-    loop closing since the loop-closing slice)."""
+@pytest.mark.parametrize("kw", ["imu_stereo", "vocabulary",
+                                "vocabulary_path"])
+def test_later_slices_refused(kw, tmp_path, monkeypatch):
+    """No sensor or vocabulary refuses an Atlas any more: since the
+    persistence slice `settings.load_atlas` loads it into the tracker at
+    construction, with the System's vocabulary (the inertial sensors run
+    since the visual-inertial slice, loop closing since the loop-closing
+    slice)."""
+    voc = tree.Vocabulary(
+        centers=(torch.zeros((2, 8), dtype=torch.int32),
+                 torch.zeros((4, 8), dtype=torch.int32)),
+        weights=torch.ones(4), k=2)
+    args = {"imu_stereo": dict(sensor=system.Sensor.IMU_STEREO),
+            "vocabulary": dict(sensor=system.Sensor.MONOCULAR,
+                               vocabulary=voc),
+            "vocabulary_path": dict(sensor=system.Sensor.MONOCULAR,
+                                    vocabulary_path=str(tmp_path /
+                                                        "voc.npz"))}[kw]
+    serialization.save_vocabulary(str(tmp_path / "voc.npz"), voc)
+    calls = []
+    monkeypatch.setattr(system.serialization, "load_atlas",
+                        lambda path, tracker, voc=None:
+                        calls.append((path, tracker, voc)))
     settings = config.Settings(cam1=_cam(), imu=config.ImuSettings(),
                                load_atlas="atlas.osa")
-    with pytest.raises(NotImplementedError, match="persistence"):
-        system.System(settings, device="cpu", **kw)
+    s = system.System(settings, device="cpu",
+                      tracker_overrides=dict(max_kf=4, max_lm=100), **args)
+    assert len(calls) == 1
+    path, tracker, v = calls[0]
+    assert path == "atlas.osa" and tracker is s.tracker and v is s.voc
+    assert (v is None) == (kw == "imu_stereo")
 
 
 def test_localization_mode_and_reset(world):
