@@ -122,7 +122,9 @@ Phases:
                 the four_dof pose graph through K15 and full_inertial_ba
                 through K13, the late keyframes' centre RMSE < 0.4 x its
                 value before, tilts < 0.01 rad, poses within 1e-3 of the
-                same calls on the CPU with the plain versions.
+                same calls on the CPU with the plain versions, K18 (which
+                must launch there) against its plain version on the
+                branch's first verification.
  11. fisheye  — bench.py:185 mono_inertial_fisheye_run through
                 `System(settings, Sensor.IMU_MONOCULAR)` with a
                 KannalaBrandt8 cam1 (384x288, f 170): a 640x480 pinhole
@@ -132,9 +134,10 @@ Phases:
                 trajectory, Sim3 ATE < 0.04 x extent; fps over frames
                 70-99.
  12. new kernels — K13 (vi_edges) on the vi path's last window problem and
-                K15 (pose_graph) on the loop path's essential graph
-                against their plain versions (H under Jacobi scaling, b,
-                the cost, within 1e-5; two launches bitwise equal), their
+                K15 (pose_graph) on the loop path's essential graph (and
+                K17, K18 as below) against their plain versions (H
+                under Jacobi scaling, b, the cost, within 1e-5; two
+                launches bitwise equal), their
                 times and bounds, and an LM step / the whole pose graph
                 over kernel and plain; then bench.py:398's ba_iters_per_s
                 problem through the port's ba_solve.
@@ -156,8 +159,34 @@ Phases:
                 port's native loader decodes them; >= 70% OK and the mono
                 Sim3 gate.
 
+ 15. rig      — the non-rectified KB8 fisheye two-camera rig through
+                `Tracker(cam0, cfg, stereo_rig=(cam1, R_rl, t_rl))` (the
+                JAX package's rig entry point; System builds no rig) at
+                TUM-VI's geometry: 512x512 KannalaBrandt8 cam0 of
+                ORB-SLAM3's TUM-VI.yaml and, as cam1, that cam0 perturbed
+                slightly (not a published calibration), 0.10 m to the
+                right, rotated 1 degree; the plane world at half size rendered as a wide
+                pinhole view and remapped by K8 into each fisheye; 1200
+                features, 8 levels. Run (a): 80 pairs through track_stereo,
+                initialized on pair 0, >= 90% OK, the Sim3 scale within 5%,
+                the SE3 ATE under 0.03 x extent. Run (b): 120 pairs at
+                20 Hz through track_stereo_inertial with the fisheye
+                phase's IMU noise: > 85% OK, viba_stage >= 2, |s - 1| <
+                0.06, SE3 ATE under 0.04 x extent. Both check that K1-K6
+                and K16 launched (and K11-K13 and K17 in run (b))
+                with no plain version run, print fps, frame times, kernels
+                and syncs per frame and each IMU-init stage's
+                inertial_only_optimize time.
+
 K6 (pyramid_blur) is held against its plain pyramid and blur in the
 kernels phase, on the main path's first image, and through extract_orb.
+K16 (stereo_general) is held against its plain version in the kernels
+phase on the rig path's first pair; K17 (inertial_init) on the vi path's
+first IMU-init problem and K18 (sim3_verify) on the loop path's first
+verified candidate in the new-kernels phase (and on the vi_loop branch's
+first verification in that phase), where the loop phase also
+checks that K18 ran the guided verification (and the merge phase that no
+plain version ran). `--only rig` runs the device phase and the rig.
 `--only vi_loop,fisheye` (any phase names; `persist,euroc_synth` for the
 persistence slice) runs the device phase and those phases alone, without
 the kernels line.
@@ -760,6 +789,7 @@ def phase_kernels(state):
     _reloc_kernels(state, rows)
     _vi_kernels(rows)
     _gba_kernels(rows)
+    rows.append(_k16_row(state))
     state["kernel_rows"] = rows
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms on the card, "
@@ -859,7 +889,9 @@ def _kernel_counters():
     from morb_slam_tpu_torch import imu
     from morb_slam_tpu_torch.ops import (fast, hamming, image,
                                          orb_descriptor, rectify, stereo)
-    from morb_slam_tpu_torch.optim import ba, pose_graph, pose_opt, vi_ba
+    from morb_slam_tpu_torch.optim import (ba, inertial, pose_graph,
+                                           pose_opt, vi_ba)
+    from morb_slam_tpu_torch.pipeline import loop_closing
     from morb_slam_tpu_torch.vocab import tree
     return {"fast_select": fast.LAUNCHES,
             "orb_describe": orb_descriptor.LAUNCHES,
@@ -872,7 +904,11 @@ def _kernel_counters():
             "schur_pcg": ba.SCHUR_LAUNCHES,
             "vi_edges": vi_ba.INERTIAL_LAUNCHES,
             "pose_graph": pose_graph.LAUNCHES,
-            "pyramid_blur": image.LAUNCHES}
+            "pyramid_blur": image.LAUNCHES,
+            "stereo_general": stereo.GENERAL_LAUNCHES,
+            "inertial_init": inertial.INIT_LAUNCHES,
+            "sim3_window": loop_closing.WINDOW_LAUNCHES,
+            "sim3_refine": loop_closing.REFINE_LAUNCHES}
 
 
 def _reset_counters():
@@ -1560,6 +1596,19 @@ def _vi_kernels(rows):
         shape="1200 observations, 60% stereo, 0.05 s edge, 2 x 6 + final"))
 
 
+def _cloned(x):
+    """A copy of nested tuples, lists, dicts and NamedTuples of tensors."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_cloned(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cloned(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _cloned(v) for k, v in x.items()}
+    return x
+
+
 class _CountCalls:
     """Count the calls of module functions during one path's run by
     wrapping the module attributes the path looks up (by default K4's LM
@@ -1568,7 +1617,7 @@ class _CountCalls:
     `timed`, its milliseconds per call with the card synchronized before
     and after."""
 
-    def __init__(self, targets=None, timed=()):
+    def __init__(self, targets=None, timed=(), keep_first=()):
         if targets is None:
             from morb_slam_tpu_torch.optim import ba
             targets = [(ba, "ba_solve")]
@@ -1577,6 +1626,8 @@ class _CountCalls:
         self.counts = {name: 0 for _, name in targets}
         self.ms = {name: [] for name in timed}
         self.last_args = {}
+        self.first_args = {}       # a copy of the first call's, by name
+        self.keep_first = set(keep_first)
         self.kwargs = {name: [] for _, name in targets}
 
     def __enter__(self):
@@ -1585,6 +1636,9 @@ class _CountCalls:
             def wrap(*a, _fn=fn, _name=name, **kw):
                 self.counts[_name] += 1
                 self.last_args[_name] = (a, kw)
+                if _name in self.keep_first and \
+                        _name not in self.first_args:
+                    self.first_args[_name] = _cloned((a, kw))
                 self.kwargs[_name].append(kw)
                 if _name not in self.timed:
                     return _fn(*a, **kw)
@@ -1724,7 +1778,7 @@ def _path_profile(tracker, step, frames, name, out, inserts,
     import warnings
     ours = tuple(f"{k}_kernel" for k in _kernel_counters()) + (
         "schur_lm_kernel", "schur_kf_kernel", "pyramid_level_kernel",
-        "blur_levels_kernel")
+        "blur_levels_kernel") + K16_K18_KERNELS
     n_kern, dev_us, ours_us, wall, nf, skipped = 0, 0.0, 0.0, 0.0, 0, []
     kern = collections.Counter(), collections.Counter()
     sync_sites = collections.Counter()
@@ -2225,25 +2279,7 @@ def phase_vi(state):
     check(tracker.calib is not None and tracker.cfg.inertial,
           "the System built no IMU calibration")
     inserts = _timed_inserts(tracker)
-    # every IMU-initialization attempt that was due: time, stage, outcome
-    stages = []
-    orig_init = tracker._maybe_init_imu
-
-    def init_stage(ts):
-        st = tracker.viba_stage
-        due = (tracker.ts_first_kf is not None
-               and st < len(tracker.IMU_STAGES)
-               and ts - tracker.ts_first_kf >= tracker.IMU_STAGES[st][0])
-        if not due:
-            return orig_init(ts)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        r = orig_init(ts)
-        torch.cuda.synchronize()
-        stages.append(dict(ts=ts, stage=st, fired=tracker.viba_stage > st,
-                           ms=(time.perf_counter() - t1) * 1e3))
-        return r
-    tracker._maybe_init_imu = init_stage
+    stages = _imu_stage_timer(tracker)
 
     def feed(i, ts):
         return sysm.track_stereo(pairs[i][0], pairs[i][1], ts,
@@ -2256,14 +2292,16 @@ def phase_vi(state):
              "inertial_only_optimize")
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
-    with _CountCalls(targets, timed) as calls:
+    with _CountCalls(targets, timed,
+                     keep_first=("inertial_only_optimize",)) as calls:
         states, fm, secs, _ = _track_run(tracker, feed, N_VI, VI_DT, inserts,
                                          timed_from=VI_TIMED)
     launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
                                "pose_opt", "stereo_sad", "remap_bilinear",
                                "ba_assemble", "preintegrate",
-                               "pose_inertial", "vi_edges", "pyramid_blur"],
-                              "vi", state)
+                               "pose_inertial", "vi_edges", "pyramid_blur",
+                               "inertial_init"], "vi", state)
+    state["k17_problem"] = calls.first_args["inertial_only_optimize"]
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
     fired = [s for s in stages if s["fired"]]
     log(f"vi: IMU-init stages fired {[(s['stage'], s['ts']) for s in fired]}"
@@ -2321,7 +2359,7 @@ def phase_vi(state):
 
 
 def _vi_plain_rows(calls, state):
-    """The plain inertial_only_optimize on the vi path's last problem:
+    """inertial_only_optimize (K17 inside) on the vi path's last problem:
     device time per call under its profiler range, the event time of the
     call that holds it, the bound from this problem's shape, calls per
     frame. The vi path's last vi_ba_solve problem is kept for K13's row."""
@@ -2352,7 +2390,7 @@ def _vi_plain_rows(calls, state):
                         it * (n_par * n_e * 9 * 60 + n_e * 9 * n_par ** 2 * 2
                               + n_par ** 3 / 3))
     return [
-        dict(name="inertial_only_optimize", route="plain",
+        dict(name="inertial_only_optimize", route="cuda (K17 inside)",
              source="morb_slam_tpu_torch/optim/inertial.py",
              replaces="morb_slam_tpu/optim/inertial.py:304", ms=io_ms,
              span_ms=io_span,
@@ -2638,6 +2676,11 @@ class _LoopProbe:
         for (mod, name), fn in zip(self.targets, self.saved):
             def wrap(*a, _fn=fn, _name=name, **kw):
                 self.last_args[_name] = (a, kw)
+                if _name == "guided_sim3_verify" and \
+                        not hasattr(self, "first_guided"):
+                    # K18's check replays the first verified candidate on
+                    # a copy of the map as it stood then
+                    self.first_guided = _cloned((a, kw))
                 if _name == "advance":
                     job = a[0]
                     if job not in self.jobs:
@@ -2768,7 +2811,8 @@ def phase_loop(state, variant=None):
         ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
          "pyramid_blur",
          "stereo_sad", "remap_bilinear", "ba_assemble", "vocab_transform",
-         "bow_l1"] + (gba_kernels if gated else []), "loop", state)
+         "bow_l1", "sim3_window", "sim3_refine"]
+        + (gba_kernels if gated else []), "loop", state)
     launches.update({k: _kernel_counters()[k]["kernel"] for k in gba_kernels})
     n_ok = sum(s == "OK" for s in states)
     gate("loop closed", tr.n_loops_closed >= 1,
@@ -2885,12 +2929,13 @@ def phase_loop(state, variant=None):
         dense_coupling_mib=dense_bt / 2 ** 20)
     log("loop path:", json.dumps(out))
     state["loop"] = out
+    state["k18_inputs"] = probe.first_guided
     state["plain_rows"] += _loop_plain_rows(probe, len(inserts), state)
     _log_plain_rows(state["plain_rows"][-1:])
 
 
 def _loop_plain_rows(probe, n_inserts, state):
-    """The plain guided_sim3_verify on the loop path's last call: device
+    """guided_sim3_verify (K18 inside) on the loop path's last call: device
     time per call under its profiler range, the range's span, the bound
     from these inputs, calls per keyframe insert. The path's last essential
     graph is kept for K15's row."""
@@ -2911,7 +2956,7 @@ def _loop_plain_rows(probe, n_inserts, state):
     # feature
     b_gv, by_gv = bound(2 * F * 80, F * F * (8 + 2 * 8 * 6) + 12 * 8 * 120 * F)
     return [
-        dict(name="guided_sim3_verify", route="plain",
+        dict(name="guided_sim3_verify", route="cuda (K18 inside)",
              source="morb_slam_tpu_torch/pipeline/loop_closing.py",
              replaces="morb_slam_tpu/pipeline/loop_closing.py:78",
              ms=gv_ms, span_ms=gv_span,
@@ -2931,6 +2976,7 @@ def phase_merge(state):
     out and back, a new map at the turn; the stashed map must weld back."""
     from morb_slam_tpu_torch import alignment, frontend, system
     from morb_slam_tpu_torch.io import config
+    from morb_slam_tpu_torch.pipeline import loop_closing
     from morb_slam_tpu_torch.vocab import tree
     K = np.array([[MERGE_FX, 0, MERGE_W / 2], [0, MERGE_FX, MERGE_H / 2],
                   [0, 0, 1.0]])
@@ -2965,16 +3011,27 @@ def phase_merge(state):
         return r
     tr.loop_closer.maybe_merge = merge
     states = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(len(seq)):
-        if i == len(fwd):
-            tr.flush()
-            tr.create_map_in_atlas()
-        states.append(sysm.track_monocular(frames[i], ts=float(i))[0])
-    tr.flush()
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    _reset_counters()
+    with _CountCalls([(loop_closing, "guided_sim3_verify")]) as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(len(seq)):
+            if i == len(fwd):
+                tr.flush()
+                tr.create_map_in_atlas()
+            states.append(sysm.track_monocular(frames[i], ts=float(i))[0])
+        tr.flush()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    # the weld verifies by RANSAC alone (verify_merge); a guided
+    # verification runs only where maybe_close finds a loop candidate, and
+    # then through K18
+    n_guided = calls.counts["guided_sim3_verify"]
+    launches = _read_counters(
+        ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
+         "pyramid_blur", "ba_assemble", "vocab_transform", "bow_l1"]
+        + (["sim3_window", "sim3_refine"] if n_guided else []), "merge",
+        state)
     merged = any(st.merged_into_gen >= 0 for st in tr.stash)
     traj = tr.trajectory_world()
     est = torch.tensor(np.asarray([p for _, p in traj]), dtype=torch.float32)
@@ -2989,6 +3046,7 @@ def phase_merge(state):
                ate_sim3_m=rmse, extent_m=extent, gate_m=0.08 * extent,
                trajectory_poses=len(traj), seconds=secs,
                maybe_merge_calls=len(merges),
+               guided_sim3_verify_calls=n_guided, launches=launches,
                merge_ms=[ms for ms, r in merges if r],
                maybe_merge_ms_p50=float(np.percentile(
                    [ms for ms, _ in merges], 50)) if merges else None)
@@ -3235,8 +3293,8 @@ def _vl_frames(dev):
 
 def _PLAIN_TARGETS():
     """The call sites counted on the vi_loop and fisheye paths: the LM
-    solves (K13 inside) and the loops still plain (inertial_only_optimize,
-    guided_sim3_verify)."""
+    solves (K13 inside), the IMU initialization (K17 inside) and the
+    guided Sim(3) verification (K18 inside)."""
     from morb_slam_tpu_torch.optim import inertial, vi_ba
     from morb_slam_tpu_torch.pipeline import loop_closing
     return [(vi_ba, "vi_ba_solve"), (inertial, "inertial_only_optimize"),
@@ -3255,6 +3313,7 @@ def phase_vi_loop(state):
     from morb_slam_tpu_torch import frontend, system
     from morb_slam_tpu_torch.io import config
     from morb_slam_tpu_torch.optim import pose_graph, vi_ba
+    from morb_slam_tpu_torch.pipeline import loop_closing
     from morb_slam_tpu_torch.vocab import tree
     t0 = time.perf_counter()
     pairs, batches = _vl_frames(DEV)
@@ -3306,7 +3365,8 @@ def phase_vi_loop(state):
         ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
          "pyramid_blur",
          "stereo_sad", "ba_assemble", "preintegrate", "pose_inertial",
-         "vocab_transform", "bow_l1", "vi_edges"], "vi_loop", state)
+         "vocab_transform", "bow_l1", "vi_edges", "inertial_init"],
+        "vi_loop", state)
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
     m = tr.m
     valid = m.kf_valid.cpu().numpy()
@@ -3352,27 +3412,50 @@ def phase_vi_loop(state):
     check(max(tilts) < 0.01, ("vi_loop tilt", max(tilts)))
     check(gap < 0.2, ("vi_loop circuit gap", gap))
 
-    # the inertial loop branch, driven on the drifted inertial map
+    # the inertial loop branch, driven on the drifted inertial map; K18's
+    # inputs of its first verification kept for the check after the run
     _reset_counters()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    got = _ld_close(DEV)
+    with _CountCalls([(loop_closing, "window_match"),
+                      (loop_closing, "sim3_refine")],
+                     keep_first=("window_match", "sim3_refine")) as k18:
+        got = _ld_close(DEV)
     torch.cuda.synchronize()
     ms_card = (time.perf_counter() - t1) * 1e3
     pg, k13b = pose_graph.LAUNCHES["kernel"], vi_ba.INERTIAL_LAUNCHES[
         "kernel"]
-    branch_launches = _read_counters(["pose_graph", "vi_edges"],
+    branch_launches = _read_counters(["pose_graph", "vi_edges",
+                                      "sim3_window", "sim3_refine"],
                                      "vi_loop branch", state)
+    check(k18.counts["sim3_refine"] > 0,
+          "vi_loop branch: no guided Sim(3) verification ran")
+    k18_err, _, _, _ = _k18_agree(
+        k18.first_args["window_match"][0], k18.first_args["sim3_refine"][0],
+        "the vi_loop branch's first verification")
     t1 = time.perf_counter()
-    want = _ld_close("cpu")
+    with _CountCalls([(loop_closing, "sim3_refine")],
+                     keep_first=("sim3_refine",)) as k18c:
+        want = _ld_close("cpu")
     ms_cpu = (time.perf_counter() - t1) * 1e3
     dpose = max(float(np.abs(got[k] - want[k]).max()) for k in ("R", "t"))
+    # the first verification's refinement inputs and result, CPU vs card
+    ra_card = k18.first_args["sim3_refine"][0]
+    ra_cpu = k18c.first_args["sim3_refine"][0]
+    k18_in = max(float((u.cpu().float() - v.float()).abs().max())
+                 for u, v in zip(ra_card, ra_cpu))
+    s_card = float(loop_closing.sim3_refine(*ra_card)[0])
+    s_cpu = float(loop_closing.sim3_refine_plain(*ra_cpu)[0])
+    log(f"vi_loop branch's first refinement, CPU vs card: inputs within "
+        f"{k18_in:.2e}, s {s_card!r} (card) vs {s_cpu!r} (CPU)")
     ratio = got["rmse_after"] / got["rmse_before"]
     out["branch"] = dict(
         fired=got["fired"], fired_cpu=want["fired"],
         rmse_before=got["rmse_before"], rmse_after=got["rmse_after"],
         rmse_ratio=ratio, max_tilt_rad=max(got["tilts"]),
         k15_launches=pg, k13_launches=k13b, vs_cpu_pose_max_abs=dpose,
+        k18_vs_plain_max_abs=k18_err, k18_inputs_vs_cpu_max_abs=k18_in,
+        k18_s_card=s_card, k18_s_cpu=s_cpu,
         vs_cpu_v_max_abs=float(np.abs(got["v"] - want["v"]).max()),
         ms_card=ms_card, ms_cpu_plain=ms_cpu, launches=branch_launches)
     log(f"vi_loop branch on the drifted inertial map: fired {got['fired']}"
@@ -3465,7 +3548,7 @@ def phase_fisheye(state):
     launches = _read_counters(
         ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
          "ba_assemble", "preintegrate", "pose_inertial", "vi_edges",
-         "pyramid_blur"],
+         "pyramid_blur", "inertial_init"],
         "fisheye", state)
     log("states:", "".join("O" if s == "OK" else s[0] for s in states))
     n_ok = sum(s == "OK" for s in states)
@@ -3664,6 +3747,538 @@ def _k15_row(g, kw):
         ptxas=_ptxas("pose_graph"),
         shape=f"K = {K} nodes, E = {E} edges ({n_act} weighted), {nb} "
               f"touched blocks, {it} iterations, four_dof {fd}")
+
+
+# ---------------------------------------------------------------------------
+# the non-rectified KB8 two-camera rig (Tracker(stereo_rig=...)) and its
+# kernels K16, K17 and K18
+# ---------------------------------------------------------------------------
+
+# TUM-VI's cam0 (ORB-SLAM3's TUM-VI.yaml, 512x512 KannalaBrandt8: fx, fy,
+# cx, cy, k1-k4, as tests/test_cameras.py holds it) and as cam1 that cam0
+# perturbed slightly, not a published calibration (focal -0.28%, centre
+# -2.3 / -2.0 px, k1-k4 within 5%); cam1's centre 0.10 m to the right of
+# cam0's, rotated 1 degree about y (X_cam1 = R_rl X_cam0 + t_rl)
+RIG_W = RIG_H = 512
+RIG_CAM0 = (190.978, 190.973, 254.932, 256.897,
+            0.00348238, 0.000715034, -0.00205323, 0.000202936)
+RIG_CAM1 = (190.442, 190.437, 252.597, 254.917,
+            0.00340372, 0.000714185, -0.00201631, 0.000193335)
+RIG_BASELINE, RIG_YAW_DEG = 0.10, 1.0
+# the plane world shrunk to half size (its planes 1.6-4 m away: a room, as
+# TUM-VI's are, where a 0.10 m baseline triangulates); rendered as a
+# 1024 x 1024 pinhole view of focal 256 (63 degrees half-width) remapped
+# by K8 into each fisheye
+RIG_SCALE, RIG_SP, RIG_FP = 0.5, 1024, 256.0
+RIG_N, RIG_VI_N, RIG_DT, RIG_VI_TIMED = 80, 120, 0.05, 60
+RIG_IMU_NOISE = dict(noise_g=2.4e-3, noise_a=2.8e-2)   # the fisheye phase's
+# K16-K18's device kernels, for the profiler's hand-written share
+K16_K18_KERNELS = ("search_kernel", "triangulate_kernel", "init_edge_kernel",
+                   "init_assemble_kernel", "window_rows_kernel",
+                   "window_cols_kernel", "window_final_kernel",
+                   "refine_kernel")
+
+
+def _rig_extrinsics():
+    a = np.deg2rad(RIG_YAW_DEG)
+    R = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                  [-np.sin(a), 0.0, np.cos(a)]])
+    return R, -R @ np.array([RIG_BASELINE, 0.0, 0.0])
+
+
+def _kb8_source_map(cam):
+    """Raw KB8 pixel -> source pinhole pixel (x, y) (RIG_H, RIG_W, 2):
+    theta_d inverted by 10 Newton steps in float64, as fisheye_map."""
+    fx, fy, cx, cy, k1, k2, k3, k4 = cam
+    u, v = np.meshgrid(np.arange(RIG_W, dtype=np.float64),
+                       np.arange(RIG_H, dtype=np.float64))
+    dx, dy = (u - cx) / fx, (v - cy) / fy
+    r_d = np.sqrt(dx ** 2 + dy ** 2)
+    th = r_d.copy()
+    for _ in range(10):
+        t2 = th * th
+        f = th * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4)))) - r_d
+        fp = 1 + t2 * (3 * k1 + t2 * (5 * k2 + t2 * (7 * k3 + t2 * 9 * k4)))
+        th = th - f / np.clip(fp, 0.5, None)
+    scale = np.where(r_d > 1e-9, np.tan(np.clip(th, 0, 1.45))
+                     / np.clip(r_d, 1e-9, None), 1.0)
+    return np.stack([RIG_SP / 2 + RIG_FP * dx * scale,
+                     RIG_SP / 2 + RIG_FP * dy * scale], -1).astype(np.float32)
+
+
+def _fisheye_rig(state):
+    if "fisheye_rig" not in state:
+        K = np.array([[RIG_FP, 0, RIG_SP / 2], [0, RIG_FP, RIG_SP / 2],
+                      [0, 0, 1.0]])
+        R, t = _rig_extrinsics()
+        state["fisheye_rig"] = dict(
+            world=PlaneWorld(K, RIG_SP, RIG_SP, DEV), R=R, t=t,
+            maps=[torch.tensor(_kb8_source_map(c), device=DEV)
+                  for c in (RIG_CAM0, RIG_CAM1)])
+    return state["fisheye_rig"]
+
+
+def _rig_raw_pair(state, R_cw, t_cw):
+    """uint8 raw (left, right) KB8 images with cam0 at T_c0_w = (R, t) of
+    the shrunk world."""
+    from morb_slam_tpu_torch.ops import rectify
+    fr = _fisheye_rig(state)
+    R = np.asarray(R_cw, np.float64)
+    t = np.asarray(t_cw, np.float64)
+    out = []
+    for k, (Rk, tk) in enumerate(((R, t), (fr["R"] @ R,
+                                           fr["R"] @ t + fr["t"]))):
+        src = fr["world"].render(Rk, tk / RIG_SCALE)
+        out.append(rectify.remap_bilinear(src, fr["maps"][k])
+                   .clamp(0, 255).to(torch.uint8))
+    return tuple(out)
+
+
+def _rig_cameras():
+    from morb_slam_tpu_torch import cameras
+    R, t = _rig_extrinsics()
+    return (cameras.kannala_brandt8(*RIG_CAM0),
+            (cameras.kannala_brandt8(*RIG_CAM1),
+             torch.tensor(R, dtype=torch.float32),
+             torch.tensor(t, dtype=torch.float32)))
+
+
+def _rig_tracker(inertial):
+    from morb_slam_tpu_torch import imu
+    from morb_slam_tpu_torch.pipeline import tracking
+    cam0, rig = _rig_cameras()
+    cfg = tracking.TrackerConfig(
+        width=RIG_W, height=RIG_H, focal=RIG_CAM0[0], n_feat=1200,
+        n_levels=8, max_kf=256, max_lm=16384, baseline=RIG_BASELINE)
+    calib = imu.make_calib(np.eye(3), np.zeros(3), 1.7e-4, 2e-3, 1.9e-5,
+                           3e-3, 200.0) if inertial else None
+    return tracking.Tracker(cam0, cfg, imu_calib=calib, stereo_rig=rig)
+
+
+def _rig_vi_pose(t):
+    return analytic_pose(t, speed=RIG_SCALE)
+
+
+def _imu_stage_timer(tracker):
+    """Time every IMU-initialization attempt that is due (the card
+    synchronized around it): a list of {ts, stage, fired, ms}."""
+    stages = []
+    orig = tracker._maybe_init_imu
+
+    def init_stage(ts):
+        st = tracker.viba_stage
+        due = (tracker.ts_first_kf is not None
+               and st < len(tracker.IMU_STAGES)
+               and ts - tracker.ts_first_kf >= tracker.IMU_STAGES[st][0])
+        if not due:
+            return orig(ts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = orig(ts)
+        torch.cuda.synchronize()
+        stages.append(dict(ts=ts, stage=st, fired=tracker.viba_stage > st,
+                           ms=(time.perf_counter() - t1) * 1e3))
+        return r
+    tracker._maybe_init_imu = init_stage
+    return stages
+
+
+def _rig_features(state):
+    """The rig path's first pair extracted on the card (1200 features, 8
+    levels) and K16's inputs from it."""
+    from morb_slam_tpu_torch import cameras, frontend
+    left, right = _rig_raw_pair(state, *camera_path(1)[0])
+    cfg = frontend.OrbConfig(n_features=1200, n_levels=8)
+    fl = frontend.extract_orb(left.float(), cfg)
+    fr = frontend.extract_orb(right.float(), cfg)
+    cam0, (cam1, R, t) = _rig_cameras()
+    cam0, cam1 = cam0.to(DEV), cam1.to(DEV)
+    return (fl, fr, cameras.unproject_bearing(cam0, fl.uv),
+            cameras.unproject_bearing(cam1, fr.uv), fl.uv, fr.uv, cam0,
+            cam1, R.to(DEV), t.to(DEV),
+            cfg.scale ** (2.0 * fl.octave.to(torch.float32)))
+
+
+def _k16_row(state):
+    """K16 against its plain version on the card at the rig path's shapes:
+    the cross-checked matches and the valid flags equal except rows where
+    `testing.general_margins` finds a matchable pair within 1e-5 of the
+    epipolar gate or a chi2 within 1e-5 of its gate; depth within 1e-4
+    relative, the matched right x exact."""
+    from morb_slam_tpu_torch import testing
+    from morb_slam_tpu_torch.ops import stereo
+    args = _rig_features(state)
+    got, gi = stereo.match_stereo_general(*args)
+    want, wi = stereo.match_stereo_general_plain(*args)
+    exempt = testing.general_margins(*args, gi, wi)
+    same = (gi == wi) & (got.valid == want.valid)
+    both = got.valid & want.valid
+    rel = float(((got.depth - want.depth).abs() / want.depth.abs())[both]
+                .max()) if bool(both.any()) else 0.0
+    ur_same = torch.equal(got.u_right[both], want.u_right[both])
+    again, ai = stereo.match_stereo_general(*args)
+    repeat = torch.equal(ai, gi) and torch.equal(again.depth, got.depth)
+    nl, nr = args[0].valid.shape[0], args[1].valid.shape[0]
+    n_match, n_valid = int((wi >= 0).sum()), int(want.valid.sum())
+    log(f"K16 stereo_general ({nl} x {nr} features): {n_match} cross-"
+        f"checked matches, {n_valid} triangulated; "
+        f"{int((~same).sum())} rows differ, {int(exempt.sum())} at a gate "
+        f"margin; depth within {rel:.2e} relative; bitwise repeatable "
+        f"{repeat}")
+    check(bool((same | exempt).all()) and rel <= 1e-4 and ur_same and repeat,
+          ("K16 vs plain", int((~same & ~exempt).sum()), rel, ur_same,
+           repeat))
+    check(n_valid > 100, ("K16: few triangulated features", n_valid))
+
+    def call():
+        return stereo.match_stereo_general(*args)
+
+    def plain():
+        return stereo.match_stereo_general_plain(*args)
+    # the gate's candidates (octaves within 1, both valid, |b_r E b_l| <
+    # 0.01): the pairs that need a distance
+    ep = stereo.epipolar_residual(*args[2:4], *args[8:10])
+    fl, fr = args[0], args[1]
+    cand = (ep < stereo.EP_GATE) & (torch.abs(
+        fl.octave[:, None] - fr.octave[None, :]) <= 1) & \
+        fl.valid[:, None] & fr.valid[None, :]
+    n_cand = int(cand.sum())
+    # in: per left feature its descriptor, octave, flag, bearing, pixel and
+    # sigma2 (61 B), per right feature 57 B; out: u_right, depth, valid and
+    # the match (13 B). Work: the gate of every pair (~10 operations), 8
+    # XOR + 8 popcount per candidate, ~300 flops of triangulation and
+    # projection per cross-checked match
+    b16, by16 = bound(nl * 61 + nr * 57 + nl * 13,
+                      nl * nr * 10 + n_cand * 16 + n_match * 300)
+    parts = {k: device_ms(call, k) for k in ("search_kernel",
+                                              "triangulate_kernel")}
+    return dict(
+        name="stereo_general", route="cuda",
+        source="morb_slam_tpu_torch/csrc/stereo_general.cu",
+        replaces="morb_slam_tpu/ops/stereo.py:123",
+        max_abs_err=rel, max_abs_err_is="depth, relative, on rows valid in "
+        "both", rows_differ=int((~same).sum()),
+        rows_at_gate_margin=int(exempt.sum()), bitwise_repeatable=repeat,
+        ms=sum(parts.values()), ms_parts=parts,
+        ms_is="one call: the row and column searches and the triangulation",
+        ms_by="cuda events" if EVENT_TIMED & set(parts) else "profiler",
+        call_ms=time_ms(call), plain_ms=time_ms(plain, reps=5, inner=2),
+        bound_ms=b16, bound_by=by16, library_ms=None,
+        library_note="none: no single PyTorch call computes a gated Hamming "
+                     "argmin with its triangulation",
+        candidates=n_cand, matches=n_match, triangulated=n_valid,
+        ptxas=_ptxas("stereo_general"),
+        shape=f"{nl} x {nr} features of a {RIG_W}x{RIG_H} KB8 pair")
+
+
+def _rig_run(state, inertial):
+    """One rig run through `Tracker(cam0, cfg, stereo_rig=...)`: the camera
+    path through track_stereo (RIG_N pairs), or the analytic path at 20 Hz
+    with its IMU samples through track_stereo_inertial (RIG_VI_N); then 5
+    more frames profiled. Returns the path's dict."""
+    from morb_slam_tpu_torch.optim import inertial as inertial_mod
+    n = RIG_VI_N if inertial else RIG_N
+    name = "rig_vi" if inertial else "rig"
+    t0 = time.perf_counter()
+    if inertial:
+        gt = [_rig_vi_pose(i * RIG_DT) for i in range(n + 5)]
+        rng = np.random.default_rng(4)
+        batches = [imu_between((i - 1) * RIG_DT, i * RIG_DT, rng=rng,
+                               pose_fn=_rig_vi_pose, **RIG_IMU_NOISE)
+                   for i in range(n + 5)]
+    else:
+        gt = camera_path(n + 5, step=0.05 * RIG_SCALE)
+    pairs = [_rig_raw_pair(state, R, t) for R, t in gt]
+    torch.cuda.synchronize()
+    log(f"{name}: {n + 5} raw KB8 pairs rendered on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tr = _rig_tracker(inertial)
+    inserts = _timed_inserts(tr)
+    stages = _imu_stage_timer(tr) if inertial else []
+
+    def feed(i, ts):
+        if not inertial:
+            return tr.track_stereo(pairs[i][0], pairs[i][1], ts)
+        ts_i, acc, gyr = batches[i]
+        return tr.track_stereo_inertial(pairs[i][0], pairs[i][1], ts, acc,
+                                        gyr, ts_i)
+    timed_from = RIG_VI_TIMED if inertial else 20
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    with _CountCalls([(inertial_mod, "inertial_only_optimize")],
+                     timed=("inertial_only_optimize",),
+                     keep_first=("inertial_only_optimize",)) as calls:
+        states, fm, secs, _ = _track_run(tr, feed, n, RIG_DT, inserts,
+                                         timed_from=timed_from)
+    kernels = ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
+               "pyramid_blur", "ba_assemble", "stereo_general"]
+    if inertial:
+        kernels += ["preintegrate", "pose_inertial", "vi_edges",
+                    "inertial_init"]
+    launches = _read_counters(kernels, name, state)
+    log("states:", "".join("O" if s == "OK" else s[0] for s in states))
+    n_ok = sum(s == "OK" for s in states)
+    ate, scale, ate_se3, extent, n_traj = _ate(tr, gt, RIG_DT)
+    log(f"{name} trajectory: {n_traj} poses, SE3 ATE {ate_se3:.4f} m, Sim3 "
+        f"ATE {ate:.4f} m, scale {scale:.4f}, over {extent:.3f} m")
+    out = dict(
+        fps=(n - timed_from) / secs, timed_frames=[timed_from, n - 1],
+        frame_ms_p50=float(np.percentile(fm, 50)),
+        frame_ms_p90=float(np.percentile(fm, 90)), frames=n, frames_ok=n_ok,
+        first_state=states[0], ate_se3_m=ate_se3, ate_sim3_m=ate,
+        sim3_scale=scale, extent_m=extent, kf_inserts=len(inserts),
+        kf_insert_ms_each=float(np.mean(inserts)) if inserts else None,
+        landmarks=int(tr.m.lm_valid.sum()),
+        peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches_per_frame={k: v / n for k, v in launches.items()})
+    if inertial:
+        fired = [st for st in stages if st["fired"]]
+        out.update(imu_ready=tr.imu_ready, viba_stage=tr.viba_stage,
+                   imu_init_stages=fired, imu_init_attempts=len(stages),
+                   inertial_only_optimize_ms=calls.ms[
+                       "inertial_only_optimize"],
+                   gate_se3_m=0.04 * extent)
+        log(f"{name}: IMU-init stages fired "
+            f"{[(st['stage'], round(st['ms'], 1)) for st in fired]} (stage, "
+            f"ms); inertial_only_optimize ms per call "
+            f"{[round(x, 2) for x in calls.ms['inertial_only_optimize']]}")
+        check(n_ok > 0.85 * n, f"{name}: only {n_ok} of {n} OK")
+        check(tr.imu_ready and tr.viba_stage >= 2,
+              (f"{name}: IMU init", tr.imu_ready, tr.viba_stage))
+        check(abs(scale - 1.0) < 0.06, (f"{name} scale", scale))
+        check(ate_se3 < 0.04 * extent, (f"{name} SE3 ATE", ate_se3, extent))
+        # the first IMU-init problem replayed under the profiler: device
+        # time inside inertial_only_optimize's range and its span
+        a, kw = calls.first_args["inertial_only_optimize"]
+
+        def io_profile():
+            with profiled(cpu=True) as prof:
+                inertial_mod.inertial_only_optimize(*a, **kw)
+            return prof
+        io_dev, _, io_span = range_device_ms("inertial_only_optimize",
+                                             io_profile)
+        out.update(first_inertial_only_optimize_device_ms=io_dev,
+                   first_inertial_only_optimize_span_ms=io_span)
+    else:
+        out["gate_se3_m"] = 0.03 * extent
+        check(states[0] == "OK", f"{name} did not initialize on frame 0")
+        check(n_ok >= 0.9 * n, f"{name}: only {n_ok} of {n} OK")
+        check(abs(scale - 1.0) < 0.05, (f"{name} scale", scale))
+        check(ate_se3 < 0.03 * extent, (f"{name} SE3 ATE", ate_se3, extent))
+    table = state.get("profile_out")
+    _path_profile(tr, lambda i: feed(i, i * RIG_DT), range(n, n + 5), name,
+                  out, inserts,
+                  table and table.replace(".txt", "") + f"_{name}.txt")
+    log(f"{name} path:", json.dumps(out))
+    return out
+
+
+def phase_rig(state):
+    """The fisheye two-camera rig through `Tracker(stereo_rig=...)` on the
+    card: run (a), stereo, and run (b), stereo-inertial."""
+    state["rig_path"] = dict(stereo=_rig_run(state, False),
+                             inertial=_rig_run(state, True))
+
+
+def _k17_row(state):
+    """K17 against its plain version on the card on the vi path's first
+    IMU-init problem: H, g and the cost at its start point within 1e-4 of
+    each entry's term magnitude, two launches bitwise equal; then the whole
+    inertial_only_optimize over the kernel and over the plain version."""
+    from morb_slam_tpu_torch import testing
+    from morb_slam_tpu_torch.optim import inertial
+    a, kw = state.pop("k17_problem")
+    ki, R_wb, p_wb, kf_valid = a[:4]
+    K = R_wb.shape[0]
+    n = 9 + 3 * K
+    p = inertial.init_problem(ki, R_wb, p_wb, kf_valid,
+                              kw.get("opt_scale", True),
+                              kw.get("prior_gyro", 1e2),
+                              kw.get("prior_acc", 1e6), kw.get("R_wg0"))
+    x = torch.zeros(n, device=DEV)
+    x[2] = math.log(float(kw.get("s0", 1.0)))
+    if kw.get("v0") is not None:
+        x[9:] = kw["v0"].reshape(-1)
+
+    def sys_k():
+        return inertial.inertial_system(p, x)
+
+    def sys_p():
+        return inertial.inertial_system_plain(p, x)
+    (H, g, c), (H2, g2, c2) = sys_k(), sys_k()
+    H0, g0, c0 = inertial.inertial_system_plain(p, x)
+    Ha, ga, ca = testing.inertial_system_magnitudes(p, x)
+    eH = float(((H - H0).abs() / Ha.clamp(min=1e-30)).max())
+    eg = float(((g - g0).abs() / ga.clamp(min=1e-30)).max())
+    ec = abs(float(c - c0)) / max(float(ca), 1e-30)
+    same = torch.equal(H, H2) and torch.equal(g, g2) and torch.equal(c, c2)
+    n_live = int(p.w.sum())
+
+    def opt():
+        return inertial.inertial_only_optimize(*a, **kw)
+    got = opt()
+    saved = inertial.inertial_system
+    inertial.inertial_system = inertial.inertial_system_plain
+    try:
+        want = opt()
+        opt_ms_plain = time_ms(opt, reps=2, inner=1, warmup=0)
+    finally:
+        inertial.inertial_system = saved
+    errs = {}
+    for nm, u, v in zip(("R_wg", "s", "bg", "ba", "v"), got, want):
+        scale_ = float(v.abs().max()) if nm in ("bg", "ba", "v") else 1.0
+        errs[nm] = float((u - v).abs().max()) / max(scale_, 1e-3) \
+            if nm != "s" else abs(float(u - v)) / abs(float(v))
+    log(f"K17 inertial_init (K = {K} slots, {n_live} live edges, n_par "
+        f"{n}): H within {eH:.2e}, g within {eg:.2e} of their term "
+        f"magnitudes, the cost within {ec:.2e}; two launches bitwise equal: "
+        f"{same}; the whole optimize against plain: {errs}")
+    check(eH <= 1e-4 and eg <= 1e-4 and ec <= 1e-4 and same,
+          ("K17 vs plain", eH, eg, ec, same))
+    check(errs["R_wg"] <= 1e-4 and errs["s"] <= 1e-4 and
+          max(errs["bg"], errs["ba"], errs["v"]) <= 1e-3,
+          ("inertial_only_optimize over K17 vs plain", errs))
+
+    def opt_profile():
+        with profiled(cpu=True) as prof:
+            opt()
+        return prof
+    opt_dev, _, opt_span = range_device_ms("inertial_only_optimize",
+                                           opt_profile)
+    # in: each slot's packed constants (149 floats), pose (12), prev, and
+    # x; out: the dense H, g and the cost. Work per live edge: 15 tangents
+    # of ~2.5 kflop through the residual, J^T Omega J and the gradient
+    # (~6 kflop); the assembly reads each of the n^2 entries' terms once
+    b17, by17 = bound(K * (149 + 12 + 1) * 4 + n * 4 + (n * n + n + 1) * 4,
+                      n_live * 44e3 + n * n)
+    parts = {k: device_ms(sys_k, k) for k in ("init_edge_kernel",
+                                              "init_assemble_kernel")}
+    return dict(
+        name="inertial_init", route="cuda",
+        source="morb_slam_tpu_torch/csrc/inertial_init.cu",
+        replaces="morb_slam_tpu/optim/inertial.py:304",
+        max_abs_err=max(eH, eg, ec),
+        max_abs_err_is="H, g and cost: |kernel - plain| over each entry's "
+                       "term magnitude (the same sums over absolute values)",
+        err_H=eH, err_g=eg, err_cost=ec, bitwise=same, optimize_errs=errs,
+        ms=sum(parts.values()), ms_parts=parts,
+        ms_is="one inertial_system: the edge and assembly kernels",
+        ms_by="cuda events" if EVENT_TIMED & set(parts) else "profiler",
+        call_ms=time_ms(sys_k), plain_ms=time_ms(sys_p, reps=3, inner=1),
+        bound_ms=b17, bound_by=by17, library_ms=None,
+        library_note="none: no single PyTorch call computes the residual "
+                     "Jacobians and their dense normal equations",
+        optimize_ms=time_ms(opt, reps=3, inner=1, warmup=1),
+        optimize_ms_plain=opt_ms_plain, optimize_device_ms=opt_dev,
+        optimize_span_ms=opt_span, n_iters=kw.get("n_iters", 30),
+        ptxas=_ptxas("inertial_init"),
+        shape=f"K = {K} slots, {n_live} live edges, H ({n}, {n})")
+
+
+def _k18_agree(wa, ra, where):
+    """K18 against its plain versions on the card on one verification's
+    inputs (window_match's wa, sim3_refine's ra): the indices equal, (s,
+    R, t) within 1e-4 and the same n_good, both bitwise repeatable.
+    Returns (max abs error of s, R, t, repeatable, pairs, K18's result)."""
+    from morb_slam_tpu_torch.pipeline import loop_closing as lc
+    idx, idx2 = lc.window_match(*wa), lc.window_match(*wa)
+    idx0 = lc.window_match_plain(*wa)
+    got, got2 = lc.sim3_refine(*ra), lc.sim3_refine(*ra)
+    want = lc.sim3_refine_plain(*ra)
+    err = max(float((u - v).abs().max()) for u, v in zip(got[:3], want[:3]))
+    same = torch.equal(idx, idx2) and all(
+        torch.equal(u, v) for u, v in zip(got, got2))
+    n_pairs = int((idx0 >= 0).sum())
+    log(f"K18 sim3_verify on {where}: window match {n_pairs} pairs, "
+        f"indices equal {torch.equal(idx, idx0)}; refinement within "
+        f"{err:.2e}, n_good {int(got[3])} (plain {int(want[3])}); bitwise "
+        f"repeatable {same}")
+    check(torch.equal(idx, idx0) and err <= 1e-4 and
+          int(got[3]) == int(want[3]) and same,
+          ("K18 vs plain", where, int((idx != idx0).sum()), err,
+           int(got[3]), int(want[3]), same))
+    return err, same, n_pairs, got
+
+
+def _k18_row(state):
+    """K18 against its plain versions on the card on the loop path's first
+    verified candidate (replayed on the map as it stood): the window
+    match's indices equal, (s, R, t) within 1e-4 and the same n_good, both
+    bitwise repeatable; then the whole guided_sim3_verify over K18 and over
+    the plain versions."""
+    from morb_slam_tpu_torch.pipeline import loop_closing as lc
+    a, kw = state.pop("k18_inputs")
+    with _CountCalls([(lc, "window_match"), (lc, "sim3_refine")],
+                     keep_first=("window_match", "sim3_refine")) as calls:
+        lc.guided_sim3_verify(*a, **kw)
+    wa, _ = calls.first_args["window_match"]
+    ra, _ = calls.first_args["sim3_refine"]
+    err, same, n_pairs, got = _k18_agree(wa, ra, "the loop path's first "
+                                         "verified candidate")
+
+    def call():
+        return lc.guided_sim3_verify(*a, **kw)
+
+    def plain():
+        saved = lc.window_match, lc.sim3_refine
+        lc.window_match, lc.sim3_refine = lc.window_match_plain, \
+            lc.sim3_refine_plain
+        try:
+            return lc.guided_sim3_verify(*a, **kw)
+        finally:
+            lc.window_match, lc.sim3_refine = saved
+    F = wa[0].shape[0]
+    # the window gate's candidates, as window_match_plain forms it
+    X2c, ok2, oct2, _, xn1, valid1, _, s0, R0, t0, focal, sc = wa
+    X1p = lc.lie.sim3_apply(s0, R0, t0, X2c)
+    z = X1p[:, 2]
+    pred = X1p[:, :2] / torch.where(z.abs() < 1e-6,
+                                    torch.full_like(z, 1e-6), z)[:, None]
+    rad = 7.5 / focal * sc ** oct2.float()
+    gate = (((pred[:, None] - xn1[None]) ** 2).sum(-1) < (rad ** 2)[:, None]) \
+        & (z > 0.05)[:, None] & ok2[:, None] & valid1[None, :]
+    n_cand = int(gate.sum())
+    n_f, n_b = int(ra[5].sum()), int(ra[6].sum())
+    # in: the candidate's descriptors, points, flags, octaves (49 B a
+    # feature), the keyframe's descriptors, observations, flags (41 B), the
+    # refinement's points, observations and weights (46 B); out: the
+    # match (4 B) and (s, R, t, n_good). Work: the window gate of every
+    # pair (~8 flops), 8 XOR + 8 popcount per candidate, and per GN step
+    # 8 evaluations of each active residual (~80 flops) and a 7 x 7 solve
+    b18, by18 = bound(F * (49 + 41 + 46 + 4) + 56,
+                      F * F * 8 + n_cand * 16
+                      + 12 * (n_f + n_b) * 8 * 80 + 10 * 7 ** 3)
+    parts = {k: device_ms(call, k) for k in (
+        "window_rows_kernel", "window_cols_kernel", "window_final_kernel",
+        "refine_kernel")}
+
+    def gv_profile():
+        with profiled(cpu=True) as prof:
+            call()
+        return prof
+    gv_dev, _, gv_span = range_device_ms("guided_sim3_verify", gv_profile)
+    return dict(
+        name="sim3_verify", route="cuda",
+        source="morb_slam_tpu_torch/csrc/sim3_verify.cu",
+        replaces="morb_slam_tpu/pipeline/loop_closing.py:78",
+        counters=["sim3_window", "sim3_refine"],
+        max_abs_err=err, max_abs_err_is="s, R, t; the window match's "
+        "indices exact", bitwise=same, pairs=n_pairs, candidates=n_cand,
+        n_good=int(got[3]),
+        ms=sum(parts.values()), ms_parts=parts,
+        ms_is="one guided_sim3_verify's K18 kernels: the window match's "
+              "three and the refinement's",
+        ms_by="cuda events" if EVENT_TIMED & set(parts) else "profiler",
+        call_ms=time_ms(call, reps=5, inner=2),
+        plain_ms=time_ms(plain, reps=3, inner=1),
+        guided_sim3_verify_device_ms=gv_dev,
+        guided_sim3_verify_span_ms=gv_span,
+        bound_ms=b18, bound_by=by18, library_ms=None,
+        library_note="none: no single PyTorch call computes a window-gated "
+                     "Hamming match or a Sim(3) Gauss-Newton loop",
+        ptxas=_ptxas("sim3_verify"),
+        shape=f"F = {F} features per keyframe, {n_cand} window candidates, "
+              f"{n_f} + {n_b} refined residuals")
 
 
 # ---------------------------------------------------------------------------
@@ -3945,14 +4560,18 @@ def _ptxas(name):
 
 
 def phase_new_kernels(state):
-    """K13 on the vi path's last window problem and K15 on the loop path's
-    last essential graph (their rows join the kernels line)."""
+    """K13 on the vi path's last window problem, K15 on the loop path's
+    last essential graph, K17 on the vi path's first IMU-init problem and
+    K18 on the loop path's first verified candidate (their rows join the
+    kernels line)."""
     rows = state.setdefault("kernel_rows", [])
     pv, kw = state.pop("k13_problem")
     rows.append(_k13_row(pv, kw))
     g, kw = state.pop("k15_graph")
     rows.append(_k15_row(g, kw))
-    for r in state["kernel_rows"][-2:]:
+    rows.append(_k17_row(state))
+    rows.append(_k18_row(state))
+    for r in state["kernel_rows"][-4:]:
         log(f"  {r['name']}: {r['ms']:.4f} ms on the card, "
             f"{r['call_ms']:.4f} ms per call by events (plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
@@ -4031,7 +4650,7 @@ def main():
               ("loop", phase_loop), ("merge", phase_merge),
               ("vi_loop", phase_vi_loop), ("fisheye", phase_fisheye),
               ("persist", phase_persist), ("euroc_synth", phase_euroc_synth),
-              ("new_kernels", phase_new_kernels))
+              ("rig", phase_rig), ("new_kernels", phase_new_kernels))
     only = args.only and ["device"] + args.only.split(",")
     state["plain_rows"] = []
     for name, phase in phases:
@@ -4047,13 +4666,14 @@ def main():
     rows = state["kernel_rows"]
     by_path = state["launches_by_path"]
     for r in rows:
-        # the count of this slice's persist path for the kernels it runs,
+        # the count of this slice's rig paths for the kernels they run,
         # else of the first earlier path that runs the kernel
-        r["launches_from"] = next(p for p in ("persist", "loop", "vi_loop",
-                                              "vi", "fisheye", "reloc")
-                                  if r["name"] in by_path[p])
-        r["launches"] = by_path[r["launches_from"]][r["name"]]
-        r["launches_by_path"] = {p: c.get(r["name"], 0)
+        names = r.get("counters", [r["name"]])
+        r["launches_from"] = next(
+            p for p in ("rig", "rig_vi", "persist", "loop", "vi_loop", "vi",
+                        "fisheye", "reloc") if names[0] in by_path[p])
+        r["launches"] = by_path[r["launches_from"]][names[0]]
+        r["launches_by_path"] = {p: sum(c.get(k, 0) for k in names)
                                  for p, c in by_path.items()}
         r.setdefault("ms_by", "cuda events" if f"{r['name']}_kernel"
                      in EVENT_TIMED else "profiler")
@@ -4062,6 +4682,7 @@ def main():
                  "vi_loop", "fisheye", "persist", "euroc_synth"):
         key = "main_path" if name == "main" else f"{name}_path"
         log(json.dumps({key: state[name]}))
+    log(json.dumps({"rig_path": state["rig_path"]}))
     log(json.dumps({"kernels": rows}))
     log(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -23,9 +23,13 @@ BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 SOURCES = ("fast_select", "orb_describe", "hamming_top2", "stereo_sad",
            "remap_bilinear", "pose_opt", "vocab_transform", "bow_l1",
            "ba_assemble", "preintegrate", "pose_inertial", "schur_pcg",
-           "vi_edges", "pose_graph", "pyramid_blur")
+           "vi_edges", "pose_graph", "pyramid_blur", "stereo_general",
+           "inertial_init", "sim3_verify")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# sources whose float work repeats a plain version's operations in its
+# order: no product fused into an FMA, so both round alike
+NO_FMA = ("stereo_general", "sim3_verify")
 
 _libs: dict = {}
 
@@ -41,8 +45,12 @@ def nvcc_path() -> str:
     return path
 
 
+def _flags(name: str) -> list:
+    return FLAGS + (["-fmad=false"] if name in NO_FMA else [])
+
+
 def _target(name: str) -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for fn in [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
                                       if f.endswith(".cuh")):
         with open(os.path.join(CSRC, fn), "rb") as f:
@@ -66,7 +74,8 @@ def build(names=SOURCES) -> float:
         nvcc = nvcc or nvcc_path()
         tmp = f"{out}.{os.getpid()}.tmp"
         log = open(out + ".log", "w")
-        cmd = [nvcc, *FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+        cmd = [nvcc, *_flags(name), "-o", tmp,
+               os.path.join(CSRC, name + ".cu")]
         procs.append((name, out, tmp, log,
                       subprocess.Popen(cmd, stdout=log,
                                        stderr=subprocess.STDOUT)))

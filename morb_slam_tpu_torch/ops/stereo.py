@@ -1,5 +1,6 @@
 """Rectified stereo matching: row-band descriptor search, SAD subpixel
-refinement and dispersion-based outlier rejection; RGB-D depth lookup
+refinement and dispersion-based outlier rejection; the non-rectified
+two-camera match with midpoint triangulation; RGB-D depth lookup
 (counterpart of `morb_slam_tpu/ops/stereo.py`).
 
 A dense (NL, NR) candidate gate (row band, disparity range, octave band)
@@ -7,6 +8,8 @@ feeds one K3 launch (`hamming.hamming_top2`): its best index is the
 reference's gated argmin, first column on ties. `sad_refine` is kernel K7:
 on CUDA tensors it launches `csrc/stereo_sad.cu`; on CPU tensors it runs
 `sad_refine_plain`. The median dispersion filter is plain PyTorch.
+`match_stereo_general` is kernel K16 (`csrc/stereo_general.cu`) on CUDA
+tensors and `match_stereo_general_plain` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import cameras, lie
 from . import cuda_build, hamming
 
 TH_ORB = (hamming.TH_HIGH + hamming.TH_LOW) // 2  # 75
@@ -26,6 +30,8 @@ STRIP = WIN + 2 * SAD_L
 NCAND = 2 * SAD_L + 1
 
 LAUNCHES = {"kernel": 0, "plain": 0}
+GENERAL_LAUNCHES = {"kernel": 0, "plain": 0}
+EP_GATE = 0.01         # |b_r^T E b_l| of a two-camera candidate pair
 
 
 class StereoMatches(NamedTuple):
@@ -177,6 +183,186 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.stereo_sad.argtypes = [P, P, I, I, P, P, I, P, P, P, P]
         lib.stereo_sad.restype = I
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# non-rectified two-camera rig (K16)
+# ---------------------------------------------------------------------------
+
+def _dot3(a, b):
+    """Row-wise dot product of (..., 3) tensors, summed left to right (K16
+    repeats this order)."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
+
+
+def _mv3(M, v):
+    """(3, 3) matrix times each row of v (N, 3), sums left to right."""
+    return torch.stack([M[i, 0] * v[:, 0] + M[i, 1] * v[:, 1]
+                        + M[i, 2] * v[:, 2] for i in range(3)], dim=-1)
+
+
+def _mtv3(M, v):
+    """M^T times each row of v (N, 3), sums left to right."""
+    return torch.stack([M[0, i] * v[:, 0] + M[1, i] * v[:, 1]
+                        + M[2, i] * v[:, 2] for i in range(3)], dim=-1)
+
+
+def epipolar_residual(bear_l, bear_r, R_rl, t_rl):
+    """(NL, NR) |b_r^T E b_l| with E = [t_rl]x R_rl: E b_l per left
+    bearing, then the dot with each right bearing, sums left to right."""
+    Eb = _mv3(lie.so3_hat(t_rl) @ R_rl, bear_l)              # (NL, 3)
+    return torch.abs(Eb[:, None, 0] * bear_r[None, :, 0]
+                     + Eb[:, None, 1] * bear_r[None, :, 1]
+                     + Eb[:, None, 2] * bear_r[None, :, 2])
+
+
+def _triangulate_gate(bear_l, bear_r_m, uv_l, uv_r_m, R_rl, t_rl, sigma2,
+                      cam_l, cam_r, max_reproj_chi2, max_cos_parallax):
+    """Midpoint triangulation of each left bearing with its matched right
+    bearing, in the left frame, and the gates: (depth z, gate pass (NL,)
+    bool, the two views' chi2 e_l, e_r (NL,))."""
+    d1 = bear_l
+    d2 = _mtv3(R_rl, bear_r_m)                               # R_lr b_r
+    c2 = -_mtv3(R_rl, t_rl[None, :])[0]                      # right centre
+    a11 = _dot3(d1, d1)
+    a12 = -_dot3(d1, d2)
+    a22 = _dot3(d2, d2)
+    b1 = _dot3(d1, c2[None, :])
+    b2 = -_dot3(d2, c2[None, :])
+    det = a11 * a22 - a12 * a12
+    det = torch.where(torch.abs(det) < 1e-12, torch.full_like(det, 1e-12),
+                      det)
+    alpha = (b1 * a22 - b2 * a12) / det
+    beta = (a11 * b2 - a12 * b1) / det
+    X = 0.5 * (alpha[:, None] * d1 + c2[None, :] + beta[:, None] * d2)
+    cosp = _dot3(d1, d2)
+    ul, vl = cameras.project_distorted(cam_l, X).unbind(-1)
+    X_r = _mv3(R_rl, X) + t_rl[None, :]
+    ur, vr = cameras.project_distorted(cam_r, X_r).unbind(-1)
+    dul, dvl = ul - uv_l[:, 0], vl - uv_l[:, 1]
+    dur, dvr = ur - uv_r_m[:, 0], vr - uv_r_m[:, 1]
+    e_l = (dul * dul + dvl * dvl) / sigma2
+    e_r = (dur * dur + dvr * dvr) / sigma2
+    good = ((alpha > 0) & (beta > 0) & (X[:, 2] > 0) & (X_r[:, 2] > 0)
+            & (cosp < max_cos_parallax) & (e_l < max_reproj_chi2)
+            & (e_r < max_reproj_chi2))
+    return X[:, 2], good, e_l, e_r
+
+
+def match_stereo_general_plain(feats_l, feats_r, bear_l, bear_r, uv_l, uv_r,
+                               cam_l, cam_r, R_rl, t_rl, sigma2,
+                               max_reproj_chi2: float = 5.991,
+                               max_cos_parallax: float = 0.9998):
+    """Plain version of K16, step by step as the reference package's
+    `match_stereo_general`: the epipolar gate in bearing space with octaves
+    within 1, the gated Hamming argmin (first column on ties) with a cross
+    check (argmin over rows, first row on ties), midpoint triangulation in
+    the left frame and the alpha, beta, depth, parallax and two-view chi2
+    gates. Returns (StereoMatches (u_right = the matched raw right x, depth
+    = z in the left frame), idx (NL,) int32: the cross-checked match under
+    TH_ORB before the geometric gates, or -1)."""
+    GENERAL_LAUNCHES["plain"] += 1
+    nl = bear_l.shape[0]
+    dev = bear_l.device
+    ep = epipolar_residual(bear_l, bear_r, R_rl, t_rl)
+    oct_ok = torch.abs(feats_l.octave[:, None] - feats_r.octave[None, :]) <= 1
+    cand = ((ep < EP_GATE) & oct_ok & feats_l.valid[:, None]
+            & feats_r.valid[None, :])
+    dist = torch.where(cand, hamming.hamming_matrix(feats_l.desc,
+                                                    feats_r.desc),
+                       torch.full((), hamming.BIG, dtype=torch.int32,
+                                  device=dev))
+    best_idx = torch.argmin(dist, dim=1)
+    best_dist = torch.gather(dist, 1, best_idx[:, None])[:, 0]
+    best_rev = torch.argmin(dist, dim=0)
+    matched = (best_dist <= TH_ORB) & (
+        best_rev[best_idx] == torch.arange(nl, device=dev))
+    uv_r_m = uv_r[best_idx]
+    z, good, _, _ = _triangulate_gate(
+        bear_l, bear_r[best_idx], uv_l, uv_r_m, R_rl, t_rl, sigma2, cam_l,
+        cam_r, max_reproj_chi2, max_cos_parallax)
+    good = good & matched
+    idx = torch.where(matched, best_idx.to(torch.int32),
+                      torch.full_like(best_idx, -1, dtype=torch.int32))
+    return StereoMatches(
+        u_right=torch.where(good, uv_r_m[:, 0],
+                            torch.full_like(z, -1.0)),
+        depth=torch.where(good, z, torch.full_like(z, -1.0)),
+        valid=good), idx
+
+
+def match_stereo_general(feats_l, feats_r, bear_l, bear_r, uv_l, uv_r,
+                         cam_l, cam_r, R_rl, t_rl, sigma2,
+                         max_reproj_chi2: float = 5.991,
+                         max_cos_parallax: float = 0.9998):
+    """K16: the non-rectified two-camera match (reference
+    KannalaBrandt8::TriangulateMatches), `match_stereo_general_plain`'s
+    result. CUDA tensors: the kernel (raises if it cannot run), which never
+    forms the NL x NR distance matrix; CPU tensors: the plain version."""
+    if bear_l.device.type == "cpu":
+        return match_stereo_general_plain(
+            feats_l, feats_r, bear_l, bear_r, uv_l, uv_r, cam_l, cam_r, R_rl,
+            t_rl, sigma2, max_reproj_chi2, max_cos_parallax)
+    if bear_l.device.type != "cuda":
+        raise ValueError(f"match_stereo_general: unsupported device "
+                         f"{bear_l.device}")
+    nl, nr = bear_l.shape[0], bear_r.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    want = ((feats_l.desc, i32, (nl, 8)), (feats_r.desc, i32, (nr, 8)),
+            (feats_l.octave, i32, (nl,)), (feats_r.octave, i32, (nr,)),
+            (feats_l.valid, torch.bool, (nl,)),
+            (feats_r.valid, torch.bool, (nr,)), (bear_l, f32, (nl, 3)),
+            (bear_r, f32, (nr, 3)), (uv_l, f32, (nl, 2)),
+            (uv_r, f32, (nr, 2)), (sigma2, f32, (nl,)),
+            (R_rl, f32, (3, 3)), (t_rl, f32, (3,)),
+            (cam_l.params, f32, (9,)), (cam_r.params, f32, (9,)))
+    if any(t.dtype != d or tuple(t.shape) != s or t.device != bear_l.device
+           for t, d, s in want) or nr == 0 or \
+            cam_l.kind not in (0, 1) or cam_r.kind not in (0, 1):
+        raise ValueError("match_stereo_general: needs int32 (N, 8) "
+                         "descriptors and octaves, bool valid flags, "
+                         "float32 (N, 3) bearings, (N, 2) pixels, (NL,) "
+                         "sigma2, (3, 3) R_rl, (3,) t_rl and two cameras "
+                         "on one device")
+    if nl == 0:
+        e = torch.empty(0, dtype=f32, device=bear_l.device)
+        return StereoMatches(e, e, e.bool()), e.to(i32)
+    ins = [t.contiguous() for t, _, _ in want]
+    ins[4], ins[5] = ins[4].to(torch.uint8), ins[5].to(torch.uint8)
+    ins[0], ins[1] = (hamming._aligned(t) for t in ins[:2])
+    # E by the plain version's own product, so both gate the same values
+    ins.insert(13, (lie.so3_hat(t_rl) @ R_rl).contiguous())
+    dev = bear_l.device
+    # pass 1's E b_l, row best and index; pass 2's column index
+    ebl = torch.empty((nl, 3), dtype=f32, device=dev)
+    row_best = torch.empty(nl, dtype=i32, device=dev)
+    row_idx = torch.empty(nl, dtype=i32, device=dev)
+    col_idx = torch.empty(nr, dtype=i32, device=dev)
+    u_right = torch.empty(nl, dtype=f32, device=dev)
+    depth = torch.empty(nl, dtype=f32, device=dev)
+    valid = torch.empty(nl, dtype=torch.uint8, device=dev)
+    idx = torch.empty(nl, dtype=i32, device=dev)
+    rc = _general_lib().stereo_general(
+        *(t.data_ptr() for t in ins), cam_l.kind, cam_r.kind, nl, nr,
+        ctypes.c_float(max_reproj_chi2), ctypes.c_float(max_cos_parallax),
+        ebl.data_ptr(), row_best.data_ptr(), row_idx.data_ptr(),
+        col_idx.data_ptr(), u_right.data_ptr(), depth.data_ptr(),
+        valid.data_ptr(), idx.data_ptr(), cuda_build.stream_ptr(bear_l))
+    cuda_build.check(rc, "stereo_general")
+    GENERAL_LAUNCHES["kernel"] += 1
+    return StereoMatches(u_right=u_right, depth=depth,
+                         valid=valid.bool()), idx
+
+
+def _general_lib():
+    lib = cuda_build.library("stereo_general")
+    if lib.stereo_general.argtypes is None:
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.stereo_general.argtypes = [P] * 16 + [I, I, I, I, Fl, Fl] + \
+            [P] * 9
+        lib.stereo_general.restype = I
     return lib
 
 

@@ -3,21 +3,25 @@ initialization (scale, gravity, biases, velocities) and the map gauge
 change (counterpart of `morb_slam_tpu/optim/inertial.py`).
 
 `inertial_only_optimize` is Gauss-Newton over {gravity direction (2), log
-scale, bg, ba, v_0..v_K} with poses fixed, its Jacobian by forward-mode
-autodiff (`torch.func.jacfwd`); `linear_alignment` is the closed-form
-initial estimate. Body frame == camera frame at this layer. Both run as
-plain PyTorch: at most five calls per session, at the IMU-init stages.
+scale, bg, ba, v_0..v_K} with poses fixed. Its system at each point is
+kernel K17 (`inertial_system`): on CUDA tensors `csrc/inertial_init.cu`,
+on CPU tensors `inertial_system_plain`, whose per-edge Jacobian over the
+15 parameters an edge touches is forward-mode autodiff. The damping, the
+dense solve and the accept test are plain PyTorch on the device.
+`linear_alignment` is the closed-form initial estimate, plain PyTorch.
+Body frame == camera frame at this layer.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
-from torch.func import jacfwd
 from torch.profiler import record_function
 
 from .. import imu as imu_mod
 from .. import lie
+from ..ops import cuda_build
 
 G = 9.81
 
@@ -191,33 +195,6 @@ def merge_entry_into_next(ki: KfImu, k, nxt) -> KfImu:
         info=setn(ki.info, info), rw_info=setn(ki.rw_info, rw))
 
 
-def _corrected_deltas(ki: KfImu, bg, ba):
-    dbg = bg[None, :] - ki.bias0[:, :3]
-    dba = ba[None, :] - ki.bias0[:, 3:]
-    dR = lie.matmat(ki.dR, lie.so3_exp(lie.matvec(ki.J_Rg, dbg)))
-    dV = ki.dV + lie.matvec(ki.J_Vg, dbg) + lie.matvec(ki.J_Va, dba)
-    dP = ki.dP + lie.matvec(ki.J_Pg, dbg) + lie.matvec(ki.J_Pa, dba)
-    return dR, dV, dP
-
-
-def inertial_residuals(ki: KfImu, R_wb, p_wb, v, bg, ba, g_world, scale):
-    """(K, 9) preintegration residuals of every keyframe pair (zero where
-    the entry is invalid); p_wb are the visual positions, scaled here."""
-    prev = torch.clamp(ki.prev, min=0).long()
-    dR, dV, dP = _corrected_deltas(ki, bg, ba)
-    Ri, Rj = R_wb[prev], R_wb
-    pi, pj = p_wb[prev] * scale, p_wb * scale
-    vi, vj = v[prev], v
-    dt = ki.dt[:, None]
-    RiT = Ri.transpose(-1, -2)
-    r_R = lie.so3_log(lie.matmat(dR.transpose(-1, -2), lie.matmat(RiT, Rj)))
-    r_v = lie.matvec(RiT, vj - vi - g_world[None, :] * dt) - dV
-    r_p = lie.matvec(RiT, pj - pi - vi * dt
-                     - 0.5 * g_world[None, :] * dt * dt) - dP
-    r = torch.cat([r_R, r_v, r_p], dim=-1)
-    return torch.where(ki.valid[:, None], r, torch.zeros_like(r))
-
-
 def linear_alignment(ki: KfImu, R_wb, p_wb, kf_valid):
     """Closed-form visual-inertial alignment: s dp_vis = v_i dt + g dt^2 / 2
     + R_i dP and v_j = v_i + g dt + R_i dV are linear in (s, g, v_0..v_K);
@@ -273,88 +250,252 @@ def gravity_rotation(g_vis):
     return lie.so3_exp(axis * ang)
 
 
+# per-slot constants packed for K17 (csrc/inertial_init.cu reads this
+# layout): dt, dR, dV, dP, J_Rg, J_Vg, J_Va, J_Pg, J_Pa, bias0, the
+# effective information and the edge weight
+_PACK = ("dt", "dR", "dV", "dP", "J_Rg", "J_Vg", "J_Va", "J_Pg", "J_Pa",
+         "bias0")
+N_INIT_CONST = 149
+
+INIT_LAUNCHES = {"kernel": 0, "plain": 0}
+
+
+class InitProblem(NamedTuple):
+    """One `inertial_only_optimize` problem with the poses fixed: the
+    preintegration store, the visual poses, each slot's effective
+    information (the noise floor added to its covariance) and edge weight
+    w (valid, with both keyframes valid), the gravity base rotation, the
+    bias prior weights and whether the scale is free; `cst` packs the
+    per-slot constants for K17."""
+    ki: KfImu
+    R_wb: torch.Tensor
+    p_wb: torch.Tensor
+    info_eff: torch.Tensor
+    w: torch.Tensor
+    base: torch.Tensor
+    opt_scale: bool
+    prior_gyro: float
+    prior_acc: float
+    cst: torch.Tensor
+
+
+def init_problem(ki: KfImu, R_wb, p_wb, kf_valid, opt_scale: bool = True,
+                 prior_gyro: float = 1e2, prior_acc: float = 1e6,
+                 R_wg0=None) -> InitProblem:
+    K = R_wb.shape[0]
+    f32, dev = R_wb.dtype, R_wb.device
+    w = (ki.valid & kf_valid
+         & kf_valid[torch.clamp(ki.prev, min=0).long()]).to(f32)
+    # noise floor: the visual poses in the residuals carry their own error
+    # (and early monocular maps drift in scale); without it the raw
+    # preintegration information lets those errors collapse the scale
+    floor = torch.diag(torch.tensor([9e-6] * 3 + [1e-4] * 3 + [2.5e-5] * 3,
+                                    dtype=f32)).to(dev)
+    cov_eff = torch.linalg.inv_ex(ki.info).inverse + floor[None]
+    info_eff = torch.linalg.inv_ex(cov_eff).inverse
+    info_eff = 0.5 * (info_eff + info_eff.transpose(-1, -2))
+    base = torch.eye(3, dtype=f32, device=dev) if R_wg0 is None else R_wg0
+    cst = torch.cat([getattr(ki, n).reshape(K, -1).to(f32) for n in _PACK]
+                    + [info_eff.reshape(K, 81), w[:, None]], dim=1)
+    return InitProblem(ki, R_wb, p_wb, info_eff, w, base, bool(opt_scale),
+                       float(prior_gyro), float(prior_acc), cst)
+
+
+def _edge_residuals(p: InitProblem, XL):
+    """(K, 9) residual of every keyframe pair at its 15 local parameters
+    XL (K, 15) = [phi_g (2), log s, bg (3), ba (3), v_prev (3), v_k (3)]
+    (zero where the entry is invalid): [r_R, r_v, r_p] of the
+    bias-corrected preintegration against the scaled visual poses, the
+    reference package's `inertial_residuals` with the globals per edge."""
+    ki = p.ki
+    K = XL.shape[0]
+    f32, dev = XL.dtype, XL.device
+    prev = torch.clamp(ki.prev, min=0).long()
+    phi = torch.cat([XL[:, :2], torch.zeros((K, 1), dtype=f32, device=dev)],
+                    dim=1)
+    R_wg = lie.matmat(lie.so3_exp(phi), p.base[None])
+    g0 = torch.zeros((1, 3), dtype=f32, device=dev)
+    g0[0, 2] = -G
+    g_w = lie.matvec(R_wg, g0)
+    s = torch.exp(XL[:, 2:3]) if p.opt_scale else \
+        torch.ones((K, 1), dtype=f32, device=dev)
+    dbg = XL[:, 3:6] - ki.bias0[:, :3]
+    dba = XL[:, 6:9] - ki.bias0[:, 3:]
+    dR = lie.matmat(ki.dR, lie.so3_exp(lie.matvec(ki.J_Rg, dbg)))
+    dV = ki.dV + lie.matvec(ki.J_Vg, dbg) + lie.matvec(ki.J_Va, dba)
+    dP = ki.dP + lie.matvec(ki.J_Pg, dbg) + lie.matvec(ki.J_Pa, dba)
+    Ri, Rj = p.R_wb[prev], p.R_wb
+    pi, pj = p.p_wb[prev] * s, p.p_wb * s
+    vi, vj = XL[:, 9:12], XL[:, 12:15]
+    dt = ki.dt[:, None]
+    RiT = Ri.transpose(-1, -2)
+    r_R = lie.so3_log(lie.matmat(dR.transpose(-1, -2), lie.matmat(RiT, Rj)))
+    r_v = lie.matvec(RiT, vj - vi - g_w * dt) - dV
+    r_p = lie.matvec(RiT, pj - pi - vi * dt - 0.5 * g_w * dt * dt) - dP
+    r = torch.cat([r_R, r_v, r_p], dim=-1)
+    return torch.where(ki.valid[:, None], r, torch.zeros_like(r))
+
+
+def _local_index(p: InitProblem):
+    """(K, 15) column of each edge's local parameter in the global x."""
+    K = p.w.shape[0]
+    dev = p.w.device
+    prev = torch.clamp(p.ki.prev, min=0).long()
+    r3 = torch.arange(3, device=dev)
+    return torch.cat([torch.arange(9, device=dev).expand(K, 9),
+                      9 + 3 * prev[:, None] + r3,
+                      9 + 3 * torch.arange(K, device=dev)[:, None] + r3],
+                     dim=1)
+
+
+def _edge_terms(p: InitProblem, x):
+    """Each edge's residual r (K, 9) at x (n_par,), its Jacobian J (K, 9,
+    15) over its 15 local columns by forward mode along each, and its
+    weight w_k Omega_k (K, 9, 9)."""
+    K = p.w.shape[0]
+    f32, dev = x.dtype, x.device
+    prev = torch.clamp(p.ki.prev, min=0).long()
+    v = x[9:].reshape(K, 3)
+    XL = torch.cat([x[:9].expand(K, 9), v[prev], v], dim=1)
+    f = lambda xl: _edge_residuals(p, xl)           # noqa: E731
+    eye = torch.eye(15, dtype=f32, device=dev)
+    J = torch.stack([torch.func.jvp(f, (XL,), (eye[d].expand(K, 15),))[1]
+                     for d in range(15)], dim=-1).to(f32)     # (K, 9, 15)
+    return f(XL), J, p.info_eff * p.w[:, None, None]
+
+
+def _assemble(p: InitProblem, r, J, W, x):
+    """(H, g, cost) of the edge terms scattered into the n_par system,
+    plus the bias priors at x."""
+    K = p.w.shape[0]
+    n = 9 + 3 * K
+    f32, dev = x.dtype, x.device
+    idx = _local_index(p)
+    sg = torch.tensor([0.0] * 3 + [p.prior_gyro] * 3 + [p.prior_acc] * 3,
+                      dtype=f32, device=dev)
+    He = torch.einsum('kap,kab,kbq->kpq', J, W, J)
+    ge = torch.einsum('kap,kab,kb->kp', J, W, r)
+    H = torch.zeros((n, n), dtype=f32, device=dev).index_put_(
+        (idx[:, :, None], idx[:, None, :]), He, accumulate=True)
+    g = torch.zeros(n, dtype=f32, device=dev).index_put_(
+        (idx,), ge, accumulate=True)
+    ar9 = torch.arange(9, device=dev)
+    H[ar9, ar9] += sg
+    g[:9] += sg * x[:9]
+    cost = torch.sum(torch.einsum('ka,kab,kb->k', r, W, r)) + \
+        torch.sum(sg * x[:9] * x[:9])
+    return H, g, cost
+
+
+def inertial_system_plain(p: InitProblem, x):
+    """Plain version of K17: the Gauss-Newton system of the IMU
+    initialization at x (n_par,): H = sum_k w_k J_k^T Omega_k J_k plus the
+    bias priors, g = sum_k w_k J_k^T Omega_k r_k plus the priors' gradient
+    and the cost sum_k w_k r_k^T Omega_k r_k plus the priors. Each edge's
+    Jacobian has 15 columns (the 9 globals, v_prev and v_k). Returns (H
+    (n_par, n_par), g (n_par,), cost ())."""
+    INIT_LAUNCHES["plain"] += 1
+    return _assemble(p, *_edge_terms(p, x), x)
+
+
+def inertial_system(p: InitProblem, x):
+    """K17: `inertial_system_plain(p, x)` (H, g, cost). CUDA tensors: the
+    kernel (raises if it cannot run); CPU tensors: the plain version."""
+    if x.device.type == "cpu":
+        return inertial_system_plain(p, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"inertial_system: unsupported device {x.device}")
+    K = p.w.shape[0]
+    n = 9 + 3 * K
+    f32 = torch.float32
+    ins = [(p.cst, (K, N_INIT_CONST)), (p.R_wb, (K, 3, 3)),
+           (p.p_wb, (K, 3)), (x, (n,)), (p.base, (3, 3))]
+    if any(t.dtype != f32 or tuple(t.shape) != s or t.device != x.device
+           for t, s in ins) or p.ki.prev.dtype != torch.int32 or \
+            p.ki.prev.shape != (K,) or K == 0:
+        raise ValueError("inertial_system: needs float32 constants "
+                         "(K, 149), poses (K, 3, 3), (K, 3), x (9 + 3K,) "
+                         "and int32 prev (K,) on one device")
+    ins = [t.contiguous() for t, _ in ins] + [p.ki.prev.contiguous()]
+    dev = x.device
+    He = torch.empty((K, 15, 15), dtype=f32, device=dev)
+    ge = torch.empty((K, 15), dtype=f32, device=dev)
+    ce = torch.empty(K, dtype=f32, device=dev)
+    H = torch.empty((n, n), dtype=f32, device=dev)
+    g = torch.empty(n, dtype=f32, device=dev)
+    cost = torch.empty((), dtype=f32, device=dev)
+    rc = _init_lib().inertial_init_system(
+        *(t.data_ptr() for t in ins), K, int(p.opt_scale), p.prior_gyro,
+        p.prior_acc, He.data_ptr(), ge.data_ptr(), ce.data_ptr(),
+        H.data_ptr(), g.data_ptr(), cost.data_ptr(),
+        cuda_build.stream_ptr(x))
+    cuda_build.check(rc, "inertial_init")
+    INIT_LAUNCHES["kernel"] += 1
+    return H, g, cost
+
+
+def _init_lib():
+    lib = cuda_build.library("inertial_init")
+    if lib.inertial_init_system.argtypes is None:
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.inertial_init_system.argtypes = [P] * 6 + [I, I, Fl, Fl] + \
+            [P] * 7
+        lib.inertial_init_system.restype = I
+    return lib
+
+
 @record_function("inertial_only_optimize")
 def inertial_only_optimize(ki: KfImu, R_wb, p_wb, kf_valid,
                            n_iters: int = 30, opt_scale: bool = True,
                            prior_gyro: float = 1e2, prior_acc: float = 1e6,
                            s0=1.0, v0=None, R_wg0=None):
     """Gravity direction, scale, biases and velocities with poses fixed,
-    by damped Gauss-Newton with accept / reject. Returns (R_wg, scale, bg,
-    ba, v (K, 3), per-iteration mean chi2 per residual dimension)."""
+    by damped Gauss-Newton with accept / reject. The system at each point
+    is K17 (`inertial_system`); the damping, the solve and the accept test
+    stay on the device without a host read. Returns (R_wg, scale, bg, ba,
+    v (K, 3), per-iteration mean chi2 per residual dimension)."""
     K = R_wb.shape[0]
     f32, dev = R_wb.dtype, R_wb.device
-    n_par = 2 + 1 + 6 + 3 * K
-    base = torch.eye(3, dtype=f32, device=dev) if R_wg0 is None else R_wg0
-    g0 = torch.zeros(3, dtype=f32, device=dev)
-    g0[2] = -G
-    zero1 = torch.zeros(1, dtype=f32, device=dev)
-
-    def unpack(x):
-        R_wg = lie.matmat(lie.so3_exp(torch.cat([x[:2], zero1])), base)
-        s = torch.exp(x[2]) if opt_scale else torch.ones((), dtype=f32,
-                                                         device=dev)
-        return R_wg, s, x[3:6], x[6:9], x[9:].reshape(K, 3)
-
-    def residuals(x):
-        R_wg, s, bg, ba, v = unpack(x)
-        return inertial_residuals(ki, R_wb, p_wb, v, bg, ba,
-                                  lie.matvec(R_wg, g0), s)
-
-    sg, sa = prior_gyro ** 0.5, prior_acc ** 0.5
-    w_kf = (ki.valid & kf_valid
-            & kf_valid[torch.clamp(ki.prev, min=0).long()]).to(f32)
-    floor = torch.diag(torch.tensor([9e-6] * 3 + [1e-4] * 3 + [2.5e-5] * 3,
-                                    dtype=f32)).to(dev)
-    cov_eff = torch.linalg.inv_ex(ki.info).inverse + floor[None]
-    info_eff = torch.linalg.inv_ex(cov_eff).inverse
-    info_eff = 0.5 * (info_eff + info_eff.transpose(-1, -2))
-
-    def cost_of(x):
-        r = residuals(x)
-        quad = torch.einsum('ki,kij,kj->k', r, info_eff, r)
-        return (torch.sum(quad * w_kf) + torch.sum((x[3:6] * sg) ** 2)
-                + torch.sum((x[6:9] * sa) ** 2))
-
+    n_par = 9 + 3 * K
+    p = init_problem(ki, R_wb, p_wb, kf_valid, opt_scale, prior_gyro,
+                     prior_acc, R_wg0)
     eye_n = torch.eye(n_par, dtype=f32, device=dev)
-
-    def gn_step(x, lam):
-        r = residuals(x)
-        J = jacfwd(residuals)(x).to(f32)                # (K, 9, n_par)
-        JtW = torch.einsum('kap,kab->kbp', J, info_eff) * w_kf[:, None, None]
-        H = torch.einsum('kbp,kbq->pq', JtW, J)
-        g = torch.einsum('kbp,kb->p', JtW, r)
-        H[3:6, 3:6] += prior_gyro * eye_n[:3, :3]
-        H[6:9, 6:9] += prior_acc * eye_n[:3, :3]
-        g[3:6] += prior_gyro * x[3:6]
-        g[6:9] += prior_acc * x[6:9]
-        H = H + lam * torch.diag(torch.clamp(torch.diagonal(H), min=1e-8)) \
-            + 1e-4 * eye_n
-        if not opt_scale:
-            H[2, :] = 0.0
-            H[:, 2] = 0.0
-            H[2, 2] = 1.0
-            g[2] = 0.0
-        return x - torch.linalg.solve_ex(H, g).result
-
     x = torch.zeros(n_par, dtype=f32, device=dev)
     x[2] = torch.log(torch.as_tensor(s0, dtype=f32, device=dev))
     if v0 is not None:
         x[9:] = v0.reshape(-1)
     lam = torch.tensor(1e-2, dtype=f32, device=dev)
-    cost = cost_of(x)
+    # the system at the current point carries over a rejected step: the
+    # next step damps the same H and g more strongly
+    H, g, cost = inertial_system(p, x)
     costs = []
     for _ in range(n_iters):
-        x_new = gn_step(x, lam)
-        new_cost = cost_of(x_new)
+        Hd = H + lam * torch.diag(torch.clamp(torch.diagonal(H), min=1e-8)) \
+            + 1e-4 * eye_n
+        gd = g
+        if not opt_scale:
+            Hd[2, :] = 0.0
+            Hd[:, 2] = 0.0
+            Hd[2, 2] = 1.0
+            gd = g.clone()
+            gd[2] = 0.0
+        x_new = x - torch.linalg.solve_ex(Hd, gd).result
+        H_new, g_new, new_cost = inertial_system(p, x_new)
         accept = new_cost < cost
         x = torch.where(accept, x_new, x)
+        H = torch.where(accept, H_new, H)
+        g = torch.where(accept, g_new, g)
         cost = torch.where(accept, new_cost, cost)
         lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 5.0),
                           1e-9, 1e6)
         costs.append(cost)
-    R_wg, s, bg, ba, v = unpack(x)
-    n_edges = torch.clamp(torch.sum(w_kf), min=1.0)
-    return R_wg, s, bg, ba, v, torch.stack(costs) / (9.0 * n_edges)
+    R_wg = lie.matmat(lie.so3_exp(torch.cat([x[:2], x.new_zeros(1)])),
+                      p.base)
+    s = torch.exp(x[2]) if opt_scale else torch.ones((), dtype=f32,
+                                                     device=dev)
+    n_edges = torch.clamp(torch.sum(p.w), min=1.0)
+    return (R_wg, s, x[3:6], x[6:9], x[9:].reshape(K, 3),
+            torch.stack(costs) / (9.0 * n_edges))
 
 
 def apply_gauge(kf_R, kf_t, lm_pos, v, R_wg, scale):

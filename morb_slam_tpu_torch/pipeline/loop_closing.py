@@ -5,19 +5,24 @@ After a keyframe insert, `LoopCloser.maybe_close` queries the keyframe
 database (K10) for candidates outside the covisible group, verifies them by
 descriptor matching (K3) and a Sim(3) RANSAC on the 3D-3D pairs
 (`verify_candidate`), then by guided projection matching and a 7-dof
-Gauss-Newton refinement (`guided_sim3_verify`); a loop fires after two
-consistent detections. `correct_loop` then redistributes the drift with the
-Sim(3) pose graph, `search_and_fuse` welds the two sides' landmarks, and
-the detached global BA (`global_ba.GBAJob`, K4 per-observation mode + K14)
-starts; its first two slices run at once. `maybe_merge` welds a stashed map
-back through the same verification against the stashed database
-(`verify_merge`), an essential-graph pass when several contacts verify, and
-a weld-window BA. Every Hamming search gives its gate to K3, which never
-forms the N x M distance matrix. The RANSAC sample tables are drawn from
-the tracker's `torch.Generator`. The decisions (inlier counts, candidate
+Gauss-Newton refinement (`guided_sim3_verify`: kernel K18, `window_match`
+and `sim3_refine`, `csrc/sim3_verify.cu` on CUDA tensors, their plain
+versions on CPU tensors); a loop fires after two consistent detections.
+`correct_loop` then redistributes the drift with the Sim(3) pose graph,
+`search_and_fuse` welds the two sides' landmarks, and the detached global
+BA (`global_ba.GBAJob`, K4 per-observation mode + K14) starts; its first
+two slices run at once. `maybe_merge` welds a stashed map back through
+the RANSAC verification against the stashed database (`verify_merge`), an
+essential-graph pass when several contacts verify, and a weld-window BA.
+Every other Hamming search gives its gate to K3, which never forms the
+N x M distance matrix. The RANSAC sample tables are drawn from the
+tracker's `torch.Generator`. The decisions (inlier counts, candidate
 flags) are read on the host, as the reference does.
 """
 from __future__ import annotations
+
+import ctypes
+import math
 
 import numpy as np
 import torch
@@ -26,7 +31,7 @@ from torch.profiler import record_function
 from .. import cameras, lie, matching
 from ..mapstate import atlas as atlas_mod
 from ..mapstate import state as ms
-from ..ops import hamming
+from ..ops import cuda_build, hamming
 from ..optim import pose_graph
 from ..solvers import sim3 as sim3_solver
 from ..tensor_ops import mask_first, put, topk
@@ -83,17 +88,341 @@ def verify_candidate(m: ms.MapState, kf_id, cand, cfg,
                         generator)
 
 
+CHI2_SIM3 = 9.21
+WINDOW_LAUNCHES = {"kernel": 0, "plain": 0}
+REFINE_LAUNCHES = {"kernel": 0, "plain": 0}
+
+
+def _sim3_flat(s0, R0, t0):
+    """(13,) float32 [s, R row-major, t] for K18."""
+    return torch.cat([s0.reshape(1), R0.reshape(9), t0.reshape(3)]).to(
+        torch.float32).contiguous()
+
+
+def window_match_plain(X2c, ok2, oct2, desc2, xn1, valid1, desc1, s0, R0,
+                       t0, focal: float, scale: float):
+    """Plain version of K18's first launch: project the candidate's
+    camera-frame landmarks X2c (F, 3) through (s0, R0, t0) into the
+    keyframe, gate each pair by the 7.5 px window scaled by the candidate
+    feature's octave and by z > 0.05, and match descriptors (TH_HIGH,
+    ratio 1, cross check; K3 through `hamming.match_nn`). The projection is
+    written per component, summed left to right, as the kernel does.
+    Returns idx (F,) int32: the keyframe feature of each candidate
+    feature, or -1."""
+    WINDOW_LAUNCHES["plain"] += 1
+    f32 = X2c.dtype
+    X = [s0 * (R0[i, 0] * X2c[:, 0] + R0[i, 1] * X2c[:, 1]
+               + R0[i, 2] * X2c[:, 2]) + t0[i] for i in range(3)]
+    z = X[2]
+    zs = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
+    px, py = X[0] / zs, X[1] / zs
+    rad = 7.5 / focal * scale ** oct2.to(f32)
+    dx = px[:, None] - xn1[None, :, 0]
+    dy = py[:, None] - xn1[None, :, 1]
+    gate = (dx * dx + dy * dy < (rad * rad)[:, None]) & (z > 0.05)[:, None]
+    idx, _ = hamming.match_nn(desc2, desc1, gate, ok2, valid1,
+                              max_dist=hamming.TH_HIGH, ratio=1.0,
+                              cross_check=True)
+    return idx
+
+
+def window_match(X2c, ok2, oct2, desc2, xn1, valid1, desc1, s0, R0, t0,
+                 focal: float, scale: float):
+    """K18's first launch (`window_match_plain`'s result). CUDA tensors:
+    the kernel (raises if it cannot run), which never forms the F x F
+    gate or distance matrix; CPU tensors: the plain version."""
+    if X2c.device.type == "cpu":
+        return window_match_plain(X2c, ok2, oct2, desc2, xn1, valid1, desc1,
+                                  s0, R0, t0, focal, scale)
+    if X2c.device.type != "cuda":
+        raise ValueError(f"window_match: unsupported device {X2c.device}")
+    n2, n1 = X2c.shape[0], xn1.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    want = ((desc2, i32, (n2, 8)), (desc1, i32, (n1, 8)),
+            (X2c, f32, (n2, 3)), (ok2, torch.bool, (n2,)),
+            (oct2, i32, (n2,)), (xn1, f32, (n1, 2)),
+            (valid1, torch.bool, (n1,)))
+    if any(t.dtype != d or tuple(t.shape) != sh or t.device != X2c.device
+           for t, d, sh in want) or n1 == 0 or n2 == 0:
+        raise ValueError("window_match: needs int32 (F, 8) descriptors, "
+                         "float32 X2c (F, 3) and xn1 (F, 2), int32 octaves "
+                         "and bool flags on one device")
+    ins = [hamming._aligned(desc2), hamming._aligned(desc1),
+           X2c.contiguous(), ok2.to(torch.uint8).contiguous(),
+           oct2.contiguous(), xn1.contiguous(),
+           valid1.to(torch.uint8).contiguous(), _sim3_flat(s0, R0, t0)]
+    dev = X2c.device
+    rows = torch.empty((n2, 4), dtype=f32, device=dev)
+    best = torch.empty(n2, dtype=i32, device=dev)
+    bidx = torch.empty(n2, dtype=i32, device=dev)
+    second = torch.empty(n2, dtype=i32, device=dev)
+    col = torch.empty(n1, dtype=i32, device=dev)
+    idx = torch.empty(n2, dtype=i32, device=dev)
+    rc = _verify_lib().sim3_window_match(
+        *(t.data_ptr() for t in ins), n2, n1, 7.5 / focal, scale,
+        rows.data_ptr(), best.data_ptr(), bidx.data_ptr(),
+        second.data_ptr(), col.data_ptr(), idx.data_ptr(),
+        cuda_build.stream_ptr(X2c))
+    cuda_build.check(rc, "sim3_window_match")
+    WINDOW_LAUNCHES["kernel"] += 1
+    return idx
+
+
+class _Dual:
+    """A forward-mode dual number (value v, tangents d: one row a lane) on
+    float64 tensors, with the operations of K18's double duals
+    (csrc/sim3_verify.cu) in their order, each separately rounded as the
+    kernel's (built without FMA)."""
+    __slots__ = ("v", "d")
+
+    def __init__(self, v, d):
+        self.v, self.d = v, d
+
+    def __add__(self, b):
+        return _Dual(self.v + b.v, self.d + b.d)
+
+    def __sub__(self, b):
+        return _Dual(self.v - b.v, self.d - b.d)
+
+    def __neg__(self):
+        return _Dual(-self.v, -self.d)
+
+    def __mul__(self, b):
+        return _Dual(self.v * b.v, self.d * b.v + self.v * b.d)
+
+    def __truediv__(self, b):
+        return _Dual(self.v / b.v,
+                     (self.d * b.v - self.v * b.d) / (b.v * b.v))
+
+    def scale(self, c):
+        """c * self for a constant c."""
+        return _Dual(c * self.v, c * self.d)
+
+
+def _dc(v, dev):
+    """A constant dual (zero tangents)."""
+    v = v if torch.is_tensor(v) else torch.tensor(v, dtype=torch.float64,
+                                                  device=dev)
+    return _Dual(v, torch.zeros((), dtype=torch.float64, device=dev))
+
+
+def _dexp(w, dev):
+    """R (9 duals, row-major) = so3_exp(w), the kernel's dexp (lie.py's
+    form, its |theta| < 1e-4 series branches)."""
+    n2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2]
+    n2e = n2 + _dc(1e-24, dev)
+    sq = torch.sqrt(n2e.v)
+    th = _Dual(sq, n2e.d / (2.0 * sq))
+    small = torch.abs(th.v) < 1e-4
+    th2 = th * th
+    sin_, cos_ = torch.sin(th.v), torch.cos(th.v)
+    a_big = _Dual(sin_, cos_ * th.d) / th
+    a_small = _dc(1.0, dev) - th2.scale(1.0 / 6.0)
+    b_big = (_dc(1.0, dev) - _Dual(cos_, -sin_ * th.d)) / th2
+    b_small = _dc(0.5, dev) - th2.scale(1.0 / 24.0)
+    a = _Dual(torch.where(small, a_small.v, a_big.v),
+              torch.where(small, a_small.d, a_big.d))
+    b = _Dual(torch.where(small, b_small.v, b_big.v),
+              torch.where(small, b_small.d, b_big.d))
+    zero = _dc(0.0, dev)
+    W = [zero, -w[2], w[1], w[2], zero, -w[0], -w[1], w[0], zero]
+    return [_dc(1.0 if i == j else 0.0, dev) + a * W[3 * i + j]
+            + b * (w[i] * w[j] - (n2 if i == j else zero))
+            for i in range(3) for j in range(3)]
+
+
+def _sim3_duals(x, sim, dev):
+    """The kernel's sim3_duals for every lane at once: the 26 duals [s, R
+    (9), t (3), s^-1, R^T (9), -(s^-1) R^T t] of (s0 exp(x0), R0
+    exp(x1..3), t0 + x4..6), lane q carrying the unit tangent e_q."""
+    lanes = torch.eye(7, dtype=torch.float64, device=dev)[:, :, None]
+    xd = [_Dual(x[q], lanes[q]) for q in range(7)]
+    ex = torch.exp(xd[0].v)
+    s = _Dual(sim[0] * ex, sim[0] * ex * xd[0].d)
+    E = _dexp(xd[1:4], dev)
+    R0 = [_dc(sim[1 + k], dev) for k in range(9)]
+    R = [R0[3 * i] * E[j] + R0[3 * i + 1] * E[3 + j] + R0[3 * i + 2]
+         * E[6 + j] for i in range(3) for j in range(3)]
+    t = [_dc(sim[10 + q], dev) + xd[4 + q] for q in range(3)]
+    si = _dc(1.0, dev) / s
+    Ri = [R[3 * j + i] for i in range(3) for j in range(3)]
+    Rt = [Ri[3 * i] * t[0] + Ri[3 * i + 1] * t[1] + Ri[3 * i + 2] * t[2]
+          for i in range(3)]
+    return [s] + R + t + [si] + Ri + [-(si * Rt[q]) for q in range(3)]
+
+
+def _reproj(T, X, ob, dev):
+    """The kernel's reproj of points X (F, 3) through the Sim(3) duals T
+    against observations ob (F, 2): two duals, values (F,), tangents
+    (7, F)."""
+    P = [T[0] * (T[1 + 3 * k] * _dc(X[:, 0], dev) + T[2 + 3 * k]
+                 * _dc(X[:, 1], dev) + T[3 + 3 * k] * _dc(X[:, 2], dev))
+         + T[10 + k] for k in range(3)]
+    near = torch.abs(P[2].v) < 1e-6
+    z = _Dual(torch.where(near, torch.full_like(P[2].v, 1e-6), P[2].v),
+              torch.where(near, torch.zeros_like(P[2].d), P[2].d))
+    return (P[0] / z - _dc(ob[:, 0], dev), P[1] / z - _dc(ob[:, 1], dev))
+
+
+def _cholesky_step(sums, x):
+    """x - dx for (H + 1e-4 I) dx = g by the kernel's Cholesky, on Python
+    floats (IEEE double, the kernel's order of operations)."""
+    L = [[0.0] * 7 for _ in range(7)]
+    q = 0
+    for a in range(7):
+        for b in range(a, 7):
+            L[b][a] = L[a][b] = sums[q]
+            q += 1
+    for a in range(7):
+        L[a][a] += 1e-4
+    for j in range(7):
+        d = L[j][j]
+        for k in range(j):
+            d -= L[j][k] * L[j][k]
+        d = math.sqrt(max(d, 1e-300))
+        L[j][j] = d
+        for i in range(j + 1, 7):
+            v = L[i][j]
+            for k in range(j):
+                v -= L[i][k] * L[j][k]
+            L[i][j] = v / d
+    y = [0.0] * 7
+    for i in range(7):
+        v = sums[28 + i]
+        for k in range(i):
+            v -= L[i][k] * y[k]
+        y[i] = v / L[i][i]
+    for i in range(6, -1, -1):
+        v = y[i]
+        for k in range(i + 1, 7):
+            v -= L[k][i] * y[k]
+        y[i] = v / L[i][i]
+    return [x[i] - y[i] for i in range(7)]
+
+
+def sim3_refine_plain(X2c, X1c_own, xn1_j, xn2, info1, pair_ok, has_inv,
+                      s0, R0, t0):
+    """Plain version of K18's second launch: 2 rounds of 5 Gauss-Newton
+    steps of the 7-dof Sim(3) (log scale, rotation, translation about
+    (s0, R0, t0)) on the forward residuals (the candidate's landmarks into
+    the keyframe) and the backward ones (the keyframe's own landmarks at
+    the matched slots into the candidate), each weighted by info1 and
+    reclassified at chi2 9.21 after each round. Computed in float64, as
+    the kernel computes it: the residuals and their 7 Jacobian columns on
+    dual numbers, the 7 x 7 system summed in the kernel's order (128
+    strided partial sums, then those in order) and solved by its
+    Cholesky. A candidate seen from near the keyframe's own position
+    leaves the scale to the 1e-4 damping alone (H's eigenvalues from
+    ~1e-9), where float32 rounding of the Jacobians moves s by ~3e-3.
+    Returns (s, R, t float32, n_good: the forward pairs inside the gate
+    after the last round)."""
+    REFINE_LAUNCHES["plain"] += 1
+    f64, dev = torch.float64, X2c.device
+    n = X2c.shape[0]
+    sim = _sim3_flat(s0, R0, t0).to(f64)
+    w = info1.to(f64)
+    act = [pair_ok.clone(), has_inv.clone()]
+    pts = ((X2c.to(f64), xn1_j.to(f64), 0), (X1c_own.to(f64), xn2.to(f64),
+                                               13))
+    iu = torch.triu_indices(7, 7, device=dev)
+    m = -(-n // 128)
+    x = [0.0] * 7
+
+    def duals():
+        return _sim3_duals(torch.tensor(x, dtype=f64, device=dev), sim, dev)
+    for _ in range(2):
+        for _ in range(5):
+            T = duals()
+            terms = []
+            for (X, ob, off), a in zip(pts, act):
+                r0, r1 = _reproj(T[off:off + 13], X, ob, dev)
+                J0, J1 = r0.d.T, r1.d.T                          # (F, 7)
+                h = w[:, None] * (J0[:, iu[0]] * J0[:, iu[1]]
+                                  + J1[:, iu[0]] * J1[:, iu[1]])
+                g = w[:, None] * (J0 * r0.v[:, None] + J1 * r1.v[:, None])
+                t = torch.cat([h, g], dim=1)
+                terms.append(torch.where(a[:, None], t,
+                                         torch.zeros_like(t)))
+            # thread k sums features k, k + 128, ... (forward, then
+            # backward, each), then the block sums the threads in order
+            tt = torch.zeros((m * 128, 2, 35), dtype=f64, device=dev)
+            tt[:n] = torch.stack(terms, dim=1)
+            tt = tt.reshape(m, 128, 2, 35)
+            part = torch.zeros((128, 35), dtype=f64, device=dev)
+            for j in range(m):
+                part = part + tt[j, :, 0]
+                part = part + tt[j, :, 1]
+            sums = torch.zeros(35, dtype=f64, device=dev)
+            for k in range(128):
+                sums = sums + part[k]
+            x = _cholesky_step(sums.tolist(), x)
+        T = duals()
+        for (X, ob, off), base, k in zip(pts, (pair_ok, has_inv), (0, 1)):
+            r0, r1 = _reproj(T[off:off + 13], X, ob, dev)
+            act[k] = base & ((r0.v * r0.v + r1.v * r1.v) * w < CHI2_SIM3)
+    T = duals()
+    s = T[0].v.float()
+    R = torch.stack([T[1 + k].v for k in range(9)]).reshape(3, 3).float()
+    t = torch.stack([T[10 + q].v for q in range(3)]).float()
+    return s, R, t, torch.sum(act[0])
+
+
+def sim3_refine(X2c, X1c_own, xn1_j, xn2, info1, pair_ok, has_inv, s0, R0,
+                t0):
+    """K18's second launch (`sim3_refine_plain`'s result; n_good an int32
+    device scalar from the kernel). CUDA tensors: the kernel, one block
+    that runs every step without a host read (raises if it cannot run);
+    CPU tensors: the plain version."""
+    if X2c.device.type == "cpu":
+        return sim3_refine_plain(X2c, X1c_own, xn1_j, xn2, info1, pair_ok,
+                                 has_inv, s0, R0, t0)
+    if X2c.device.type != "cuda":
+        raise ValueError(f"sim3_refine: unsupported device {X2c.device}")
+    n = X2c.shape[0]
+    f32 = torch.float32
+    want = ((X2c, f32, (n, 3)), (X1c_own, f32, (n, 3)), (xn1_j, f32, (n, 2)),
+            (xn2, f32, (n, 2)), (info1, f32, (n,)),
+            (pair_ok, torch.bool, (n,)), (has_inv, torch.bool, (n,)))
+    if any(t.dtype != d or tuple(t.shape) != sh or t.device != X2c.device
+           for t, d, sh in want):
+        raise ValueError("sim3_refine: needs float32 (F, 3) points, (F, 2) "
+                         "observations, (F,) weights and bool flags on one "
+                         "device")
+    ins = [t.contiguous() for t, _, _ in want[:5]] + \
+        [t.to(torch.uint8).contiguous() for t, _, _ in want[5:]] + \
+        [_sim3_flat(s0, R0, t0)]
+    dev = X2c.device
+    act = torch.empty((2, n), dtype=torch.uint8, device=dev)
+    out = torch.empty(13, dtype=f32, device=dev)
+    n_good = torch.empty((), dtype=torch.int32, device=dev)
+    rc = _verify_lib().sim3_refine(
+        *(t.data_ptr() for t in ins), n, act.data_ptr(), out.data_ptr(),
+        n_good.data_ptr(), cuda_build.stream_ptr(X2c))
+    cuda_build.check(rc, "sim3_refine")
+    REFINE_LAUNCHES["kernel"] += 1
+    return out[0], out[1:10].reshape(3, 3), out[10:13], n_good
+
+
+def _verify_lib():
+    lib = cuda_build.library("sim3_verify")
+    if lib.sim3_refine.argtypes is None:
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.sim3_window_match.argtypes = [P] * 8 + [I, I, Fl, Fl] + [P] * 7
+        lib.sim3_window_match.restype = I
+        lib.sim3_refine.argtypes = [P] * 8 + [I, P, P, P, P]
+        lib.sim3_refine.restype = I
+    return lib
+
+
 @record_function("guided_sim3_verify")
 def guided_sim3_verify(m: ms.MapState, kf_id, cand, s0, R0, t0, cfg):
     """Guided projection matching + Sim(3) Gauss-Newton: project the
     candidate's landmarks through (s0, R0, t0) into the keyframe, match in
-    a 7.5 px window scaled by octave (K3), refine (s, R, t) on the pairs
-    with two-sided reprojection residuals (2 rounds of 5 steps, outliers
-    reclassified at chi2 9.21 between them). Returns (s, R, t,
-    n_matches)."""
-    f32 = m.kf_t.dtype
+    a 7.5 px window scaled by octave (`window_match`), refine (s, R, t) on
+    the pairs with two-sided reprojection residuals (`sim3_refine`: 2
+    rounds of 5 steps, outliers reclassified at chi2 9.21 between them);
+    both K18. Returns (s, R, t, n_matches)."""
     dev = m.kf_t.device
-    CHI2_SIM3 = 9.21
     lm2, ok2 = _kf_landmarks(m, cand)
     X2c = lie.se3_apply(m.kf_R[cand], m.kf_t[cand],
                         m.lm_pos[torch.clamp(lm2, min=0).long()])
@@ -103,72 +432,16 @@ def guided_sim3_verify(m: ms.MapState, kf_id, cand, s0, R0, t0, cfg):
                         m.lm_pos[torch.clamp(lm1, min=0).long()])
     ok1 = ok1 & (X1c[:, 2] > 0.05)
     xn1 = m.kf_feat_xn[kf_id]
-    xn2 = m.kf_feat_xn[cand]
-    valid1 = m.kf_feat_valid[kf_id]
-
-    X1p = lie.sim3_apply(s0, R0, t0, X2c)
-    z = X1p[:, 2]
-    pred = X1p[:, :2] / torch.where(torch.abs(z) < 1e-6,
-                                    torch.full_like(z, 1e-6), z)[:, None]
-    rad = 7.5 / cfg.focal * cfg.scale ** m.kf_feat_octave[cand].to(f32)
-    d2 = torch.sum((pred[:, None, :] - xn1[None, :, :]) ** 2, dim=-1)
-    gate = (d2 < (rad ** 2)[:, None]) & (z > 0.05)[:, None]
-    idx, _ = hamming.match_nn(m.kf_feat_desc[cand], m.kf_feat_desc[kf_id],
-                              gate, ok2, valid1, max_dist=hamming.TH_HIGH,
-                              ratio=1.0, cross_check=True)
+    idx = window_match(X2c, ok2, m.kf_feat_octave[cand],
+                       m.kf_feat_desc[cand], xn1, m.kf_feat_valid[kf_id],
+                       m.kf_feat_desc[kf_id], s0, R0, t0, cfg.focal,
+                       cfg.scale)
     j1 = torch.clamp(idx, min=0).long()
     pair_ok = (idx >= 0) & ok2
     info1 = (cfg.focal ** 2) * cfg.lm_cfg.sigma2_inv(dev)[torch.clamp(
         m.kf_feat_octave[kf_id][j1], 0, cfg.n_levels - 1).long()]
-    has_inv = pair_ok & ok1[j1]
-    X1c_own = X1c[j1]
-    xn1_j = xn1[j1]
-    pf = pair_ok.to(f32)[:, None]
-    pb = has_inv.to(f32)[:, None]
-
-    def residuals(x):
-        s = s0 * torch.exp(x[0])
-        R = lie.matmat(R0, lie.so3_exp(x[1:4]))
-        t = t0 + x[4:7]
-        Xf = lie.sim3_apply(s, R, t, X2c)
-        zf = torch.where(torch.abs(Xf[:, 2]) < 1e-6,
-                         torch.full_like(Xf[:, 2], 1e-6), Xf[:, 2])
-        r_f = (Xf[:, :2] / zf[:, None] - xn1_j) * pf
-        si, Ri, ti = lie.sim3_inv(s, R, t)
-        Xb = lie.sim3_apply(si, Ri, ti, X1c_own)
-        zb = torch.where(torch.abs(Xb[:, 2]) < 1e-6,
-                         torch.full_like(Xb[:, 2], 1e-6), Xb[:, 2])
-        r_b = (Xb[:, :2] / zb[:, None] - xn2) * pb
-        return r_f, r_b
-
-    eye7 = torch.eye(7, dtype=f32, device=dev)
-
-    def gn_step(x, active_f, active_b):
-        r_f, r_b = residuals(x)
-        Jf, Jb = (J.to(f32) for J in torch.func.jacfwd(residuals)(x))
-        wf = info1 * active_f
-        wb = info1 * active_b
-        H = torch.einsum('nia,n,nib->ab', Jf, wf, Jf) + \
-            torch.einsum('nia,n,nib->ab', Jb, wb, Jb)
-        g = torch.einsum('nia,n,ni->a', Jf, wf, r_f) + \
-            torch.einsum('nia,n,ni->a', Jb, wb, r_b)
-        return x - torch.linalg.solve(H + 1e-4 * eye7, g)
-
-    x = torch.zeros(7, dtype=f32, device=dev)
-    active_f = pair_ok.to(f32)
-    active_b = has_inv.to(f32)
-    for _ in range(2):
-        for _ in range(5):
-            x = gn_step(x, active_f, active_b)
-        r_f, r_b = residuals(x)
-        active_f = (pair_ok & (torch.sum(r_f * r_f, dim=-1) * info1
-                               < CHI2_SIM3)).to(f32)
-        active_b = (has_inv & (torch.sum(r_b * r_b, dim=-1) * info1
-                               < CHI2_SIM3)).to(f32)
-    s = s0 * torch.exp(x[0])
-    R = lie.matmat(R0, lie.so3_exp(x[1:4]))
-    t = t0 + x[4:7]
-    return s, R, t, torch.sum(active_f > 0)
+    return sim3_refine(X2c, X1c[j1], xn1[j1], m.kf_feat_xn[cand], info1,
+                       pair_ok, pair_ok & ok1[j1], s0, R0, t0)
 
 
 @record_function("search_and_fuse")

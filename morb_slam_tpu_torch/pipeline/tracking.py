@@ -5,7 +5,10 @@ has a vocabulary (counterpart of those parts of
 
 Per frame, `extract_frame` runs extraction (K1, K2, the pyramid and blur);
 `extract_stereo_frame` extracts both images and matches them along rows
-(K3 and K7); `extract_rgbd_frame` reads the depth at the keypoints. Then
+(K3 and K7); `extract_stereo_general_frame` extracts both raw images of
+a two-camera rig (`Tracker(stereo_rig=...)`, KB8 fisheye stereo) and
+matches and triangulates them across the epipolar geometry (K16);
+`extract_rgbd_frame` reads the depth at the keypoints. Then
 `track_step_framedata` runs `track_frame` (motion-model search, pose
 optimization, local-map search, pose optimization; K3 inside every
 search) on the tracker's device. The host keeps
@@ -189,6 +192,34 @@ def extract_stereo_frame(img_l, img_r, cam: cameras.Camera,
                                  bf=cfg.baseline * cfg.focal,
                                  min_z=cfg.baseline)
     return _with_depth(feats_l, sm, cam)
+
+
+def extract_stereo_general_frame(img_l, img_r, cam: cameras.Camera,
+                                 cam2: cameras.Camera, R_rl, t_rl,
+                                 cfg: TrackerConfig) -> FrameData:
+    """Non-rectified two-camera extraction (KB8 fisheye stereo): ORB on
+    both raw images, the epipolar-gated match and midpoint triangulation
+    (K16). The depth seeds metric landmarks; the observations stay
+    monocular (ur = NaN): there is no rectified right-u."""
+    img_l = img_l.to(torch.float32)
+    img_r = img_r.to(torch.float32)
+    feats_l = frontend.extract_orb(img_l, cfg.orb)
+    feats_r = frontend.extract_orb(img_r, cfg.orb)
+    bear_l = cameras.unproject_bearing(cam, feats_l.uv)
+    bear_r = cameras.unproject_bearing(cam2, feats_r.uv)
+    sigma2 = cfg.scale ** (2.0 * feats_l.octave.to(torch.float32))
+    sm, _ = stereo_ops.match_stereo_general(
+        feats_l, feats_r, bear_l, bear_r, feats_l.uv, feats_r.uv, cam, cam2,
+        R_rl, t_rl, sigma2)
+    uv = cameras.undistort_points(cam, feats_l.uv)
+    xn = cameras.unproject(cam, uv)[:, :2]
+    F = uv.shape[0]
+    return FrameData(uv=uv, xn=xn, octave=feats_l.octave,
+                     angle=feats_l.angle, desc=feats_l.desc,
+                     valid=feats_l.valid,
+                     ur=torch.full((F,), float("nan"), device=uv.device),
+                     depth=torch.where(sm.valid, sm.depth,
+                                       torch.full_like(sm.depth, -1.0)))
 
 
 def extract_rgbd_frame(img, depth_map, cam: cameras.Camera,
@@ -752,7 +783,10 @@ class Tracker:
     when given `imu_calib` (the `track_*_inertial` feeds).
 
     States: NO_IMAGES -> NOT_INITIALIZED -> OK <-> RECENTLY_LOST -> LOST.
-    `device=None` runs on the card and raises without one. With a
+    `device=None` runs on the card and raises without one.
+    `stereo_rig=(cam2, R_rl, t_rl)` makes `track_stereo` (and
+    `track_stereo_inertial`) take raw, non-rectified pairs of a two-camera
+    rig (KB8 fisheye stereo), X_right = R_rl X_left + t_rl. With a
     vocabulary `voc` the tracker keeps a keyframe database, relocalizes by
     BoW and closes loops and merges maps (`loop_closer`; set it to None to
     keep relocalization only).
@@ -763,7 +797,8 @@ class Tracker:
 
     def __init__(self, cam: cameras.Camera, cfg: TrackerConfig, device=None,
                  seed: int = 0, voc: Optional[voctree.Vocabulary] = None,
-                 imu_calib: Optional[imu.ImuCalib] = None):
+                 imu_calib: Optional[imu.ImuCalib] = None,
+                 stereo_rig=None):
         self.device = resolve_device(device)
         # stage timers (TrackTotal, LMTotal, LoopTotal, GBATotal), each also
         # a profiler range
@@ -772,6 +807,12 @@ class Tracker:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.cam = cam.to(self.device)
+        self.stereo_rig = None if stereo_rig is None else (
+            stereo_rig[0].to(self.device),
+            torch.as_tensor(stereo_rig[1], dtype=torch.float32,
+                            device=self.device),
+            torch.as_tensor(stereo_rig[2], dtype=torch.float32,
+                            device=self.device))
         if imu_calib is not None and not cfg.inertial:
             cfg = tracking_replace_inertial(cfg)
         self.cfg = cfg
@@ -849,10 +890,15 @@ class Tracker:
         return self._track(fr, ts)
 
     def track_stereo(self, img_l, img_r, ts: float):
-        """One rectified stereo pair -> (state, (R_cw, t_cw) or None)."""
+        """One stereo pair -> (state, (R_cw, t_cw) or None): rectified, or
+        raw from the two-camera rig when the tracker has `stereo_rig`."""
         self._check_timestamp(ts)
-        fr = extract_stereo_frame(self._to_device(img_l),
-                                  self._to_device(img_r), self.cam, self.cfg)
+        img_l, img_r = self._to_device(img_l), self._to_device(img_r)
+        if self.stereo_rig is not None:
+            fr = extract_stereo_general_frame(img_l, img_r, self.cam,
+                                              *self.stereo_rig, self.cfg)
+        else:
+            fr = extract_stereo_frame(img_l, img_r, self.cam, self.cfg)
         if self.state in ("NO_IMAGES", "NOT_INITIALIZED"):
             return self._try_init_from_depth(fr, ts)
         return self._track(fr, ts)

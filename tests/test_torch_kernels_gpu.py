@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K5 and K7-K15 of the PyTorch port against their
-plain PyTorch versions on the card, on shapes and inputs the main path does
+"""The CUDA kernels K1-K18 of the PyTorch port against their plain
+PyTorch versions on the card, on shapes and inputs the main path does
 not reach: image sizes that are no multiple of the 16-px cell, flat images
 where every key ties, empty keypoint and row sets, a single column, fully
 masked rows, duplicated descriptors and unaligned views; stereo keypoints
@@ -24,7 +24,13 @@ and the LM loop over it; the pose-graph normal equations (K15) of graphs
 with zero-weight edges, padding nodes and both parametrizations, and
 the Gauss-Newton loop over them; the pyramid and blur (K6) at the main
 path's shapes, odd and tiny sizes and levels that are no views of one
-buffer; and every new wrapper refusing bad dtypes and shapes.
+buffer; the two-camera match (K16) on KB8 and radtan rigs of 1, 64, 333
+and 1200 features, partly invalid, with tied descriptors and an empty
+left set; the IMU-init system (K17) at 256, 40 and 4 slots with the
+scale free and fixed, and the whole `inertial_only_optimize` over it;
+the guided Sim(3) verification (K18) with inliers and outliers, no
+pair, one pair and 257 features; and every new wrapper refusing bad
+dtypes and shapes.
 
 Marked `gpu`: each test skips without a CUDA card. On a machine with one
 (and without JAX, so without tests/conftest.py):
@@ -51,7 +57,15 @@ its sums is bounded by the terms, not the result); K13 and K15 H within
 its scaled max-abs, the cost within 1e-5 relative, both bitwise repeatable
 (the plain K13 Jacobian carries some tangents in float64, the kernel's
 dual numbers float32), their loops with states within 1e-4 and costs
-within 1e-3 relative; K6's blur bitwise equal to the plain blur (the same
+within 1e-3 relative; K16's matches and valid flags equal outside the
+rows at a gate margin (`testing.general_margins`), depth within 1e-4
+relative; K17's H, g and cost within 1e-4 of each entry's term magnitude,
+bitwise repeatable, its optimize's R_wg and s within 1e-4, biases and
+velocities within 1e-3 of their size; K18's indices exact, (s, R, t)
+bitwise equal to the plain version's (both float64, the same operations
+in the same order), the same n_good, bitwise repeatable (NaN included:
+one pair leaves directions to the damping alone); K6's blur bitwise equal to the
+plain blur (the same
 adds, no FMA), its pyramid within 1e-3 grey levels of the plain pyramid
 (cuBLAS sums the dense product in another order; ~5e-5 seen), and
 `extract_orb` with the kernel and with the plain K6 in agreement on >= 99%
@@ -63,7 +77,7 @@ import numpy as np
 import pytest
 import torch
 
-from morb_slam_tpu_torch import frontend, imu, lie
+from morb_slam_tpu_torch import frontend, imu, lie, testing
 from morb_slam_tpu_torch.ops import (fast, hamming, image, orb_descriptor,
                                      rectify, stereo)
 from morb_slam_tpu_torch.optim import ba, pose_opt, vi_ba
@@ -1265,3 +1279,331 @@ def test_k6_extract_orb_agrees_with_plain(cuda, monkeypatch):
     bits = orb_descriptor.unpack_bits(got.desc[ok]) != \
         orb_descriptor.unpack_bits(want.desc[ok])
     assert float(bits.float().mean()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# K16 (stereo_general), K17 (inertial_init), K18 (sim3_verify)
+# ---------------------------------------------------------------------------
+
+def _rig_features(dev, n, seed=0, kind=1, n_valid=None, dup=0):
+    """Two feature sets of a two-camera rig (0.10 m baseline, 1 degree
+    about y): n points 0.5-6 m ahead projected into both cameras with
+    0.3 px noise, descriptors with 0-12 flipped bits between the views,
+    octaves 0-3, every fifth right feature a stranger; `dup` repeats the
+    first right descriptor (ties), `n_valid` flags only the first ones."""
+    from morb_slam_tpu_torch import cameras, frontend as fe
+    rng = np.random.default_rng(seed)
+    if kind == 1:
+        cam_l = cameras.kannala_brandt8(190.978, 190.973, 254.932, 256.897,
+                                        0.00348238, 0.000715034,
+                                        -0.00205323, 0.000202936)
+        cam_r = cameras.kannala_brandt8(190.442, 190.437, 252.597, 254.917,
+                                        0.00340372, 0.000714185,
+                                        -0.00201631, 0.000193335)
+    else:
+        cam_l = cameras.pinhole(300.0, 300.0, 192.0, 144.0,
+                                (-0.2, 0.05, 1e-3, -1e-3))
+        cam_r = cameras.pinhole(301.0, 300.5, 193.0, 143.0,
+                                (-0.21, 0.05, 1e-3, -1e-3))
+    a = np.deg2rad(1.0)
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]])
+    t = -R @ np.array([0.10, 0.0, 0.0])
+    d = rng.uniform(0.5, 6.0, n)
+    ang = rng.uniform(-0.9, 0.9, (n, 2)) * (1.0 if kind == 1 else 0.45)
+    X = np.stack([np.tan(ang[:, 0]), np.tan(ang[:, 1]), np.ones(n)], -1) * \
+        d[:, None]
+    Xr = X @ R.T + t
+    f32 = lambda v: torch.tensor(np.asarray(v), dtype=torch.float32)
+    uv_l = cameras.project_distorted(cam_l, f32(X)) + f32(
+        rng.normal(0, 0.3, (n, 2)))
+    uv_r = cameras.project_distorted(cam_r, f32(Xr)) + f32(
+        rng.normal(0, 0.3, (n, 2)))
+    perm = rng.permutation(n)
+    uv_r = uv_r[perm]
+    words = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64)
+    flips = np.zeros((n, 256), np.uint8)
+    for i in range(n):
+        flips[i, rng.choice(256, rng.integers(0, 13), replace=False)] = 1
+    fw = np.packbits(flips, axis=1, bitorder="little").view(np.uint32)
+    desc_l = words.astype(np.uint32)
+    desc_r = (desc_l ^ fw)[perm]
+    desc_r[::5] = rng.integers(0, 2 ** 32, desc_r[::5].shape,
+                               dtype=np.uint64).astype(np.uint32)
+    if dup:
+        desc_r[1:1 + dup] = desc_r[0]
+        desc_l[1:1 + dup] = desc_l[0]
+    oct_l = rng.integers(0, 4, n).astype(np.int32)
+    oct_r = np.clip(oct_l[perm] + rng.integers(-1, 2, n), 0, 3).astype(
+        np.int32)
+    valid = np.arange(n) < (n if n_valid is None else n_valid)
+
+    def feats(uv, desc, octv):
+        return fe.Features(
+            uv=uv.to(dev), response=torch.zeros(n, device=dev),
+            angle=torch.zeros(n, device=dev),
+            octave=torch.tensor(octv, device=dev),
+            size=torch.zeros(n, device=dev),
+            desc=torch.tensor(desc.view(np.int32), device=dev),
+            valid=torch.tensor(valid, device=dev))
+    fl, fr = feats(uv_l, desc_l, oct_l), feats(uv_r, desc_r, oct_r)
+    cam_l, cam_r = cam_l.to(dev), cam_r.to(dev)
+    return (fl, fr, cameras.unproject_bearing(cam_l, fl.uv),
+            cameras.unproject_bearing(cam_r, fr.uv), fl.uv, fr.uv, cam_l,
+            cam_r, f32(R).to(dev), f32(t).to(dev),
+            (1.2 ** (2.0 * fl.octave.float())))
+
+
+def _k16_agree(args):
+    """K16 against its plain version on the same tensors: the match and
+    valid flags equal outside the rows `general_margins` names, depth within
+    1e-4 relative, u_right exact. Returns (rows exempted, matches)."""
+    got, gi = stereo.match_stereo_general(*args)
+    want, wi = stereo.match_stereo_general_plain(*args)
+    exempt = testing.general_margins(*args, gi, wi)
+    same = (gi == wi) & (got.valid == want.valid)
+    assert bool((same | exempt).all()), int((~same & ~exempt).sum())
+    both = got.valid & want.valid
+    rel = (got.depth - want.depth).abs() / want.depth.abs().clamp(min=1e-6)
+    assert float(rel[both].max()) <= 1e-4 if bool(both.any()) else True
+    assert torch.equal(got.u_right[both], want.u_right[both])
+    assert bool((got.depth[~got.valid] == -1).all())
+    return int(exempt.sum()), int((wi >= 0).sum())
+
+
+@pytest.mark.parametrize("n,kind,n_valid,dup", [
+    (1200, 1, None, 0), (1200, 1, 700, 0), (333, 0, None, 0),
+    (64, 1, None, 40), (1, 1, None, 0), (1200, 1, 0, 0)])
+def test_stereo_general_matches_plain(cuda, n, kind, n_valid, dup):
+    args = _rig_features(cuda, n, seed=n, kind=kind, n_valid=n_valid,
+                         dup=dup)
+    n0 = stereo.GENERAL_LAUNCHES["kernel"]
+    exempt, matched = _k16_agree(args)
+    assert stereo.GENERAL_LAUNCHES["kernel"] == n0 + 1
+    assert exempt <= max(2, 0.01 * n)
+    if n == 1200 and n_valid is None:
+        assert matched > 500
+
+
+def test_stereo_general_repeats_and_empty_left(cuda):
+    args = _rig_features(cuda, 400, seed=3)
+    a, ai = stereo.match_stereo_general(*args)
+    b, bi = stereo.match_stereo_general(*args)
+    assert torch.equal(ai, bi) and torch.equal(a.depth, b.depth)
+    fl, fr = args[0], args[1]
+    fl0 = fl._replace(**{k: getattr(fl, k)[:0] for k in fl._fields})
+    e, ei = stereo.match_stereo_general(fl0, fr, args[2][:0], *args[3:4],
+                                        args[4][:0], *args[5:10],
+                                        args[10][:0])
+    assert e.depth.shape == (0,) and ei.shape == (0,)
+
+
+def _init_store(dev, K=256, n_kf=13, seed=0):
+    """An IMU-initialization problem like the rig's first stage: n_kf
+    keyframes 0.25 s apart on a wiggly accelerating path (bias, noise),
+    preintegrated by the plain K11 into a K-slot store; the visual poses
+    rotated off gravity and scaled by 1 / 2.5."""
+    from scipy.spatial.transform import Rotation as Rot
+    from morb_slam_tpu_torch import imu as imu_mod
+    from morb_slam_tpu_torch.optim import inertial
+    rng = np.random.default_rng(seed)
+    dt, every = 0.005, 50
+    ts = np.arange((n_kf - 1) * every + 1) * dt
+    p = np.stack([0.8 * np.sin(1.3 * ts), 0.5 * np.sin(0.9 * ts + 1.0),
+                  0.3 * np.sin(1.7 * ts)], -1)
+    a = np.stack([-0.8 * 1.3 ** 2 * np.sin(1.3 * ts),
+                  -0.5 * 0.9 ** 2 * np.sin(0.9 * ts + 1.0),
+                  -0.3 * 1.7 ** 2 * np.sin(1.7 * ts)], -1)
+    w_b = np.array([0.3, -0.2, 0.25])
+    R = np.stack([Rot.from_rotvec(w_b * t).as_matrix() for t in ts])
+    acc = np.einsum('nji,nj->ni', R, a - [0, 0, -9.81]) + [0.03, -0.02, 0.04]
+    gyr = np.tile(w_b, (len(ts), 1)) + [0.004, -0.003, 0.002]
+    acc = 0.5 * (acc[:-1] + acc[1:]) + rng.normal(0, 0.02, (len(ts) - 1, 3))
+    gyr = 0.5 * (gyr[:-1] + gyr[1:]) + rng.normal(0, 0.002, (len(ts) - 1, 3))
+    calib = imu_mod.make_calib(np.eye(3), np.zeros(3), 1.7e-4, 2e-3, 1.9e-5,
+                               3e-3, 200.0)
+    f = lambda v: torch.tensor(np.asarray(v), dtype=torch.float32)
+    ki = inertial.empty_kf_imu(K)
+    for k in range(1, n_kf):
+        sl = slice((k - 1) * every, k * every)
+        pre = imu_mod.preintegrate_plain(
+            f(acc[sl]), f(gyr[sl]), torch.full((every,), dt),
+            torch.ones(every, dtype=torch.bool), torch.zeros(6), calib)
+        ki = inertial.set_kf_imu(ki, k, pre, k - 1)
+    idx = np.arange(n_kf) * every
+    R_vg = Rot.from_rotvec([0.25, -0.15, 0.1]).as_matrix()
+    R_wb = np.tile(np.eye(3), (K, 1, 1))
+    p_wb = np.zeros((K, 3))
+    R_wb[:n_kf] = np.einsum('ij,njk->nik', R_vg, R[idx])
+    p_wb[:n_kf] = (p[idx] @ R_vg.T) / 2.5
+    kf_valid = torch.arange(K) < n_kf
+    ki = inertial.KfImu(*(t.to(dev) for t in ki))
+    return ki, f(R_wb).to(dev), f(p_wb).to(dev), kf_valid.to(dev)
+
+
+def _by_magnitude(got, want, mag):
+    return float(((got - want).abs() / mag.clamp(min=1e-30)).max())
+
+
+@pytest.mark.parametrize("K,n_kf,opt_scale", [(256, 13, True),
+                                              (256, 13, False), (4, 4, True),
+                                              (40, 2, True)])
+def test_inertial_init_system_matches_plain(cuda, K, n_kf, opt_scale):
+    from morb_slam_tpu_torch.optim import inertial
+    ki, R_wb, p_wb, kf_valid = _init_store(cuda, K, n_kf)
+    rng = np.random.default_rng(K)
+    p = inertial.init_problem(ki, R_wb, p_wb, kf_valid, opt_scale,
+                              1e2, 1e6, torch.eye(3, device=cuda))
+    x = torch.tensor(rng.normal(0, 0.05, 9 + 3 * K), dtype=torch.float32,
+                     device=cuda)
+    x[2] = float(np.log(2.3))
+    n0 = inertial.INIT_LAUNCHES["kernel"]
+    H, g, c = inertial.inertial_system(p, x)
+    H2, g2, c2 = inertial.inertial_system(p, x)
+    assert inertial.INIT_LAUNCHES["kernel"] == n0 + 2
+    H0, g0, c0 = inertial.inertial_system_plain(p, x)
+    Ha, ga, ca = testing.inertial_system_magnitudes(p, x)
+    assert torch.equal(H, H2) and torch.equal(g, g2) and torch.equal(c, c2)
+    assert _by_magnitude(H, H0, Ha) <= 1e-4
+    assert _by_magnitude(g, g0, ga) <= 1e-4
+    assert abs(float(c - c0)) <= 1e-4 * float(ca)
+
+
+def test_inertial_only_optimize_kernel_matches_plain(cuda):
+    from morb_slam_tpu_torch.optim import inertial
+    ki, R_wb, p_wb, kf_valid = _init_store(cuda)
+    s, g_vis, v0, _ = inertial.linear_alignment(ki, R_wb, p_wb, kf_valid)
+    kw = dict(n_iters=25, prior_gyro=1e2, prior_acc=1e6, s0=float(s),
+              v0=v0, R_wg0=inertial.gravity_rotation(g_vis))
+    n0 = dict(inertial.INIT_LAUNCHES)
+    got = inertial.inertial_only_optimize(ki, R_wb, p_wb, kf_valid, **kw)
+    assert inertial.INIT_LAUNCHES["kernel"] == n0["kernel"] + 26
+    assert inertial.INIT_LAUNCHES["plain"] == n0["plain"]
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else t   # noqa: E731
+    want = inertial.inertial_only_optimize(
+        inertial.KfImu(*(t.cpu() for t in ki)), R_wb.cpu(), p_wb.cpu(),
+        kf_valid.cpu(), **{k: cpu(v) for k, v in kw.items()})
+    _init_outputs_agree(got, want)
+
+
+def _init_outputs_agree(got, want):
+    """R_wg and s within 1e-4; biases and velocities within 1e-3 of each
+    one's largest magnitude (25 float32 steps under a 1e6 prior)."""
+    for name, a, b in zip(("R_wg", "s", "bg", "ba", "v"), got, want):
+        a, b = a.cpu(), b.cpu()
+        tol = 1e-4 if name in ("R_wg", "s") else \
+            1e-3 * max(float(b.abs().max()), 1e-3)
+        assert float((a - b).abs().max()) <= tol * (
+            float(b.abs()) if name == "s" else 1.0), (name, a, b)
+
+
+def _verify_problem(dev, F=1200, seed=0, n_in=500, n_out=150):
+    """Two keyframes' inputs to K18: n_in candidate landmarks seen by both
+    (the Sim(3) (s, R, t) maps candidate camera points to the keyframe's),
+    n_out outliers with random descriptors, 0.002 of normalized noise; the
+    initial guess perturbed by ~1% in scale, 0.01 rad and 2 cm."""
+    from scipy.spatial.transform import Rotation as Rot
+    rng = np.random.default_rng(seed)
+    s, R = 1.15, Rot.from_rotvec([0.05, -0.3, 0.02]).as_matrix()
+    t = np.array([0.4, -0.05, 0.2])
+    X2 = rng.uniform([-3, -2, 2], [3, 2, 8], (F, 3))
+    X1 = s * X2 @ R.T + t
+    xn1 = X1[:, :2] / X1[:, 2:] + rng.normal(0, 0.002, (F, 2))
+    xn2 = X2[:, :2] / X2[:, 2:] + rng.normal(0, 0.002, (F, 2))
+    perm = rng.permutation(F)
+    words = rng.integers(0, 2 ** 32, (F, 8), dtype=np.uint64).astype(
+        np.uint32)
+    d1 = words.copy()
+    d1[n_in:n_in + n_out] = rng.integers(0, 2 ** 32, (n_out, 8),
+                                         dtype=np.uint64).astype(np.uint32)
+    flips = np.zeros((F, 256), np.uint8)
+    for i in range(F):
+        flips[i, rng.choice(256, rng.integers(0, 20), replace=False)] = 1
+    d1 ^= np.packbits(flips, axis=1, bitorder="little").view(np.uint32)
+    inv = np.argsort(perm)
+    f = lambda v, dt=torch.float32: torch.tensor(np.asarray(v), dtype=dt,
+                                                 device=dev)
+    s0 = s * 1.01
+    R0 = R @ Rot.from_rotvec([0.01, 0.0, -0.005]).as_matrix()
+    t0 = t + [0.02, -0.01, 0.015]
+    return dict(X2c=f(X2), ok2=f(np.arange(F) < n_in + n_out, torch.bool),
+                oct2=f(rng.integers(0, 4, F), torch.int32),
+                desc2=f(words.view(np.int32), torch.int32),
+                xn1=f(xn1[perm]), valid1=f(rng.uniform(size=F) < 0.97,
+                                           torch.bool),
+                desc1=f(d1[perm].view(np.int32), torch.int32),
+                X1c=f(X1[perm] + rng.normal(0, 0.01, (F, 3))),
+                xn2=f(xn2), inv=inv, s0=f(s0), R0=f(R0), t0=f(t0))
+
+
+def _refine_inputs(P, idx):
+    j = torch.clamp(idx, min=0).long()
+    pair_ok = (idx >= 0) & P["ok2"]
+    info = torch.full_like(P["xn2"][:, 0], 300.0 ** 2) / \
+        1.44 ** P["oct2"].float()
+    return (P["X2c"], P["X1c"][j], P["xn1"][j], P["xn2"], info, pair_ok,
+            pair_ok & (torch.arange(idx.shape[0], device=idx.device) % 7 > 0),
+            P["s0"], P["R0"], P["t0"])
+
+
+@pytest.mark.parametrize("F,n_in,n_out,seed", [(1200, 500, 150, 0),
+                                               (1200, 0, 0, 1),
+                                               (257, 200, 40, 2),
+                                               (1, 1, 0, 3)])
+def test_sim3_verify_matches_plain(cuda, F, n_in, n_out, seed):
+    from morb_slam_tpu_torch.pipeline import loop_closing as lc
+    P = _verify_problem(cuda, F, seed, n_in, n_out)
+    wargs = (P["X2c"], P["ok2"], P["oct2"], P["desc2"], P["xn1"],
+             P["valid1"], P["desc1"], P["s0"], P["R0"], P["t0"], 300.0, 1.2)
+    n0 = (lc.WINDOW_LAUNCHES["kernel"], lc.REFINE_LAUNCHES["kernel"])
+    idx = lc.window_match(*wargs)
+    want = lc.window_match_plain(*wargs)
+    assert torch.equal(idx, want), int((idx != want).sum())
+    if n_in >= 200:
+        assert int((idx >= 0).sum()) > 0.8 * n_in
+    rargs = _refine_inputs(P, idx)
+    got = lc.sim3_refine(*rargs)
+    got2 = lc.sim3_refine(*rargs)
+    ref = lc.sim3_refine_plain(*rargs)
+    assert (lc.WINDOW_LAUNCHES["kernel"], lc.REFINE_LAUNCHES["kernel"]) == \
+        (n0[0] + 1, n0[1] + 2)
+    # bitwise, NaN included (one pair leaves 3 of the 7 directions to the
+    # 1e-4 damping alone: no solution to compare there)
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, got2))
+    if 0 < n_in < 3:
+        return
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    assert int(got[3]) == int(ref[3])
+
+
+def test_k16_k17_k18_refuse_bad_inputs_on_the_card(cuda):
+    from morb_slam_tpu_torch.optim import inertial
+    from morb_slam_tpu_torch.pipeline import loop_closing as lc
+    before = (dict(stereo.GENERAL_LAUNCHES), dict(inertial.INIT_LAUNCHES),
+              dict(lc.WINDOW_LAUNCHES), dict(lc.REFINE_LAUNCHES))
+    args = list(_rig_features(cuda, 50))
+    with pytest.raises(ValueError):
+        stereo.match_stereo_general(*args[:2], args[2].double(), *args[3:])
+    with pytest.raises(ValueError):
+        stereo.match_stereo_general(*args[:10], args[10][:7])
+    ki, R_wb, p_wb, kf_valid = _init_store(cuda, 8, 4)
+    p = inertial.init_problem(ki, R_wb, p_wb, kf_valid)
+    with pytest.raises(ValueError):
+        inertial.inertial_system(p, torch.zeros(9 + 3 * 7, device=cuda))
+    with pytest.raises(ValueError):
+        inertial.inertial_system(p._replace(cst=p.cst[:, :100]),
+                                 torch.zeros(9 + 3 * 8, device=cuda))
+    P = _verify_problem(cuda, 64, 0, 30, 5)
+    with pytest.raises(ValueError):
+        lc.window_match(P["X2c"].double(), P["ok2"], P["oct2"], P["desc2"],
+                        P["xn1"], P["valid1"], P["desc1"], P["s0"], P["R0"],
+                        P["t0"], 300.0, 1.2)
+    r = list(_refine_inputs(P, torch.zeros(64, dtype=torch.int32,
+                                           device=cuda)))
+    r[4] = r[4][:10]
+    with pytest.raises(ValueError):
+        lc.sim3_refine(*r)
+    assert (stereo.GENERAL_LAUNCHES, inertial.INIT_LAUNCHES,
+            lc.WINDOW_LAUNCHES, lc.REFINE_LAUNCHES) == before

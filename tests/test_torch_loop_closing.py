@@ -3,7 +3,9 @@ CPU (plain kernel versions), on the same inputs:
 
 - `verify_candidate` (on JAX's RANSAC sample table; the K3 matches equal
   JAX's), `guided_sim3_verify` (s, R, t within 1e-4, the same match
-  count), `correct_loop` (pose-graph costs within 1e-3 relative, poses,
+  count) and its two halves (K18's plain versions: `window_match_plain`'s
+  indices equal JAX's window match, `sim3_refine_plain` from JAX's Sim(3)
+  within 1e-4 with the same count), `correct_loop` (pose-graph costs within 1e-3 relative, poses,
   landmarks and velocities within 1e-4) and `search_and_fuse` (the same
   associations and descriptors) step by step on tests/test_loop_closing.py's
   drifted-revisit map, built once per module;
@@ -29,7 +31,7 @@ from morb_slam_tpu.ops import hamming as j_ham
 from morb_slam_tpu.pipeline import loop_closing as j_lc
 from morb_slam_tpu.pipeline import tracking as j_tr
 from morb_slam_tpu.solvers import ransac as j_ransac
-from morb_slam_tpu_torch import cameras, convert
+from morb_slam_tpu_torch import cameras, convert, lie
 from morb_slam_tpu_torch.mapstate import state as ms
 from morb_slam_tpu_torch.ops import hamming
 from morb_slam_tpu_torch.pipeline import loop_closing, tracking
@@ -103,6 +105,58 @@ def test_guided_sim3_verify_parity(verified):
     _, _, (s, R, t, n), (js, jR, jt, jn) = verified
     assert int(n) == int(jn) >= loop_closing.MIN_ACCEPT_MATCHES
     for a, b in ((s, js), (R, jR), (t, jt)):
+        np.testing.assert_allclose(a.numpy(), _np(b), atol=1e-4)
+
+
+def test_window_match_and_sim3_refine_parity(drifted, verified):
+    """K18's plain halves one by one on JAX's RANSAC Sim(3): the window
+    match's indices equal those of JAX's window_match (written out: a
+    closure in guided_sim3_verify), and the refinement on those pairs
+    gives JAX's (s, R, t) within 1e-4 and its match count."""
+    jm, tm = drifted["jm"], drifted["tm"]
+    (_, _, _, _), (js, jR, jt, _), _, (gs, gR, gt, gn) = verified
+    cfg = drifted["tcfg"]
+    lm2, ok2 = loop_closing._kf_landmarks(tm, CAND)
+    X2c = lie.se3_apply(tm.kf_R[CAND], tm.kf_t[CAND],
+                        tm.lm_pos[torch.clamp(lm2, min=0).long()])
+    ok2 = ok2 & (X2c[:, 2] > 0.05)
+    lm1, ok1 = loop_closing._kf_landmarks(tm, KF_ID)
+    X1c = lie.se3_apply(tm.kf_R[KF_ID], tm.kf_t[KF_ID],
+                        tm.lm_pos[torch.clamp(lm1, min=0).long()])
+    ok1 = ok1 & (X1c[:, 2] > 0.05)
+    xn1 = tm.kf_feat_xn[KF_ID]
+    idx = loop_closing.window_match_plain(
+        X2c, ok2, tm.kf_feat_octave[CAND], tm.kf_feat_desc[CAND], xn1,
+        tm.kf_feat_valid[KF_ID], tm.kf_feat_desc[KF_ID], _t(js), _t(jR),
+        _t(jt), cfg.focal, cfg.scale)
+    # JAX's window_match on its own map
+    jX2c = j_lie.se3_apply(jm.kf_R[CAND], jm.kf_t[CAND],
+                           jm.lm_pos[jnp.clip(jm.kf_feat_lm[CAND], 0,
+                                              None)])
+    jok2 = jnp.asarray(ok2.numpy())
+    X1p = j_lie.sim3_apply(js, jR, jt, jX2c)
+    z = X1p[:, 2]
+    pred = X1p[:, :2] / jnp.where(jnp.abs(z) < 1e-6, 1e-6, z)[:, None]
+    rad = 7.5 / cfg.focal * cfg.scale ** jm.kf_feat_octave[CAND].astype(
+        jnp.float32)
+    d2 = jnp.sum((pred[:, None, :] - jm.kf_feat_xn[KF_ID][None]) ** 2, -1)
+    gate = jok2[:, None] & jm.kf_feat_valid[KF_ID][None, :] & \
+        (d2 < (rad ** 2)[:, None]) & (z > 0.05)[:, None]
+    dmat = jnp.where(gate, j_ham.hamming_matrix(jm.kf_feat_desc[CAND],
+                                                jm.kf_feat_desc[KF_ID]),
+                     j_matching.BIG)
+    j_idx, _ = j_ham.match_nn(dmat, jok2, jm.kf_feat_valid[KF_ID],
+                              max_dist=j_ham.TH_HIGH, ratio=1.0)
+    np.testing.assert_array_equal(idx.numpy(), _np(j_idx))
+    j1 = torch.clamp(idx, min=0).long()
+    pair_ok = (idx >= 0) & ok2
+    info1 = (cfg.focal ** 2) * cfg.lm_cfg.sigma2_inv(torch.device("cpu"))[
+        torch.clamp(tm.kf_feat_octave[KF_ID][j1], 0, cfg.n_levels - 1).long()]
+    s, R, t, n = loop_closing.sim3_refine_plain(
+        X2c, X1c[j1], xn1[j1], tm.kf_feat_xn[CAND], info1, pair_ok,
+        pair_ok & ok1[j1], _t(js), _t(jR), _t(jt))
+    assert int(n) == int(gn) >= loop_closing.MIN_ACCEPT_MATCHES
+    for a, b in ((s, gs), (R, gR), (t, gt)):
         np.testing.assert_allclose(a.numpy(), _np(b), atol=1e-4)
 
 
