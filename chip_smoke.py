@@ -6,7 +6,9 @@
 Phases:
   1. device   — require CUDA; print the card, torch/CUDA versions and the
                 kernel build time (`nvcc` for sm_90a, one process per source).
-  2. kernels  — hold K1 (fast_select), K2 (orb_describe) and K3
+  2. kernels  — hold K1 (fast_select), K2 (orb_describe, and
+                orb_describe_levels over the 8 levels in one launch,
+                bitwise equal to the per-level launches) and K3
                 (hamming_top2) against their plain PyTorch versions on the
                 card, at the shapes of a rendered 752x480 frame; time each
                 kernel on the card with torch.profiler (`ms`) and each
@@ -23,7 +25,8 @@ Phases:
                 and K10 (bow_l1) on a 256 x 10^4 keyframe database; K11
                 (preintegrate) on a 64-sample frame batch and a 768-sample
                 keyframe buffer (512 valid), each fresh and continued, and
-                K12 (pose_inertial) on a tracking-shaped problem (1200
+                K12 (pose_inertial: the 15-dim system, H_marg from the
+                kernel, no ptxas spill) on a tracking-shaped problem (1200
                 observations, 60% stereo) with a noisy 0.05 s edge. K4
                 (ba_assemble) is held against its plain version in the
                 stereo phase, on the local BA problem that path built, and
@@ -260,6 +263,7 @@ RANGES = ("K4 ba_solve", "K4 ba_assemble", "K5 optimize_pose",
 # NVIDIA's H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12             # float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # bf16 tensor cores, dense
 
 
 def log(*a):
@@ -691,12 +695,13 @@ def phase_kernels(state):
                      bound_ms=b_ms, bound_by=b_by, library_ms=None,
                      shape="8 levels of 752x480 (one frame)"))
 
-    # K2 at each level's n_keep: angles within 1e-4 rad, >= 99.9% bits
+    # K2 at each level's n_keep: angles within 1e-4 rad, >= 99.9% bits;
+    # one launch over all levels bitwise equal to the per-level launches
     args = []
     max_ang, bit_diff, bit_tot, px_read = 0.0, 0, 0, 0
-    for lvl, n_keep in zip(levels, counts):
+    blurred = image.blur_levels(levels)
+    for lvl, blur, n_keep in zip(levels, blurred, counts):
         yx, _, _, _ = frontend.select_level_keypoints(lvl, n_keep, cfg)
-        blur = image.gaussian_blur(lvl).contiguous()
         args.append((lvl, blur, yx.contiguous()))
         a1, d1 = orb_descriptor.orb_describe(lvl, blur, yx.contiguous())
         a0 = orb_descriptor.compute_orientations(lvl, yx)
@@ -711,15 +716,33 @@ def phase_kernels(state):
     log(f"K2 orb_describe: max angle diff {max_ang:.2e} rad, descriptor "
         f"bits identical {share:.5f} ({bit_diff} of {bit_tot} differ)")
     check(max_ang < 1e-4 and share >= 0.999, (max_ang, share))
-    ms = time_ms(lambda: [orb_descriptor.orb_describe(*a) for a in args])
+    yxs = [a[2] for a in args]
+    n0 = orb_descriptor.LAUNCHES["kernel"]
+    a_lv, d_lv = orb_descriptor.orb_describe_levels(levels, blurred, yxs)
+    lv_launches = orb_descriptor.LAUNCHES["kernel"] - n0
+    per = [orb_descriptor.orb_describe(*a) for a in args]
+    lv_bitwise = torch.equal(a_lv, torch.cat([p[0] for p in per])) and \
+        torch.equal(d_lv, torch.cat([p[1] for p in per]))
+    log(f"K2 orb_describe_levels: {lv_launches} launch for {len(levels)} "
+        f"levels, bitwise equal to the per-level launches {lv_bitwise}")
+    check(lv_launches == 1 and lv_bitwise, ("K2 levels", lv_bitwise))
+
+    def levels_call():
+        orb_descriptor.orb_describe_levels(levels, blurred, yxs)
+
+    def eight_calls():
+        for a in args:
+            orb_descriptor.orb_describe(*a)
+    ms = time_ms(levels_call)
+    ms_8 = time_ms(eight_calls)
 
     def plain_k2():
         for lvl, blur, yx in args:
             ang = orb_descriptor.compute_orientations(lvl, yx)
             orb_descriptor.compute_descriptors(blur, yx, ang)
     plain = time_ms(plain_k2, reps=10)
-    kernel = device_ms(lambda: [orb_descriptor.orb_describe(*a) for a in args],
-                       "orb_describe_kernel")
+    kernel = device_ms(levels_call, "orb_describe_levels_kernel")
+    kernel_8 = device_ms(eight_calls, "orb_describe_kernel")
     nkp = sum(counts)
     # the distinct level pixels this frame's keypoints read, their yx and
     # the pattern in, 36 bytes out per keypoint; 4 flop per disc pixel +
@@ -730,9 +753,13 @@ def phase_kernels(state):
                      source="morb_slam_tpu_torch/csrc/orb_describe.cu",
                      replaces="morb_slam_tpu/ops/orb_descriptor.py:64",
                      max_abs_err=max_ang, ms=kernel, call_ms=ms,
+                     ms_is="orb_describe_levels: one launch for the 8 levels",
+                     ms_8_calls=kernel_8, call_ms_8_calls=ms_8,
+                     levels_bitwise_equal_8_calls=lv_bitwise,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                      library_ms=None, bits_identical=share,
-                     shape="1200 keypoints over 8 levels (one frame)"))
+                     ptxas=_ptxas("orb_describe"),
+                     shape="1200 keypoints over 8 levels (one image)"))
 
     # K3 at 1200x1200 and 4096x1200, real descriptors + window masks and
     # random ones: best, index and second exact
@@ -777,12 +804,23 @@ def phase_kernels(state):
     n, mm = m.shape
     # the whole mask is read; only the candidate pairs need a distance
     b_ms, b_by = bound(n * mm + (n + mm) * 32 + n * 12, int(m.sum()) * 16)
+    # hamming_matrix_mxu (ops/hamming.py:40) computes the whole (n, m) int32
+    # distance matrix as a +-1 product over 256 bits: the descriptors in,
+    # the matrix out once; 2 * 256 operations per pair at the dense bf16
+    # tensor-core rate
+    mxu_b = n * mm * 4 + (n + mm) * 32
+    mxu_t = (mxu_b / HBM_BYTES_PER_S * 1e3,
+             2 * 256 * n * mm / BF16_OPS_PER_S * 1e3)
+    mxu_bound = (max(mxu_t), "bytes" if mxu_t[0] >= mxu_t[1]
+                 else "operations")
     rows.append(dict(name="hamming_top2", route="cuda",
                      source="morb_slam_tpu_torch/csrc/hamming_top2.cu",
                      replaces="morb_slam_tpu/ops/hamming.py:53",
                      max_abs_err=0.0, ms=kernel, call_ms=ms, plain_ms=plain,
                      bound_ms=b_ms, bound_by=b_by, library_ms=None,
                      ms_1200x1200=kernel_small, call_ms_1200x1200=ms_small,
+                     hamming_matrix_mxu_bound_ms=mxu_bound[0],
+                     hamming_matrix_mxu_bound_by=mxu_bound[1],
                      shape="4096x1200 (one launch)"))
     rows.append(_k6_row(frames[0], cfg))
     _stereo_kernels(state, rows)
@@ -807,7 +845,7 @@ def _k6_row(img, cfg):
     PYR_TOL of the plain pyramid (cuBLAS, TF32 off), and extract_orb with
     the kernel and with the plain K6 forced in agreement on >= 99% of the
     (yx, octave) slots and >= 99.9% of their descriptor bits."""
-    from morb_slam_tpu_torch import frontend
+    from morb_slam_tpu_torch import frontend, testing
     from morb_slam_tpu_torch.ops import image, orb_descriptor
     L, sc = cfg.n_levels, cfg.scale
     lk = image.build_pyramid(img, L, sc)
@@ -827,8 +865,10 @@ def _k6_row(img, cfg):
 
     f_k = frontend.extract_orb(img, cfg)
     saved = image.build_pyramid, image.blur_levels
-    image.build_pyramid = image.build_pyramid_plain
-    image.blur_levels = lambda ls: [image.gaussian_blur_plain(l) for l in ls]
+    image.build_pyramid = lambda *a: testing.pack_levels(
+        image.build_pyramid_plain(*a))
+    image.blur_levels = lambda ls: testing.pack_levels(
+        [image.gaussian_blur_plain(l) for l in ls])
     try:
         f_p = frontend.extract_orb(img, cfg)
     finally:
@@ -862,6 +902,21 @@ def _k6_row(img, cfg):
     ms = {k: device_ms(k6, k) for k in (None, "pyramid_level_kernel",
                                         "blur_levels_kernel")}
     by_events = bool(EVENT_TIMED & set(ms))
+    # the library's blur: a 7x7 convolution with the kernel's outer
+    # product on each replicate-padded level (cuDNN, TF32 off); the same
+    # blur up to the order of the 49 products' sum
+    k7 = torch.from_numpy(np.outer(image._KERNEL7, image._KERNEL7)).to(
+        img.device)[None, None]
+    r7 = len(image._KERNEL7) // 2
+
+    def library_blur():
+        return [F.conv2d(F.pad(l[None, None], (r7,) * 4, mode="replicate"),
+                         k7)[0, 0] for l in lk]
+    lib_diff = max(float((a - b).abs().max())
+                   for a, b in zip(library_blur(), blur_k))
+    EVENT_TIMED.discard(None)
+    lib_blur_ms = device_ms(library_blur, None)
+    lib_by_events = None in EVENT_TIMED
     return dict(name="pyramid_blur", route="cuda",
                 source="morb_slam_tpu_torch/csrc/pyramid_blur.cu",
                 replaces="morb_slam_tpu/ops/image.py:33",
@@ -880,6 +935,13 @@ def _k6_row(img, cfg):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 library_note="none: F.interpolate(antialias=True) is another "
                              "filter, and no single call blurs a pyramid",
+                library_blur_ms=lib_blur_ms,
+                library_blur_ms_by="cuda events" if lib_by_events
+                else "profiler",
+                library_blur_call_ms=time_ms(library_blur),
+                library_blur_max_abs_diff=lib_diff,
+                library_blur="per level F.pad(replicate) + F.conv2d 7x7 "
+                             "outer product, TF32 off (device time of both)",
                 launches_per_image=per_image, ptxas=_ptxas("pyramid_blur"),
                 shape=f"one {img.shape[1]}x{img.shape[0]} image, {L} levels")
 
@@ -1528,7 +1590,7 @@ def _vi_kernels(rows):
     # K12 on a tracking-shaped problem: 1200 observations, 60% stereo, the
     # anchor keyframe 0.05 s earlier on a constant-velocity path, its edge
     # preintegrated from noisy samples; R, t within 1e-5, v and bias within
-    # 1e-4, the same inliers
+    # 1e-4, the same inliers, H_marg within 1e-4 of its max-abs
     args, kw = _pose_problem(1200, 0.6, seed=4)
     R0, t0, X, xn, info, valid = args
     n_rows = 10
@@ -1557,13 +1619,17 @@ def _vi_kernels(rows):
                  float((got.t_cw - want.t_cw).abs().max()))
     err_vb = max(float((got.v - want.v).abs().max()),
                  float((got.bias - want.bias).abs().max()))
+    err_H = float((got.H_marg - want.H_marg).abs().max()
+                  / want.H_marg.abs().max())
     n_valid = int(valid.sum())
     c_err = float(torch.linalg.norm(-lie.matvec(got.R_cw.T, got.t_cw)))
     log(f"K12 pose_inertial (1200 obs, 60% stereo, 2 x 6 + final): R, t "
         f"within {err_Rt:.2e}, v and bias within {err_vb:.2e}, inliers "
         f"{int(got.n_inliers)} vs plain {int(want.n_inliers)} of {n_valid} "
-        f"valid; camera centre {c_err:.2e} from the truth")
+        f"valid; H_marg within {err_H:.2e} of its max-abs; camera centre "
+        f"{c_err:.2e} from the truth")
     check(err_Rt <= 1e-5 and err_vb <= 1e-4, ("K12", err_Rt, err_vb))
+    check(err_H <= 1e-4, ("K12 H_marg", err_H))
     check(int(got.n_inliers) == int(want.n_inliers) ==
           int(got.inliers.sum()), ("K12 inliers", int(got.n_inliers),
                                    int(want.n_inliers)))
@@ -1572,28 +1638,32 @@ def _vi_kernels(rows):
     n_st = int((valid & st).sum())
     n_inl = int(got.n_inliers)
     n_inl_st = int((got.inliers & st).sum())
-    # inputs read once, the 30x30 Hessian, state and inliers written once;
+    # inputs read once, the 15x15 marginal, state and inliers written once;
     # per assembling step and active row ~150 flops (+70 for a stereo
     # row): round 1's 6 steps over the valid rows, round 2's 6 and the
-    # final step over the inliers; per step ~126 kflop of fixed work (the
-    # forward-mode 9 x 30 edge Jacobian, its products, the Cholesky); ~40
-    # flops per row for each reclassification
+    # final step over the inliers; per step ~32 kflop of fixed work (the
+    # forward-mode 9 x 15 edge Jacobian of the current state, its products,
+    # the 15x15 Cholesky: the anchor is fixed, so the 30-dim system is
+    # diag(I, H_cc)); ~40 flops per row for each reclassification
     nops = (6 * (n_valid * 150 + n_st * 70) + 7 * (n_inl * 150 + n_inl_st * 70)
-            + 13 * 126e3 + 2 * 40 * 1200)
-    b_ms, b_by = bound(1200 * 30 + 197 * 4 + 921 * 4 + 8, nops)
+            + 13 * 32e3 + 2 * 40 * 1200)
+    b_ms, b_by = bound(1200 * 30 + 197 * 4 + 246 * 4 + 8, nops)
     call = lambda: vi_ba.optimize_pose_inertial(*k12_args, n_iters=6)
     rows.append(dict(
         name="pose_inertial", route="cuda",
         source="morb_slam_tpu_torch/csrc/pose_inertial.cu",
         replaces="morb_slam_tpu/optim/vi_ba.py:426",
         max_abs_err=max(err_Rt, err_vb), max_abs_err_R_t=err_Rt,
-        max_abs_err_v_bias=err_vb,
+        max_abs_err_v_bias=err_vb, H_marg_rel_err=err_H,
         ms=device_ms(call, "pose_inertial_kernel"), call_ms=time_ms(call),
         plain_ms=time_ms(lambda: vi_ba.optimize_pose_inertial_plain(
             *k12_args, n_iters=6), reps=3, inner=1, warmup=1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         inliers=n_inl, inliers_plain=int(want.n_inliers),
+        ptxas=_ptxas("pose_inertial"),
         shape="1200 observations, 60% stereo, 0.05 s edge, 2 x 6 + final"))
+    check("0 bytes spill stores, 0 bytes spill loads" in rows[-1]["ptxas"],
+          ("K12 spills", rows[-1]["ptxas"]))
 
 
 def _cloned(x):
@@ -1654,6 +1724,40 @@ class _CountCalls:
     def __exit__(self, *exc):
         for (mod, name), fn in zip(self.targets, self.saved):
             setattr(mod, name, fn)
+
+
+class _EventCalls:
+    """CUDA-event milliseconds of each call of one module function during a
+    path's run, host dispatch included: an event on the current stream
+    before and after each call, read after the run (no synchronization on
+    the path)."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name, self.events = mod, name, []
+
+    def __enter__(self):
+        self.saved = getattr(self.mod, self.name)
+
+        def wrap(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            r = self.saved(*a, **kw)
+            e.record()
+            self.events.append((s, e))
+            return r
+        setattr(self.mod, self.name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.saved)
+
+    def summary(self):
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for s, e in self.events]
+        return dict(calls=len(ms),
+                    median=float(np.median(ms)) if ms else None,
+                    p90=float(np.percentile(ms, 90)) if ms else None)
 
 
 def range_device_ms(name, run, prof=None, tries=3):
@@ -1891,6 +1995,8 @@ def phase_stereo(state):
         peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         launches_per_frame={k: v / N_FRAMES for k, v in launches.items()},
         local_ba_per_frame=calls.counts["ba_solve"] / N_FRAMES)
+    log(f"stereo: K2 {launches['orb_describe'] / N_FRAMES:.2f} launches per "
+        f"frame")
 
     table = state.get("profile_out")
     kern = _path_profile(tracker, lambda i: feed(i, i * dt),
@@ -2293,7 +2399,8 @@ def phase_vi(state):
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
     with _CountCalls(targets, timed,
-                     keep_first=("inertial_only_optimize",)) as calls:
+                     keep_first=("inertial_only_optimize",)) as calls, \
+            _EventCalls(vi_ba, "optimize_pose_inertial") as k12_calls:
         states, fm, secs, _ = _track_run(tracker, feed, N_VI, VI_DT, inserts,
                                          timed_from=VI_TIMED)
     launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
@@ -2339,9 +2446,12 @@ def phase_vi(state):
         ate_se3_m=ate_se3, ate_sim3_m=ate, sim3_scale=scale,
         extent_m=extent, landmarks=int(tracker.m.lm_valid.sum()),
         peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-        launches_per_frame={k: v / N_VI for k, v in launches.items()})
-    log(f"vi: K11 {launches['preintegrate'] / N_VI:.2f} and K12 "
-        f"{launches['pose_inertial'] / N_VI:.2f} launches per frame")
+        launches_per_frame={k: v / N_VI for k, v in launches.items()},
+        pose_inertial_call_ms=k12_calls.summary())
+    log(f"vi: K11 {launches['preintegrate'] / N_VI:.2f}, K12 "
+        f"{launches['pose_inertial'] / N_VI:.2f} and K2 "
+        f"{launches['orb_describe'] / N_VI:.2f} launches per frame; K12 "
+        f"call_ms on the path {out['pose_inertial_call_ms']}")
     table = state.get("profile_out")
     kern = _path_profile(tracker, lambda i: feed(i, i * VI_DT),
                          range(N_VI, n_all), "vi", out, inserts,
@@ -3977,6 +4087,7 @@ def _rig_run(state, inertial):
     with its IMU samples through track_stereo_inertial (RIG_VI_N); then 5
     more frames profiled. Returns the path's dict."""
     from morb_slam_tpu_torch.optim import inertial as inertial_mod
+    from morb_slam_tpu_torch.optim import vi_ba
     n = RIG_VI_N if inertial else RIG_N
     name = "rig_vi" if inertial else "rig"
     t0 = time.perf_counter()
@@ -4007,7 +4118,8 @@ def _rig_run(state, inertial):
     _reset_counters()
     with _CountCalls([(inertial_mod, "inertial_only_optimize")],
                      timed=("inertial_only_optimize",),
-                     keep_first=("inertial_only_optimize",)) as calls:
+                     keep_first=("inertial_only_optimize",)) as calls, \
+            _EventCalls(vi_ba, "optimize_pose_inertial") as k12_calls:
         states, fm, secs, _ = _track_run(tr, feed, n, RIG_DT, inserts,
                                          timed_from=timed_from)
     kernels = ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
@@ -4031,7 +4143,10 @@ def _rig_run(state, inertial):
         landmarks=int(tr.m.lm_valid.sum()),
         peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         launches_per_frame={k: v / n for k, v in launches.items()})
+    log(f"{name}: K2 {launches['orb_describe'] / n:.2f} launches per frame")
     if inertial:
+        out["pose_inertial_call_ms"] = k12_calls.summary()
+        log(f"{name}: K12 call_ms on the path {out['pose_inertial_call_ms']}")
         fired = [st for st in stages if st["fired"]]
         out.update(imu_ready=tr.imu_ready, viba_stage=tr.viba_stage,
                    imu_init_stages=fired, imu_init_attempts=len(stages),

@@ -1,5 +1,6 @@
 // The 9-dof inertial edge residual of optim/vi_ba.py:_edge_residual on
-// dual numbers, shared by K12 (pose_inertial.cu) and K13 (vi_edges.cu).
+// dual numbers (K13, vi_edges.cu) and its constants (K13 and K12,
+// pose_inertial.cu, which keeps its own form with the anchor fixed).
 #pragma once
 #include "dual.cuh"
 

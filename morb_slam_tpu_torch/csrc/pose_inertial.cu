@@ -4,38 +4,50 @@
 // Replaces morb_slam_tpu/optim/vi_ba.py:optimize_pose_inertial (its
 // gn_step and round_body), which the visual-inertial tracker runs on every
 // frame after the IMU initialization: 2 rounds x (6 steps + 1
-// reclassification) + 1 final evaluation over the 30-dim (anchor keyframe,
-// current frame) state.
+// reclassification) + 1 final evaluation.
 //
 // What bounds it on an H100: latency. The call reads ~33 B per observation
 // (1,200 observations: ~40 KB) and ~0.8 KB of edge constants; each step
-// does ~400 flops per observation plus ~60 Kflop for the edge Jacobian, the
-// 30x30 products and the Cholesky (15 steps: ~8 Mflop). Every step needs
-// the state the step before it produced, so the chain of 15 steps, each a
-// reduction over the observations followed by a dense 30x30 solve, sets the
-// time. The reference program issues it as one XLA loop; plain PyTorch
-// issues several hundred kernels per step.
+// does ~400 flops per observation plus a few tens of kflop for the edge
+// Jacobian, its products and the Cholesky. Every step needs the state the
+// step before it produced, so the chain of steps, each a reduction over
+// the observations followed by a dense solve, sets the time.
 //
-// Design (K5's, csrc/pose_opt.cu, extended): one block of 512 threads; the
-// 30-dim state lives in shared memory.
-//  - Visual terms: each thread owns a fixed stride of observations (their
-//    active flags live in the `inliers` output), builds residuals, the body-
-//    tangent Jacobian rows J_pt [-I | hat(Xc)] and Huber weights, and
-//    accumulates the 21 upper entries of H_v and the 6 of J^T w r; a fixed-
-//    order warp butterfly and a pass over the 16 warps reduce them.
-//  - The inertial edge Jacobian in forward mode (imu_edge.cuh, shared with
-//    K13): lane d of warp 0 (d < 30) evaluates vi_ba._edge_residual on
-//    (value, derivative) pairs seeded with the unit tangent e_d, through
-//    so3_exp, so3_log and the 3x3 products with the port's lie.py branches
-//    (the clamp of cos(theta) passes no derivative, as torch's clamp),
-//    giving column d of Je (9 x 30).
-//  - Assembly: Je^T Omega Je and -Je^T Omega r one entry per thread; the
-//    visual block on dims 15:21, the bias random walk, the mask that fixes
-//    the anchor, symmetrization, Jacobi scaling + 1e-6 I; warp 0
-//    factors the 30x30 SPD system by a right-looking Cholesky (lane i owns
-//    row i), lane 0 substitutes and applies the update.
-// The arithmetic follows the plain version's formulas; the sums run in
-// another order than its einsums, so results agree to float32 rounding.
+// The 15-dim system. The reference's state is 30-dim (anchor keyframe,
+// current frame), but the tracker always fixes the anchor: vi_ba.py:519-522
+// (anchor_fixed=True) replaces the anchor's 15 rows and columns of H by I
+// and 0 and zeroes g[:15]. The system is then diag(I, H_cc): dx[:15] is
+// exactly 0 (the anchor state never moves), the anchor's 15 Jacobian
+// columns feed only entries that are overwritten, and the reference's
+// marginal (vi_ba.py:_marginal: H_cc - H_ac^T (I + 1e-5 I)^-1 H_ac with
+// H_ac = 0) is exactly the symmetrized H_cc. So this kernel evaluates only
+// the current state's 15 tangents of the edge Jacobian, solves the 15x15
+// system and emits H_cc as H_marg. An anchor-free caller (none exists in
+// either package) would need the 30-dim form back.
+//
+// Design: one block of THREADS threads; the state lives in shared memory.
+//  - Warp 0 (the solver warp) evaluates the inertial edge while warps
+//    1.. do the visual pass: lane d < 15 runs vi_ba._edge_residual on
+//    (value, derivative) pairs seeded with the current state's tangent e_d
+//    (the anchor's side in plain floats, computed once per call: its
+//    tangent is zero and it never moves), giving column d of Je (9 x 15);
+//    lane i then forms its column of Je^T Omega and row i of H_cc and g_c.
+//  - The visual warps each own a fixed stride of observations (their active
+//    flags live in the `inliers` output), build residuals, the body-tangent
+//    Jacobian rows J_pt [-I | hat(Xc)] and Huber weights, accumulate the 21
+//    upper entries of H_v and the 6 of J^T w r, and reduce them across the
+//    warp by a transposed butterfly (31 shuffles for the 27 sums).
+//  - After one barrier the solver warp sums the visual warps' partials
+//    (lane k takes entry k, in warp order), adds the visual block and the
+//    bias random walk's current-side terms, symmetrizes, scales (Jacobi +
+//    1e-6 I), factors by a right-looking Cholesky with lane i owning row i
+//    (shuffles only; one reciprocal per pivot, so the substitutions
+//    multiply), substitutes over 15 lanes and updates the current state,
+//    21 lanes in parallel; a second barrier publishes the pose.
+// Two barriers per step; a reclassification step needs none (each thread
+// reclassifies only its own rows). The arithmetic follows the plain
+// version's formulas; the sums run in another order than its einsums, so
+// results agree to float32 rounding.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,9 +55,12 @@
 
 #define THREADS 512
 #define NWARPS (THREADS / 32)
+#define NVW (NWARPS - 1)           // visual warps
+#define NVIS (NVW * 32)            // visual threads
 #define NACC 27
 #define HUBER2_MONO 5.991f
 #define HUBER2_STEREO 7.815f
+#define FULL 0xffffffffu
 
 // offsets into the packed constants (optim/vi_ba.py optimize_pose_inertial)
 #define C_R0 0
@@ -72,7 +87,7 @@
 #define N_CONST 197
 
 // ---------------------------------------------------------------------------
-// plain float helpers for the state update
+// plain float helpers
 // ---------------------------------------------------------------------------
 __device__ float sinc_(float x) {
     return fabsf(x) < 1e-4f ? 1.0f - x * x / 6.0f : sinf(x) / x;
@@ -92,22 +107,117 @@ __device__ void exp3(const float* w, float* R) {
             R[3 * i + j] = (i == j ? 1.0f : 0.0f) + a * W[3 * i + j] +
                            b * (w[i] * w[j] - (i == j ? n2 : 0.0f));
 }
-// R <- R exp(phi), p <- p + R dp (old R), v += dv, b += db
-__device__ void update_state(float* st, const float* dx) {
-    float E[9], Rn[9];
-    exp3(dx + 3, E);
-    for (int i = 0; i < 3; ++i) {
-        float s = st[3 * i] * dx[0] + st[3 * i + 1] * dx[1] +
-                  st[3 * i + 2] * dx[2];
-        st[9 + i] += s;
+
+// float matrix (3x3) times dual matrix / vector
+__device__ __forceinline__ void fmm(const float* A, const Dl* B, Dl* C) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+            C[3 * i + j] = A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j] +
+                           A[3 * i + 2] * B[6 + j];
+}
+__device__ __forceinline__ void fmv(const float* A, const Dl* x, Dl* y) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+        y[i] = A[3 * i] * x[0] + A[3 * i + 1] * x[1] + A[3 * i + 2] * x[2];
+}
+
+// The anchor's side of vi_ba._edge_residual (imu_edge.cuh's
+// edge_residual): the anchor never moves (its tangent is fixed at zero, so
+// R_i exp(0) = R_i, p_i + R_i 0 = p_i, ...), so these terms are the same in
+// every step and are computed once per call. Si: the anchor's [R 0, p 9,
+// v 12, b 15]. A: R_i^T 0, dR_c^T 9 (the bias-corrected dR), dV_c 18,
+// dP_c 21, and the constant parts of the velocity and position residuals,
+// v_i + g dt 24 and p_i + dt v_i + g dt^2 / 2 27, as the dual code forms
+// them.
+#define A_RIT 0
+#define A_DRCT 9
+#define A_DVC 18
+#define A_DPC 21
+#define A_V 24
+#define A_P 27
+#define N_ANCHOR 30
+__device__ void anchor_terms(const float* Si, const ImuEdge& C, float* A) {
+    float dbg[3], dba[3], u[3], Eb[9], dRc[9];
+    for (int q = 0; q < 3; ++q) {
+        dbg[q] = Si[15 + q] - C.bias0[q];
+        dba[q] = Si[18 + q] - C.bias0[3 + q];
     }
     for (int i = 0; i < 3; ++i)
+        u[i] = C.JRg[3 * i] * dbg[0] + C.JRg[3 * i + 1] * dbg[1] +
+               C.JRg[3 * i + 2] * dbg[2];
+    exp3(u, Eb);
+    for (int i = 0; i < 3; ++i)
         for (int j = 0; j < 3; ++j)
-            Rn[3 * i + j] = st[3 * i] * E[j] + st[3 * i + 1] * E[3 + j] +
-                            st[3 * i + 2] * E[6 + j];
-    for (int k = 0; k < 9; ++k) st[k] = Rn[k];
-    for (int q = 0; q < 3; ++q) st[12 + q] += dx[6 + q];
-    for (int q = 0; q < 6; ++q) st[15 + q] += dx[9 + q];
+            dRc[3 * i + j] = C.dR[3 * i] * Eb[j] + C.dR[3 * i + 1] * Eb[3 + j] +
+                             C.dR[3 * i + 2] * Eb[6 + j];
+    for (int q = 0; q < 3; ++q) {
+        float v = C.dV[q], p = C.dP[q];
+        v += C.JVg[3 * q] * dbg[0] + C.JVg[3 * q + 1] * dbg[1] +
+             C.JVg[3 * q + 2] * dbg[2];
+        v += C.JVa[3 * q] * dba[0] + C.JVa[3 * q + 1] * dba[1] +
+             C.JVa[3 * q + 2] * dba[2];
+        p += C.JPg[3 * q] * dbg[0] + C.JPg[3 * q + 1] * dbg[1] +
+             C.JPg[3 * q + 2] * dbg[2];
+        p += C.JPa[3 * q] * dba[0] + C.JPa[3 * q + 1] * dba[1] +
+             C.JPa[3 * q + 2] * dba[2];
+        A[A_DVC + q] = v;
+        A[A_DPC + q] = p;
+    }
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) {
+            A[A_RIT + 3 * i + j] = Si[3 * j + i];
+            A[A_DRCT + 3 * i + j] = dRc[3 * j + i];
+        }
+    const float dt = C.dt;
+    const float g[3] = {0.0f, 0.0f, -9.81f};
+    for (int q = 0; q < 3; ++q) {
+        A[A_V + q] = g[q] * dt;
+        A[A_P + q] = 0.5f * g[q] * dt * dt;
+    }
+}
+
+// vi_ba._edge_residual with the anchor's side from anchor_terms (A) and
+// the current side on dual numbers seeded with the unit tangent e_d of the
+// current state (d < 15; any other d gives the values with zero
+// derivatives). Si, Sj: [R 0, p 9, v 12, b 15].
+__device__ void edge_residual_current(int d, const float* Si,
+                                      const float* Sj, const float* A,
+                                      float dt, Dl* r) {
+    Dl x[15];
+#pragma unroll
+    for (int q = 0; q < 15; ++q) x[q] = Dl{0.0f, q == d ? 1.0f : 0.0f};
+    // current side: R_j exp(phi), p_j + R_j dp, v_j + dv
+    Dl E[9], Rj[9], Rj_[9], t3[3], pj_[3], vj_[3];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) Rj[k] = dl(Sj[k]);
+    dexp(x + 3, E);
+    dmm(Rj, E, Rj_);
+    fmv(Sj, x + 0, t3);
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+        pj_[q] = dl(Sj[9 + q]) + t3[q];
+        vj_[q] = dl(Sj[12 + q]) + x[6 + q];
+    }
+    Dl M1[9], M2[9];
+    fmm(A + A_RIT, Rj_, M1);
+    fmm(A + A_DRCT, M1, M2);
+    dlog(M2, r);
+    Dl a[3], b[3], uu[3], ww[3];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+        a[q] = vj_[q] - dl(Si[12 + q]) - dl(A[A_V + q]);
+        b[q] = pj_[q] - dl(Si[9 + q]) - dl(dt * Si[12 + q]) -
+               dl(A[A_P + q]);
+    }
+    fmv(A + A_RIT, a, uu);
+    fmv(A + A_RIT, b, ww);
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+        r[3 + q] = uu[q] - dl(A[A_DVC + q]);
+        r[6 + q] = ww[q] - dl(A[A_DPC + q]);
+    }
 }
 
 // Residuals and chi2 of observation i at the current body state
@@ -165,7 +275,29 @@ __device__ __forceinline__ void add_row(float* acc, float w, float r,
     for (int p = 0; p < 6; ++p) acc[21 + p] += w * J[p] * r;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Transposed butterfly: v[0..31] of every lane in, the warp's sum of entry
+// `lane` out (31 shuffles). Each level keeps half of the entries and
+// receives the partner's partial sums of that half.
+template <int H>
+__device__ __forceinline__ void transpose_level(float* v, int lane) {
+    const bool up = lane & H;
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+        const float send = up ? v[k] : v[k + H];
+        const float keep = up ? v[k + H] : v[k];
+        v[k] = keep + __shfl_xor_sync(FULL, send, H);
+    }
+}
+__device__ __forceinline__ float warp_transpose_sum(float* v, int lane) {
+    transpose_level<16>(v, lane);
+    transpose_level<8>(v, lane);
+    transpose_level<4>(v, lane);
+    transpose_level<2>(v, lane);
+    transpose_level<1>(v, lane);
+    return v[0];
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 pose_inertial_kernel(const float* __restrict__ cst_g,
                      const float* __restrict__ Xw,
                      const float* __restrict__ obs,
@@ -178,12 +310,14 @@ pose_inertial_kernel(const float* __restrict__ cst_g,
     __shared__ float C[N_CONST];
     // state: anchor [R 0, p 9, v 12, b 15], current [R 21, p 30, v 33, b 36]
     __shared__ float S[42];
+    __shared__ float Anc[N_ANCHOR];      // the anchor's side of the edge
     __shared__ float Rcw[9], tcw[3];
-    __shared__ float red[NWARPS][NACC];
-    __shared__ float Je[9][30], re[9], JtW[9][30];
-    __shared__ float H[30][30], g[30], dsc[30], Lm[30][30], dx[30];
+    __shared__ float red[NVW][32];
+    __shared__ float JeS[9][16], reS[9], totS[32];
+    __shared__ float HS[15][16], LS[15][16], dxS[16];
     __shared__ int cnt[NWARPS];
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int vt = tid - 32;   // visual thread index (warps 1..)
     for (int k = tid; k < N_CONST; k += THREADS) C[k] = cst_g[k];
     __syncthreads();
     const float base = C[C_BASE];
@@ -205,8 +339,19 @@ pose_inertial_kernel(const float* __restrict__ cst_g,
             S[30 + i] = -(S[21 + 3 * i] * C[C_T0] +
                           S[21 + 3 * i + 1] * C[C_T0 + 1] +
                           S[21 + 3 * i + 2] * C[C_T0 + 2]);
+        // camera pose of the current body state
+        for (int i = 0; i < 3; ++i)
+            for (int j = 0; j < 3; ++j) Rcw[3 * i + j] = S[21 + 3 * j + i];
+        for (int i = 0; i < 3; ++i)
+            tcw[i] = -(Rcw[3 * i] * S[30] + Rcw[3 * i + 1] * S[31] +
+                       Rcw[3 * i + 2] * S[32]);
+        const ImuEdge E{C[C_DT], C + C_DR, C + C_DV, C + C_DP,
+                        C + C_JRG, C + C_JVG, C + C_JVA, C + C_JPG,
+                        C + C_JPA, C + C_BIAS0};
+        anchor_terms(S, E, Anc);
     }
-    for (int i = tid; i < N; i += THREADS) inliers[i] = valid[i] ? 1 : 0;
+    if (warp > 0)
+        for (int i = vt; i < N; i += NVIS) inliers[i] = valid[i] ? 1 : 0;
     __syncthreads();
 
     // 2 rounds x (n_iters steps + reclassification), then the final step
@@ -215,172 +360,215 @@ pose_inertial_kernel(const float* __restrict__ cst_g,
         const int in_round = step % (n_iters + 1);
         const bool final_step = step == total - 1;
         const bool reclass = !final_step && in_round == n_iters;
-        if (tid == 0) {       // camera pose of the current body state
-            for (int i = 0; i < 3; ++i)
-                for (int j = 0; j < 3; ++j) Rcw[3 * i + j] = S[21 + 3 * j + i];
-            for (int i = 0; i < 3; ++i)
-                tcw[i] = -(Rcw[3 * i] * S[30] + Rcw[3 * i + 1] * S[31] +
-                           Rcw[3 * i + 2] * S[32]);
-        }
-        __syncthreads();
         if (reclass) {
-            for (int i = tid; i < N; i += THREADS) {
-                const Row e = eval_row(Rcw, tcw, Xw, obs, info, obs_ur,
-                                       base, i);
-                inliers[i] = (valid[i] && e.chi2 < e.th) ? 1 : 0;
-            }
-            __syncthreads();
+            // each visual thread reclassifies its own rows: no barrier
+            if (warp > 0)
+                for (int i = vt; i < N; i += NVIS) {
+                    const Row e = eval_row(Rcw, tcw, Xw, obs, info, obs_ur,
+                                           base, i);
+                    inliers[i] = (valid[i] && e.chi2 < e.th) ? 1 : 0;
+                }
             continue;
         }
-        // ---- visual terms on dims 15:21
-        float acc[NACC];
+        float h[15], gi = 0.0f;     // the solver warp: row `lane` of H_cc
+        if (warp > 0) {
+            // ---- visual terms on the current state's dims 0:6
+            float acc[32];
 #pragma unroll
-        for (int k = 0; k < NACC; ++k) acc[k] = 0.0f;
-        for (int i = tid; i < N; i += THREADS) {
-            if (!inliers[i]) continue;
-            const Row e = eval_row(Rcw, tcw, Xw, obs, info, obs_ur, base, i);
-            if (!(e.z > 0.0f)) continue;
-            const float hub = e.chi2 <= e.th
-                ? 1.0f : sqrtf(e.th / fmaxf(e.chi2, 1e-12f));
-            const float w = info[i] * hub;
-            const float iz2 = e.iz * e.iz;
-            add_row(acc, w, e.rx, e.iz, 0.0f, -e.x * iz2, e.x, e.y, e.z);
-            add_row(acc, w, e.ry, 0.0f, e.iz, -e.y * iz2, e.x, e.y, e.z);
-            if (e.stereo)
-                add_row(acc, w, e.rur, e.iz, 0.0f, -(e.x - base) * iz2, e.x,
-                        e.y, e.z);
-        }
-#pragma unroll
-        for (int k = 0; k < NACC; ++k) {
-            float v = acc[k];
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                v += __shfl_xor_sync(0xffffffffu, v, off);
-            if (lane == 0) red[warp][k] = v;
-        }
-        // ---- the inertial edge Jacobian, one tangent per lane of warp 0
-        if (warp == 0 && lane < 30) {
-            const ImuEdge E{C[C_DT], C + C_DR, C + C_DV, C + C_DP,
-                            C + C_JRG, C + C_JVG, C + C_JVA, C + C_JPG,
-                            C + C_JPA, C + C_BIAS0};
-            Dl r[9];
-            edge_residual(lane, S, S + 21, E, r);
-            for (int a = 0; a < 9; ++a) Je[a][lane] = r[a].d;
-            if (lane == 0)
-                for (int a = 0; a < 9; ++a) re[a] = r[a].v;
-        }
-        __syncthreads();
-        // JtW[b][i] = sum_a Je[a][i] info[a][b]
-        for (int q = tid; q < 270; q += THREADS) {
-            const int b = q / 30, i = q % 30;
-            float s = 0.0f;
-            for (int a = 0; a < 9; ++a) s += Je[a][i] * C[C_INFO + 9 * a + b];
-            JtW[b][i] = s;
-        }
-        __syncthreads();
-        for (int q = tid; q < 900; q += THREADS) {
-            const int i = q / 30, j = q % 30;
-            float s = 0.0f;
-            for (int b = 0; b < 9; ++b) s += JtW[b][i] * Je[b][j];
-            H[i][j] = s;
-        }
-        if (tid < 30) {
-            float s = 0.0f;
-            for (int b = 0; b < 9; ++b) s += JtW[b][tid] * re[b];
-            g[tid] = -s;
-        }
-        __syncthreads();
-        if (tid == 0) {
-            float tot[NACC];
-            for (int k = 0; k < NACC; ++k) {
-                float s = 0.0f;
-                for (int wq = 0; wq < NWARPS; ++wq) s += red[wq][k];
-                tot[k] = s;
+            for (int k = 0; k < 32; ++k) acc[k] = 0.0f;
+            for (int i = vt; i < N; i += NVIS) {
+                if (!inliers[i]) continue;
+                const Row e = eval_row(Rcw, tcw, Xw, obs, info, obs_ur, base,
+                                       i);
+                if (!(e.z > 0.0f)) continue;
+                const float hub = e.chi2 <= e.th
+                    ? 1.0f : sqrtf(e.th / fmaxf(e.chi2, 1e-12f));
+                const float w = info[i] * hub;
+                const float iz2 = e.iz * e.iz;
+                add_row(acc, w, e.rx, e.iz, 0.0f, -e.x * iz2, e.x, e.y, e.z);
+                add_row(acc, w, e.ry, 0.0f, e.iz, -e.y * iz2, e.x, e.y, e.z);
+                if (e.stereo)
+                    add_row(acc, w, e.rur, e.iz, 0.0f, -(e.x - base) * iz2,
+                            e.x, e.y, e.z);
             }
-            int k = 0;
-            for (int p = 0; p < 6; ++p)
-                for (int q = p; q < 6; ++q) {
-                    H[15 + p][15 + q] += tot[k];
-                    if (q != p) H[15 + q][15 + p] += tot[k];
-                    ++k;
+            red[warp - 1][lane] = warp_transpose_sum(acc, lane);
+        } else {
+            // ---- the inertial edge Jacobian, one current tangent per lane
+            if (lane < 15) {
+                Dl r[9];
+                edge_residual_current(lane, S, S + 21, Anc, C[C_DT], r);
+#pragma unroll
+                for (int a = 0; a < 9; ++a) JeS[a][lane] = r[a].d;
+                if (lane == 0)
+#pragma unroll
+                    for (int a = 0; a < 9; ++a) reS[a] = r[a].v;
+            }
+            __syncwarp();
+            // column `lane` of Je^T Omega, row `lane` of H_cc, g_c
+            float jw[9];
+#pragma unroll
+            for (int b = 0; b < 9; ++b) {
+                float s = 0.0f;
+#pragma unroll
+                for (int a = 0; a < 9; ++a)
+                    s += JeS[a][lane < 15 ? lane : 0] * C[C_INFO + 9 * a + b];
+                jw[b] = s;
+            }
+#pragma unroll
+            for (int j = 0; j < 15; ++j) {
+                float s = 0.0f;
+#pragma unroll
+                for (int b = 0; b < 9; ++b) s += jw[b] * JeS[b][j];
+                h[j] = s;
+            }
+            float s = 0.0f;
+#pragma unroll
+            for (int b = 0; b < 9; ++b) s += jw[b] * reS[b];
+            gi = -s;
+        }
+        __syncthreads();
+        if (warp == 0) {
+            // the visual warps' partials, entry `lane`, in warp order
+            if (lane < NACC) {
+                float s = 0.0f;
+                for (int wq = 0; wq < NVW; ++wq) s += red[wq][lane];
+                totS[lane] = s;
+            }
+            __syncwarp();
+            if (lane < 6) {
+                // visual block on dims 0:6 (upper-triangle index of (p, q))
+#pragma unroll
+                for (int q = 0; q < 6; ++q) {
+                    const int p0 = lane < q ? lane : q, q0 = lane < q ? q : lane;
+                    const int k = p0 * 6 - p0 * (p0 - 1) / 2 + (q0 - p0);
+                    h[q] += totS[k];
                 }
-            for (int p = 0; p < 6; ++p) g[15 + p] += -tot[21 + p];
-            for (int q = 0; q < 6; ++q) {
+                gi += -totS[21 + lane];
+            }
+            if (lane >= 9 && lane < 15) {
+                // bias random walk, the current side (the anchor's rows and
+                // its coupling are fixed away)
+                const int q = lane - 9;
                 const float rw = C[C_RW + q];
                 const float rr = S[36 + q] - S[15 + q];
-                H[9 + q][9 + q] += rw;
-                H[24 + q][24 + q] += rw;
-                H[9 + q][24 + q] -= rw;
-                H[24 + q][9 + q] -= rw;
-                g[9 + q] += rw * rr;
-                g[24 + q] += -rw * rr;
+#pragma unroll
+                for (int j = 9; j < 15; ++j)
+                    if (j == lane) h[j] += rw;
+                gi += -rw * rr;
             }
-        }
-        __syncthreads();
-        // the anchor keyframe is fixed: its rows and columns become I, 0
-        for (int q = tid; q < 900; q += THREADS) {
-            const int i = q / 30, j = q % 30;
-            if (i < 15 || j < 15) H[i][j] = (i == j) ? 1.0f : 0.0f;
-        }
-        if (tid < 15) g[tid] = 0.0f;
-        __syncthreads();
-        // symmetrize (into Lm), then the result back into H
-        for (int q = tid; q < 900; q += THREADS) {
-            const int i = q / 30, j = q % 30;
-            Lm[i][j] = 0.5f * (H[i][j] + H[j][i]);
-        }
-        __syncthreads();
-        for (int q = tid; q < 900; q += THREADS) H[q / 30][q % 30] = Lm[q / 30][q % 30];
-        __syncthreads();
-        if (final_step) break;
-        if (tid < 30) dsc[tid] = sqrtf(fmaxf(H[tid][tid], 1e-8f));
-        __syncthreads();
-        for (int q = tid; q < 900; q += THREADS) {
-            const int i = q / 30, j = q % 30;
-            Lm[i][j] = H[i][j] / dsc[i] / dsc[j] + (i == j ? 1e-6f : 0.0f);
-        }
-        __syncthreads();
-        // Cholesky of Lm in place (lower triangle), lane i owns row i
-        if (warp == 0) {
-            for (int j = 0; j < 30; ++j) {
-                if (lane == 0) {
-                    float s = Lm[j][j];
-                    for (int k = 0; k < j; ++k) s -= Lm[j][k] * Lm[j][k];
-                    Lm[j][j] = sqrtf(s);
+            // symmetrize through shared memory
+            if (lane < 15)
+#pragma unroll
+                for (int j = 0; j < 15; ++j) HS[lane][j] = h[j];
+            __syncwarp();
+            const int li = lane < 15 ? lane : 0;
+#pragma unroll
+            for (int j = 0; j < 15; ++j) h[j] = 0.5f * (h[j] + HS[j][li]);
+            if (final_step) {
+                if (lane < 15)
+#pragma unroll
+                    for (int j = 0; j < 15; ++j) out[21 + 15 * lane + j] = h[j];
+            } else {
+                // Jacobi scaling + 1e-6 I, by the reciprocals of the
+                // scales. Lanes 15-31 hold zero rows, and the only
+                // divisions are of uniform or scale values: an operand off
+                // the fast path of a division on any lane stalls the warp
+                const bool row = lane < 15;
+                float hii = 0.0f;
+#pragma unroll
+                for (int j = 0; j < 15; ++j)
+                    if (j == lane) hii = h[j];
+                const float inv_di = 1.0f / sqrtf(fmaxf(hii, 1e-8f));
+                float a[15];
+#pragma unroll
+                for (int j = 0; j < 15; ++j) {
+                    const float inv_dj = __shfl_sync(FULL, inv_di, j);
+                    a[j] = row ? h[j] * inv_di * inv_dj +
+                                     (j == lane ? 1e-6f : 0.0f)
+                               : 0.0f;
+                }
+                // right-looking Cholesky, lane i owns row i: a[j] <- L[i][j];
+                // every lane takes the pivot's reciprocal square root once
+                // (the pivot is a_jj times it), lane j keeps the reciprocal
+                // for the substitutions
+                float inv_own = 0.0f;
+#pragma unroll
+                for (int j = 0; j < 15; ++j) {
+                    const float ajj = __shfl_sync(FULL, a[j], j);
+                    const float inv = rsqrtf(ajj);
+                    const float piv = ajj * inv;
+                    const float l = a[j] * inv;
+                    if (lane == j) inv_own = inv;
+                    a[j] = lane == j ? piv : l;
+#pragma unroll
+                    for (int k = j + 1; k < 15; ++k) {
+                        const float lk = __shfl_sync(FULL, l, k);
+                        if (lane > j) a[k] -= l * lk;
+                    }
+                }
+                // forward: L y = g / d, column by column
+                float rr = row ? gi * inv_di : 0.0f, y = 0.0f;
+#pragma unroll
+                for (int j = 0; j < 15; ++j) {
+                    const float yj = __shfl_sync(FULL, rr * inv_own, j);
+                    if (lane == j) y = yj;
+                    if (lane > j) rr -= a[j] * yj;
+                }
+                // backward: L^T x = y; lane i reads column i of L
+                if (row)
+#pragma unroll
+                    for (int j = 0; j < 15; ++j) LS[lane][j] = a[j];
+                __syncwarp();
+                float xi = 0.0f;
+#pragma unroll
+                for (int j = 14; j >= 0; --j) {
+                    const float xj = __shfl_sync(FULL, y * inv_own, j);
+                    if (lane == j) xi = xj;
+                    if (lane < j) y -= LS[j][li] * xj;
+                }
+                if (lane < 15) dxS[lane] = xi * inv_di;
+                __syncwarp();
+                // the current state: R <- R exp(phi), p <- p + R dp (old
+                // R), v += dv, b += db; lane k owns S[21 + k]
+                float nv = 0.0f;
+                if (lane < 9) {
+                    float Ex[9];
+                    exp3(dxS + 3, Ex);
+                    const int i = lane / 3, j = lane % 3;
+                    nv = S[21 + 3 * i] * Ex[j] + S[21 + 3 * i + 1] * Ex[3 + j] +
+                         S[21 + 3 * i + 2] * Ex[6 + j];
+                } else if (lane < 12) {
+                    const int i = lane - 9;
+                    const float s2 = S[21 + 3 * i] * dxS[0] +
+                                     S[21 + 3 * i + 1] * dxS[1] +
+                                     S[21 + 3 * i + 2] * dxS[2];
+                    nv = S[30 + i] + s2;
+                } else if (lane < 21) {
+                    nv = S[21 + lane] + dxS[6 + lane - 12];
                 }
                 __syncwarp();
-                if (lane > j && lane < 30) {
-                    float s = Lm[lane][j];
-                    for (int k = 0; k < j; ++k) s -= Lm[lane][k] * Lm[j][k];
-                    Lm[lane][j] = s / Lm[j][j];
-                }
+                if (lane < 21) S[21 + lane] = nv;
                 __syncwarp();
-            }
-            if (lane == 0) {
-                float y[30];
-                for (int i = 0; i < 30; ++i) {
-                    float s = g[i] / dsc[i];
-                    for (int k = 0; k < i; ++k) s -= Lm[i][k] * y[k];
-                    y[i] = s / Lm[i][i];
+                // camera pose of the new current state
+                if (lane < 9) {
+                    const int i = lane / 3, j = lane % 3;
+                    Rcw[3 * i + j] = S[21 + 3 * j + i];
+                } else if (lane < 12) {
+                    const int i = lane - 9;
+                    tcw[i] = -(S[21 + i] * S[30] + S[24 + i] * S[31] +
+                               S[27 + i] * S[32]);
                 }
-                for (int i = 29; i >= 0; --i) {
-                    float s = y[i];
-                    for (int k = i + 1; k < 30; ++k) s -= Lm[k][i] * dx[k];
-                    dx[i] = s / Lm[i][i];
-                }
-                for (int i = 0; i < 30; ++i) dx[i] = dx[i] / dsc[i];
-                update_state(S, dx);
-                update_state(S + 21, dx + 15);
             }
         }
         __syncthreads();
     }
-    // outputs: the current camera pose, v, bias, H_full; final inliers
+    // outputs: the current camera pose, v, bias (H_marg written by the
+    // final step); final inliers
     int n = 0;
     for (int i = tid; i < N; i += THREADS) n += inliers[i];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-        n += __shfl_xor_sync(0xffffffffu, n, off);
+        n += __shfl_xor_sync(FULL, n, off);
     if (lane == 0) cnt[warp] = n;
     __syncthreads();
     if (tid == 0) {
@@ -394,7 +582,6 @@ pose_inertial_kernel(const float* __restrict__ cst_g,
         }
         for (int q = 0; q < 6; ++q) out[15 + q] = S[36 + q];
     }
-    for (int q = tid; q < 900; q += THREADS) out[21 + q] = H[q / 30][q % 30];
 }
 
 extern "C" int pose_inertial(const void* cst, const void* Xw,

@@ -5,8 +5,9 @@ K6 (`ops.image.build_pyramid`, `blur_levels`) builds the pyramid and
 blurs every level (7x7) in one call before the level loop. Per level: K1
 (`ops.fast.fast_select`) scores every pixel and keeps the two best keys of
 each 16x16 cell; a stable descending sort keeps the level's best `n_keep`
-of those; K2 (`ops.orb_descriptor.orb_describe`) computes angles and
-descriptors on the raw and the blurred level.
+of those. Then K2 (`ops.orb_descriptor.orb_describe_levels`) computes the
+angles and descriptors of every level's keypoints on the raw and the
+blurred levels in one launch.
 Outputs are fixed-capacity masked tensors, as in the reference package.
 """
 from __future__ import annotations
@@ -87,21 +88,24 @@ def extract_orb(img, cfg: OrbConfig = OrbConfig()) -> Features:
     levels = image_ops.build_pyramid(img, cfg.n_levels, cfg.scale)
     blurred = image_ops.blur_levels(levels)
     counts = cfg.per_level_counts()
-    out = {k: [] for k in Features._fields}
+    out = {k: [] for k in Features._fields if k not in ("angle", "desc")}
+    yxs = []
     for l, (lvl, n_keep) in enumerate(zip(levels, counts)):
         if n_keep == 0:
+            yxs.append(torch.empty((0, 2), dtype=torch.int32,
+                                   device=img.device))
             continue
         yx, _, resp, valid = select_level_keypoints(lvl, n_keep, cfg)
-        ang, desc = orb_desc.orb_describe(lvl, blurred[l], yx.contiguous())
+        yxs.append(yx.contiguous())
         s = cfg.scale ** l
         out["uv"].append(torch.stack([yx[:, 1].to(torch.float32) * s,
                                       yx[:, 0].to(torch.float32) * s], dim=-1))
         out["response"].append(resp)
-        out["angle"].append(ang)
         out["octave"].append(torch.full((n_keep,), l, dtype=torch.int32,
                                         device=img.device))
         out["size"].append(torch.full((n_keep,), 31.0 * s,
                                       dtype=torch.float32, device=img.device))
-        out["desc"].append(desc)
         out["valid"].append(valid)
-    return Features(**{k: torch.cat(v) for k, v in out.items()})
+    ang, desc = orb_desc.orb_describe_levels(levels, blurred, yxs)
+    return Features(angle=ang, desc=desc,
+                    **{k: torch.cat(v) for k, v in out.items()})

@@ -1,9 +1,10 @@
 """Intensity-centroid orientation and rotated BRIEF-256 (counterpart of
 `morb_slam_tpu/ops/orb_descriptor.py`).
 
-`orb_describe` is kernel K2: on CUDA tensors it launches
+`orb_describe` (one level) and `orb_describe_levels` (every level of one
+image, one launch) are kernel K2: on CUDA tensors they launch
 `csrc/orb_describe.cu` (orientation and descriptor in one pass); on CPU
-tensors it runs `compute_orientations` + `compute_descriptors`, the plain
+tensors they run `compute_orientations` + `compute_descriptors`, the plain
 PyTorch version. Descriptors are (N, 8) int32: the bit-identical view of the
 reference's uint32 words (bit i of word w = test 32*w + i).
 """
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .image import MAX_LEVELS
 
 PATCH_R = 15          # orientation patch radius
 PATTERN_R = 13        # max abs pattern coordinate
@@ -129,6 +131,71 @@ def orb_describe(img, img_blur, kps_yx):
     return ang, desc
 
 
+def orb_describe_levels(levels, blurred, yx_per_level):
+    """K2 over every level of one image: `orb_describe` of each (level,
+    blurred level, keypoints) triple, the angles (N,) and descriptors (N, 8)
+    concatenated in level order (a level may hold no keypoints). CUDA
+    tensors: one launch; the levels, and the blurred levels, must be
+    consecutive contiguous views of one buffer each, as K6's `build_pyramid`
+    and `blur_levels` return them. CPU tensors: the plain version per
+    level."""
+    levels, blurred, yxs = list(levels), list(blurred), list(yx_per_level)
+    dev = levels[0].device
+    if dev.type == "cpu":
+        LAUNCHES["plain"] += 1
+        angs, descs = [], []
+        for lvl, blur, yx in zip(levels, blurred, yxs):
+            ang = compute_orientations(lvl, yx)
+            angs.append(ang)
+            descs.append(compute_descriptors(blur, yx, ang))
+        return torch.cat(angs), torch.cat(descs)
+    if dev.type != "cuda":
+        raise ValueError(f"orb_describe_levels: unsupported device {dev}")
+    n_lv = len(levels)
+    if not 1 <= n_lv <= MAX_LEVELS or len(blurred) != n_lv or \
+            len(yxs) != n_lv:
+        raise ValueError(f"orb_describe_levels: needs 1..{MAX_LEVELS} levels, "
+                         "as many blurred levels and keypoint arrays")
+    if {t.device for t in (*levels, *blurred, *yxs)} != {dev} or \
+            {t.dtype for t in (*levels, *blurred)} != {torch.float32} or \
+            {t.dtype for t in yxs} != {torch.int32}:
+        raise ValueError("orb_describe_levels: needs float32 levels and "
+                         "blurred levels and int32 keypoints on one device")
+    shapes = [tuple(l.shape) for l in levels]
+    counts = []
+    for shape, blur, yx in zip(shapes, blurred, yxs):
+        if len(shape) != 2 or blur.shape != shape or yx.dim() != 2 or \
+                yx.shape[1] != 2 or (yx.shape[0] and min(shape) <= DESC_PAD):
+            raise ValueError("orb_describe_levels: needs (H, W) levels and "
+                             "blurred levels of one shape each and (N, 2) "
+                             "keypoints; a level holding keypoints must be "
+                             f"more than {DESC_PAD} px high and wide")
+        counts.append(yx.shape[0])
+    offs = [0]
+    for h, w in shapes[:-1]:
+        offs.append(offs[-1] + h * w)
+    p0, q0 = levels[0].data_ptr(), blurred[0].data_ptr()
+    if not all(l.is_contiguous() and b.is_contiguous() and yx.is_contiguous()
+               and l.data_ptr() == p0 + 4 * o and b.data_ptr() == q0 + 4 * o
+               for l, b, yx, o in zip(levels, blurred, yxs, offs)):
+        raise ValueError("orb_describe_levels: the levels and the blurred "
+                         "levels must be consecutive contiguous views of one "
+                         "buffer each (build_pyramid's, blur_levels'), the "
+                         "keypoints contiguous")
+    n = sum(counts)
+    ang = torch.empty(n, dtype=torch.float32, device=dev)
+    desc = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    I = ctypes.c_int * n_lv
+    rc = _lib().orb_describe_levels(
+        levels[0].data_ptr(), blurred[0].data_ptr(), n_lv, I(*offs),
+        I(*[s[0] for s in shapes]), I(*[s[1] for s in shapes]), I(*counts),
+        (ctypes.c_void_p * n_lv)(*[yx.data_ptr() for yx in yxs]),
+        ang.data_ptr(), desc.data_ptr(), cuda_build.stream_ptr(levels[0]))
+    cuda_build.check(rc, "orb_describe_levels")
+    LAUNCHES["kernel"] += 1
+    return ang, desc
+
+
 _pattern_set = set()
 
 
@@ -136,8 +203,12 @@ def _lib():
     lib = cuda_build.library("orb_describe")
     if lib.orb_describe.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
+        IP = ctypes.POINTER(ctypes.c_int)
         lib.orb_describe.argtypes = [P, P, I, I, P, I, P, P, P]
         lib.orb_describe.restype = I
+        lib.orb_describe_levels.argtypes = [P, P, I, IP, IP, IP, IP,
+                                            ctypes.POINTER(P), P, P, P]
+        lib.orb_describe_levels.restype = I
         lib.orb_set_pattern.argtypes = [P]
         lib.orb_set_pattern.restype = I
     dev = torch.cuda.current_device()

@@ -15,7 +15,10 @@ inertial cost of the accept test, are kernel K13 (`inertial_system`,
 
 `optimize_pose_inertial` is kernel K12: on CUDA tensors one launch of
 `csrc/pose_inertial.cu` runs every Gauss-Newton step and reclassification
-round of one call; on CPU tensors it runs `optimize_pose_inertial_plain`.
+round of one call over the current state's 15 dims (the anchor keyframe is
+fixed, so the 30-dim system is diag(I, H_cc)) and writes H_cc as the
+marginal; on CPU tensors it runs `optimize_pose_inertial_plain`, the 30-dim
+form of the reference.
 """
 from __future__ import annotations
 
@@ -561,8 +564,10 @@ def optimize_pose_inertial(R0_cw, t0_cw, v0, bias0, Xw, obs, info, valid,
                            e_JPg, e_JPa, e_info, e_bias0, e_rw_info,
                            n_iters: int = 10):
     """K12: `optimize_pose_inertial_plain`'s function. CUDA tensors: one
-    launch for every step and round, then the marginal by torch; CPU
-    tensors: the plain version."""
+    launch for every step and round, which solves the current state's 15-dim
+    system and writes its final Hessian as H_marg (with the anchor fixed,
+    `_marginal` of the 30-dim Hessian is exactly that block); CPU tensors:
+    the plain version."""
     args = (R0_cw, t0_cw, v0, bias0, Xw, obs, info, valid, obs_ur, baseline,
             R_a_wb, p_a, v_a, bias_a, e_dt, e_dR, e_dV, e_dP, e_JRg, e_JVg,
             e_JVa, e_JPg, e_JPa, e_info, e_bias0, e_rw_info)
@@ -594,7 +599,7 @@ def optimize_pose_inertial(R0_cw, t0_cw, v0, bias0, Xw, obs, info, valid,
     const = torch.cat([x.reshape(-1) for x in small])          # (197,)
     Xw, obs, info, valid, obs_ur = (x.contiguous()
                                     for x in (Xw, obs, info, valid, obs_ur))
-    out = torch.empty(21 + 900, dtype=f32, device=dev)
+    out = torch.empty(21 + 225, dtype=f32, device=dev)
     inl = torch.empty(n, dtype=torch.bool, device=dev)
     n_inl = torch.empty((), dtype=torch.int64, device=dev)
     rc = _lib().pose_inertial(
@@ -607,7 +612,7 @@ def optimize_pose_inertial(R0_cw, t0_cw, v0, bias0, Xw, obs, info, valid,
     return PoseInertialResult(R_cw=out[0:9].view(3, 3), t_cw=out[9:12],
                               v=out[12:15], bias=out[15:21], inliers=inl,
                               n_inliers=n_inl,
-                              H_marg=_marginal(out[21:].view(30, 30)))
+                              H_marg=out[21:].view(15, 15))
 
 
 def _lib():

@@ -1,7 +1,8 @@
 """Helpers that hold a kernel against its plain version: the rows where
-two runs of the two-camera match may rightly differ, and the term
-magnitudes that scale K17's rounding. Used by `chip_smoke.py` and the
-tests; no pipeline path calls them.
+two runs of the two-camera match may rightly differ, the term
+magnitudes that scale K17's rounding, and the packing of separately
+computed pyramid levels into the one buffer K2's `orb_describe_levels`
+takes. Used by `chip_smoke.py` and the tests; no pipeline path calls them.
 """
 from __future__ import annotations
 
@@ -41,3 +42,12 @@ def inertial_system_magnitudes(p: inertial.InitProblem, x):
     rounding."""
     r, J, W = inertial._edge_terms(p, x)
     return inertial._assemble(p, r.abs(), J.abs(), W.abs(), x.abs())
+
+
+def pack_levels(levels):
+    """The images `levels` copied into consecutive contiguous views of one
+    buffer, the layout K6 returns and `orb_descriptor.orb_describe_levels`
+    takes (for a plain K6 forced into `frontend.extract_orb`)."""
+    buf = torch.cat([l.reshape(-1) for l in levels])
+    parts = torch.split(buf, [l.numel() for l in levels])
+    return [v.view(l.shape) for v, l in zip(parts, levels)]

@@ -176,3 +176,33 @@ def test_orb_describe_plain_matches_reference(extracted):
     assert bits.mean() <= 1e-3
     np.testing.assert_array_equal(
         t_orb.make_pattern(), np.asarray(j_orb.PATTERN))
+
+
+def test_orb_describe_levels_matches_reference_per_level(extracted):
+    """K2 over every level in one call (`orb_describe_levels`, its plain
+    version on the CPU) on the port's pyramid and blur, at the reference's
+    own keypoints of each level: angles within 1e-4 rad and descriptor bits
+    >= 99.9% identical to the angles and descriptors of the reference's
+    per-level `_extract_level`, level by level."""
+    _, img, J, _ = extracted
+    levels = t_img.build_pyramid(torch.from_numpy(img), N_LEVELS, 1.2)
+    blurred = t_img.blur_levels(levels)
+    yxs = []
+    for l, sl in enumerate(_level_slices()):
+        uv = J["uv"][sl] / np.float32(1.2 ** l)
+        yxs.append(torch.from_numpy(np.stack(
+            [np.rint(uv[:, 1]), np.rint(uv[:, 0])], -1).astype(np.int32)))
+    before = dict(t_orb.LAUNCHES)
+    ta, td = t_orb.orb_describe_levels(levels, blurred, yxs)
+    assert t_orb.LAUNCHES == {"kernel": before["kernel"],
+                              "plain": before["plain"] + 1}
+    assert ta.shape == (N_FEAT,) and td.shape == (N_FEAT, 8)
+    for l, sl in enumerate(_level_slices()):
+        ok = J["valid"][sl]
+        assert ok.sum() > 0
+        dang = np.abs(np.remainder(ta[sl].numpy()[ok] - J["angle"][sl][ok]
+                                   + math.pi, 2 * math.pi) - math.pi)
+        assert dang.max() < 1e-4, (l, dang.max())
+        bits = np.unpackbits((td[sl].numpy()[ok] ^ J["desc"][sl][ok]).view(
+            np.uint8))
+        assert bits.mean() <= 1e-3, (l, bits.mean())

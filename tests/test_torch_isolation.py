@@ -216,7 +216,7 @@ def _graph_args(device, K=3):
                                     "schur_lm_pass", "schur_kf_pass",
                                     "inertial_system", "inertial_cost",
                                     "normal_equations", "build_pyramid",
-                                    "blur_levels"])
+                                    "blur_levels", "orb_describe_levels"])
 def test_wrappers_refuse_other_devices(kernel):
     meta = torch.device("meta")
     before = _counts()
@@ -275,6 +275,10 @@ def test_wrappers_refuse_other_devices(kernel):
         elif kernel == "blur_levels":
             image.blur_levels([torch.empty((48, 64), device=meta),
                                torch.empty((40, 53), device=meta)])
+        elif kernel == "orb_describe_levels":
+            img = torch.empty((48, 64), device=meta)
+            orb_descriptor.orb_describe_levels([img], [img], [torch.zeros(
+                (4, 2), dtype=torch.int32, device=meta)])
         else:
             rectify.remap_bilinear(torch.empty((48, 64), device=meta),
                                    torch.zeros((8, 8, 2), device=meta))

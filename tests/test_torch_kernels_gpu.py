@@ -17,7 +17,11 @@ no observation, every observation masked and nothing optimized, bitwise
 repeatable, and the PCG LM loop over both kernels;
 preintegrations (K11) of an all-padding batch, one sample, fresh and
 continued frame batches and a keyframe buffer; inertial pose problems
-(K12) with a near-identity edge, no visual rows and mixed stereo; the
+(K12) of 0-4096 observations with a near-identity edge, no visual rows,
+mono and mixed stereo; K2 over all levels of an image in one launch
+(752x480, 512x512 and 384x288, a level without keypoints) against the
+per-level launches, and its refusal of levels that are no views of one
+buffer; the
 inertial assembly of a VI-BA step (K13) over windows of 1, 14 and 32
 slots with invalid slots, a chain that skips a slot and no bias prior,
 and the LM loop over it; the pose-graph normal equations (K15) of graphs
@@ -49,7 +53,9 @@ tensor's max-abs and bit-identical across two launches, its LM loop with
 the plain loop's accepts, R within 1e-5, t within 1e-4, the final cost
 within 1e-3 relative and the landmarks within 1e-2 chi2 units; K11 dR, dV, dP and
 the Jacobians within 1e-5, C within 1e-5 of its max-abs; K12 R and t
-within 1e-5, v and bias within 1e-4, the same inlier count; K14 within
+within 1e-5, v and bias within 1e-4, the same inlier count, H_marg within
+1e-4 of its max-abs; K2 over all levels bitwise equal to the per-level
+launches (the same per-keypoint code); K14 within
 1e-5 of each output entry's term magnitude (the same sums over absolute
 values: the back-substitution's bl - B^T x cancels, so the rounding of
 its sums is bounded by the terms, not the result); K13 and K15 H within
@@ -140,6 +146,67 @@ def test_orb_describe_close(cuda, n):
     bits = orb_descriptor.unpack_bits(desc) != orb_descriptor.unpack_bits(
         desc0)
     assert int(bits.sum()) <= max(1, 1e-3 * bits.numel()), int(bits.sum())
+
+
+@pytest.mark.parametrize("shape,n_features", [((480, 752), 1200),
+                                              ((512, 512), 1200),
+                                              ((288, 384), 3)])
+def test_orb_describe_levels_matches_per_level(cuda, shape, n_features):
+    """K2 over all 8 levels of one image in one launch: bitwise equal to
+    the eight per-level launches (the 3-feature budget leaves levels 2-6
+    without keypoints), one launch counted."""
+    rng = np.random.default_rng(sum(shape))
+    img = image.gaussian_blur(torch.from_numpy(_image(shape, "noise")))
+    img = (image.gaussian_blur(img) + torch.from_numpy(
+        rng.normal(0, 4, shape).astype(np.float32))).to(cuda)
+    cfg = frontend.OrbConfig(n_features=n_features, n_levels=8)
+    counts = cfg.per_level_counts()
+    levels = image.build_pyramid(img, cfg.n_levels, cfg.scale)
+    blurred = image.blur_levels(levels)
+    yxs = [frontend.select_level_keypoints(l, n, cfg)[0].contiguous()
+           if n else torch.zeros((0, 2), dtype=torch.int32, device=cuda)
+           for l, n in zip(levels, counts)]
+    assert 0 in counts or n_features > 3
+    before = dict(orb_descriptor.LAUNCHES)
+    ang, desc = orb_descriptor.orb_describe_levels(levels, blurred, yxs)
+    assert orb_descriptor.LAUNCHES["kernel"] == before["kernel"] + 1
+    assert orb_descriptor.LAUNCHES["plain"] == before["plain"]
+    per = [orb_descriptor.orb_describe(l, b, yx)
+           for l, b, yx in zip(levels, blurred, yxs)]
+    assert ang.shape == (sum(counts),) and desc.shape == (sum(counts), 8)
+    assert torch.equal(ang, torch.cat([p[0] for p in per]))
+    assert torch.equal(desc, torch.cat([p[1] for p in per]))
+    # and the plain version's gates
+    a0, d0 = orb_descriptor.orb_describe_levels(
+        [l.cpu() for l in levels], [b.cpu() for b in blurred],
+        [yx.cpu() for yx in yxs])
+    dang = torch.remainder(ang.cpu() - a0 + math.pi, 2 * math.pi) - math.pi
+    assert float(dang.abs().max()) < 1e-4
+    bits = orb_descriptor.unpack_bits(desc.cpu()) != \
+        orb_descriptor.unpack_bits(d0)
+    assert float(bits.float().mean()) <= 1e-3
+
+
+def test_orb_describe_levels_refuses_unpacked_levels(cuda):
+    """orb_describe_levels takes only consecutive contiguous views of one
+    buffer for the levels and for the blurred levels."""
+    img = torch.from_numpy(_image((120, 160), "noise")).to(cuda)
+    levels = image.build_pyramid(img, 3, 1.2)
+    blurred = image.blur_levels(levels)
+    yxs = [torch.full((4, 2), 30, dtype=torch.int32, device=cuda)
+           for _ in levels]
+    before = dict(orb_descriptor.LAUNCHES)
+    for lv, bl in (([l.clone() for l in levels], blurred),
+                   (levels, [b.clone() for b in blurred]),
+                   (levels[::-1], blurred[::-1]),
+                   (levels, blurred[:2]),
+                   (levels, [blurred[0], blurred[1][:, 1:], blurred[2]])):
+        with pytest.raises(ValueError):
+            orb_descriptor.orb_describe_levels(lv, bl, yxs[:len(lv)])
+    with pytest.raises(ValueError):
+        orb_descriptor.orb_describe_levels(levels, blurred,
+                                           [yxs[0].long(), *yxs[1:]])
+    assert orb_descriptor.LAUNCHES == before
 
 
 def _desc(rng, n):
@@ -916,7 +983,8 @@ def _pose_inertial_problem(cuda, n, stereo_share, seed=0, edge_dt=0.05):
 
 @pytest.mark.parametrize("n,stereo_share,edge_dt", [
     (1200, 0.6, 0.05), (1200, 0.0, 0.05), (300, 0.3, 0.005), (0, 0.0, 0.05),
-    (1, 0.0, 0.05)])
+    (1, 0.0, 0.05), (20, 0.0, 0.05), (20, 0.6, 0.05), (4096, 0.0, 0.05),
+    (4096, 0.6, 0.05)])
 def test_pose_inertial_matches_plain(cuda, n, stereo_share, edge_dt):
     args = _pose_inertial_problem(cuda, n, stereo_share, seed=n,
                                   edge_dt=edge_dt)
@@ -931,6 +999,9 @@ def test_pose_inertial_matches_plain(cuda, n, stereo_share, edge_dt):
     assert int(got.n_inliers) == int(want.n_inliers) == \
         int(got.inliers.sum())
     assert bool(torch.isfinite(got.H_marg).all())
+    assert got.H_marg.shape == want.H_marg.shape == (15, 15)
+    scale = float(want.H_marg.abs().max())
+    assert float((got.H_marg - want.H_marg).abs().max()) <= 1e-4 * scale
 
 
 def test_k4_k11_k12_refuse_bad_inputs_on_the_card(cuda):
@@ -1267,9 +1338,10 @@ def test_k6_extract_orb_agrees_with_plain(cuda, monkeypatch):
     img = img.to(cuda)
     cfg = frontend.OrbConfig(n_features=1200, n_levels=8)
     got = frontend.extract_orb(img, cfg)
-    monkeypatch.setattr(image, "build_pyramid", image.build_pyramid_plain)
-    monkeypatch.setattr(image, "blur_levels", lambda ls: [
-        image.gaussian_blur_plain(l) for l in ls])
+    monkeypatch.setattr(image, "build_pyramid", lambda *a: testing.pack_levels(
+        image.build_pyramid_plain(*a)))
+    monkeypatch.setattr(image, "blur_levels", lambda ls: testing.pack_levels(
+        [image.gaussian_blur_plain(l) for l in ls]))
     want = frontend.extract_orb(img, cfg)
     same = (got.uv == want.uv).all(-1) & (got.octave == want.octave) & \
         (got.valid == want.valid)
