@@ -6,7 +6,12 @@
 Phases:
   1. device   — require CUDA; print the card, torch/CUDA versions and the
                 kernel build time (`nvcc` for sm_90a, one process per source).
-  2. kernels  — hold K1 (fast_select), K2 (orb_describe, and
+  2. kernels  — hold K1 (fast_select_levels over the 8 levels of an
+                image: every field bitwise equal to the plain composition
+                and to the per-level cell-stage launches followed by
+                torch's selection, on the 752x480 frame and a 512x512 rig
+                frame; each stage timed, and the per-level path beside
+                it), K2 (orb_describe, and
                 orb_describe_levels over the 8 levels in one launch,
                 bitwise equal to the per-level launches) and K3
                 (hamming_top2) against their plain PyTorch versions on the
@@ -593,6 +598,16 @@ def device_ms(fn, kernel_name, reps=20, tries=3):
     return time_ms(fn, reps=reps, inner=1)
 
 
+def kernels_per_call(fn):
+    """CUDA kernels one fn() launches, by the profiler's count."""
+    fn()
+    with profiled() as prof:
+        fn()
+    return int(sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.key not in RANGES))
+
+
 def bound(nbytes, nops):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = nops / FP32_OPS_PER_S * 1e3
@@ -654,6 +669,18 @@ def _k2_pixels_read(shape, yx, angle):
     return distinct(y0 + dv, x0 + du) + distinct(ys, xs)
 
 
+def _k1_compass_pass(levels, th):
+    """Pixels of the levels that pass FAST's compass test (two of the four
+    circle points at distance 3 beyond th on one side, wrapping at the
+    edge): those whose FAST score K1 must compute."""
+    n = 0
+    for lvl in levels:
+        d = torch.stack([torch.roll(lvl, s, dims=a) for s, a in
+                         ((3, 0), (-3, 0), (3, 1), (-3, 1))]) - lvl
+        n += int((((d > th).sum(0) >= 2) | ((d < -th).sum(0) >= 2)).sum())
+    return n
+
+
 def phase_kernels(state):
     from morb_slam_tpu_torch import frontend
     from morb_slam_tpu_torch.ops import fast, hamming, image, orb_descriptor
@@ -662,47 +689,88 @@ def phase_kernels(state):
     counts = cfg.per_level_counts()
     frames = [world.render(*poses[i]).clamp(0, 255).to(torch.uint8).float()
               for i in (0, 2, 4, 6, 8)]
-    levels = [l.contiguous() for l in
-              image.build_pyramid(frames[0], cfg.n_levels, cfg.scale)]
+    levels = image.build_pyramid(frames[0], cfg.n_levels, cfg.scale)
     rows = []
 
-    # K1 on all 8 levels: keys, indices and scores exact
-    err = 0.0
-    for lvl in levels:
-        k1 = fast.fast_select(lvl, cfg.th_fast_lo, cfg.th_fast_hi)
-        k0 = fast.fast_select_plain(lvl, cfg.th_fast_lo, cfg.th_fast_hi)
-        for a, b in zip(k1, k0):
-            if not torch.equal(a, b):
-                bad = (a != b).sum().item()
-                raise AssertionError(f"K1 mismatch at level {lvl.shape}: "
-                                     f"{bad} entries differ")
-    log("K1 fast_select: keys, indices and scores exact on 8 levels")
-    ms = time_ms(lambda: [fast.fast_select(l, 7.0, 20.0) for l in levels])
-    plain = time_ms(lambda: [fast.fast_select_plain(l, 7.0, 20.0)
-                             for l in levels], reps=10)
+    # K1 over every level in one call: the seven fields bitwise equal to
+    # the plain composition and to the 8 per-level cell-stage launches
+    # followed by torch's selection, on this frame's 8 levels and on a
+    # 512x512 rig frame's
+    rig_frame = _rig_raw_pair(state, *camera_path(1)[0])[0].float()
+    for name, img in (("752x480", frames[0]), ("512x512 rig", rig_frame)):
+        lv = image.build_pyramid(img, cfg.n_levels, cfg.scale)
+        n0 = fast.LAUNCHES["kernel"]
+        got = fast.fast_select_levels(lv, counts, cfg)
+        n1 = fast.LAUNCHES["kernel"]
+        plain = fast.fast_select_levels_plain(lv, counts, cfg)
+        per = fast.select_levels(lv, counts, cfg, cells=fast.fast_select)
+        check(got.kept == plain.kept == per.kept,
+              ("K1 fast_select_levels slots a level", name, got.kept,
+               plain.kept, per.kept))
+        for f, x, y, z in zip(fast.SLOT_FIELDS, got, plain, per):
+            check(torch.equal(x, y) and torch.equal(x, z),
+                  f"K1 fast_select_levels {name}: {f} differs from the "
+                  f"plain composition ({int((x != y).sum())} entries) or "
+                  f"the per-level launches ({int((x != z).sum())})")
+        check(n1 - n0 == 1, ("K1 launches counted per call", n1 - n0))
+        log(f"K1 fast_select_levels {name}: {got.yx.shape[0]} slots "
+            f"({int(got.valid.sum())} valid), all 7 fields bitwise equal to "
+            f"the plain composition and to the 8 per-level launches + "
+            f"torch selection")
+
+    def k1_call():
+        fast.fast_select_levels(levels, counts, cfg)
+
+    def per_level():
+        fast.select_levels(levels, counts, cfg, cells=fast.fast_select)
+    ms = time_ms(k1_call)
+    plain = time_ms(lambda: fast.fast_select_levels_plain(levels, counts,
+                                                          cfg), reps=10)
+    cell_ms = device_ms(k1_call, "fast_cells_kernel")
+    level_ms = device_ms(k1_call, "fast_level_kernel")
     npix = sum(l.numel() for l in levels)
-    ncell = sum((-(-l.shape[0] // 16)) * (-(-l.shape[1] // 16))
-                for l in levels)
-    # per pixel: 16 diffs + 16 negations + 2 x (64 run mins + 15 maxes)
-    # + 1 max + 8 NMS maxes + ~4 for the key
-    b_ms, b_by = bound(npix * 4 + ncell * 2 * 12, npix * 203)
-    kernel = device_ms(lambda: [fast.fast_select(l, 7.0, 20.0)
-                                for l in levels], "fast_select_kernel")
+    slots = [2 * (-(-l.shape[0] // 16)) * (-(-l.shape[1] // 16))
+             for l in levels]
+    kept = fast.fast_select_levels(levels, counts, cfg).kept
+    n_scored = _k1_compass_pass(levels, cfg.th_fast_lo)
+    # each level read once, 33 bytes out per kept slot; every pixel 4
+    # compass differences + 8 compares, 8 NMS maxes and ~4 for the key;
+    # a pixel that passes the compass test 12 more differences, 2 x 57 for
+    # the runs of 9 and their reduction (van Herk) and 2 for the score;
+    # each level a pass over its cell slots and an order of its kept ones
+    b_ms, b_by = bound(npix * 4 + sum(kept) * 33,
+                       npix * 24 + n_scored * 128
+                       + sum(n + k * math.log2(max(k, 2))
+                             for n, k in zip(slots, kept)))
     rows.append(dict(name="fast_select", route="cuda",
                      source="morb_slam_tpu_torch/csrc/fast_select.cu",
                      replaces="morb_slam_tpu/ops/fast.py:41",
-                     max_abs_err=err, ms=kernel, call_ms=ms, plain_ms=plain,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     shape="8 levels of 752x480 (one frame)"))
+                     max_abs_err=0.0, ms=cell_ms + level_ms,
+                     ms_is="fast_select_levels: the cell stage and the level "
+                     "stage of one image (2 kernels, counted as 1 launch)",
+                     ms_cell_stage=cell_ms, ms_level_stage=level_ms,
+                     call_ms=ms, plain_ms=plain, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=None,
+                     kernels_per_image=kernels_per_call(k1_call),
+                     ms_8_cell_stage_calls=device_ms(
+                         lambda: [fast.fast_select(l, 7.0, 20.0)
+                                  for l in levels], "fast_cells_kernel"),
+                     per_level_path=dict(
+                         device_ms=device_ms(per_level, None),
+                         call_ms=time_ms(per_level),
+                         kernels=kernels_per_call(per_level)),
+                     ptxas=_ptxas("fast_select"),
+                     pixels=npix, pixels_scored=n_scored,
+                     shape="8 levels of 752x480 (one image), 1200 kept"))
 
     # K2 at each level's n_keep: angles within 1e-4 rad, >= 99.9% bits;
     # one launch over all levels bitwise equal to the per-level launches
     args = []
     max_ang, bit_diff, bit_tot, px_read = 0.0, 0, 0, 0
     blurred = image.blur_levels(levels)
-    for lvl, blur, n_keep in zip(levels, blurred, counts):
-        yx, _, _, _ = frontend.select_level_keypoints(lvl, n_keep, cfg)
-        args.append((lvl, blur, yx.contiguous()))
+    kp = fast.fast_select_levels(levels, counts, cfg)
+    for lvl, blur, yx in zip(levels, blurred, kp.level_yx()):
+        args.append((lvl, blur, yx))
         a1, d1 = orb_descriptor.orb_describe(lvl, blur, yx.contiguous())
         a0 = orb_descriptor.compute_orientations(lvl, yx)
         d0 = orb_descriptor.compute_descriptors(blur, yx, a0)
@@ -1152,18 +1220,15 @@ def _stereo_kernels(state, rows):
 
     # K1 and K2 on the remapped, non-integer left frame
     cfg = frontend.OrbConfig(n_features=1200, n_levels=8)
-    left = rect[0].contiguous()
-    for lvl in image.build_pyramid(left, cfg.n_levels, cfg.scale):
-        lvl = lvl.contiguous()
-        for a, b in zip(fast.fast_select(lvl, 7.0, 20.0),
-                        fast.fast_select_plain(lvl, 7.0, 20.0)):
-            check(torch.equal(a, b), f"K1 mismatch on the remapped level "
-                  f"{tuple(lvl.shape)}")
+    counts = cfg.per_level_counts()
+    pyr = image.build_pyramid(rect[0].contiguous(), cfg.n_levels, cfg.scale)
+    kp = fast.fast_select_levels(pyr, counts, cfg)
+    want = fast.fast_select_levels_plain(pyr, counts, cfg)
+    check(kp.kept == want.kept, "K1 mismatch on the remapped frame: kept")
+    for f, a, b in zip(fast.SLOT_FIELDS, kp, want):
+        check(torch.equal(a, b), f"K1 mismatch on the remapped frame: {f}")
     max_ang, bit_diff, bit_tot = 0.0, 0, 0
-    for lvl, n_keep in zip(image.build_pyramid(left, cfg.n_levels, cfg.scale),
-                           cfg.per_level_counts()):
-        lvl = lvl.contiguous()
-        yx = frontend.select_level_keypoints(lvl, n_keep, cfg)[0].contiguous()
+    for lvl, yx in zip(pyr, kp.level_yx()):
         blur = image.gaussian_blur(lvl).contiguous()
         a1, d1 = orb_descriptor.orb_describe(lvl, blur, yx)
         a0 = orb_descriptor.compute_orientations(lvl, yx)
@@ -1348,7 +1413,7 @@ def _reloc_kernels(state, rows):
         max_abs_err=max(tr["max_abs_err"], rl["max_abs_err"]),
         ms=tr["ms"], call_ms=tr["call_ms"], plain_ms=tr["plain_ms"],
         bound_ms=tr["bound_ms"], bound_by=tr["bound_by"], library_ms=None,
-        relocalization_shape=rl,
+        relocalization_shape=rl, ptxas=_ptxas("pose_opt"),
         shape="1200 observations, 60% stereo, 2 x 8 (tracking)"))
 
     # K9 on the descriptors of three frames of the path: exact
@@ -1882,7 +1947,8 @@ def _path_profile(tracker, step, frames, name, out, inserts,
     import warnings
     ours = tuple(f"{k}_kernel" for k in _kernel_counters()) + (
         "schur_lm_kernel", "schur_kf_kernel", "pyramid_level_kernel",
-        "blur_levels_kernel") + K16_K18_KERNELS
+        "blur_levels_kernel", "fast_cells_kernel",
+        "fast_level_kernel") + K16_K18_KERNELS
     n_kern, dev_us, ours_us, wall, nf, skipped = 0, 0.0, 0.0, 0.0, 0, []
     kern = collections.Counter(), collections.Counter()
     sync_sites = collections.Counter()
@@ -2916,14 +2982,15 @@ def phase_loop(state, variant=None):
         f"{probe.counts['guided_sim3_verify']} (gates "
         f"{loop_closing.MIN_SIM3_INLIERS} / "
         f"{loop_closing.MIN_ACCEPT_MATCHES})")
-    gba_kernels = ["schur_pcg", "ba_assemble_per_obs", "pose_graph"]
+    # a variant need not verify a candidate or close the loop
+    loop_kernels = ["sim3_window", "sim3_refine", "schur_pcg",
+                    "ba_assemble_per_obs", "pose_graph"]
     launches = _read_counters(
         ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
          "pyramid_blur",
          "stereo_sad", "remap_bilinear", "ba_assemble", "vocab_transform",
-         "bow_l1", "sim3_window", "sim3_refine"]
-        + (gba_kernels if gated else []), "loop", state)
-    launches.update({k: _kernel_counters()[k]["kernel"] for k in gba_kernels})
+         "bow_l1"] + (loop_kernels if gated else []), "loop", state)
+    launches.update({k: _kernel_counters()[k]["kernel"] for k in loop_kernels})
     n_ok = sum(s == "OK" for s in states)
     gate("loop closed", tr.n_loops_closed >= 1,
          "no loop closed on the ring circuit")
@@ -4744,7 +4811,8 @@ def main():
                          "of its gates each run meets")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the device "
-                         "phase (no kernels line; for trying one path)")
+                         "phase (for trying one path; the kernel rows they "
+                         "measured are printed, not the kernels line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -4776,6 +4844,8 @@ def main():
         phase(state)
         log(f"== phase {name} done in {time.perf_counter() - t0:.1f} s")
     if only:
+        log(json.dumps({"kernel_rows_of_this_run":
+                        state.get("kernel_rows", [])}))
         return
     state["plain_rows"].append(ba_iters_row())
     rows = state["kernel_rows"]

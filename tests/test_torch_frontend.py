@@ -103,6 +103,73 @@ def test_cell_selection_level0_exact(extracted):
     np.testing.assert_array_equal(ti.numpy(), ys * w + xs)
 
 
+def _per_level_composition(levels, counts, cfg):
+    """The port's level loop as it stood before K1 selected every level in
+    one call: fast_select_plain per level, a stable descending sort of its
+    cell keys, the level's n_keep best, their (y, x), level-0 uv, octave
+    and size. Returns per level (yx, key, response, valid, uv, octave,
+    size); octave and size held n_keep entries even where the level had
+    fewer cell slots (JAX's top_k refuses that case)."""
+    out = []
+    for l, (lvl, n_keep) in enumerate(zip(levels, counts)):
+        if n_keep == 0:
+            continue
+        w = lvl.shape[1]
+        key, idx, score = t_fast.fast_select_plain(lvl, cfg.th_fast_lo,
+                                                   cfg.th_fast_hi)
+        vals, order = torch.sort(key.reshape(-1), descending=True,
+                                 stable=True)
+        top_vals, top_i = vals[:n_keep], order[:n_keep]
+        pix = idx.reshape(-1)[top_i]
+        valid = top_vals > -math.inf
+        yx = torch.stack([pix // w, pix % w], dim=-1).to(torch.int32)
+        yx = torch.where(valid[:, None], yx, torch.zeros_like(yx))
+        s = cfg.scale ** l
+        out.append((yx, top_vals, score.reshape(-1)[top_i], valid,
+                    torch.stack([yx[:, 1].to(torch.float32) * s,
+                                 yx[:, 0].to(torch.float32) * s], dim=-1),
+                    torch.full((n_keep,), l, dtype=torch.int32),
+                    torch.full((n_keep,), 31.0 * s, dtype=torch.float32)))
+    return out
+
+
+LEVEL_CASES = {"blank": ((64, 80), 150, 8), "top levels under n_keep":
+               ((96, 128), 300, 8), "synthetic": (None, N_FEAT, N_LEVELS)}
+
+
+@pytest.mark.parametrize("case", sorted(LEVEL_CASES))
+def test_levels_plain_matches_per_level_composition(case):
+    """K1's plain composition over an image's levels
+    (`fast_select_levels_plain`, which `extract_orb` runs on the CPU)
+    against the per-level loop it replaced: yx, key, response, valid and
+    uv bitwise equal level by level, octave and size the level's; a level
+    of fewer cell slots than n_keep keeps all of them and no more."""
+    shape, n_feat, n_lv = LEVEL_CASES[case]
+    if case == "blank":
+        img = np.zeros(shape, np.float32)
+    elif case == "synthetic":
+        img = synthetic_image().astype(np.float32)
+    else:
+        img = np.random.default_rng(1).integers(0, 256, shape).astype(
+            np.float32)
+    cfg = t_fe.OrbConfig(n_features=n_feat, n_levels=n_lv)
+    counts = cfg.per_level_counts()
+    levels = t_img.build_pyramid(torch.from_numpy(img), n_lv, cfg.scale)
+    got = t_fast.fast_select_levels_plain(levels, counts, cfg)
+    keep = got.kept
+    ref = _per_level_composition(levels, counts, cfg)
+    assert [len(r[0]) for r in ref] == [k for k in keep if k]
+    if case == "top levels under n_keep":
+        assert keep[-1] < counts[-1]
+    starts = np.cumsum([0] + [k for k in keep if k])
+    for l, (a, b, r) in enumerate(zip(starts[:-1], starts[1:], ref)):
+        for f, x, y in zip(t_fast.LevelKeypoints._fields[:5], got, r[:5]):
+            assert torch.equal(x[a:b], y), (case, l, f)
+        assert torch.equal(got.octave[a:b], r[5][:b - a])
+        assert torch.equal(got.size[a:b], r[6][:b - a])
+    assert bool(got.valid.any()) == (case != "blank")
+
+
 def _level_slices():
     counts = T_CFG.per_level_counts()
     starts = np.cumsum([0] + counts)

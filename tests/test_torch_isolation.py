@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from morb_slam_tpu_torch import cameras, imu, system
+from morb_slam_tpu_torch import cameras, frontend, imu, system
 from morb_slam_tpu_torch.io import config
 from morb_slam_tpu_torch.ops import (fast, hamming, image, orb_descriptor,
                                      rectify, stereo)
@@ -216,7 +216,8 @@ def _graph_args(device, K=3):
                                     "schur_lm_pass", "schur_kf_pass",
                                     "inertial_system", "inertial_cost",
                                     "normal_equations", "build_pyramid",
-                                    "blur_levels", "orb_describe_levels"])
+                                    "blur_levels", "orb_describe_levels",
+                                    "fast_select_levels"])
 def test_wrappers_refuse_other_devices(kernel):
     meta = torch.device("meta")
     before = _counts()
@@ -275,6 +276,9 @@ def test_wrappers_refuse_other_devices(kernel):
         elif kernel == "blur_levels":
             image.blur_levels([torch.empty((48, 64), device=meta),
                                torch.empty((40, 53), device=meta)])
+        elif kernel == "fast_select_levels":
+            fast.fast_select_levels([torch.empty((48, 64), device=meta)],
+                                    [10], frontend.OrbConfig())
         elif kernel == "orb_describe_levels":
             img = torch.empty((48, 64), device=meta)
             orb_descriptor.orb_describe_levels([img], [img], [torch.zeros(

@@ -5,8 +5,13 @@ where every key ties, empty keypoint and row sets, a single column, fully
 masked rows, duplicated descriptors and unaligned views; stereo keypoints
 on and beyond the image border, SAD ties and best offsets at both ends of
 the sweep; remap coordinates exactly on the last row and column and just
-outside; pose problems of 0, 1, 1200 and 16384 observations, all invalid,
-partly behind the camera, mono and mixed stereo; vocabulary descents with
+outside; K1 over all levels of an image in one call (480x752, 512x512,
+37x53, a blank image, top levels of fewer cell slots than n_keep and
+levels with n_keep 0) against the plain composition and the per-level
+launches, and its refusals; pose problems of 0, 1, 31, 1200, 2000 and
+16384 observations (below and above K5's register cap), zero rounds, all
+invalid, partly behind the camera, mono, mixed and all stereo; vocabulary
+descents with
 tied children, no valid descriptor and other branchings and depths; L1
 scores over widths that are no multiple of 4, masked rows and batches of
 queries; BA assemblies (K4) of an empty window, one observation, repeated
@@ -41,7 +46,7 @@ Marked `gpu`: each test skips without a CUDA card. On a machine with one
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerances: K1 and K3 exact; K2 angles within 1e-4 rad and descriptor bits
+Tolerances: K1 (each field of the image-wide call too) and K3 exact; K2 angles within 1e-4 rad and descriptor bits
 >= 99.9% identical (the kernel sums the moments in another order); K7 on
 integer-valued images: best offset and SAD exact, refined x within 1e-5 px,
 on non-integer images within 1e-3 px; K8 exact (same rounding, no FMA); K5
@@ -123,6 +128,94 @@ def test_fast_select_exact(cuda, shape, kind):
         assert torch.equal(g, w), (name, int((g != w).sum()))
 
 
+def _textured(shape, seed=0):
+    """Blurred noise with grain: corners at every scale."""
+    rng = np.random.default_rng(seed)
+    img = image.gaussian_blur(torch.from_numpy(_image(shape, "noise", seed)))
+    return image.gaussian_blur(img) + torch.from_numpy(
+        rng.normal(0, 4, shape).astype(np.float32))
+
+
+# shape, n_features, levels, image kind, explicit per-level n_keep
+LEVEL_CASES = {
+    "480x752": ((480, 752), 1200, 8, "textured", None),
+    "512x512": ((512, 512), 1200, 8, "textured", None),
+    "37x53, no whole cells": ((37, 53), 120, 8, "noise", None),
+    "blank": ((120, 160), 300, 4, "blank", None),
+    "top levels under n_keep": ((96, 128), 300, 8, "textured", None),
+    "n_keep 0": ((100, 130), 0, 5, "textured", [0, 60, 0, 0, 25]),
+    # level 0 of 8,280 cells, above the 8,192 that shared memory held
+    # before its selection could spill to global memory
+    "8,280 cells": ((1440, 1472), 1200, 2, "textured", None),
+    # level 0 of 30,832 cells: its selection needs more shared memory than
+    # an H100 block may take, so it works in global memory
+    "global-memory level": ((2624, 3008), 1200, 2, "textured", None),
+}
+H100_SMEM_OPTIN = 232448        # bytes of shared memory a block may take
+
+
+@pytest.mark.parametrize("case", sorted(LEVEL_CASES))
+def test_fast_select_levels_exact(cuda, case):
+    """K1 over all levels of an image in one call: every field bitwise
+    equal to the plain composition (on the card and on the CPU) and to the
+    per-level cell-stage launches followed by torch's selection; one
+    launch counted."""
+    shape, n_feat, n_lv, kind, counts = LEVEL_CASES[case]
+    if kind == "textured":
+        img = _textured(shape, seed=len(case))
+    elif kind == "blank":
+        img = torch.zeros(shape)
+    else:
+        img = torch.from_numpy(_image(shape, kind, seed=3))
+    cfg = frontend.OrbConfig(n_features=max(n_feat, 1), n_levels=n_lv)
+    counts = counts or cfg.per_level_counts()
+    levels = image.build_pyramid(img.to(cuda), n_lv, cfg.scale)
+    before = dict(fast.LAUNCHES)
+    got = fast.fast_select_levels(levels, counts, cfg)
+    assert fast.LAUNCHES == {"kernel": before["kernel"] + 1,
+                             "plain": before["plain"]}
+    if case == "top levels under n_keep":
+        assert got.kept[-1] < counts[-1]
+    if case == "global-memory level":
+        h, w = levels[0].shape
+        assert 8 * got.kept[0] + 4 * 2 * (h // 16) * (w // 16) > \
+            H100_SMEM_OPTIN
+    assert got.yx.shape == (sum(got.kept), 2)
+    want = fast.fast_select_levels_plain(levels, counts, cfg)
+    per = fast.select_levels(levels, counts, cfg, cells=fast.fast_select)
+    cpu = fast.fast_select_levels_plain([l.cpu() for l in levels], counts,
+                                        cfg)
+    assert got.kept == want.kept == per.kept == cpu.kept
+    for name, g, w, p, c in zip(fast.SLOT_FIELDS, got, want, per, cpu):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), (name, int((g != w).sum()))
+        assert torch.equal(g, p), (name, int((g != p).sum()))
+        assert torch.equal(g.cpu(), c), (name, int((g.cpu() != c).sum()))
+    if kind == "blank":
+        assert not bool(got.valid.any())
+        assert bool(torch.isinf(got.key).all())
+    else:
+        assert bool(got.valid.any())
+
+
+def test_fast_select_levels_refuses(cuda):
+    """fast_select_levels takes only consecutive contiguous views of one
+    buffer, as many counts as levels and float32 levels; it raises instead
+    of falling back."""
+    img = _textured((120, 160)).to(cuda)
+    cfg = frontend.OrbConfig(n_features=200, n_levels=3)
+    levels = image.build_pyramid(img, 3, 1.2)
+    counts = cfg.per_level_counts()
+    before = dict(fast.LAUNCHES)
+    for lv, n in (([l.clone() for l in levels], counts),
+                  (levels[::-1], counts), (levels, counts[:2]),
+                  ([l.double() for l in levels], counts),
+                  (levels, [counts[0], -1, counts[2]])):
+        with pytest.raises(ValueError):
+            fast.fast_select_levels(lv, n, cfg)
+    assert fast.LAUNCHES == before
+
+
 @pytest.mark.parametrize("n", [0, 7, 300])
 def test_orb_describe_close(cuda, n):
     h, w = 133, 211
@@ -163,9 +256,7 @@ def test_orb_describe_levels_matches_per_level(cuda, shape, n_features):
     counts = cfg.per_level_counts()
     levels = image.build_pyramid(img, cfg.n_levels, cfg.scale)
     blurred = image.blur_levels(levels)
-    yxs = [frontend.select_level_keypoints(l, n, cfg)[0].contiguous()
-           if n else torch.zeros((0, 2), dtype=torch.int32, device=cuda)
-           for l, n in zip(levels, counts)]
+    yxs = fast.fast_select_levels(levels, counts, cfg).level_yx()
     assert 0 in counts or n_features > 3
     before = dict(orb_descriptor.LAUNCHES)
     ang, desc = orb_descriptor.orb_describe_levels(levels, blurred, yxs)
@@ -472,10 +563,13 @@ def _pose_check(got, want, n_valid):
     assert int(got.n_inliers) == int(got.inliers.sum())
 
 
-@pytest.mark.parametrize("rounds,iters", [(2, 8), (3, 10)])
-@pytest.mark.parametrize("n,stereo_share", [(0, 0.0), (1200, 0.0),
-                                            (1200, 0.6), (16384, 0.3)])
+@pytest.mark.parametrize("rounds,iters", [(0, 0), (2, 8), (3, 10)])
+@pytest.mark.parametrize("n,stereo_share", [(0, 0.0), (31, 0.6), (1200, 0.0),
+                                            (1200, 0.6), (1200, 1.0),
+                                            (2000, 0.6), (16384, 0.3)])
 def test_pose_opt_matches_plain(cuda, n, stereo_share, rounds, iters):
+    """K5 against its plain version; 2000 and 16384 rows pass the
+    kernel's register cap (1536 rows), 0 x 0 only evaluates."""
     args = _pose_problem(cuda, n, stereo_share=stereo_share, seed=n)
     ur = args[6]
     kw = dict(obs_ur=ur, baseline=0.11 if ur is not None else 0.0,
@@ -483,8 +577,13 @@ def test_pose_opt_matches_plain(cuda, n, stereo_share, rounds, iters):
     got = pose_opt.optimize_pose(*args[:6], **kw)
     want = pose_opt.optimize_pose_plain(*args[:6], **kw)
     _pose_check(got, want, int(args[5].sum()))
-    if n > 0:   # it converged: most valid rows are inliers
+    if n > 0 and rounds > 0:   # it converged: most valid rows are inliers
         assert int(got.n_inliers) > 0.7 * int(args[5].sum())
+    if rounds == 0:
+        assert torch.equal(got.R, args[0]) and torch.equal(got.t, args[1])
+        if n > 0:
+            _chi2_close(got.chi2, want.chi2, args[4])
+        assert torch.equal(got.inliers, want.inliers)
 
 
 @pytest.mark.parametrize("rounds,iters", [(2, 8), (3, 10)])
