@@ -256,7 +256,8 @@ R_B_C0 = np.array([
 # lists each as a device-side annotation spanning its kernels and the idle
 # time between them, which per-frame device sums must skip
 RANGES = ("K4 ba_solve", "K4 ba_assemble", "K5 optimize_pose",
-          "K6 build_pyramid", "K6 blur_levels", "K9 vocab_transform",
+          "K6 build_pyramid", "K6 blur_levels", "K6 pyramid_blur",
+          "lm_obs_count", "K9 vocab_transform",
           "K10 bow_l1", "K11 preintegrate", "K12 optimize_pose_inertial",
           "K13 vi_ba edges", "K13 inertial_system", "K13 inertial_cost",
           "K15 normal_equations", "inertial_only_optimize",
@@ -598,14 +599,21 @@ def device_ms(fn, kernel_name, reps=20, tries=3):
     return time_ms(fn, reps=reps, inner=1)
 
 
-def kernels_per_call(fn):
-    """CUDA kernels one fn() launches, by the profiler's count."""
+def kernels_per_call(fn, reps=5, tries=3):
+    """CUDA kernels one fn() launches, by the profiler's count over `reps`
+    calls (profiled again, up to `tries` times, while it sees none)."""
     fn()
-    with profiled() as prof:
-        fn()
-    return int(sum(ev.count for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and ev.key not in RANGES))
+    n = 0
+    for _ in range(tries):
+        with profiled() as prof:
+            for _ in range(reps):
+                fn()
+        n = sum(ev.count for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.key not in RANGES)
+        if n:
+            break
+    return round(n / reps)
 
 
 def bound(nbytes, nops):
@@ -861,17 +869,19 @@ def phase_kernels(state):
         log(f"K3 hamming_top2 {name}: best, index, second exact "
             f"({int(m.sum())} candidate pairs)")
     a, b, m = cases["real 4096x1200"]
-    ms = time_ms(lambda: hamming.hamming_top2(a, b, m))
-    plain = time_ms(lambda: hamming.hamming_top2_plain(a, b, m), reps=10)
-    ms_small = time_ms(lambda: hamming.hamming_top2(*cases["real 1200x1200"]))
-    kernel = device_ms(lambda: hamming.hamming_top2(a, b, m),
-                       "hamming_top2_kernel")
-    kernel_small = device_ms(
-        lambda: hamming.hamming_top2(*cases["real 1200x1200"]),
-        "hamming_top2_kernel")
-    n, mm = m.shape
-    # the whole mask is read; only the candidate pairs need a distance
-    b_ms, b_by = bound(n * mm + (n + mm) * 32 + n * 12, int(m.sum()) * 16)
+    masked = dict(ms=device_ms(lambda: hamming.hamming_top2(a, b, m),
+                               "hamming_top2_kernel"),
+                  call_ms=time_ms(lambda: hamming.hamming_top2(a, b, m)),
+                  ms_1200x1200=device_ms(
+                      lambda: hamming.hamming_top2(*cases["real 1200x1200"]),
+                      "hamming_top2_kernel"),
+                  shape="4096x1200 real mask (match_nn's mode)")
+    gated = {}
+    for mode, args, max_d in k3_gate_inputs(feats, cfg):
+        gated[mode] = _k3_gated_numbers(args, mode, max_d, time_plain=(
+            mode == "window"))
+    g = gated["window"]
+    n, mm = big_desc.shape[0], f0.desc.shape[0]
     # hamming_matrix_mxu (ops/hamming.py:40) computes the whole (n, m) int32
     # distance matrix as a +-1 product over 256 bits: the descriptors in,
     # the matrix out once; 2 * 256 operations per pair at the dense bf16
@@ -884,11 +894,20 @@ def phase_kernels(state):
     rows.append(dict(name="hamming_top2", route="cuda",
                      source="morb_slam_tpu_torch/csrc/hamming_top2.cu",
                      replaces="morb_slam_tpu/ops/hamming.py:53",
-                     max_abs_err=0.0, ms=kernel, call_ms=ms, plain_ms=plain,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     ms_1200x1200=kernel_small, call_ms_1200x1200=ms_small,
+                     max_abs_err=0.0, ms=g["ms"], call_ms=g["call_ms"],
+                     plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
+                     bound_by=g["bound_by"], library_ms=None,
+                     ms_is="the gated mode (window), one launch at "
+                           "4096x1200 on frame features; the stereo phase "
+                           "replaces it with its own search's inputs",
+                     before_ms=g["before_ms"],
+                     before_call_ms=g["before_call_ms"],
+                     before_is="the dense gate composition + the masked "
+                               "K3, the same function before this design",
+                     gated=gated, masked_mode=masked,
                      hamming_matrix_mxu_bound_ms=mxu_bound[0],
                      hamming_matrix_mxu_bound_by=mxu_bound[1],
+                     ptxas=_ptxas("hamming_top2"),
                      shape="4096x1200 (one launch)"))
     rows.append(_k6_row(frames[0], cfg))
     _stereo_kernels(state, rows)
@@ -904,43 +923,128 @@ def phase_kernels(state):
             f"{r['bound_by']})")
 
 
+def k3_gate_inputs(feats, cfg):
+    """K3's gated inputs on rendered frames' features: (mode, args, max_d)
+    of the projection window (4096 rows of frames 1.. against frame 0's
+    features), the last-frame window with NaN projections and the stereo
+    row band (frame 0 against frame 1)."""
+    f0, f1 = feats[0], feats[1]
+    sf = cfg.scale ** torch.arange(cfg.n_levels, device=f0.uv.device,
+                                   dtype=torch.float32)
+    big = [torch.cat([getattr(f, k) for f in feats[1:]])[:4096].contiguous()
+           for k in ("desc", "uv", "octave", "valid")]
+    nan_uv = f0.uv.clone()
+    nan_uv[::17] = float("nan")
+    return (
+        ("window", (big[0], f0.desc, big[1], 4.0 * sf[big[2].long()],
+                    big[2], big[3], f0.uv, f0.octave, f0.valid), 0.0),
+        ("window_nan", (f0.desc, f1.desc, nan_uv, 8.0 * sf[f0.octave.long()],
+                        f0.octave, f0.valid, f1.uv, f1.octave, f1.valid),
+         0.0),
+        ("row_band", (f0.desc, f1.desc, f0.uv, 2.0 * sf[f0.octave.long()],
+                      f0.octave, f0.valid, f1.uv, f1.octave, f1.valid),
+         60.0))
+
+
+def _k3_gated_numbers(args, mode, max_d=0.0, time_plain=False):
+    """K3's gated mode on one call's inputs (a, b, then the row and column
+    gate inputs): best, index and second bitwise equal to its plain
+    version (the dense gate, then hamming_top2_plain) and to the masked
+    kernel on that gate; the kernel's device ms and call ms, and the same
+    function before this design (the dense gate composition + the masked
+    K3) timed alike; the bound recounted for what the gated kernel reads
+    and does."""
+    from morb_slam_tpu_torch.ops import hamming
+    got = hamming.hamming_top2_gated(*args, mode, max_d=max_d)
+    want = hamming.hamming_top2_gated_plain(*args, mode, max_d=max_d)
+    mask = hamming.gate_mask(*args[2:], mode, max_d=max_d)
+    masked = hamming.hamming_top2(args[0], args[1], mask)
+    for name, g, w, k in zip(("best", "index", "second"), got, want, masked):
+        check(torch.equal(g, w) and torch.equal(g, k),
+              f"K3 gated {mode}: {name} differs from plain in "
+              f"{int((g != w).sum())} rows, from the masked kernel in "
+              f"{int((g != k).sum())}")
+    n, m = args[0].shape[0], args[1].shape[0]
+    rows_on = int(args[5].sum())
+    n_pass = int(mask.sum())
+
+    def call():
+        hamming.hamming_top2_gated(*args, mode, max_d=max_d)
+
+    def before():
+        hamming.hamming_top2(args[0], args[1], hamming.gate_mask(
+            *args[2:], mode, max_d=max_d))
+    # per row uv, radius, octave, flag (17 B) in, (best, index, second)
+    # out; per column uv, octave, flag (13 B); the descriptors of flagged
+    # rows and of columns that some pair passes; ~10 operations a pair of
+    # a flagged row, 16 more a passing pair
+    b_ms, b_by = bound(n * 29 + m * 13 + rows_on * 32
+                       + int(mask.any(0).sum()) * 32,
+                       rows_on * m * 10 + n_pass * 16)
+    out = dict(mode=mode, shape=f"{n}x{m}", rows_flagged=rows_on,
+               pairs_passed=n_pass, bitwise_equal=True,
+               ms=device_ms(call, "hamming_top2_gated_kernel"),
+               call_ms=time_ms(call), kernels=kernels_per_call(call),
+               before_ms=device_ms(before, None), before_call_ms=time_ms(
+                   before), before_kernels=kernels_per_call(before),
+               bound_ms=b_ms, bound_by=b_by)
+    if time_plain:
+        out["plain_ms"] = time_ms(lambda: hamming.hamming_top2_gated_plain(
+            *args, mode, max_d=max_d), reps=10)
+    log(f"K3 gated {mode} {n}x{m}: bitwise equal to plain and to the "
+        f"masked kernel ({rows_on} rows flagged, {n_pass} pairs pass); "
+        f"{out['ms']:.4f} ms device, {out['call_ms']:.4f} ms a call; before "
+        f"(gate + masked K3) {out['before_ms']:.4f} ms device in "
+        f"{out['before_kernels']} kernels, {out['before_call_ms']:.4f} ms a "
+        f"call; bound {b_ms:.5f} ms by {b_by}")
+    return out
+
+
 PYR_TOL = 1e-3   # K6 pyramid against the plain pyramid, grey levels
 
 
 def _k6_row(img, cfg):
-    """K6 on the mono path's first 752x480 image, 8 levels: the blur
+    """K6 on the mono path's first 752x480 image, 8 levels, in one launch
+    (pyramid_blur): the levels and blurred levels bitwise equal to the
+    per-level chain (build_pyramid, blur_levels) and repeatable, the blur
     bitwise equal to the plain blur of the same levels, the pyramid within
-    PYR_TOL of the plain pyramid (cuBLAS, TF32 off), and extract_orb with
-    the kernel and with the plain K6 forced in agreement on >= 99% of the
-    (yx, octave) slots and >= 99.9% of their descriptor bits."""
+    PYR_TOL of the plain pyramid (cuBLAS, TF32 off), one launch an image;
+    and extract_orb with the kernel and with the plain K6 forced in
+    agreement on >= 99% of the (yx, octave) slots and >= 99.9% of their
+    descriptor bits."""
     from morb_slam_tpu_torch import frontend, testing
     from morb_slam_tpu_torch.ops import image, orb_descriptor
     L, sc = cfg.n_levels, cfg.scale
-    lk = image.build_pyramid(img, L, sc)
+    n0 = image.LAUNCHES["kernel"]
+    lk, bk = image.pyramid_blur(img, L, sc)
+    per_image = image.LAUNCHES["kernel"] - n0
+    per = image.build_pyramid(img, L, sc)
+    per_blur = image.blur_levels(per)
+    chain_bitwise = all(torch.equal(a, b) for a, b in
+                        zip(lk + bk, per + per_blur))
     lp = image.build_pyramid_plain(img, L, sc)
     pyr_err = max(float((a - b).abs().max()) for a, b in zip(lk, lp))
-    blur_k = image.blur_levels(lk)
     blur_bitwise = all(torch.equal(a, image.gaussian_blur_plain(b))
-                       for a, b in zip(blur_k, lk))
-    again = image.build_pyramid(img, L, sc)
-    repeatable = all(torch.equal(a, b) for a, b in zip(again, lk)) and all(
-        torch.equal(a, b) for a, b in zip(image.blur_levels(again), blur_k))
-    log(f"K6 pyramid_blur: pyramid max |kernel - plain| {pyr_err:.3e} grey "
-        f"levels (tolerance {PYR_TOL}), blur bitwise equal {blur_bitwise}, "
-        f"bitwise repeatable {repeatable}")
-    check(pyr_err < PYR_TOL and blur_bitwise and repeatable,
-          ("K6", pyr_err, blur_bitwise, repeatable))
+                       for a, b in zip(bk, lk))
+    again = image.pyramid_blur(img, L, sc)
+    repeatable = all(torch.equal(a, b) for a, b in
+                     zip(again[0] + again[1], lk + bk))
+    log(f"K6 pyramid_blur: {per_image} launch an image, bitwise equal to "
+        f"the per-level chain and blur_levels {chain_bitwise}; pyramid max "
+        f"|kernel - plain| {pyr_err:.3e} grey levels (tolerance {PYR_TOL}), "
+        f"blur bitwise equal to plain {blur_bitwise}, bitwise repeatable "
+        f"{repeatable}")
+    check(per_image == 1 and chain_bitwise and pyr_err < PYR_TOL
+          and blur_bitwise and repeatable,
+          ("K6", per_image, chain_bitwise, pyr_err, blur_bitwise, repeatable))
 
     f_k = frontend.extract_orb(img, cfg)
-    saved = image.build_pyramid, image.blur_levels
-    image.build_pyramid = lambda *a: testing.pack_levels(
-        image.build_pyramid_plain(*a))
-    image.blur_levels = lambda ls: testing.pack_levels(
-        [image.gaussian_blur_plain(l) for l in ls])
+    saved = image.pyramid_blur
+    image.pyramid_blur = testing.plain_pyramid_blur
     try:
         f_p = frontend.extract_orb(img, cfg)
     finally:
-        image.build_pyramid, image.blur_levels = saved
+        image.pyramid_blur = saved
     same = (f_k.uv == f_p.uv).all(-1) & (f_k.octave == f_p.octave) & \
         (f_k.valid == f_p.valid)
     slots = float(same.float().mean())
@@ -952,6 +1056,9 @@ def _k6_row(img, cfg):
     check(slots >= 0.99 and bits >= 0.999, ("K6 extract_orb", slots, bits))
 
     def k6():
+        image.pyramid_blur(img, L, sc)
+
+    def per_level():
         image.blur_levels(image.build_pyramid(img, L, sc))
 
     def plain():
@@ -959,17 +1066,16 @@ def _k6_row(img, cfg):
             image.gaussian_blur_plain(l)
     shapes = image.level_shapes(img.shape[0], img.shape[1], L, sc)
     npx = [h * w for h, w in shapes]
-    # the image in once; levels 1.. and every blurred level out once; ~12
-    # flops per resized and 28 per blurred pixel
+    # the image in once; levels 1.. and every blurred level out once (level
+    # 0 is the image: the copy into the levels' buffer is the layout's, not
+    # the function's); ~12 flops per resized and 28 per blurred pixel
     b_ms, b_by = bound(4 * (npx[0] + sum(npx[1:]) + sum(npx)),
                        12 * sum(npx[1:]) + 28 * sum(npx))
-    n0 = image.LAUNCHES["kernel"]
-    k6()
-    per_image = image.LAUNCHES["kernel"] - n0
-    EVENT_TIMED.discard(None)
-    ms = {k: device_ms(k6, k) for k in (None, "pyramid_level_kernel",
-                                        "blur_levels_kernel")}
-    by_events = bool(EVENT_TIMED & set(ms))
+    EVENT_TIMED.discard("pyramid_blur_kernel")
+    ms = device_ms(k6, "pyramid_blur_kernel")
+    by_events = "pyramid_blur_kernel" in EVENT_TIMED
+    per_ms = {k: device_ms(per_level, k) for k in (
+        None, "pyramid_level_kernel", "blur_levels_kernel")}
     # the library's blur: a 7x7 convolution with the kernel's outer
     # product on each replicate-padded level (cuDNN, TF32 off); the same
     # blur up to the order of the 49 products' sum
@@ -981,7 +1087,7 @@ def _k6_row(img, cfg):
         return [F.conv2d(F.pad(l[None, None], (r7,) * 4, mode="replicate"),
                          k7)[0, 0] for l in lk]
     lib_diff = max(float((a - b).abs().max())
-                   for a, b in zip(library_blur(), blur_k))
+                   for a, b in zip(library_blur(), bk))
     EVENT_TIMED.discard(None)
     lib_blur_ms = device_ms(library_blur, None)
     lib_by_events = None in EVENT_TIMED
@@ -991,18 +1097,26 @@ def _k6_row(img, cfg):
                 replaces_also="morb_slam_tpu/ops/image.py:55",
                 max_abs_err=pyr_err, max_abs_err_is="pyramid, grey levels; "
                 "the blur is bitwise equal", pyramid_tolerance=PYR_TOL,
+                bitwise_equal_per_level_chain=chain_bitwise,
                 blur_bitwise=blur_bitwise, bitwise_repeatable=repeatable,
                 extract_orb_slots_agree=slots, extract_orb_bits_agree=bits,
-                ms=ms[None],
-                ms_is="one image: the level-0 copy, 7 level launches and "
-                      "the blur launch",
+                ms=ms,
+                ms_is="one image: one launch (the level-0 copy, levels "
+                      "1-7 and the 8 blurs)",
                 ms_by="cuda events" if by_events else "profiler",
-                pyramid_ms=ms["pyramid_level_kernel"],
-                blur_ms=ms["blur_levels_kernel"],
                 call_ms=time_ms(k6), plain_ms=time_ms(plain, reps=10),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 library_note="none: F.interpolate(antialias=True) is another "
                              "filter, and no single call blurs a pyramid",
+                per_level_path=dict(
+                    device_ms=per_ms[None],
+                    pyramid_ms=per_ms["pyramid_level_kernel"],
+                    blur_ms=per_ms["blur_levels_kernel"],
+                    call_ms=time_ms(per_level),
+                    kernels=kernels_per_call(per_level),
+                    is_="the level-0 copy, 7 pyramid_level launches and "
+                        "the blur launch: the per-level path, kept as the "
+                        "comparison"),
                 library_blur_ms=lib_blur_ms,
                 library_blur_ms_by="cuda events" if lib_by_events
                 else "profiler",
@@ -1010,7 +1124,9 @@ def _k6_row(img, cfg):
                 library_blur_max_abs_diff=lib_diff,
                 library_blur="per level F.pad(replicate) + F.conv2d 7x7 "
                              "outer product, TF32 off (device time of both)",
-                launches_per_image=per_image, ptxas=_ptxas("pyramid_blur"),
+                launches_per_image=per_image,
+                kernels_per_image=kernels_per_call(k6),
+                ptxas=_ptxas("pyramid_blur"),
                 shape=f"one {img.shape[1]}x{img.shape[0]} image, {L} levels")
 
 
@@ -1947,10 +2063,11 @@ def _path_profile(tracker, step, frames, name, out, inserts,
     import warnings
     ours = tuple(f"{k}_kernel" for k in _kernel_counters()) + (
         "schur_lm_kernel", "schur_kf_kernel", "pyramid_level_kernel",
-        "blur_levels_kernel", "fast_cells_kernel",
-        "fast_level_kernel") + K16_K18_KERNELS
+        "blur_levels_kernel", "fast_cells_kernel", "fast_level_kernel",
+        "hamming_top2_gated_kernel") + K16_K18_KERNELS
     n_kern, dev_us, ours_us, wall, nf, skipped = 0, 0.0, 0.0, 0.0, 0, []
     kern = collections.Counter(), collections.Counter()
+    in_range = collections.Counter(), collections.Counter()
     sync_sites = collections.Counter()
     n_sync = 0
     for i in frames:
@@ -1978,6 +2095,9 @@ def _path_profile(tracker, step, frames, name, out, inserts,
                 kern[1][ev.key] += ev.self_device_time_total
                 if any(k in ev.key for k in ours):
                     ours_us += ev.self_device_time_total
+        for k, (c, us) in _range_kernels(prof, "lm_obs_count").items():
+            in_range[0][k] += c
+            in_range[1][k] += us
         syncs = [w for w in syncs if "synchroniz" in str(w.message)]
         n_sync += len(syncs)
         sync_sites.update(
@@ -2001,6 +2121,10 @@ def _path_profile(tracker, step, frames, name, out, inserts,
     out["device_busy_share_unprofiled"] = dev_us / nf / 1e6 * out["fps"]
     out["host_syncs_per_frame"] = n_sync / nf
     out["host_sync_sites"] = dict(sync_sites.most_common(10))
+    # the kernels launched inside mapstate.state.lm_obs_count's range
+    out["lm_obs_count_kernels_per_frame"] = {
+        k: dict(count=in_range[0][k] / nf, device_us=in_range[1][k] / nf)
+        for k in in_range[0]}
     log(f"{name} profiler, {nf} frames without a keyframe insert (skipped "
         f"{skipped}): {n_kern / nf:.0f} CUDA kernels, "
         f"{dev_us / nf / 1e3:.2f} ms device time ({ours_us / nf / 1e3:.3f} "
@@ -2008,6 +2132,76 @@ def _path_profile(tracker, step, frames, name, out, inserts,
         f"syncs per frame; device busy {dev_us / 1e6 / wall:.3f} of the "
         f"profiled step time; sync sites {out['host_sync_sites']}")
     return {k: (kern[0][k], kern[1][k]) for k in kern[0]}
+
+
+def _range_kernels(prof, name):
+    """{kernel: (count, device us)} of the CUDA kernels that torch ops
+    launched inside every CPU range `name` of a profile (a ctypes launch
+    has no op to tie it to its range)."""
+    out = {}
+
+    def walk(ev):
+        for k in ev.kernels:
+            if k.name not in RANGES:
+                c, us = out.get(k.name, (0, 0.0))
+                out[k.name] = (c + 1, us + k.duration)
+        for ch in ev.cpu_children:
+            walk(ch)
+    for ev in prof.events():
+        if ev.name == name and ev.device_type == \
+                torch.autograd.DeviceType.CPU:
+            walk(ev)
+    return out
+
+
+class _GatedCalls:
+    """Keep the arguments of the last K3 gated call of each mode during a
+    path's run (references only: the searches build fresh tensors each
+    frame)."""
+
+    def __enter__(self):
+        from morb_slam_tpu_torch.ops import hamming
+        self.mod, self.saved, self.last = hamming, \
+            hamming.hamming_top2_gated, {}
+
+        def wrap(*a, **kw):
+            self.last[a[9] if len(a) > 9 else kw["mode"]] = (a, kw)
+            return self.saved(*a, **kw)
+        hamming.hamming_top2_gated = wrap
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.hamming_top2_gated = self.saved
+
+
+def _k3_path_searches(state, gated):
+    """K3's gated mode on the inputs of the stereo path's last call of each
+    search (search_last_frame's window with NaN projections,
+    search_by_projection's window, row_search's band): bitwise equal to
+    plain, timed against the dense gate + masked K3; the kernels row takes
+    its numbers from search_by_projection's 4096-row search."""
+    names = {"window_nan": "search_last_frame", "window":
+             "search_by_projection", "row_band": "stereo.row_search"}
+    res = {}
+    for mode, (a, kw) in sorted(gated.last.items()):
+        args = a[:9]
+        res[names[mode]] = _k3_gated_numbers(
+            args, mode, a[10] if len(a) > 10 else kw.get("max_d", 0.0),
+            time_plain=mode == "window")
+    check(len(res) == 3, ("K3 gated modes on the stereo path", sorted(res)))
+    row = next(r for r in state.get("kernel_rows", [])
+               if r["name"] == "hamming_top2") if "kernel_rows" in state \
+        else None
+    if row is not None:
+        p = res["search_by_projection"]
+        row.update(ms=p["ms"], call_ms=p["call_ms"], plain_ms=p["plain_ms"],
+                   bound_ms=p["bound_ms"], bound_by=p["bound_by"],
+                   before_ms=p["before_ms"],
+                   before_call_ms=p["before_call_ms"],
+                   ms_is="the gated mode (window), one launch on the stereo "
+                         "path's last search_by_projection inputs",
+                   shape=p["shape"], stereo_path_searches=res)
+    return res
 
 
 def phase_stereo(state):
@@ -2028,7 +2222,7 @@ def phase_stereo(state):
         return sysm.track_stereo(pairs[i][0], pairs[i][1], ts)
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
-    with _CountCalls() as calls:
+    with _CountCalls() as calls, _GatedCalls() as gated:
         states, fm, secs, _ = _track_run(tracker, feed, N_FRAMES, dt,
                                          inserts)
     launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
@@ -2076,6 +2270,10 @@ def phase_stereo(state):
     out["pose_opt_on_path"] = dict(
         device_ms_per_call=k5[0][1] / k5[0][0] / 1e3,
         calls_profiled=k5[0][0]) if k5 and k5[0][0] else None
+    out["k3_gated_searches"] = {
+        k: {f: v[f] for f in ("shape", "rows_flagged", "pairs_passed",
+                              "bitwise_equal", "ms", "before_ms")}
+        for k, v in _k3_path_searches(state, gated).items()}
     log("stereo path:", json.dumps(out))
     state["stereo"] = out
 
@@ -2155,7 +2353,7 @@ def _k4_kernel(state, p, per_frame):
                                acc_g, acc_w))
     (b4, by4), shape = _ba_bound(p)
     call = lambda: ba.assemble(p, p.R, p.t, p.X, order)
-    state["kernel_rows"].append(dict(
+    state.setdefault("kernel_rows", []).append(dict(
         name="ba_assemble", route="cuda",
         source="morb_slam_tpu_torch/csrc/ba_assemble.cu",
         replaces="morb_slam_tpu/optim/ba.py:125", max_abs_err=err,

@@ -1,8 +1,8 @@
 """ORB feature extraction: pyramid, FAST, grid-balanced selection,
 orientation and rotated BRIEF (counterpart of `morb_slam_tpu/frontend.py`).
 
-K6 (`ops.image.build_pyramid`, `blur_levels`) builds the pyramid and
-blurs every level (7x7). K1 (`ops.fast.fast_select_levels`) scores every
+K6 (`ops.image.pyramid_blur`, one launch an image) builds the pyramid
+and blurs every level (7x7). K1 (`ops.fast.fast_select_levels`) scores every
 pixel of every level, keeps the two best keys of each 16x16 cell and of
 those each level's best `n_keep`, with their level-0 coordinates, octave
 and size. Then K2 (`ops.orb_descriptor.orb_describe_levels`) computes the
@@ -67,8 +67,7 @@ class Features(NamedTuple):
 
 def extract_orb(img, cfg: OrbConfig = OrbConfig()) -> Features:
     """Grayscale (H, W) float32 in [0, 255] -> Features."""
-    levels = image_ops.build_pyramid(img, cfg.n_levels, cfg.scale)
-    blurred = image_ops.blur_levels(levels)
+    levels, blurred = image_ops.pyramid_blur(img, cfg.n_levels, cfg.scale)
     counts = cfg.per_level_counts()
     kp = fast_ops.fast_select_levels(levels, counts, cfg)
     ang, desc = orb_desc.orb_describe_levels(levels, blurred, kp.level_yx())

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from ..ops.orb_descriptor import pack_bits, unpack_bits
 from ..tensor_ops import segment_max, segment_sum, topk
@@ -141,8 +142,10 @@ def local_window(m: MapState, center_kf, size: int, min_weight: int = 15):
 # landmark statistics
 # ---------------------------------------------------------------------------
 
+@record_function("lm_obs_count")
 def lm_obs_count(m: MapState):
-    """(L,) int32 observation count per landmark."""
+    """(L,) int32 observation count per landmark (a profiler range names
+    its kernels)."""
     L = m.lm_valid.shape[0]
     slot_ok = m.kf_feat_valid & m.kf_valid[:, None] & (m.kf_feat_lm >= 0)
     lm = torch.where(slot_ok, m.kf_feat_lm,

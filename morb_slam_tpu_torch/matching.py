@@ -2,10 +2,14 @@
 (counterpart of `morb_slam_tpu/matching.py`): projection search against the
 local map and the last frame, initialization and triangulation searches.
 
-Each search builds a dense (rows x features) candidate gate in PyTorch and
-hands it with the descriptors to K3 (`ops.hamming.hamming_top2`), which
-returns the best, best index and second best per row without writing the
-distance matrix. Conflicts resolve by segment-min, as in the reference.
+The projection searches hand their per-landmark and per-feature window
+inputs with the descriptors to K3's gated mode
+(`ops.hamming.hamming_top2_gated`), which tests each pair's window, octave
+band and flags itself and returns the best, best index and second best per
+row; neither the gate nor the distance matrix reaches device memory. The
+initialization and triangulation searches build a dense (rows x features)
+gate in PyTorch for K3's masked mode (`hamming.match_nn`). Conflicts
+resolve by segment-min, as in the reference.
 """
 from __future__ import annotations
 
@@ -82,13 +86,9 @@ def search_by_projection(lm_pos, lm_normal, lm_dist_max, lm_desc, lm_valid,
 
     pred = predict_scale(dist, lm_dist_max, scale, n_levels)
     r = radius_px * scale_factors[pred.long()]
-    d_uv = uv[:, None, :] - feat_uv[None, :, :]
-    close = torch.amax(torch.abs(d_uv), dim=-1) <= r[:, None]
-    oct_ok = (feat_octave[None, :] >= pred[:, None] - 1) & \
-             (feat_octave[None, :] <= pred[:, None] + 1)
-    cand = close & oct_ok & visible[:, None] & feat_valid[None, :]
-    best_dist, best_feat, second = hamming.hamming_top2(lm_desc, feat_desc,
-                                                        cand)
+    best_dist, best_feat, second = hamming.hamming_top2_gated(
+        lm_desc, feat_desc, uv, r, pred, visible, feat_uv, feat_octave,
+        feat_valid, "window")
     ok = _ratio_ok(best_dist, second, max_dist_th, ratio)
     feat_lm = _resolve_conflicts(best_feat, best_dist, ok, N)
     return ProjectionMatches(feat_lm=feat_lm,
@@ -121,14 +121,9 @@ def search_last_frame(last_uv, last_desc, last_lm, last_valid, cur_uv,
     has_lm = last_valid & (last_lm >= 0) & torch.isfinite(proj_uv[:, 0])
     scale_factors = scale ** torch.arange(16, dtype=torch.float32, device=dev)
     r = radius_px * scale_factors[torch.clamp(proj_pred, 0, 15).long()]
-    d_uv = proj_uv[:, None, :] - cur_uv[None, :, :]
-    close = torch.amax(torch.abs(torch.nan_to_num(d_uv, nan=1e9)),
-                       dim=-1) <= r[:, None]
-    oct_ok = (cur_octave[None, :] >= proj_pred[:, None] - 1) & \
-             (cur_octave[None, :] <= proj_pred[:, None] + 1)
-    cand = close & oct_ok & has_lm[:, None] & cur_valid[None, :]
-    best_dist, best_feat, second = hamming.hamming_top2(last_desc, cur_desc,
-                                                        cand)
+    best_dist, best_feat, second = hamming.hamming_top2_gated(
+        last_desc, cur_desc, proj_uv, r, proj_pred, has_lm, cur_uv,
+        cur_octave, cur_valid, "window_nan")
     ok = _ratio_ok(best_dist, second, hamming.TH_HIGH, ratio)
     if last_angle is not None:
         ok &= hamming.rotation_consistency_mask(

@@ -6,7 +6,10 @@ Descriptors are (N, 8) int32, the bit view of the reference's uint32 words.
 `hamming_top2` is kernel K3: on CUDA tensors it launches
 `csrc/hamming_top2.cu`, which keeps the N x M distance matrix out of device
 memory; on CPU tensors it runs the plain version (`hamming_matrix` +
-`top2_min`).
+`top2_min`). `hamming_top2_gated` is K3's gated mode: it takes the searches'
+per-row and per-column window inputs instead of an (N, M) mask and tests
+each pair in the kernel's registers (`gate_mask` is the plain gate, the
+dense composition the searches built before).
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ TH_LOW = 50
 BIG = 1 << 20
 
 LAUNCHES = {"kernel": 0, "plain": 0}
+# the gated mode's pair tests (csrc/hamming_top2.cu GATE_*)
+GATE_MODES = {"window": 0, "window_nan": 1, "row_band": 2}
 
 _ROW_CHUNK = 1024
 
@@ -90,6 +95,81 @@ def hamming_top2(a, b, mask):
     return best, idx, second
 
 
+def gate_mask(row_uv, row_r, row_oct, row_ok, col_uv, col_oct, col_ok,
+              mode: str, max_d: float = 0.0):
+    """The plain gate of K3's gated mode, the (N, M) bool composition the
+    searches build:
+
+    - "window" (`matching.search_by_projection`): max |row_uv - col_uv| <=
+      row_r, col_oct in [row_oct - 1, row_oct + 1], both flags;
+    - "window_nan" (`matching.search_last_frame`): the same with NaN
+      differences taken as 1e9 (`nan_to_num`);
+    - "row_band" (`stereo.row_search`): |row_v - col_v| <= row_r (the band),
+      0 <= row_u - col_u <= max_d, |row_oct - col_oct| <= 1, both flags."""
+    if mode == "row_band":
+        dy = torch.abs(row_uv[:, 1:2] - col_uv[None, :, 1])
+        disp = row_uv[:, 0:1] - col_uv[None, :, 0]
+        oct_ok = torch.abs(row_oct[:, None] - col_oct[None, :]) <= 1
+        return ((dy <= row_r[:, None]) & (disp >= 0.0) & (disp <= max_d)
+                & oct_ok & row_ok[:, None] & col_ok[None, :])
+    if mode not in ("window", "window_nan"):
+        raise ValueError(f"gate_mask: unknown mode {mode!r}")
+    d_uv = row_uv[:, None, :] - col_uv[None, :, :]
+    if mode == "window_nan":
+        d_uv = torch.nan_to_num(d_uv, nan=1e9)
+    close = torch.amax(torch.abs(d_uv), dim=-1) <= row_r[:, None]
+    oct_ok = (col_oct[None, :] >= row_oct[:, None] - 1) & \
+             (col_oct[None, :] <= row_oct[:, None] + 1)
+    return close & oct_ok & row_ok[:, None] & col_ok[None, :]
+
+
+def hamming_top2_gated_plain(a, b, row_uv, row_r, row_oct, row_ok, col_uv,
+                             col_oct, col_ok, mode: str, max_d: float = 0.0):
+    return hamming_top2_plain(a, b, gate_mask(row_uv, row_r, row_oct, row_ok,
+                                              col_uv, col_oct, col_ok, mode,
+                                              max_d))
+
+
+def hamming_top2_gated(a, b, row_uv, row_r, row_oct, row_ok, col_uv, col_oct,
+                       col_ok, mode: str, max_d: float = 0.0):
+    """K3's gated mode: `hamming_top2(a, b, gate_mask(...))` without the
+    mask. Per row (N): uv (N, 2) float32, the window radius or row band
+    `row_r` (N,) float32, octave (N,) int32, flag (N,) bool; per column
+    (M): uv, octave, flag; `mode` and `max_d` as in `gate_mask`. CUDA
+    tensors: the kernel tests each pair's gate in registers; CPU tensors:
+    the plain version."""
+    if a.device.type == "cpu":
+        return hamming_top2_gated_plain(a, b, row_uv, row_r, row_oct, row_ok,
+                                        col_uv, col_oct, col_ok, mode, max_d)
+    if a.device.type != "cuda":
+        raise ValueError(f"hamming_top2_gated: unsupported device {a.device}")
+    n, m = a.shape[0], b.shape[0]
+    f32, i32, u8 = torch.float32, torch.int32, torch.bool
+    want = ((a, i32, (n, 8)), (b, i32, (m, 8)), (row_uv, f32, (n, 2)),
+            (row_r, f32, (n,)), (row_oct, i32, (n,)), (row_ok, u8, (n,)),
+            (col_uv, f32, (m, 2)), (col_oct, i32, (m,)), (col_ok, u8, (m,)))
+    if mode not in GATE_MODES or any(
+            t.dtype != dt or tuple(t.shape) != sh or t.device != a.device
+            for t, dt, sh in want):
+        raise ValueError("hamming_top2_gated: needs int32 (N, 8), (M, 8) "
+                         "descriptors, float32 (N, 2) / (M, 2) uv, float32 "
+                         "(N,) radii, int32 octaves, bool flags, one device "
+                         f"and a mode of {sorted(GATE_MODES)}")
+    if m == 0:
+        raise ValueError("hamming_top2_gated: empty column set")
+    a, b, row_uv, row_r, row_oct, row_ok, col_uv, col_oct, col_ok = (
+        _aligned(t) for t, _, _ in want)
+    out = torch.empty((3, n), dtype=torch.int32, device=a.device)
+    rc = _lib().hamming_top2_gated(
+        a.data_ptr(), b.data_ptr(), row_uv.data_ptr(), row_r.data_ptr(),
+        row_oct.data_ptr(), row_ok.data_ptr(), col_uv.data_ptr(),
+        col_oct.data_ptr(), col_ok.data_ptr(), n, m, GATE_MODES[mode],
+        max_d, out.data_ptr(), cuda_build.stream_ptr(a))
+    cuda_build.check(rc, "hamming_top2_gated")
+    LAUNCHES["kernel"] += 1
+    return out[0], out[1], out[2]
+
+
 def _aligned(t):
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -101,6 +181,9 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.hamming_top2.argtypes = [P, P, P, I, I, P, P, P, P]
         lib.hamming_top2.restype = I
+        lib.hamming_top2_gated.argtypes = [P] * 9 + [I, I, I,
+                                                     ctypes.c_float, P, P]
+        lib.hamming_top2_gated.restype = I
     return lib
 
 

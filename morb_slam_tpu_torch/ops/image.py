@@ -1,11 +1,14 @@
 """Image-level ops: the pyramid and the separable Gaussian blur, kernel K6
 (counterpart of `morb_slam_tpu/ops/image.py`).
 
-`build_pyramid` and `blur_levels` launch `csrc/pyramid_blur.cu` for a CUDA
-tensor (one launch per pyramid level, one for the blur of every level;
-the levels and the blurred levels are contiguous views of one buffer each)
-and run their plain versions, `build_pyramid_plain` and
-`gaussian_blur_plain`, for a CPU tensor.
+`pyramid_blur` (what `frontend.extract_orb` calls) launches
+`csrc/pyramid_blur.cu` once for a CUDA image: the level-0 copy, every
+level from the one before and every level's blur, the levels and the
+blurred levels consecutive contiguous views of one buffer each; for a CPU
+image it runs the plain versions, `build_pyramid_plain` and
+`gaussian_blur_plain` per level. `build_pyramid` (one launch per level)
+and `blur_levels` (one launch for the blur of given levels) are the
+per-level path, kept as the one launch's comparison.
 
 The plain pyramid applies the triangle-kernel weight matrices that
 `jax.image.resize(..., "linear")` builds (antialiased on downscale),
@@ -34,9 +37,14 @@ MAX_TAPS = 8      # csrc/pyramid_blur.cu
 TILE_X = 32
 TILE_SPAN = 64    # input columns one pyramid tile may read
 MAX_LEVELS = 16
+FUSED_TX = 32     # csrc/pyramid_blur.cu FTX
+FUSED_TY = 16     # FTY
+FUSED_SPAN = 64   # FCX: input columns one pyramid tile reads
+FUSED_RSPAN = 32  # FRX: input rows one pyramid tile reads
 
 _weights: dict = {}
 _bands: dict = {}
+_plans: dict = {}
 
 
 def level_shapes(h: int, w: int, n_levels: int, scale: float):
@@ -250,6 +258,105 @@ def blur_levels(levels):
     return [v.view(s) for v, s in zip(torch.split(out, sizes), shapes)]
 
 
+class _PyrBlurTable(ctypes.Structure):
+    """csrc/pyramid_blur.cu PyrBlurTable."""
+    _fields_ = [("n", ctypes.c_int)] + [
+        (f, ctypes.c_int * MAX_LEVELS) for f in
+        ("off", "h", "w", "tiles_x", "tiles", "band", "span", "rspan")] + [
+        ("btile0", ctypes.c_int * (MAX_LEVELS + 1)),
+        ("bstart", ctypes.c_int * (MAX_LEVELS + 2)),
+        ("k", ctypes.c_float * 7)]
+
+
+def _tile_span(start, count, tile: int) -> int:
+    """Input rows (columns) the widest tile of `tile` outputs reads from
+    its first output's start; raises where a later output starts
+    earlier."""
+    span = 0
+    for o in range(0, len(start), tile):
+        if int(start[o:o + tile].min()) < int(start[o]):
+            raise ValueError("K6: bands out of order")
+        span = max(span, int((start + count)[o:o + tile].max())
+                   - int(start[o]))
+    return span
+
+
+def fused_plan(h: int, w: int, n_levels: int, scale: float, device):
+    """The one-launch K6's tables for one image shape and device, built
+    once: (the band tables of levels 1.. in one int32 device tensor, the
+    kernel's level table, the level shapes, each level's element offset,
+    the buffer's length). Raises if a pyramid tile would read more input
+    rows or columns than the kernel stages."""
+    key = (h, w, n_levels, float(scale), str(device))
+    plan = _plans.get(key)
+    if plan is not None:
+        return plan
+    shapes = level_shapes(h, w, n_levels, scale)
+    sizes = [a * b for a, b in shapes]
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    t = _PyrBlurTable()
+    t.n = n_levels
+    blobs, at = [], 0
+    for l, (ho, wo) in enumerate(shapes):
+        t.off[l], t.h[l], t.w[l] = int(offs[l]), ho, wo
+        t.tiles_x[l] = -(-wo // FUSED_TX)
+        t.tiles[l] = t.tiles_x[l] * -(-ho // FUSED_TY)
+        t.btile0[l + 1] = t.btile0[l] + t.tiles[l]
+        if l == 0:
+            continue
+        hi, wi = shapes[l - 1]
+        rs, rc, rw = _band(hi, ho)
+        cs, cc, cw = _band(wi, wo)
+        span = _tile_span(cs, cc, FUSED_TX)
+        rspan = _tile_span(rs, rc, FUSED_TY)
+        if span > FUSED_SPAN or rspan > FUSED_RSPAN:
+            raise ValueError(f"K6: a tile spans {span} input columns and "
+                             f"{rspan} rows (at most {FUSED_SPAN} and "
+                             f"{FUSED_RSPAN})")
+        t.band[l], t.span[l], t.rspan[l] = at, span, rspan
+        blob = np.concatenate([rs, rc, cs, cc, rw.reshape(-1).view(np.int32),
+                               cw.reshape(-1).view(np.int32)])
+        blobs.append(blob)
+        at += blob.size
+    t.k[:] = _KERNEL7.tolist()
+    blob = np.concatenate(blobs) if blobs else np.zeros(1, np.int32)
+    plan = (torch.from_numpy(blob).to(device), t, shapes,
+            offs.tolist(), int(sum(sizes)))
+    _plans[key] = plan
+    return plan
+
+
+@record_function("K6 pyramid_blur")
+def pyramid_blur(img, n_levels: int, scale: float):
+    """K6: (H, W) float32 -> (levels, blurred levels), n_levels each. CUDA
+    tensors: one kernel launch, the levels and the blurred levels
+    consecutive contiguous views of one buffer each (as K1 and K2 take
+    them; raises if the kernel cannot run); CPU tensors: the plain pyramid
+    and the plain blur per level."""
+    if img.device.type == "cpu":
+        levels = build_pyramid_plain(img, n_levels, scale)
+        return levels, [gaussian_blur_plain(l) for l in levels]
+    if img.device.type != "cuda":
+        raise ValueError(f"pyramid_blur: unsupported device {img.device}")
+    if img.dtype != torch.float32 or img.dim() != 2 or \
+            not 1 <= n_levels <= MAX_LEVELS:
+        raise ValueError("pyramid_blur: needs one float32 (H, W) image and "
+                         f"1..{MAX_LEVELS} levels")
+    h, w = img.shape
+    blob, table, shapes, offs, total = fused_plan(h, w, n_levels, scale,
+                                                  img.device)
+    img = img.contiguous()
+    buf = torch.empty(2 * total, dtype=torch.float32, device=img.device)
+    rc = _lib().pyramid_blur(img.data_ptr(), buf.data_ptr(),
+                             buf.data_ptr() + 4 * total, blob.data_ptr(),
+                             ctypes.byref(table), cuda_build.stream_ptr(img))
+    cuda_build.check(rc, "pyramid_blur")
+    LAUNCHES["kernel"] += 1
+    views = [buf.as_strided(s, (s[1], 1), o + k * total)
+             for k in (0, 1) for s, o in zip(shapes, offs)]
+    return views[:n_levels], views[n_levels:]
+
+
 def gaussian_blur(img):
     """K6 blur of one image (`blur_levels` of one level)."""
     return blur_levels([img.contiguous()])[0]
@@ -265,4 +372,6 @@ def _lib():
         lib.blur_levels.argtypes = [P, P, I, IP, IP, IP,
                                     ctypes.POINTER(ctypes.c_float), P]
         lib.blur_levels.restype = I
+        lib.pyramid_blur.argtypes = [P, P, P, P, P, P]
+        lib.pyramid_blur.restype = I
     return lib

@@ -3,13 +3,13 @@ refinement and dispersion-based outlier rejection; the non-rectified
 two-camera match with midpoint triangulation; RGB-D depth lookup
 (counterpart of `morb_slam_tpu/ops/stereo.py`).
 
-A dense (NL, NR) candidate gate (row band, disparity range, octave band)
-feeds one K3 launch (`hamming.hamming_top2`): its best index is the
-reference's gated argmin, first column on ties. `sad_refine` is kernel K7:
-on CUDA tensors it launches `csrc/stereo_sad.cu`; on CPU tensors it runs
-`sad_refine_plain`. The median dispersion filter is plain PyTorch.
-`match_stereo_general` is kernel K16 (`csrc/stereo_general.cu`) on CUDA
-tensors and `match_stereo_general_plain` on CPU tensors.
+One launch of K3's gated mode (`hamming.hamming_top2_gated`, "row_band":
+row band, disparity range, octave band, tested per pair in the kernel)
+gives the reference's gated argmin, first column on ties. `sad_refine` is
+kernel K7: on CUDA tensors it launches `csrc/stereo_sad.cu`; on CPU
+tensors it runs `sad_refine_plain`. The median dispersion filter is plain
+PyTorch. `match_stereo_general` is kernel K16 (`csrc/stereo_general.cu`)
+on CUDA tensors and `match_stereo_general_plain` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -43,16 +43,12 @@ class StereoMatches(NamedTuple):
 def row_search(feats_l, feats_r, scale_factors, max_d: float):
     """Gated descriptor search along rectified rows. Returns (best right
     index (NL,) int32, matched (NL,) bool: best distance <= TH_ORB)."""
-    uv_l, uv_r = feats_l.uv, feats_r.uv
-    sf_l = scale_factors[feats_l.octave.long()]
     # the row band scales with the left keypoint's octave
-    dy = torch.abs(uv_l[:, 1:2] - uv_r[None, :, 1])
-    band = 2.0 * sf_l[:, None]
-    disp = uv_l[:, 0:1] - uv_r[None, :, 0]
-    oct_ok = torch.abs(feats_l.octave[:, None] - feats_r.octave[None, :]) <= 1
-    cand = ((dy <= band) & (disp >= 0.0) & (disp <= max_d) & oct_ok
-            & feats_l.valid[:, None] & feats_r.valid[None, :])
-    best, best_idx, _ = hamming.hamming_top2(feats_l.desc, feats_r.desc, cand)
+    band = 2.0 * scale_factors[feats_l.octave.long()]
+    best, best_idx, _ = hamming.hamming_top2_gated(
+        feats_l.desc, feats_r.desc, feats_l.uv, band, feats_l.octave,
+        feats_l.valid, feats_r.uv, feats_r.octave, feats_r.valid,
+        "row_band", max_d=max_d)
     return best_idx, best <= TH_ORB
 
 

@@ -542,13 +542,18 @@ def optimize_pose_inertial_plain(R0_cw, t0_cw, v0, bias0, Xw, obs, info,
                bias + xj[9:15])
         return new, chi2, H
 
+    def obs_chi2(R_wb, p_wb, active):
+        # gn_step's chi2 without its edge Jacobian and solve
+        R_cw, t_cw = lie.se3_inv(R_wb, p_wb)
+        return ba._obs_terms(frame._replace(obs_mask=active), R_cw[None],
+                             t_cw[None], Xw, body=True)[4]
+
     st = (R_a_wb, p_a, v_a, bias_a, *lie.se3_inv(R0_cw, t0_cw), v0, bias0)
     active = valid
     for _ in range(2):
         for _ in range(n_iters):
             st, _, _ = gn_step(*st, active)
-        _, chi2, _ = gn_step(*st, active)
-        active = valid & (chi2 < chi2_th)
+        active = valid & (obs_chi2(st[4], st[5], active) < chi2_th)
     _, chi2, H_full = gn_step(*st, active)
     inl = valid & (chi2 < chi2_th)
     R_cw, t_cw = lie.se3_inv(*st[4:6])

@@ -44,6 +44,16 @@ def inertial_system_magnitudes(p: inertial.InitProblem, x):
     return inertial._assemble(p, r.abs(), J.abs(), W.abs(), x.abs())
 
 
+def plain_pyramid_blur(img, n_levels: int, scale: float):
+    """The plain K6 (pyramid, then the blur of each level) in the layout
+    the one-launch K6 returns: a stand-in for `image.pyramid_blur` that
+    forces the plain K6 into `frontend.extract_orb`."""
+    from .ops import image
+    levels = image.build_pyramid_plain(img, n_levels, scale)
+    return pack_levels(levels), pack_levels(
+        [image.gaussian_blur_plain(l) for l in levels])
+
+
 def pack_levels(levels):
     """The images `levels` copied into consecutive contiguous views of one
     buffer, the layout K6 returns and `orb_descriptor.orb_describe_levels`

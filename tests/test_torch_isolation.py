@@ -11,8 +11,9 @@ loop-closing slice's `solvers/sim3.py`, `optim/pose_graph.py`,
 `io/trajectory.py`, `io/datasets.py`, `io/native_loader.py`,
 `eval/ate.py`, `utils/`, `viz.py`, `examples/` and `tools/`; K13's
 wrappers (`optim/vi_ba.py` inertial_system, inertial_cost), K15's
-(`optim/pose_graph.py` normal_equations) and K6's (`ops/image.py`
-build_pyramid, blur_levels) are held to the same device rules. The native
+(`optim/pose_graph.py` normal_equations), K6's (`ops/image.py`
+pyramid_blur, build_pyramid, blur_levels) and K3's gated mode
+(`ops/hamming.py` hamming_top2_gated) are held to the same device rules. The native
 image loader builds only from the port's own
 `morb_slam_tpu_torch/native/loader.cc` and reads nothing of the repository's
 `native/` directory."""
@@ -217,7 +218,8 @@ def _graph_args(device, K=3):
                                     "inertial_system", "inertial_cost",
                                     "normal_equations", "build_pyramid",
                                     "blur_levels", "orb_describe_levels",
-                                    "fast_select_levels"])
+                                    "fast_select_levels", "pyramid_blur",
+                                    "hamming_top2_gated"])
 def test_wrappers_refuse_other_devices(kernel):
     meta = torch.device("meta")
     before = _counts()
@@ -276,6 +278,15 @@ def test_wrappers_refuse_other_devices(kernel):
         elif kernel == "blur_levels":
             image.blur_levels([torch.empty((48, 64), device=meta),
                                torch.empty((40, 53), device=meta)])
+        elif kernel == "pyramid_blur":
+            image.pyramid_blur(torch.empty((48, 64), device=meta), 3, 1.2)
+        elif kernel == "hamming_top2_gated":
+            d = torch.empty((4, 8), dtype=torch.int32, device=meta)
+            uv = torch.zeros((4, 2), device=meta)
+            o = torch.zeros(4, dtype=torch.int32, device=meta)
+            f = torch.ones(4, dtype=torch.bool, device=meta)
+            hamming.hamming_top2_gated(d, d, uv, uv[:, 0], o, f, uv, o, f,
+                                       "window")
         elif kernel == "fast_select_levels":
             fast.fast_select_levels([torch.empty((48, 64), device=meta)],
                                     [10], frontend.OrbConfig())
@@ -335,6 +346,22 @@ def test_k4_per_obs_and_k14_use_plain_versions_on_cpu():
     assert ba.SCHUR_LAUNCHES["plain"] == before[1]["plain"] + 2
     assert ba.LAUNCHES["kernel"] == before[0]["kernel"]
     assert ba.SCHUR_LAUNCHES["kernel"] == before[1]["kernel"]
+
+
+def test_gated_k3_uses_plain_version_on_cpu():
+    """K3's gated mode on CPU tensors: its plain version (the dense gate,
+    then hamming_top2_plain), one plain call and no launch."""
+    d = torch.zeros((3, 8), dtype=torch.int32)
+    uv = torch.zeros((3, 2))
+    o = torch.zeros(3, dtype=torch.int32)
+    f = torch.ones(3, dtype=torch.bool)
+    before = dict(hamming.LAUNCHES)
+    best, idx, second = hamming.hamming_top2_gated(d, d, uv, uv[:, 0] + 1.0,
+                                                   o, f, uv, o, f, "window")
+    assert hamming.LAUNCHES == {"kernel": before["kernel"],
+                                "plain": before["plain"] + 1}
+    assert best.tolist() == [0, 0, 0] and idx.tolist() == [0, 0, 0]
+    assert second.tolist() == [0, 0, 0]
 
 
 def test_k6_blur_uses_plain_version_on_cpu():

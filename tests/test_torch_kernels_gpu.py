@@ -345,6 +345,101 @@ def test_hamming_top2_ties_and_unaligned_views(cuda):
     assert int((got[0] == 0).sum()) > 0     # some rows found their copy
 
 
+def _gated_case(dev, mode, n, m, seed=0, nan_rows=0.0, cols_off=False,
+                rows_off=False):
+    """K3's gated inputs on the card: rows near columns (so many pairs pass
+    and twins of every column descriptor make ties), NaN / inf rows, the
+    octave at 0 and 7, and optionally every column or row flag off."""
+    rng = np.random.default_rng(seed)
+    b = _desc(rng, m)
+    b[m // 2:] = b[:m - m // 2].clone()
+    a = b[torch.from_numpy(rng.integers(0, m, n))].clone()
+    a ^= torch.from_numpy(((rng.random((n, 8)) < 0.3)
+                           << rng.integers(0, 31, (n, 8))).astype(np.int32))
+    col_uv = rng.uniform(0, 752, (m, 2)).astype(np.float32)
+    col_uv[:, 1] *= 480 / 752
+    row_uv = (col_uv[rng.integers(0, m, n)] + rng.normal(0, 4, (n, 2))
+              ).astype(np.float32)
+    bad = rng.random(n) < nan_rows
+    row_uv[bad] = rng.choice([np.nan, np.inf, -np.inf], (int(bad.sum()), 2))
+    row_uv[bad & (rng.random(n) < 0.5), 0] = 5.0
+    row_oct = rng.integers(0, 8, n).astype(np.int32)
+    row_oct[:min(n, 2)] = 0
+    row_oct[2:min(n, 4)] = 7
+    if mode == "row_band":
+        near = rng.integers(0, m, n)
+        row_uv[:, 1] = np.where(rng.random(n) < 0.5, col_uv[near, 1],
+                                row_uv[:, 1])
+        row_uv[:, 0] = np.where(bad, row_uv[:, 0], col_uv[near, 0]
+                                + rng.uniform(-5, 60, n)).astype(np.float32)
+    sf = (1.2 ** np.arange(8)).astype(np.float32)
+    row_r = (np.float32(2.0 if mode == "row_band" else 4.0)
+             * sf[row_oct]).astype(np.float32)
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    row_ok = rng.random(n) < (0.0 if rows_off else 0.85)
+    col_ok = rng.random(m) < (0.0 if cols_off else 0.9)
+    col_oct = rng.integers(0, 8, m).astype(np.int32)
+    if n == m == 1:                       # the one pair passes
+        row_uv[0] = col_uv[0] + np.float32([2.0, 0.0])
+        col_oct[0], row_ok[0], col_ok[0] = row_oct[0], True, True
+    return (a.to(dev), b.to(dev), f(row_uv), f(row_r), f(row_oct), f(row_ok),
+            f(col_uv), f(col_oct), f(col_ok))
+
+
+GATED_CASES = {
+    "1200x1200": dict(n=1200, m=1200, nan_rows=0.05),
+    "4096x1200": dict(n=4096, m=1200, nan_rows=0.05),
+    "4500x300 (one warp a row)": dict(n=4500, m=300, nan_rows=0.05),
+    "odd 37x45": dict(n=37, m=45, nan_rows=0.2),
+    "odd 333x1031 (two column chunks)": dict(n=333, m=1031),
+    "one row, one column": dict(n=1, m=1),
+    "NaN rows": dict(n=100, m=300, nan_rows=1.0),
+    "all columns off": dict(n=300, m=200, cols_off=True),
+    "all rows off": dict(n=300, m=200, rows_off=True),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(hamming.GATE_MODES))
+@pytest.mark.parametrize("case", sorted(GATED_CASES))
+def test_hamming_top2_gated_bitwise(cuda, mode, case):
+    """K3's gated mode against its plain version (the dense gate, then
+    hamming_top2_plain) and against the masked kernel on the same gate:
+    best, index and second bitwise equal, one launch a call."""
+    args = _gated_case(cuda, mode, seed=len(case), **GATED_CASES[case])
+    max_d = 120.0
+    n0 = hamming.LAUNCHES["kernel"]
+    got = hamming.hamming_top2_gated(*args, mode, max_d=max_d)
+    assert hamming.LAUNCHES["kernel"] == n0 + 1
+    want = hamming.hamming_top2_gated_plain(*args, mode, max_d=max_d)
+    masked = hamming.hamming_top2(args[0], args[1], hamming.gate_mask(
+        *args[2:], mode, max_d=max_d))
+    for name, g, w, k in zip(("best", "index", "second"), got, want, masked):
+        assert torch.equal(g, w), (name, int((g != w).sum()))
+        assert torch.equal(g, k), (name, int((g != k).sum()))
+
+
+def test_hamming_top2_gated_refuses_bad_inputs(cuda):
+    args = list(_gated_case(cuda, "window", 20, 30))
+    before = dict(hamming.LAUNCHES)
+    bad = [(0, args[0].long()), (1, args[1][:, :4]), (2, args[2].double()),
+           (3, args[3][:-1]), (4, args[4].long()), (5, args[5].int()),
+           (6, args[6][:, :1]), (7, args[7][:-1]), (8, args[8].float())]
+    for i, t in bad:
+        a = list(args)
+        a[i] = t
+        with pytest.raises(ValueError):
+            hamming.hamming_top2_gated(*a, "window")
+    with pytest.raises(ValueError):
+        hamming.hamming_top2_gated(*args, "box")
+    empty = list(args)
+    empty[1], empty[6], empty[7], empty[8] = (x[:0] for x in
+                                              (args[1], args[6], args[7],
+                                               args[8]))
+    with pytest.raises(ValueError):
+        hamming.hamming_top2_gated(*empty, "window")
+    assert hamming.LAUNCHES == before
+
+
 def test_wrappers_refuse_bad_inputs_on_the_card(cuda):
     before = [dict(m.LAUNCHES) for m in (fast, orb_descriptor, hamming)]
     img = torch.zeros((48, 64), dtype=torch.float64, device=cuda)
@@ -1393,6 +1488,56 @@ def test_k6_pyramid_and_blur(cuda, shape, n_levels):
     assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
+K6_FUSED = [((480, 752), 8), ((480, 640), 8), ((512, 512), 8),
+            ((131, 97), 1), ((131, 97), 4), ((131, 97), 8), ((7, 5), 2)]
+
+
+@pytest.mark.parametrize("shape,n_levels", K6_FUSED)
+def test_k6_one_launch_bitwise_equal_per_level_path(cuda, shape, n_levels):
+    """pyramid_blur: one launch an image, its levels and blurred levels
+    consecutive contiguous views of one buffer each, bitwise equal to the
+    per-level chain (build_pyramid) and to blur_levels, and the blur
+    bitwise equal to the plain blur of its own levels."""
+    rng = np.random.default_rng(sum(shape) + n_levels)
+    img = image.gaussian_blur_plain(torch.from_numpy(
+        rng.integers(0, 256, shape).astype(np.float32))).to(cuda)
+    before = dict(image.LAUNCHES)
+    levels, blurred = image.pyramid_blur(img, n_levels, 1.2)
+    assert image.LAUNCHES == {"kernel": before["kernel"] + 1,
+                              "plain": before["plain"]}
+    assert len(levels) == len(blurred) == n_levels
+    for views in (levels, blurred):
+        at = views[0].data_ptr()
+        for v in views:
+            assert v.is_contiguous() and v.data_ptr() == at
+            at += 4 * v.numel()
+    per = image.build_pyramid(img, n_levels, 1.2)
+    per_blur = image.blur_levels(per)
+    for a, b in zip(levels, per):
+        assert a.shape == b.shape and torch.equal(a, b)
+    for a, b in zip(blurred, per_blur):
+        assert torch.equal(a, b)
+    for a, l in zip(blurred, levels):
+        assert torch.equal(a, image.gaussian_blur_plain(l))
+    for a, b in zip(levels, image.build_pyramid_plain(img, n_levels, 1.2)):
+        assert float((a - b).abs().max()) < 1e-3
+    again = image.pyramid_blur(img, n_levels, 1.2)
+    assert all(torch.equal(a, b) for a, b in zip(again[0] + again[1],
+                                                  levels + blurred))
+
+
+def test_k6_one_launch_refuses_bad_inputs(cuda):
+    before = dict(image.LAUNCHES)
+    for img, n in ((torch.zeros((8, 8), dtype=torch.float64, device=cuda), 2),
+                   (torch.zeros((2, 8, 8), device=cuda), 2),
+                   (torch.zeros((64, 64), device=cuda), 17),
+                   (torch.zeros((64, 64), device=cuda), 0),
+                   (torch.zeros((64, 64), dtype=torch.uint8, device=cuda), 3)):
+        with pytest.raises(ValueError):
+            image.pyramid_blur(img, n, 1.2)
+    assert image.LAUNCHES == before
+
+
 def test_k6_blur_refuses_unpacked_levels(cuda):
     """blur_levels takes only consecutive contiguous views of one buffer;
     gaussian_blur blurs a strided view as its contiguous copy."""
@@ -1437,10 +1582,7 @@ def test_k6_extract_orb_agrees_with_plain(cuda, monkeypatch):
     img = img.to(cuda)
     cfg = frontend.OrbConfig(n_features=1200, n_levels=8)
     got = frontend.extract_orb(img, cfg)
-    monkeypatch.setattr(image, "build_pyramid", lambda *a: testing.pack_levels(
-        image.build_pyramid_plain(*a)))
-    monkeypatch.setattr(image, "blur_levels", lambda ls: testing.pack_levels(
-        [image.gaussian_blur_plain(l) for l in ls]))
+    monkeypatch.setattr(image, "pyramid_blur", testing.plain_pyramid_blur)
     want = frontend.extract_orb(img, cfg)
     same = (got.uv == want.uv).all(-1) & (got.octave == want.octave) & \
         (got.valid == want.valid)

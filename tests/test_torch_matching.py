@@ -212,3 +212,120 @@ def test_resolve_conflicts_exact():
                                    jnp.asarray(best_dist), jnp.asarray(ok), 50)
     t = t_match._resolve_conflicts(_t(best_feat), _t(best_dist), _t(ok), 50)
     np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+GATE_MODES = ("window", "window_nan", "row_band")
+N_LEVELS = 8
+
+
+def _gate_case(mode, n=150, m=120, seed=9):
+    """Per-row and per-column gate inputs of K3's gated mode, made from a
+    seed: columns near the rows so many pairs pass, NaN and +-inf rows
+    (one coordinate or both), a row far from every column, flags off, the
+    predicted octave at 0 and at N_LEVELS - 1, and duplicated column
+    descriptors, so best distances tie."""
+    rng = np.random.default_rng(seed + GATE_MODES.index(mode))
+    b = _rand_desc(rng, m)
+    b[m // 2:] = b[:m - m // 2]                 # every column has a twin
+    a = b[rng.integers(0, m, n)].copy()
+    flips = rng.random((n, 8, 32)) < 0.04
+    a = (a.view(np.uint32) ^ (flips * (1 << np.arange(32))).sum(-1).astype(
+        np.uint32)).view(np.int32)
+    col_uv = rng.uniform(0, 120, (m, 2)).astype(np.float32)
+    row_uv = (col_uv[rng.integers(0, m, n)]
+              + rng.normal(0, 3, (n, 2))).astype(np.float32)
+    row_uv[:4] = [[np.nan, 5.0], [7.0, np.nan], [np.nan, np.nan],
+                  [np.inf, 3.0]]
+    row_uv[4:7] = [[-np.inf, 3.0], [3.0, np.inf], [np.inf, -np.inf]]
+    row_uv[7] = [1e6, 1e6]                      # no candidate
+    row_oct = rng.integers(0, N_LEVELS, n).astype(np.int32)
+    row_oct[8:12] = [0, 0, N_LEVELS - 1, N_LEVELS - 1]
+    col_oct = rng.integers(0, N_LEVELS, m).astype(np.int32)
+    sf = (1.2 ** np.arange(N_LEVELS)).astype(np.float32)
+    if mode == "row_band":
+        row_uv[12:40, 1] = col_uv[:28, 1]       # on a column's row
+        row_uv[12:40, 0] = col_uv[:28, 0] + rng.uniform(0, 30, 28)
+        row_r = np.float32(2.0) * sf[row_oct]
+    else:
+        row_r = np.float32(4.0) * sf[row_oct]
+    row_ok = rng.random(n) < 0.9
+    col_ok = rng.random(m) < 0.9
+    return dict(a=a, b=b, row_uv=row_uv, row_r=row_r.astype(np.float32),
+                row_oct=row_oct, row_ok=row_ok, col_uv=col_uv,
+                col_oct=col_oct, col_ok=col_ok, max_d=40.0)
+
+
+def _old_gate(c, mode):
+    """The dense gates the three searches built before K3's gated mode
+    (matching.py's two windows, stereo.row_search's band), on torch."""
+    g = {k: _t(v) for k, v in c.items() if k != "max_d"}
+    if mode == "row_band":
+        dy = torch.abs(g["row_uv"][:, 1:2] - g["col_uv"][None, :, 1])
+        band = g["row_r"][:, None]
+        disp = g["row_uv"][:, 0:1] - g["col_uv"][None, :, 0]
+        oct_ok = torch.abs(g["row_oct"][:, None] - g["col_oct"][None, :]) <= 1
+        return ((dy <= band) & (disp >= 0.0) & (disp <= c["max_d"]) & oct_ok
+                & g["row_ok"][:, None] & g["col_ok"][None, :])
+    d_uv = g["row_uv"][:, None, :] - g["col_uv"][None, :, :]
+    if mode == "window_nan":
+        close = torch.amax(torch.abs(torch.nan_to_num(d_uv, nan=1e9)),
+                           dim=-1) <= g["row_r"][:, None]
+    else:
+        close = torch.amax(torch.abs(d_uv), dim=-1) <= g["row_r"][:, None]
+    pred = g["row_oct"]
+    oct_ok = (g["col_oct"][None, :] >= pred[:, None] - 1) & \
+             (g["col_oct"][None, :] <= pred[:, None] + 1)
+    return close & oct_ok & g["row_ok"][:, None] & g["col_ok"][None, :]
+
+
+def _gated(c, mode):
+    return t_ham.hamming_top2_gated(
+        _t(c["a"]), _t(c["b"]), _t(c["row_uv"]), _t(c["row_r"]),
+        _t(c["row_oct"]), _t(c["row_ok"]), _t(c["col_uv"]), _t(c["col_oct"]),
+        _t(c["col_ok"]), mode, max_d=c["max_d"])
+
+
+@pytest.mark.parametrize("mode", GATE_MODES)
+def test_gated_plain_equals_old_gate_composition(mode):
+    """K3's gated entry on the CPU equals the searches' earlier dense gate
+    followed by hamming_top2_plain, bitwise, with rows that have no
+    candidate, NaN / inf rows and tied distances among the cases."""
+    c = _gate_case(mode)
+    mask = _old_gate(c, mode)
+    want = t_ham.hamming_top2_plain(_t(c["a"]), _t(c["b"]), mask)
+    got = _gated(c, mode)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    n_cand = mask.sum(1)
+    assert int((n_cand == 0).sum()) > 8 and int((n_cand >= 2).sum()) > 20
+    assert not bool(mask[:7].any())             # NaN / inf rows never pass
+    assert int((got[0] == got[2]).logical_and(n_cand >= 2).sum()) > 0
+
+
+@pytest.mark.parametrize("mode", GATE_MODES)
+def test_gated_matches_jax_gate(mode):
+    """The JAX package's gate compositions (matching.py:97-98 and its
+    search_last_frame, ops/stereo.py:53-59) with hamming_matrix and
+    top2_min give the gated entry's best, index and second, bitwise."""
+    c = _gate_case(mode)
+    j = {k: jnp.asarray(v) for k, v in c.items() if k != "max_d"}
+    if mode == "row_band":
+        dy = jnp.abs(j["row_uv"][:, 1:2] - j["col_uv"][None, :, 1])
+        disp = j["row_uv"][:, 0:2][:, 0:1] - j["col_uv"][None, :, 0]
+        oct_ok = jnp.abs(j["row_oct"][:, None] - j["col_oct"][None, :]) <= 1
+        cand = ((dy <= j["row_r"][:, None]) & (disp >= 0.0)
+                & (disp <= c["max_d"]) & oct_ok & j["row_ok"][:, None]
+                & j["col_ok"][None, :])
+    else:
+        d_uv = j["row_uv"][:, None, :] - j["col_uv"][None, :, :]
+        if mode == "window_nan":
+            d_uv = jnp.nan_to_num(d_uv, nan=1e9)
+        close = jnp.max(jnp.abs(d_uv), axis=-1) <= j["row_r"][:, None]
+        oct_ok = (j["col_oct"][None, :] >= j["row_oct"][:, None] - 1) & \
+                 (j["col_oct"][None, :] <= j["row_oct"][:, None] + 1)
+        cand = close & oct_ok & j["row_ok"][:, None] & j["col_ok"][None, :]
+    d = jnp.where(cand, j_ham.hamming_matrix(_u32(c["a"]), _u32(c["b"])),
+                  1 << 20)
+    ref = [np.asarray(x) for x in j_ham.top2_min(d)]
+    for g, r in zip(_gated(c, mode), ref):
+        np.testing.assert_array_equal(g.numpy(), r)

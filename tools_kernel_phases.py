@@ -1,42 +1,46 @@
 """Phase shares of hand-written kernels on the card, stamped with
-`clock64()`: K12 (`csrc/pose_inertial.cu`) and K2 (`csrc/orb_describe.cu`)
-in their earlier forms (K12 over the 30-dim state, K2 launched per level,
-as of commit 4ceff5a) and K12's 15-dim form; K5 (`csrc/pose_opt.cu`) and
-K1 (`csrc/fast_select.cu`) in their earlier forms (as of commit ea2e66d:
-K5's serial tail on thread 0, K1 launched per level) and in this tree's.
+`clock64()`: this tree's K12 (`csrc/pose_inertial.cu`), K5
+(`csrc/pose_opt.cu`), K1 (`csrc/fast_select.cu`), K3
+(`csrc/hamming_top2.cu`) and K6 (`csrc/pyramid_blur.cu`), and K3 and K6 in
+their earlier forms (as of commit a873e66: the masked K3 on a dense gate,
+K6 launched per level).
 
-    git archive 4ceff5a morb_slam_tpu_torch/csrc | tar -x -C old/
-    python3 tools_kernel_phases.py --csrc old/morb_slam_tpu_torch/csrc
     python3 tools_kernel_phases.py --new
-    git archive ea2e66d morb_slam_tpu_torch/csrc | tar -x -C old10/
-    python3 tools_kernel_phases.py --k5 --k1 --csrc old10/morb_slam_tpu_torch/csrc
     python3 tools_kernel_phases.py --k5 --k1 --new
+    python3 tools_kernel_phases.py --k3 --k6 --new
+    git archive a873e66 morb_slam_tpu_torch/csrc | tar -x -C old11/
+    python3 tools_kernel_phases.py --k3 --k6 --csrc old11/morb_slam_tpu_torch/csrc
 
 Copies the sources (and the headers) into a temporary directory, inserts
 the stamps, builds them with the port's `nvcc` flags and runs them at
-`chip_smoke.py`'s shapes. K12 at the tracking shape (1,200 observations,
-60% stereo, 2 x 6 + final): the earlier K12's thread 0 adds the cycles
-since its last stamp to one of 16 phase counters at each barrier or phase
-end; `--new`: thread 0 (the solver warp's lane 0) and thread 32 (the
-first visual thread) each keep their own counters. K2 on the 8 levels of
-the first rendered frame: lane 0 of every warp records the cycles of the
-orientation and of the descriptor. `--k5`: K5 at the tracking (1,200
-observations, 60% stereo, 2 x 8) and relocalization (mono, 3 x 10)
-shapes; the earlier kernel's thread 0 stamps, this tree's thread 0 (the
-solver warp) and thread 32 (a row warp), at 512 and 256 threads a block.
-`--k1`: K1 on the 8 levels of a 752x480 frame; the earlier per-level
-launches with thread 0 of every block stamping its phases, each launch's
-device time and the whole earlier selection (8 launches + torch's sort,
-gathers and slots: kernels and device ms an image); this tree's cell
-stage and level stage, stamped by block. Prints one JSON object (also
-written to chiprun_out/kernel_phases.json, kernel_phases_new.json or
-kernel_phases_k5_k1[_new].json). The stamp anchors match those sources
+`chip_smoke.py`'s shapes. `--new`: K12 at the tracking shape (1,200
+observations, 60% stereo, 2 x 6 + final); thread 0 (the solver warp's
+lane 0) and thread 32 (the first visual thread) each add the cycles since
+their last stamp to their own phase counters. `--k5`: K5 at the tracking
+(1,200 observations, 60% stereo, 2 x 8) and relocalization (mono, 3 x 10)
+shapes; thread 0 (the solver warp) and thread 32 (a row warp) stamp, at
+256 and 512 threads a block. `--k1`: K1 on the 8 levels of a 752x480
+frame, its cell stage and level stage stamped by block. `--k3`: K3 on
+chip_smoke.py's gated inputs (a 4096x1200 projection window, a 1200x1200
+window with NaN rows, a 1200x1200 stereo row band); the earlier masked
+kernel on the dense gate, lane 0 of every warp stamping its phases, with
+the gate composition's kernels and device time, or this tree's gated mode
+stamped the same way, with unstamped builds at 1, 2, 4 and 8 warps a row.
+`--k6`: K6 on the first rendered 752x480 frame, 8 levels; the earlier
+per-level launches stamped by block with each launch's and the whole
+path's device time, or this tree's one launch stamped by block (phases
+over all levels, each grid barrier's wait) with unstamped builds at other
+grid sizes. Prints one JSON object (also written to
+chiprun_out/kernel_phases_new.json, kernel_phases_k5_k1_new.json or
+kernel_phases_k3_k6[_new].json). The stamp anchors match those sources
 only. Needs a CUDA card and nvcc.
+
+The earlier forms of K12, K2 (as of commit 4ceff5a), K5 and K1 (as of
+commit ea2e66d) are stamped by this script as of commit a873e66.
 """
 import argparse
 import ctypes
 import json
-import math
 import os
 import re
 import shutil
@@ -48,13 +52,8 @@ import torch
 
 import chip_smoke as cs
 from morb_slam_tpu_torch import frontend, imu
-from morb_slam_tpu_torch.ops import cuda_build, fast, image, orb_descriptor
+from morb_slam_tpu_torch.ops import cuda_build, fast, image
 from morb_slam_tpu_torch.optim import vi_ba
-
-K12_PHASES = ["setup", "visual", "edge_jac", "edge_wait", "JtW", "H_g",
-              "t0_sum_rw", "mask", "symm", "scale", "chol", "subst_update",
-              "final_bar", "reclass", "final_step_tail", "outputs"]
-
 
 def _patch(text, pairs):
     for a, b in pairs:
@@ -62,66 +61,6 @@ def _patch(text, pairs):
             raise SystemExit(f"stamp anchor not found once: {a[:60]!r}")
         text = text.replace(a, b)
     return text
-
-
-def _k12_source(text):
-    bar = "        __syncthreads();\n"
-    return _patch(text, [
-        ("                     long long* __restrict__ n_inliers) {",
-         "                     long long* __restrict__ n_inliers,\n"
-         "                     long long* __restrict__ phase_out) {\n"
-         "    long long ph[16];\n"
-         "    for (int q = 0; q < 16; ++q) ph[q] = 0;\n"
-         "    long long last = clock64();\n"
-         "#define STAMP(k) if (threadIdx.x == 0) { long long t_ = clock64();"
-         " ph[k] += t_ - last; last = t_; }"),
-        ("        if (reclass) {\n            for (int i = tid;",
-         "        STAMP(0)\n        if (reclass) {\n"
-         "            for (int i = tid;"),
-        ("            __syncthreads();\n            continue;",
-         "            __syncthreads();\n            STAMP(13)\n"
-         "            continue;"),
-        ("            if (lane == 0) red[warp][k] = v;\n        }",
-         "            if (lane == 0) red[warp][k] = v;\n        }\n"
-         "        STAMP(1)"),
-        ("                for (int a = 0; a < 9; ++a) re[a] = r[a].v;\n"
-         "        }\n" + bar,
-         "                for (int a = 0; a < 9; ++a) re[a] = r[a].v;\n"
-         "        }\n        STAMP(2)\n" + bar + "        STAMP(3)\n"),
-        ("            JtW[b][i] = s;\n        }\n" + bar,
-         "            JtW[b][i] = s;\n        }\n" + bar + "        STAMP(4)\n"),
-        ("            g[tid] = -s;\n        }\n" + bar,
-         "            g[tid] = -s;\n        }\n" + bar + "        STAMP(5)\n"),
-        ("                g[24 + q] += -rw * rr;\n            }\n        }\n"
-         + bar,
-         "                g[24 + q] += -rw * rr;\n            }\n        }\n"
-         + bar + "        STAMP(6)\n"),
-        ("        if (tid < 15) g[tid] = 0.0f;\n" + bar,
-         "        if (tid < 15) g[tid] = 0.0f;\n" + bar + "        STAMP(7)\n"),
-        ("H[q / 30][q % 30] = Lm[q / 30][q % 30];\n" + bar,
-         "H[q / 30][q % 30] = Lm[q / 30][q % 30];\n" + bar
-         + "        STAMP(8)\n"),
-        ("(i == j ? 1e-6f : 0.0f);\n        }\n" + bar,
-         "(i == j ? 1e-6f : 0.0f);\n        }\n" + bar + "        STAMP(9)\n"),
-        ("                __syncwarp();\n            }\n"
-         "            if (lane == 0) {\n                float y[30];",
-         "                __syncwarp();\n            }\n            STAMP(10)\n"
-         "            if (lane == 0) {\n                float y[30];"),
-        ("                update_state(S + 21, dx + 15);\n            }\n"
-         "        }\n" + bar + "    }",
-         "                update_state(S + 21, dx + 15);\n            }\n"
-         "            STAMP(11)\n        }\n" + bar + "        STAMP(12)\n"
-         "    }\n    STAMP(14)"),
-        ("out[21 + q] = H[q / 30][q % 30];\n}",
-         "out[21 + q] = H[q / 30][q % 30];\n    STAMP(15)\n"
-         "    if (tid == 0) for (int q = 0; q < 16; ++q) "
-         "phase_out[q] = ph[q];\n}"),
-        ("void* inliers, void* n_inliers, void* stream) {",
-         "void* inliers, void* n_inliers, void* stream,\n"
-         "                             void* phase) {"),
-        ("        (long long*)n_inliers);",
-         "        (long long*)n_inliers, (long long*)phase);"),
-    ])
 
 
 K12_NEW_PHASES = {
@@ -206,27 +145,6 @@ def _k12_new_source(text):
     ])
 
 
-def _k2_source(text):
-    return _patch(text, [
-        ("float* __restrict__ angle_out, int* __restrict__ desc_out) {",
-         "float* __restrict__ angle_out, int* __restrict__ desc_out,\n"
-         "                    long long* __restrict__ ph) {\n"
-         "    const long long t0 = clock64();"),
-        ("    sincosf(ang, &sa, &ca);\n",
-         "    sincosf(ang, &sa, &ca);\n    const long long t1 = clock64();\n"),
-        ("    if (lane == 0) angle_out[k] = ang;\n}",
-         "    if (lane == 0) angle_out[k] = ang;\n"
-         "    if (lane == 0) { const long long t2 = clock64();\n"
-         "        ph[2 * k] = t1 - t0; ph[2 * k + 1] = t2 - t1; }\n}"),
-        ("const int* yx, int n, float* angle, int* desc,\n"
-         "                            void* stream) {",
-         "const int* yx, int n, float* angle, int* desc,\n"
-         "                            void* stream, void* ph) {"),
-        ("img, blur, H, W, yx, n, angle, desc);",
-         "img, blur, H, W, yx, n, angle, desc, (long long*)ph);"),
-    ])
-
-
 def _define(text, name, value):
     """`text` with its `#define name ...` set to `value`."""
     out, n = re.subn(rf"^#define {name} \d+", f"#define {name} {value}",
@@ -234,6 +152,13 @@ def _define(text, name, value):
     if n != 1:
         raise SystemExit(f"#define {name} not found once")
     return out
+
+
+def _replace_once(text, old, new):
+    """`text` with the one occurrence of `old` replaced by `new`."""
+    if text.count(old) != 1:
+        raise SystemExit(f"{old.strip()!r} not found once")
+    return text.replace(old, new)
 
 
 def _build(src_dir, name, text):
@@ -334,114 +259,6 @@ def _new_k12(reps):
     _write(res, "kernel_phases_new.json")
 
 
-K5_PHASES = {
-    0: "row pass (thread 0's rows)",
-    1: "warp butterflies (27 x 5 shuffles)",
-    2: "barrier 1 wait",
-    3: "thread 0: cross-warp sum, H and g",
-    4: "thread 0: solve6",
-    5: "thread 0: apply_update",
-    6: "barrier 2",
-    7: "reclassify pass",
-    8: "reclassify barrier",
-    9: "outputs",
-    10: "set-up",
-}
-
-
-def _k5_source(text):
-    """The earlier K5 (one 512-thread block, thread 0's serial tail):
-    thread 0 adds the cycles since its last stamp to a phase counter."""
-    st = ("#define STAMP(k) if (threadIdx.x == 0) { long long t_ = clock64(); "
-          "ph[k] += t_ - last; last = t_; }\n")
-    return _patch(text, [
-        ("long long* __restrict__ n_inliers) {",
-         "long long* __restrict__ n_inliers,\n"
-         "                long long* __restrict__ phase_out) {\n"
-         "    long long ph[16];\n"
-         "    for (int q = 0; q < 16; ++q) ph[q] = 0;\n"
-         "    long long last = clock64();\n" + st),
-        ("inliers[i] = valid[i] ? 1 : 0;\n    __syncthreads();\n",
-         "inliers[i] = valid[i] ? 1 : 0;\n    __syncthreads();\n"
-         "    STAMP(10)\n"),
-        ("                            -(e.x - baseline) * iz2, e.x, e.y, e.z);\n"
-         "            }\n",
-         "                            -(e.x - baseline) * iz2, e.x, e.y, e.z);\n"
-         "            }\n            STAMP(0)\n"),
-        ("                if (lane == 0) red[warp][k] = v;\n            }\n"
-         "            __syncthreads();\n",
-         "                if (lane == 0) red[warp][k] = v;\n            }\n"
-         "            STAMP(1)\n            __syncthreads();\n"
-         "            STAMP(2)\n"),
-        ("                solve6(Hs, g, dx);\n                Pose P2 = sP;\n"
-         "                apply_update(P2, dx);\n                sP = P2;\n"
-         "            }\n            __syncthreads();\n",
-         "                STAMP(3)\n                solve6(Hs, g, dx);\n"
-         "                STAMP(4)\n                Pose P2 = sP;\n"
-         "                apply_update(P2, dx);\n                sP = P2;\n"
-         "                STAMP(5)\n"
-         "            }\n            __syncthreads();\n            STAMP(6)\n"),
-        ("        if (round == n_rounds) {\n#pragma unroll",
-         "        STAMP(7)\n        if (round == n_rounds) {\n#pragma unroll"),
-        ("            if (lane == 0) cnt[warp] = n;\n        }\n"
-         "        __syncthreads();\n    }\n",
-         "            if (lane == 0) cnt[warp] = n;\n        }\n"
-         "        __syncthreads();\n        STAMP(8)\n    }\n"),
-        ("    if (tid < 3) t_out[tid] = sP.t[tid];\n}",
-         "    if (tid < 3) t_out[tid] = sP.t[tid];\n    STAMP(9)\n"
-         "    if (tid == 0) for (int q = 0; q < 16; ++q) "
-         "phase_out[q] = ph[q];\n}"),
-        ("void* inliers, void* chi2, void* n_inliers,\n"
-         "                        void* stream) {",
-         "void* inliers, void* chi2, void* n_inliers,\n"
-         "                        void* stream, void* phase) {"),
-        ("        (long long*)n_inliers);",
-         "        (long long*)n_inliers, (long long*)phase);"),
-    ])
-
-
-K1_PHASES = ["tile load", "scores", "NMS and key", "top-2 reduction 1",
-             "top-2 reduction 2", "slot writes"]
-
-
-def _k1_source(text):
-    """The earlier K1 (one launch a level, a block a cell): thread 0 of
-    every block records the cycles of each phase."""
-    st = ("#define STAMP(k) if (threadIdx.x == 0) { long long t_ = clock64(); "
-          "ph[k] = t_ - last; last = t_; }\n")
-    return _patch(text, [
-        ("float* __restrict__ score_out) {",
-         "float* __restrict__ score_out,\n"
-         "                   long long* __restrict__ ph_out) {\n"
-         "    long long ph[6];\n    long long last = clock64();\n" + st),
-        ("        tile[ty][tx] = img[(size_t)gy * W + gx];\n    }\n"
-         "    __syncthreads();\n",
-         "        tile[ty][tx] = img[(size_t)gy * W + gx];\n    }\n"
-         "    __syncthreads();\n    STAMP(0)\n"),
-        ("        sc[sy][sx] = fmaxf(bright, dark);\n    }\n"
-         "    __syncthreads();\n",
-         "        sc[sy][sx] = fmaxf(bright, dark);\n    }\n"
-         "    __syncthreads();\n    STAMP(1)\n"),
-        ("(s > th_hi ? boost : 0.0f) : -INFINITY;\n",
-         "(s > th_hi ? boost : 0.0f) : -INFINITY;\n    STAMP(2)\n"),
-        ("    const unsigned int c1 = 0xFFFFu - (unsigned int)(b1 & 0xFFFFull);\n",
-         "    const unsigned int c1 = 0xFFFFu - (unsigned int)(b1 & 0xFFFFull);\n"
-         "    STAMP(3)\n"),
-        ("    const unsigned int c2 = 0xFFFFu - (unsigned int)(b2 & 0xFFFFull);\n",
-         "    const unsigned int c2 = 0xFFFFu - (unsigned int)(b2 & 0xFFFFull);\n"
-         "    STAMP(4)\n"),
-        ("(y < H && x < W) ? s : 0.0f;\n    }\n}",
-         "(y < H && x < W) ? s : 0.0f;\n    }\n    STAMP(5)\n"
-         "    if (threadIdx.x == 0) for (int q = 0; q < 6; ++q)\n"
-         "        ph_out[(size_t)cell * 6 + q] = ph[q];\n}"),
-        ("int* idx, float* score, void* stream) {",
-         "int* idx, float* score, void* stream, void* ph) {"),
-        ("img, H, W, th_lo, th_hi, boost, border, key, idx, score);",
-         "img, H, W, th_lo, th_hi, boost, border, key, idx, score,\n"
-         "        (long long*)ph);"),
-    ])
-
-
 def _k5_problems():
     """chip_smoke.py's two K5 shapes (the same construction)."""
     for name, share, rounds, iters, seed in (("tracking", 0.6, 2, 8, 1),
@@ -452,31 +269,29 @@ def _k5_problems():
         yield name, args, kw
 
 
-def _k5(csrc, new, reps, threads=None):
-    """K5 stamped at the tracking and relocalization shapes: cycles a call
-    and a Gauss-Newton step of each phase (`threads`: this tree's kernel
-    built at another block size)."""
+def _k5(reps, threads=None):
+    """This tree's K5 stamped at the tracking and relocalization shapes:
+    cycles a call and a Gauss-Newton step of each phase (`threads`: built
+    at another block size)."""
     from morb_slam_tpu_torch.optim import pose_opt
-    phases = K5_NEW_PHASES if new else K5_PHASES
+    phases = K5_NEW_PHASES
     P, I = ctypes.c_void_p, ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        text = open(os.path.join(csrc, "pose_opt.cu")).read()
+        text = open(os.path.join(cuda_build.CSRC, "pose_opt.cu")).read()
         if threads:
             text = _define(text, "THREADS", threads)
-        lib, ptx = _build(tmp, "pose_opt", (_k5_new_source if new
-                                            else _k5_source)(text))
+        lib, ptx = _build(tmp, "pose_opt", _k5_new_source(text))
         lib.pose_opt.argtypes = [P, P, P, P, I, P, P, P, ctypes.c_float, I,
                                  I, I, P, P, P, P, P, P, P]
         lib.pose_opt.restype = I
-        plain_lib = None
-        if new:     # the same source unstamped, for its own device time
-            os.makedirs(os.path.join(tmp, "u"))
-            plain_lib, uptx = _build(os.path.join(tmp, "u"), "pose_opt", text)
-            plain_lib.pose_opt.argtypes = lib.pose_opt.argtypes[:-1]
-            plain_lib.pose_opt.restype = I
-            out["ptxas_unstamped"] = uptx.strip()
+        # the same source unstamped, for its own device time
+        os.makedirs(os.path.join(tmp, "u"))
+        plain_lib, uptx = _build(os.path.join(tmp, "u"), "pose_opt", text)
+        plain_lib.pose_opt.argtypes = lib.pose_opt.argtypes[:-1]
+        plain_lib.pose_opt.restype = I
+        out["ptxas_unstamped"] = uptx.strip()
 
         def plain_call(R0, t0, Xw, obs, info, valid, ur, kw, n, R, t, inl,
                        chi2, n_inl):
@@ -519,7 +334,7 @@ def _k5(csrc, new, reps, threads=None):
             steps = kw["n_rounds"] * kw["n_iters"]
             tot = float(sum(cyc[k] for k in phases))
             out[name] = dict(
-                device_ms_unstamped=None if plain_lib is None else cs.device_ms(
+                device_ms_unstamped=cs.device_ms(
                     lambda: plain_call(R0, t0, Xw, obs, info, valid, ur, kw,
                                        n, R, t, inl, chi2, n_inl),
                     "pose_opt_kernel"),
@@ -541,89 +356,6 @@ def _frame_levels():
     cfg = frontend.OrbConfig(n_features=1200, n_levels=8)
     frame = world.render(*poses[0]).clamp(0, 255).to(torch.uint8).float()
     return image.build_pyramid(frame, 8, 1.2), cfg
-
-
-def _old_selection(levels, cfg, k1_level):
-    """The earlier per-level selection: one K1 launch a level, then torch's
-    stable sort, gathers and the Features slots of frontend.py (ea2e66d)."""
-    out = []
-    for l, (lvl, n_keep) in enumerate(zip(levels, cfg.per_level_counts())):
-        w = lvl.shape[1]
-        key, idx, score = k1_level(lvl)
-        vals, order = torch.sort(key.reshape(-1), descending=True,
-                                 stable=True)
-        top_vals, top_i = vals[:n_keep], order[:n_keep]
-        pix = idx.reshape(-1)[top_i]
-        valid = top_vals > -math.inf
-        yx = torch.stack([pix // w, pix % w], dim=-1).to(torch.int32)
-        yx = torch.where(valid[:, None], yx, torch.zeros_like(yx))
-        s = cfg.scale ** l
-        out.append((yx, top_vals, score.reshape(-1)[top_i], valid,
-                    torch.stack([yx[:, 1].to(torch.float32) * s,
-                                 yx[:, 0].to(torch.float32) * s], dim=-1),
-                    torch.full((n_keep,), l, dtype=torch.int32,
-                               device=lvl.device),
-                    torch.full((n_keep,), 31.0 * s, dtype=torch.float32,
-                               device=lvl.device)))
-    return [torch.cat(f) for f in zip(*out)]
-
-
-def _k1_old(csrc):
-    """The earlier K1, stamped, on the 8 levels of a 752x480 frame: each
-    launch's device time and per-block phase cycles, and the whole earlier
-    selection (8 launches + torch's per-level sort and slots)."""
-    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    stream = torch.cuda.current_stream().cuda_stream
-    levels, cfg = _frame_levels()
-    levels = [l.contiguous() for l in levels]
-    res = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        text = open(os.path.join(csrc, "fast_select.cu")).read()
-        lib, ptx = _build(tmp, "fast_select", _k1_source(text))
-        lib.fast_select.argtypes = [P, I, I, Fl, Fl, Fl, I, P, P, P, P, P]
-        lib.fast_select.restype = I
-        rows, bufs = [], {}
-
-        def k1_level(lvl):
-            h, w = lvl.shape
-            nc = (-(-h // 16)) * (-(-w // 16))
-            if (h, w) not in bufs:
-                bufs[(h, w)] = (
-                    torch.empty((nc, 2), device="cuda"),
-                    torch.empty((nc, 2), dtype=torch.int32, device="cuda"),
-                    torch.empty((nc, 2), device="cuda"),
-                    torch.zeros(nc * 6, dtype=torch.int64, device="cuda"))
-            key, idx, sc, ph = bufs[(h, w)]
-            cuda_build.check(lib.fast_select(
-                lvl.data_ptr(), h, w, cfg.th_fast_lo, cfg.th_fast_hi, 1e4,
-                16, key.data_ptr(), idx.data_ptr(), sc.data_ptr(), stream,
-                ph.data_ptr()), "fast_select (stamped)")
-            return key, idx, sc
-        for lvl in levels:
-            k1_level(lvl)
-            torch.cuda.synchronize()
-            h, w = lvl.shape
-            c = bufs[(h, w)][3].view(-1, 6).cpu().numpy().astype(float)
-            rows.append(dict(
-                shape=[h, w], blocks=int(c.shape[0]),
-                cycles=dict(zip(K1_PHASES, c.mean(0).tolist())),
-                block_cycles_mean=float(c.sum(1).mean()),
-                device_ms=cs.device_ms(lambda lvl=lvl: k1_level(lvl),
-                                       "fast_select_kernel")))
-        res["levels"] = rows
-        every = np.array([[r["cycles"][p] * r["blocks"] for p in K1_PHASES]
-                          for r in rows]).sum(0)
-        res["share_over_blocks"] = dict(zip(K1_PHASES,
-                                            (every / every.sum()).tolist()))
-        res["launches_8_device_ms"] = cs.device_ms(
-            lambda: [k1_level(l) for l in levels], "fast_select_kernel")
-        sel = lambda: _old_selection(levels, cfg, k1_level)
-        res["selection_device_ms"] = cs.device_ms(sel, None)
-        res["selection_kernels_per_image"] = cs.kernels_per_call(sel)
-        res["selection_call_ms"] = cs.time_ms(sel)
-        res["ptxas"] = ptx.strip()
-    return res
-
 
 
 K5_NEW_PHASES = {
@@ -859,124 +591,497 @@ def _k1_new():
 
 
 
+# ---------------------------------------------------------------------------
+# K3 and K6: the phase buffer is a __device__ pointer set from the host, so
+# no kernel or C entry changes its signature
+# ---------------------------------------------------------------------------
+
+PH_GLOBAL = ("__device__ long long* g_ph = nullptr;\n"
+             "extern \"C\" int set_phase_buf(void* p) {\n"
+             "    return (int)cudaMemcpyToSymbol(g_ph, &p, sizeof(p));\n}\n"
+             "#define STAMP(k) { long long t_ = clock64(); ph_[k] += t_ - "
+             "last_; last_ = t_; }\n")
+K3_MASKED_PHASES = ["set-up", "descriptor staging (barriers included)",
+                    "mask reads and popcounts", "butterfly and write"]
+K3_GATED_PHASES = ["set-up (row inputs)", "pair tests and popcounts",
+                   "the warp's butterfly",
+                   "the row's parts merged (barrier included), write"]
+K6_LEVEL_PHASES = ["pass 1 (rows, barrier included)", "pass 2 (columns)"]
+K6_BLUR_PHASES = ["tile and halo load (barrier included)",
+                  "vertical pass (barrier included)", "horizontal pass"]
+K6_FUSED_PHASES = ["pyramid tile: bands (barrier included)",
+                   "pyramid tile: input window (barrier included)",
+                   "pyramid tile: passes 1 and 2, write",
+                   "blur tile: tile and halo (barrier included)",
+                   "blur tile: passes and write",
+                   "grid barriers",
+                   "barrier before each work item"]
+
+
+def _k3_masked_source(text):
+    """The masked K3 (hamming_top2_kernel): lane 0 of every warp (one row)
+    adds the cycles of each phase to its counters."""
+    return _patch(text, [
+        ("#define BIG (1 << 20)\n", "#define BIG (1 << 20)\n" + PH_GLOBAL),
+        ("    int best = INT_MAX, bidx = INT_MAX, second = INT_MAX;\n"
+         "    for (int c0 = 0; c0 < M; c0 += CHUNK) {\n"
+         "        const int nc = min(CHUNK, M - c0);\n",
+         "    int best = INT_MAX, bidx = INT_MAX, second = INT_MAX;\n"
+         "    long long ph_[4] = {0, 0, 0, 0};\n    long long last_ = clock64();\n"
+         "    for (int c0 = 0; c0 < M; c0 += CHUNK) {\n"
+         "        const int nc = min(CHUNK, M - c0);\n"
+         "        STAMP(c0 ? 2 : 0)\n"),
+        ("            sb[t] = b[2 * (size_t)c0 + t];\n        __syncthreads();\n",
+         "            sb[t] = b[2 * (size_t)c0 + t];\n        __syncthreads();\n"
+         "        STAMP(1)\n"),
+        ("    }\n#pragma unroll\n    for (int off = 16; off > 0; off >>= 1) {\n"
+         "        const int ob = __shfl_xor_sync(0xffffffffu, best, off);\n"
+         "        const int oi = __shfl_xor_sync(0xffffffffu, bidx, off);\n"
+         "        const int os = __shfl_xor_sync(0xffffffffu, second, off);\n"
+         "        if (ob < best",
+         "    }\n    STAMP(2)\n#pragma unroll\n"
+         "    for (int off = 16; off > 0; off >>= 1) {\n"
+         "        const int ob = __shfl_xor_sync(0xffffffffu, best, off);\n"
+         "        const int oi = __shfl_xor_sync(0xffffffffu, bidx, off);\n"
+         "        const int os = __shfl_xor_sync(0xffffffffu, second, off);\n"
+         "        if (ob < best"),
+        ("        second_out[row] = min(second, BIG);\n    }\n}",
+         "        second_out[row] = min(second, BIG);\n    }\n    STAMP(3)\n"
+         "    if (lane == 0 && g_ph)\n"
+         "        for (int q = 0; q < 4; ++q)\n"
+         "            g_ph[((size_t)blockIdx.x * ROWS_PER_BLOCK + "
+         "(threadIdx.x >> 5)) * 4 + q] = ph_[q];\n}"),
+    ])
+
+
+def _k3_gated_source(text):
+    """The gated K3: lane 0 of every warp adds the cycles of each phase to
+    its counters."""
+    return _patch(text, [
+        ("__device__ __forceinline__ int wrap_add(int a, int b) {",
+         PH_GLOBAL + "\n__device__ __forceinline__ int wrap_add(int a, int b) {"),
+        ("    int best = BIG, bidx = 0, second = BIG;\n    if (on) {\n",
+         "    long long ph_[4] = {0, 0, 0, 0};\n    long long last_ = clock64();\n"
+         "    int best = BIG, bidx = 0, second = BIG;\n    if (on) {\n"),
+        ("        const int ro = row_oct[row];\n",
+         "        const int ro = row_oct[row];\n        STAMP(0)\n"),
+        ("#pragma unroll\n        for (int off = 16; off > 0; off >>= 1) {",
+         "        STAMP(1)\n#pragma unroll\n"
+         "        for (int off = 16; off > 0; off >>= 1) {"),
+        ("            merge_top2(best, bidx, second, ob, oi, os);\n        }\n"
+         "    }\n",
+         "            merge_top2(best, bidx, second, ob, oi, os);\n        }\n"
+         "    }\n    STAMP(2)\n"),
+        ("        out[2 * N + row] = second;\n    }\n}",
+         "        out[2 * N + row] = second;\n    }\n    STAMP(3)\n"
+         "    if (lane == 0 && g_ph)\n"
+         "        for (int q = 0; q < 4; ++q)\n"
+         "            g_ph[((size_t)blockIdx.x * GATED_WARPS + warp) * 4 + q]"
+         " = ph_[q];\n}"),
+    ])
+
+
+def _k6_level_source(text):
+    """The per-level K6 (pyramid_level_kernel, blur_levels_kernel): thread
+    0 of every block records the cycles of each phase."""
+    out = lambda n: ("    if (threadIdx.x == 0 && threadIdx.y == 0 && g_ph)\n"
+                     f"        for (int q = 0; q < {n}; ++q)\n"
+                     "            g_ph[(size_t)(blockIdx.y * gridDim.x + "
+                     f"blockIdx.x) * {n} + q] = ph_[q];\n")
+    return _patch(text, [
+        ("struct Kernel7 {", PH_GLOBAL + "\nstruct Kernel7 {"),
+        ("    __shared__ float tmp[TY][CX];\n",
+         "    __shared__ float tmp[TY][CX];\n"
+         "    long long ph_[2] = {0, 0};\n    long long last_ = clock64();\n"),
+        ("            tmp[ty][c] = acc;\n        }\n    }\n    __syncthreads();\n",
+         "            tmp[ty][c] = acc;\n        }\n    }\n    __syncthreads();\n"
+         "    STAMP(0)\n"),
+        ("    const int ox = ox0 + tx;\n    if (oy >= h_out || ox >= w_out) "
+         "return;\n",
+         "    const int ox = ox0 + tx;\n    if (oy >= h_out || ox >= w_out) "
+         "{\n        STAMP(1)\n" + out(2) + "        return;\n    }\n"),
+        ("    dst[(size_t)oy * w_out + ox] = acc;\n}",
+         "    dst[(size_t)oy * w_out + ox] = acc;\n    STAMP(1)\n" + out(2)
+         + "}"),
+        ("    __shared__ float mid[TY][TX + 2 * R];\n    int l = 0;",
+         "    __shared__ float mid[TY][TX + 2 * R];\n"
+         "    long long ph_[3] = {0, 0, 0};\n    long long last_ = clock64();\n"
+         "    int l = 0;"),
+        ("        in[r][c] = __ldg(s + (size_t)y * w + x);\n    }\n"
+         "    __syncthreads();\n",
+         "        in[r][c] = __ldg(s + (size_t)y * w + x);\n    }\n"
+         "    __syncthreads();\n    STAMP(0)\n"),
+        ("        mid[r][c] = acc;\n    }\n    __syncthreads();\n",
+         "        mid[r][c] = acc;\n    }\n    __syncthreads();\n    STAMP(1)\n"),
+        ("    if (x >= w || y >= h) return;\n",
+         "    if (x >= w || y >= h) {\n        STAMP(2)\n" + out(3)
+         + "        return;\n    }\n"),
+        ("    dst[lv.off[l] + (size_t)y * w + x] = acc;\n}",
+         "    dst[lv.off[l] + (size_t)y * w + x] = acc;\n    STAMP(2)\n"
+         + out(3) + "}"),
+    ])
+
+
+def _k6_fused_source(text):
+    """The one-launch K6: thread 0 of every block adds the cycles of each
+    phase over all its work items, and records each grid barrier's
+    wait."""
+    text = _patch(text, [
+        ("struct Kernel7 {", PH_GLOBAL + "\nstruct Kernel7 {"),
+        ("                             int y0, FusedSmem& sm) {",
+         "                             int y0, FusedSmem& sm, long long* ph_,\n"
+         "                             long long& last_) {"),
+        ("                          int y0, FusedSmem& sm) {",
+         "                          int y0, FusedSmem& sm, long long* ph_,\n"
+         "                          long long& last_) {"),
+        ("        if (to[k]) *to[k] = got[k];\n    __syncthreads();\n",
+         "        if (to[k]) *to[k] = got[k];\n    __syncthreads();\n"
+         "    STAMP(0)\n"),
+        ("        sm.stage[i / FCX][i % FCX] = v[k];\n    }\n    __syncthreads();\n",
+         "        sm.stage[i / FCX][i % FCX] = v[k];\n    }\n    __syncthreads();\n"
+         "    STAMP(1)\n"),
+        ("        dst[(size_t)(y0 + r) * w + x0 + c] = acc;\n    }\n}",
+         "        dst[(size_t)(y0 + r) * w + x0 + c] = acc;\n    }\n"
+         "    STAMP(2)\n}"),
+        ("        if (i < N) sm.in[i / FCOLS][i % FCOLS] = v[k];\n    }\n"
+         "    __syncthreads();\n",
+         "        if (i < N) sm.in[i / FCOLS][i % FCOLS] = v[k];\n    }\n"
+         "    __syncthreads();\n    STAMP(3)\n"),
+        ("        if (l == 0) levels[(size_t)y * w + x] = sm.in[r + R][c + R];\n"
+         "    }\n}",
+         "        if (l == 0) levels[(size_t)y * w + x] = sm.in[r + R][c + R];\n"
+         "    }\n    STAMP(4)\n}"),
+        ("    cooperative_groups::grid_group grid = "
+         "cooperative_groups::this_grid();\n",
+         "    cooperative_groups::grid_group grid = "
+         "cooperative_groups::this_grid();\n"
+         "    long long ph_[7] = {0, 0, 0, 0, 0, 0, 0}, bar_[MAX_LEVELS + 1];\n"
+         "    for (int q = 0; q <= MAX_LEVELS; ++q) bar_[q] = 0;\n"
+         "    long long last_ = clock64();\n"),
+        ("        if (p > 1) grid.sync();\n",
+         "        if (p > 1) {\n            const long long b0_ = clock64();\n"
+         "            grid.sync();\n            bar_[p] = clock64() - b0_;\n"
+         "            ph_[5] += bar_[p];\n            last_ = clock64();\n"
+         "        }\n"),
+        ("            __syncthreads();        // the previous item's shared "
+         "memory\n",
+         "            __syncthreads();        // the previous item's shared "
+         "memory\n            STAMP(6)\n"),
+        ("                          (tile / t.tiles_x[l]) * FTY, sm);\n"
+         "            }\n        }\n    }\n}",
+         "                          (tile / t.tiles_x[l]) * FTY, sm, ph_, "
+         "last_);\n            }\n        }\n    }\n"
+         "    if (threadIdx.x == 0 && g_ph) {\n"
+         "        for (int q = 0; q < 7; ++q) g_ph[(size_t)blockIdx.x * 24 + q]"
+         " = ph_[q];\n"
+         "        for (int q = 0; q <= MAX_LEVELS; ++q)\n"
+         "            g_ph[(size_t)blockIdx.x * 24 + 7 + q] = bar_[q];\n"
+         "    }\n}"),
+        ("                             (it / t.tiles_x[p]) * FTY, sm);",
+         "                             (it / t.tiles_x[p]) * FTY, sm, ph_, "
+         "last_);"),
+    ])
+    return text
+
+
+def _swap_lib(name, lib):
+    """Put `lib` in place of the port's build of `name`, so the port's own
+    wrappers call it (argtypes already set); returns the previous one."""
+    old = cuda_build._libs.get(name)
+    cuda_build._libs[name] = lib
+    return old
+
+
+def _restore_lib(name, old):
+    if old is None:
+        cuda_build._libs.pop(name, None)
+    else:
+        cuda_build._libs[name] = old
+
+
+def _k3_inputs():
+    """chip_smoke.py's gated K3 inputs: features of 5 rendered frames."""
+    world, poses = cs._world({})
+    cfg = frontend.OrbConfig(n_features=1200, n_levels=8)
+    frames = [world.render(*poses[i]).clamp(0, 255).to(torch.uint8).float()
+              for i in (0, 2, 4, 6, 8)]
+    feats = [frontend.extract_orb(f, cfg) for f in frames]
+    return cs.k3_gate_inputs(feats, cfg)
+
+
+def _phase_summary(c, names):
+    """Mean cycles of each phase over the rows of c (one row a warp or a
+    block) and the mean of each row's total."""
+    return dict(cycles=dict(zip(names, c.mean(0).tolist())),
+                share=dict(zip(names, (c.sum(0) / max(c.sum(), 1))
+                               .tolist())),
+                total_cycles_mean=float(c.sum(1).mean()),
+                total_cycles_max=float(c.sum(1).max()))
+
+
+def _k3(csrc, new):
+    """K3 on the gated inputs (4096x1200 window, 1200x1200 window with NaN
+    rows, 1200x1200 row band). Earlier sources: the masked kernel stamped
+    on the dense gate, its device time and the gate composition's (kernels
+    and device ms a call). This tree: the gated kernel stamped, and
+    unstamped builds at 1, 2, 4 and 8 warps a row."""
+    from morb_slam_tpu_torch.ops import hamming
+    P, I = ctypes.c_void_p, ctypes.c_int
+    cases = _k3_inputs()
+    res = {}
+    text = open(os.path.join(csrc, "hamming_top2.cu")).read()
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, ptx = _build(tmp, "hamming_top2", _k3_gated_source(text) if new
+                          else _k3_masked_source(text))
+        lib.hamming_top2.argtypes = [P, P, P, I, I, P, P, P, P]
+        lib.hamming_top2.restype = I
+        lib.set_phase_buf.argtypes = [P]
+        if new:
+            lib.hamming_top2_gated.argtypes = [P] * 9 + [I, I, I,
+                                                         ctypes.c_float, P, P]
+            lib.hamming_top2_gated.restype = I
+        old = _swap_lib("hamming_top2", lib)
+        try:
+            for mode, args, max_d in cases:
+                n = args[0].shape[0]
+                mask = hamming.gate_mask(*args[2:], mode, max_d=max_d)
+                want = hamming.hamming_top2_gated_plain(*args, mode,
+                                                        max_d=max_d)
+                # a warp's 4 counters: at most 8 warps a row
+                ph = torch.zeros(n * 32 + 64, dtype=torch.int64,
+                                 device="cuda")
+                if new:
+                    call = lambda args=args, mode=mode, max_d=max_d: \
+                        hamming.hamming_top2_gated(*args, mode, max_d=max_d)
+                    kname = "hamming_top2_gated_kernel"
+                else:
+                    call = lambda args=args, mask=mask: \
+                        hamming.hamming_top2(args[0], args[1], mask)
+                    kname = "hamming_top2_kernel"
+                cuda_build.check(lib.set_phase_buf(ph.data_ptr()), "phases")
+                for _ in range(3):
+                    got = call()
+                ph.zero_()
+                got = call()
+                torch.cuda.synchronize()
+                cuda_build.check(lib.set_phase_buf(None), "phases")
+                c = ph.view(-1, 4).cpu().numpy().astype(float)
+                c = c[c.sum(1) > 0]
+                row = dict(shape=f"{n}x{args[1].shape[0]}",
+                           rows_flagged=int(args[5].sum()),
+                           pairs_passed=int(mask.sum()),
+                           bitwise_equal_plain=all(
+                               torch.equal(a, b) for a, b in zip(got, want)),
+                           **_phase_summary(c, K3_GATED_PHASES if new
+                                            else K3_MASKED_PHASES),
+                           device_ms_stamped=cs.device_ms(call, kname))
+                if not new:
+                    gate = lambda args=args, mode=mode, max_d=max_d: \
+                        hamming.gate_mask(*args[2:], mode, max_d=max_d)
+                    row["gate_composition"] = dict(
+                        device_ms=cs.device_ms(gate, None),
+                        kernels=cs.kernels_per_call(gate),
+                        call_ms=cs.time_ms(gate))
+                res[mode] = row
+        finally:
+            _restore_lib("hamming_top2", old)
+        res["ptxas"] = ptx.strip()
+        if not new:
+            return res
+        res["unstamped"] = {}
+        for wpr in (1, 2, 4, 8):
+            d = os.path.join(tmp, f"w{wpr}")
+            os.makedirs(d)
+            # the warps a row fixed in place of their choice from N
+            ulib, uptx = _build(d, "hamming_top2", _replace_once(
+                text, "    while (wpr < 8 && (long long)N * wpr < 32LL * "
+                "n_sm) wpr *= 2;\n", f"    wpr = {wpr};\n"))
+            ulib.hamming_top2.argtypes = lib.hamming_top2.argtypes
+            ulib.hamming_top2.restype = I
+            ulib.hamming_top2_gated.argtypes = lib.hamming_top2_gated.argtypes
+            ulib.hamming_top2_gated.restype = I
+            old = _swap_lib("hamming_top2", ulib)
+            try:
+                res["unstamped"][f"warps_a_row={wpr}"] = {
+                    mode: cs.device_ms(
+                        lambda args=args, mode=mode, max_d=max_d:
+                        hamming.hamming_top2_gated(*args, mode, max_d=max_d),
+                        "hamming_top2_gated_kernel")
+                    for mode, args, max_d in cases}
+            finally:
+                _restore_lib("hamming_top2", old)
+    return res
+
+
+def _k6(csrc, new):
+    """K6 on the first rendered 752x480 frame, 8 levels. Earlier sources:
+    the per-level launches stamped (thread 0 of every block), each launch's
+    device time, and the whole path (the copy, 7 level launches, the blur:
+    kernels, device ms and call ms an image). This tree: the one launch
+    stamped (phases over all levels, each grid barrier's wait), and
+    unstamped builds at 1, 2 and 4 blocks a multiprocessor and as many as
+    are co-resident."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    IP = ctypes.POINTER(ctypes.c_int)
+    world, poses = cs._world({})
+    frame = world.render(*poses[0]).clamp(0, 255).to(torch.uint8).float()
+    L, sc = 8, 1.2
+    text = open(os.path.join(csrc, "pyramid_blur.cu")).read()
+    res = {}
+
+    def set_args(lib):
+        lib.pyramid_level.argtypes = [P, I, I, P, I, I, P, P]
+        lib.pyramid_level.restype = I
+        lib.blur_levels.argtypes = [P, P, I, IP, IP, IP,
+                                    ctypes.POINTER(ctypes.c_float), P]
+        lib.blur_levels.restype = I
+        if new:
+            lib.pyramid_blur.argtypes = [P] * 6
+            lib.pyramid_blur.restype = I
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, ptx = _build(tmp, "pyramid_blur", _k6_fused_source(text) if new
+                          else _k6_level_source(text))
+        set_args(lib)
+        lib.set_phase_buf.argtypes = [P]
+        old = _swap_lib("pyramid_blur", lib)
+        try:
+            ref = image.build_pyramid(frame, L, sc)
+            ref_blur = image.blur_levels(ref)
+            if new:
+                ph = torch.zeros(4096 * 24, dtype=torch.int64, device="cuda")
+                call = lambda: image.pyramid_blur(frame, L, sc)
+                cuda_build.check(lib.set_phase_buf(ph.data_ptr()), "phases")
+                for _ in range(3):
+                    call()
+                ph.zero_()
+                lv, bl = call()
+                torch.cuda.synchronize()
+                cuda_build.check(lib.set_phase_buf(None), "phases")
+                c = ph.view(-1, 24).cpu().numpy().astype(float)
+                c = c[c.sum(1) > 0]
+                res["blocks"] = int(c.shape[0])
+                res["bitwise_equal_per_level_path"] = all(
+                    torch.equal(a, b) for a, b in zip(lv + bl,
+                                                      ref + ref_blur))
+                res.update(_phase_summary(c[:, :7], K6_FUSED_PHASES))
+                # the wait at the barrier before phase p = 2..L; the least
+                # wait is the barrier's own cost for the last block in
+                bars = c[:, 7 + 2:7 + L + 1]
+                res["barrier_wait_cycles_by_phase"] = dict(
+                    mean=bars.mean(0).tolist(), min=bars.min(0).tolist(),
+                    max=bars.max(0).tolist())
+                res["device_ms_stamped"] = cs.device_ms(
+                    call, "pyramid_blur_kernel")
+            else:
+                rows = []
+                shapes = image.level_shapes(frame.shape[0], frame.shape[1],
+                                            L, sc)
+                for l in range(1, L):
+                    ph = torch.zeros(4096 * 2, dtype=torch.int64,
+                                     device="cuda")
+                    cuda_build.check(lib.set_phase_buf(ph.data_ptr()),
+                                     "phases")
+                    # levels 1..l; level l's launch, the last, writes
+                    # its blocks' stamps over the earlier ones
+                    image.build_pyramid(frame, l + 1, sc)
+                    torch.cuda.synchronize()
+                    nb = -(-shapes[l][1] // 32) * -(-shapes[l][0] // 8)
+                    c = ph.view(-1, 2)[:nb].cpu().numpy().astype(float)
+                    rows.append(dict(shape=list(shapes[l]),
+                                     blocks=int(c.shape[0]),
+                                     **_phase_summary(c, K6_LEVEL_PHASES)))
+                res["levels"] = rows
+                ph = torch.zeros(8192 * 3, dtype=torch.int64, device="cuda")
+                cuda_build.check(lib.set_phase_buf(ph.data_ptr()), "phases")
+                image.blur_levels(ref)
+                torch.cuda.synchronize()
+                cuda_build.check(lib.set_phase_buf(None), "phases")
+                c = ph.view(-1, 3).cpu().numpy().astype(float)
+                c = c[c.sum(1) > 0]
+                res["blur"] = dict(blocks=int(c.shape[0]),
+                                   **_phase_summary(c, K6_BLUR_PHASES))
+                path = lambda: image.blur_levels(image.build_pyramid(
+                    frame, L, sc))
+                res["path"] = dict(
+                    device_ms=cs.device_ms(path, None),
+                    pyramid_level_ms=cs.device_ms(path,
+                                                  "pyramid_level_kernel"),
+                    blur_ms=cs.device_ms(path, "blur_levels_kernel"),
+                    kernels=cs.kernels_per_call(path),
+                    call_ms=cs.time_ms(path))
+        finally:
+            _restore_lib("pyramid_blur", old)
+        res["ptxas"] = ptx.strip()
+        if not new:
+            return res
+        res["unstamped"] = {}
+        for v in (1, 2, 4, 0):
+            d = os.path.join(tmp, f"grid_per_sm{v}")
+            os.makedirs(d)
+            # at most v blocks a multiprocessor (0: as co-resident)
+            cap = (f"        if (per_sm > {v}) per_sm = {v};\n" if v else "")
+            ulib, uptx = _build(d, "pyramid_blur", _replace_once(
+                text, "        max_grid[dev] = per_sm * sms;\n",
+                cap + "        max_grid[dev] = per_sm * sms;\n"))
+            set_args(ulib)
+            old = _swap_lib("pyramid_blur", ulib)
+            try:
+                call = lambda: image.pyramid_blur(frame, L, sc)
+                lv, bl = call()
+                res["unstamped"][f"grid_per_sm={v}"] = dict(
+                    bitwise_equal_per_level_path=all(
+                        torch.equal(a, b) for a, b in zip(lv + bl,
+                                                          ref + ref_blur)),
+                    device_ms=cs.device_ms(call, "pyramid_blur_kernel"),
+                    call_ms=cs.time_ms(call), ptxas=uptx.strip())
+            finally:
+                _restore_lib("pyramid_blur", old)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--csrc", help="morb_slam_tpu_torch/csrc of commit "
-                    "4ceff5a (the earlier K12 and K2)")
+                    "a873e66 (the masked K3 and the per-level K6; with "
+                    "--k3 / --k6)")
     ap.add_argument("--new", action="store_true",
-                    help="stamp this tree's K12 (the 15-dim kernel)")
-    ap.add_argument("--k5", action="store_true",
-                    help="stamp K5 instead (with --csrc: the sources of "
-                    "commit ea2e66d; with --new: this tree's)")
-    ap.add_argument("--k1", action="store_true",
-                    help="stamp K1 instead (as --k5)")
+                    help="stamp this tree's kernels (K12 unless --k5, --k1, "
+                    "--k3 or --k6 is given)")
+    ap.add_argument("--k5", action="store_true", help="stamp K5 instead")
+    ap.add_argument("--k1", action="store_true", help="stamp K1 instead")
+    ap.add_argument("--k3", action="store_true",
+                    help="stamp K3 instead (with --csrc: the masked kernel "
+                    "on the dense gate; with --new: this tree's gated mode)")
+    ap.add_argument("--k6", action="store_true",
+                    help="stamp K6 instead (with --csrc: the per-level "
+                    "launches; with --new: this tree's one launch)")
     ap.add_argument("--reps", type=int, default=20)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     if a.new == bool(a.csrc):
         raise SystemExit("give --csrc or --new")
-    if a.k5 or a.k1:
+    if a.csrc and not (a.k3 or a.k6) or a.csrc and (a.k5 or a.k1):
+        raise SystemExit("--csrc goes with --k3 / --k6 only")
+    if a.k3 or a.k6:
         csrc = cuda_build.CSRC if a.new else a.csrc
         res = dict(card=cs.nvidia_smi(), sources="this tree" if a.new
                    else csrc)
-        if a.k5:
-            res["k5"] = _k5(csrc, a.new, a.reps)
-            if a.new:   # the other block size the source allows
-                res["k5_512_threads"] = _k5(csrc, True, a.reps, 512)
-        if a.k1:
-            res["k1"] = _k1_new() if a.new else _k1_old(csrc)
-        return _write(res, "kernel_phases_k5_k1%s.json"
+        if a.k3:
+            res["k3"] = _k3(csrc, a.new)
+        if a.k6:
+            res["k6"] = _k6(csrc, a.new)
+        return _write(res, "kernel_phases_k3_k6%s.json"
                       % ("_new" if a.new else ""))
-    if a.new:
-        return _new_k12(a.reps)
-    res = dict(card=cs.nvidia_smi())
-    stream = torch.cuda.current_stream().cuda_stream
-    P, I = ctypes.c_void_p, ctypes.c_int
-    with tempfile.TemporaryDirectory() as tmp:
-        for h in ("imu_edge.cuh", "dual.cuh"):
-            shutil.copy(os.path.join(a.csrc, h), tmp)
-        read = lambda n: open(os.path.join(a.csrc, n + ".cu")).read()
-        lib, ptx = _build(tmp, "pose_inertial",
-                          _k12_source(read("pose_inertial")))
-        lib.pose_inertial.argtypes = [P, P, P, P, P, P, I, I, P, P, P, P, P]
-        lib.pose_inertial.restype = I
-        lib2, _ = _build(tmp, "orb_describe", _k2_source(read("orb_describe")))
-        lib2.orb_describe.argtypes = [P, P, I, I, P, I, P, P, P, P]
-        lib2.orb_describe.restype = I
-        lib2.orb_set_pattern.argtypes = [P]
-
-        # K12: the wrapper's packing of the constants, one launch a call
-        k = _k12_args()
-        small = (k[0], k[1], k[2], k[3], k[10], k[11], k[12], k[13],
-                 *k[14:26], k[9])
-        const = torch.cat([x.reshape(-1) for x in small])
-        Xw, obs, info, valid, ur = (t.contiguous() for t in k[4:9])
-        n = Xw.shape[0]
-        out = torch.empty(921, device="cuda")
-        inl = torch.empty(n, dtype=torch.bool, device="cuda")
-        n_inl = torch.empty((), dtype=torch.int64, device="cuda")
-        ph = torch.zeros(16, dtype=torch.int64, device="cuda")
-
-        def k12():
-            rc = lib.pose_inertial(
-                const.data_ptr(), Xw.data_ptr(), obs.data_ptr(),
-                info.data_ptr(), valid.data_ptr(), ur.data_ptr(), n, 6,
-                out.data_ptr(), inl.data_ptr(), n_inl.data_ptr(), stream,
-                ph.data_ptr())
-            cuda_build.check(rc, "pose_inertial (stamped)")
-        for _ in range(3):
-            k12()
-        cyc = np.zeros(16)
-        for _ in range(a.reps):
-            k12()
-            cyc += ph.cpu().numpy()
-        cyc /= a.reps
-        res["k12"] = dict(
-            cycles=dict(zip(K12_PHASES, cyc.tolist())),
-            share=dict(zip(K12_PHASES, (cyc / cyc.sum()).tolist())),
-            total_cycles=float(cyc.sum()),
-            device_ms_stamped=cs.device_ms(k12, "pose_inertial_kernel"),
-            ptxas=ptx.strip())
-
-        # K2: each level of the first rendered frame, one launch a level
-        pat = np.ascontiguousarray(orb_descriptor.PATTERN, np.int32)
-        cuda_build.check(lib2.orb_set_pattern(pat.ctypes.data), "pattern")
-        world, poses = cs._world({})
-        cfg = frontend.OrbConfig(n_features=1200, n_levels=8)
-        frame = world.render(*poses[0]).clamp(0, 255).to(torch.uint8).float()
-        levels = image.build_pyramid(frame, 8, 1.2)
-        blurred = image.blur_levels(levels)
-        rows, calls = [], []
-        counts = cfg.per_level_counts()
-        kp = fast.fast_select_levels(levels, counts, cfg)
-        for lvl, bl, yx in zip(levels, blurred, kp.level_yx()):
-            nk = yx.shape[0]
-            ang = torch.empty(nk, device="cuda")
-            desc = torch.empty((nk, 8), dtype=torch.int32, device="cuda")
-            p2 = torch.zeros(2 * nk, dtype=torch.int64, device="cuda")
-            h, w = lvl.shape
-
-            def call(lvl=lvl, bl=bl, yx=yx, nk=nk, ang=ang, desc=desc,
-                     p2=p2, h=h, w=w):
-                cuda_build.check(lib2.orb_describe(
-                    lvl.data_ptr(), bl.data_ptr(), h, w, yx.data_ptr(), nk,
-                    ang.data_ptr(), desc.data_ptr(), stream, p2.data_ptr()),
-                    "orb_describe (stamped)")
-            call()
-            torch.cuda.synchronize()
-            c = p2.view(nk, 2).cpu().numpy()
-            rows.append(dict(shape=[h, w], keypoints=nk,
-                             blocks=-(-nk // 8),
-                             orientation_cycles=float(c[:, 0].mean()),
-                             descriptor_cycles=float(c[:, 1].mean()),
-                             device_ms=cs.device_ms(call,
-                                                    "orb_describe_kernel")))
-            calls.append(call)
-        res["k2_levels"] = rows
-        res["k2_8_launches_ms"] = cs.device_ms(
-            lambda: [c() for c in calls], "orb_describe_kernel")
-    _write(res, "kernel_phases.json")
+    if a.k5 or a.k1:
+        res = dict(card=cs.nvidia_smi(), sources="this tree")
+        if a.k5:
+            res["k5"] = _k5(a.reps)
+            res["k5_512_threads"] = _k5(a.reps, 512)
+        if a.k1:
+            res["k1"] = _k1_new()
+        return _write(res, "kernel_phases_k5_k1_new.json")
+    return _new_k12(a.reps)
 
 
 if __name__ == "__main__":
