@@ -29,7 +29,8 @@ Phases:
                 trained on the host from descriptors of rendered frames,
                 and K10 (bow_l1) on a 256 x 10^4 keyframe database; K11
                 (preintegrate) on a 64-sample frame batch and a 768-sample
-                keyframe buffer (512 valid), each fresh and continued, and
+                keyframe buffer (512 valid), each fresh and continued (no
+                ptxas spill), and
                 K12 (pose_inertial: the 15-dim system, H_marg from the
                 kernel, no ptxas spill) on a tracking-shaped problem (1200
                 observations, 60% stereo) with a noisy 0.05 s edge. K4
@@ -597,6 +598,44 @@ def device_ms(fn, kernel_name, reps=20, tries=3):
         f"by CUDA events instead")
     EVENT_TIMED.add(kernel_name)
     return time_ms(fn, reps=reps, inner=1)
+
+
+def span_ms(fn, first, last, reps=20, tries=3):
+    """Device milliseconds per fn() from the start of its kernel named
+    `first` to the end of its kernel named `last` (the profiler's
+    timestamps; each `last` kernel paired with the latest `first` kernel
+    that started before it, the median over `reps` calls): the time of a
+    call whose kernels overlap or wait on each other, where the sum of
+    their device times would count the overlap twice. None where `tries`
+    profiles show fewer than half the pairs."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profiled() as prof:
+            for _ in range(reps):
+                fn()
+        spans = kernel_spans(prof, first, last)
+        if len(spans) >= reps // 2:
+            return float(np.median(spans))
+    log(f"profiler did not show {first} .. {last} in {tries} runs")
+    return None
+
+
+def kernel_spans(prof, first, last):
+    """Device milliseconds, for each kernel named `last` in the profile,
+    from the start of the latest kernel named `first` that started before
+    it to the end of that `last` kernel."""
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    a = sorted(e.time_range.start for e in ev if first in e.name)
+    spans = []
+    for e in ev:
+        if last not in e.name:
+            continue
+        i = int(np.searchsorted(a, e.time_range.start, side="right"))
+        if i:
+            spans.append((e.time_range.end - a[i - 1]) / 1e3)
+    return spans
 
 
 def kernels_per_call(fn, reps=5, tries=3):
@@ -1766,7 +1805,10 @@ def _vi_kernels(rows):
                 *kf["args"], bias, calib), reps=2, inner=1, warmup=1),
             bound_ms=kb_ms, bound_by=kb_by,
             shape="768 slots, 512 samples, fresh"),
+        ptxas=_ptxas("preintegrate"),
         shape="64 slots, 10 samples, continuing a chain (one frame)"))
+    check("0 bytes spill stores, 0 bytes spill loads" in rows[-1]["ptxas"],
+          ("K11 spills", rows[-1]["ptxas"]))
 
     # K12 on a tracking-shaped problem: 1200 observations, 60% stereo, the
     # anchor keyframe 0.05 s earlier on a constant-velocity path, its edge
@@ -2745,11 +2787,24 @@ def _vi_plain_rows(calls, state):
     state["k13_problem"] = (pv, kw)
     a, kw_io = calls.last_args["inertial_only_optimize"]
 
+    held = {}
+
     def io_profile():
         with profiled(cpu=True) as prof:
             inertial.inertial_only_optimize(*a, **kw_io)
+        held["prof"] = prof
         return prof
     io_ms, _, io_span = range_device_ms("inertial_only_optimize", io_profile)
+    # where the device time goes: the torch ops' kernels under the range
+    # (ms per optimize, the largest first) and K17's systems (ctypes
+    # launches, tied to no op): each from its edge kernel's start to its
+    # assembly kernel's end, since the assembly's device time holds its
+    # wait on the edges (programmatic dependent launch)
+    by_kernel = sorted(((k, c, us / 1e3) for k, (c, us) in _range_kernels(
+        held["prof"], "inertial_only_optimize").items()),
+        key=lambda r: -r[2])
+    k17_spans = kernel_spans(held["prof"], "init_edge_kernel",
+                             "init_assemble_kernel")
     ki, kf_valid = a[0], a[3]
     prev = torch.clamp(ki.prev, min=0).long()
     n_e = int((ki.valid & kf_valid & kf_valid[prev]).sum())
@@ -2767,7 +2822,10 @@ def _vi_plain_rows(calls, state):
         dict(name="inertial_only_optimize", route="cuda (K17 inside)",
              source="morb_slam_tpu_torch/optim/inertial.py",
              replaces="morb_slam_tpu/optim/inertial.py:304", ms=io_ms,
-             span_ms=io_span,
+             span_ms=io_span, k17_span_ms=sum(k17_spans),
+             k17_systems=len(k17_spans),
+             device_ms_by_kernel=[dict(kernel=k[:80], launches=c, ms=ms)
+                                  for k, c, ms in by_kernel[:8]],
              plain_ms=time_ms(lambda: inertial.inertial_only_optimize(
                  *a, **kw_io), reps=2, inner=1, warmup=1),
              bound_ms=b_io, bound_by=by_io, library_ms=None,
@@ -4525,14 +4583,19 @@ def _k17_row(state):
         return prof
     opt_dev, _, opt_span = range_device_ms("inertial_only_optimize",
                                            opt_profile)
-    # in: each slot's packed constants (149 floats), pose (12), prev, and
-    # x; out: the dense H, g and the cost. Work per live edge: 15 tangents
-    # of ~2.5 kflop through the residual, J^T Omega J and the gradient
-    # (~6 kflop); the assembly reads each of the n^2 entries' terms once
-    b17, by17 = bound(K * (149 + 12 + 1) * 4 + n * 4 + (n * n + n + 1) * 4,
-                      n_live * 44e3 + n * n)
+    # in: every slot's weight and prev, the live edges' packed constants
+    # (149 floats) and their two endpoint poses (2 x 12), and x; out: the
+    # dense H, g and the cost. Work per live edge: 15 tangents of ~2.5
+    # kflop through the residual, J^T Omega J and the gradient (~6 kflop);
+    # the assembly reads each of the n^2 entries' terms once
+    b17, by17 = bound(4 * (n * n + n + 1) + 4 * n + 8 * K
+                      + n_live * (149 + 24) * 4, n_live * 44e3 + n * n)
+    # the assembly launch starts while the edges run and waits for them
+    # (programmatic dependent launch): its device time holds that wait, so
+    # `ms` is the span from the edges' start to the assembly's end
     parts = {k: device_ms(sys_k, k) for k in ("init_edge_kernel",
                                               "init_assemble_kernel")}
+    span = span_ms(sys_k, "init_edge_kernel", "init_assemble_kernel")
     return dict(
         name="inertial_init", route="cuda",
         source="morb_slam_tpu_torch/csrc/inertial_init.cu",
@@ -4541,9 +4604,14 @@ def _k17_row(state):
         max_abs_err_is="H, g and cost: |kernel - plain| over each entry's "
                        "term magnitude (the same sums over absolute values)",
         err_H=eH, err_g=eg, err_cost=ec, bitwise=same, optimize_errs=errs,
-        ms=sum(parts.values()), ms_parts=parts,
-        ms_is="one inertial_system: the edge and assembly kernels",
-        ms_by="cuda events" if EVENT_TIMED & set(parts) else "profiler",
+        ms=span if span is not None else sum(parts.values()),
+        ms_parts=parts,
+        ms_is="one inertial_system: from the edge kernel's start to the "
+              "assembly kernel's end" if span is not None else
+              "one inertial_system: the edge and assembly kernels' device "
+              "times summed (the profiler gave no span)",
+        ms_by="profiler span" if span is not None else
+              "cuda events" if EVENT_TIMED & set(parts) else "profiler",
         call_ms=time_ms(sys_k), plain_ms=time_ms(sys_p, reps=3, inner=1),
         bound_ms=b17, bound_by=by17, library_ms=None,
         library_note="none: no single PyTorch call computes the residual "

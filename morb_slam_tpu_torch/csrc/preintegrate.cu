@@ -19,23 +19,42 @@
 // as one XLA loop; a plain PyTorch loop would issue ~60 small kernels per
 // sample.
 //
-// Design: one block of 96 threads. The carry (dR, dV, dP, the 15x15
-// covariance, the five bias Jacobians, the sums of the measurements) lives
-// in shared memory. Masked samples leave the carry unchanged, so they are
-// skipped; every thread reads the same mask entry, so the skip is uniform.
-// Per valid sample: thread 0 builds the transition blocks A (9x9) and B
-// (9x6) from the old carry, then updates dP, dV, the Jacobians and dR
-// (Gram-Schmidt re-normalized) in place; after a barrier 81 threads form
-// T = A C[:9,:9] one entry each, and after a second barrier
-// C[:9,:9] = T A^T + (B diag(N)) B^T, while 6 threads add the random-walk
-// diagonal. The sums over k run in index order, the plain version's
-// association ((A C) A^T); results agree to float32 rounding. The formulas
-// (so3_exp, the right Jacobian, their |x| < 1e-4 series branches, the
-// Gram-Schmidt normalization) are the port's lie.py / imu.py ones.
+// Design: one warp, no block barrier (__syncwarp and shuffles only). The
+// carry (dR, dV, dP, the 15x15 covariance, the five bias Jacobians, the
+// sums of the measurements) lives in shared memory, dR in every lane's
+// registers. Masked samples leave the carry unchanged, so they are
+// skipped. The samples go in chunks of 32, four phases a chunk:
+//  - Staging, a lane a sample: each valid sample's terms that do not
+//    depend on the carry (a - b_a, hat(a), dt^2, so3_exp(w dt) and the
+//    right Jacobian, the raw measurements) to shared memory; a ballot
+//    gives the chunk's valid samples in order.
+//  - The rotation chain, the same on every lane: each sample's old dR
+//    staged, dR <- normalize(dR dRi), Gram-Schmidt with each
+//    normalization's three divisions on three lanes at once.
+//  - A lane a sample again: dR hat(a), dR a and the sample's blocks of A
+//    (9x9) and B (9x6) from its old dR.
+//  - The covariance, the bias Jacobians, dP and dV, sample by sample, two
+//    __syncwarp a sample: lane l < 27 writes the entries (r, c) of
+//    T = A C[:9,:9] for rows r = rb, rb + 3, rb + 6 (rb = l / 9, c = l %
+//    9) and forms entry c of the Jacobians and row l % 3 of dP and dV
+//    from the old values; after the first __syncwarp, C[:9,:9] = T A^T +
+//    (B diag(N)) B^T at its three entries and the new carry. A and B are
+//    I and 0 outside the sample's blocks; as a zero term never changes
+//    these sums, each sums its non-zero terms alone, in index order.
+//  - The chunk's sums in sample order (dt, the measurements, the random
+//    walk's diagonal), a lane each.
+// The sums run in index order, the plain version's association
+// ((A C) A^T); results agree with it to float32 rounding. Every
+// expression, and where a product is rounded before an addition,
+// follows the serial form of the recursion (one thread doing each
+// sample's whole update in turn), so the two forms give the same bits.
+// The formulas (so3_exp, the right Jacobian, their |x| < 1e-4 series
+// branches, the Gram-Schmidt normalization) are the port's lie.py /
+// imu.py ones.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define THREADS 96
+#define FULL 0xffffffffu
 // packed output layout (imu.py _FIELDS)
 #define O_DT 0
 #define O_DR 1
@@ -51,6 +70,24 @@
 #define O_AVGW 289
 #define O_BIAS 292
 #define PACK 298
+// a staged sample's terms (floats), the stride odd against bank conflicts
+#define S_A 0      // a - b_a
+#define S_WA 3     // hat(a)
+#define S_DRI 12   // dRi = so3_exp(w dt)
+#define S_JR 21    // its right Jacobian
+#define S_DT 30
+#define S_DT2 31
+#define S_ACC 32   // the raw measurements
+#define S_GYR 35
+#define S_DRO 38   // dR before the sample
+#define S_RA 47    // dR a
+#define S_RWA 50   // dR hat(a)
+#define S_A1 59    // A's block (3, 0): -dR hat(a) dt
+#define S_A2 68    // A's block (6, 0): -dR hat(a) dt^2 / 2
+#define S_B0 77    // B's block (0, 0): Jr dt
+#define S_B1 86    // B's block (3, 3): dR dt
+#define S_B2 95    // B's block (6, 3): dR dt^2 / 2
+#define ST 105
 
 __device__ float sinc_(float x) {
     return fabsf(x) < 1e-4f ? 1.0f - x * x / 6.0f : sinf(x) / x;
@@ -70,28 +107,20 @@ __device__ void hat(const float* w, float* W) {
     W[6] = -w[1]; W[7] = w[0];  W[8] = 0.0f;
 }
 
-// hat(w)^2 = w w^T - |w|^2 I
-__device__ void hat_sq(const float* w, float* W2) {
-    const float n2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
-    for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j)
-            W2[3 * i + j] = w[i] * w[j] - (i == j ? n2 : 0.0f);
-}
-
-__device__ void mm3(const float* A, const float* B, float* C) {
-    for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j)
-            C[3 * i + j] = A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j] +
-                           A[3 * i + 2] * B[6 + j];
-}
-
-// lie.so3_exp and lie.so3_right_jacobian of phi
+// lie.so3_exp and lie.so3_right_jacobian of phi. The products phi_i phi_j
+// are rounded before |phi|^2 sums them and hat(phi)^2 = phi phi^T -
+// |phi|^2 I subtracts it: a compiler that shares each product between the
+// two does so, and the right Jacobian's (1 - cos)/|phi|^2 magnifies any
+// other rounding of |phi|
 __device__ void exp_and_jr(const float* phi, float* R, float* Jr) {
-    const float n2 = phi[0] * phi[0] + phi[1] * phi[1] + phi[2] * phi[2];
+    float P[9];
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) P[3 * i + j] = __fmul_rn(phi[i], phi[j]);
+    const float n2 = __fadd_rn(__fadd_rn(P[0], P[4]), P[8]);
     const float theta = sqrtf(n2 + 1e-24f);
     float W[9], W2[9], mphi[3] = {-phi[0], -phi[1], -phi[2]}, Wm[9];
     hat(phi, W);
-    hat_sq(phi, W2);
+    for (int k = 0; k < 9; ++k) W2[k] = k % 4 == 0 ? __fsub_rn(P[k], n2) : P[k];
     hat(mphi, Wm);
     const float a = sinc_(theta), b = cosc_(theta), c = sinc3_(theta);
     for (int k = 0; k < 9; ++k) {
@@ -101,19 +130,31 @@ __device__ void exp_and_jr(const float* phi, float* R, float* Jr) {
     }
 }
 
-// imu._normalize_rotation: Gram-Schmidt on the columns
-__device__ void normalize_rotation(float* R) {
+// x[t] for t in {0, 1, 2}, without a dynamic index
+__device__ __forceinline__ float sel3(const float* x, int t) {
+    return t == 0 ? x[0] : (t == 1 ? x[1] : x[2]);
+}
+
+
+// imu._normalize_rotation (Gram-Schmidt on the columns) on every lane of
+// the warp, each of the two normalizations' three divisions on lanes 0-2
+// at once. Rounding pinned as the serial form compiles: c1 - d r0 fused,
+// each cross product's second term rounded and the first fused into it
+__device__ void normalize_rotation(float* R, int lane) {
+    const int t = lane % 3;
     float c0[3] = {R[0], R[3], R[6]}, c1[3] = {R[1], R[4], R[7]};
     const float n0 = sqrtf(c0[0] * c0[0] + c0[1] * c0[1] + c0[2] * c0[2]);
     float r0[3], r1[3], r2[3];
-    for (int i = 0; i < 3; ++i) r0[i] = c0[i] / n0;
+    const float q0 = sel3(c0, t) / n0;
+    for (int i = 0; i < 3; ++i) r0[i] = __shfl_sync(FULL, q0, i);
     const float d = r0[0] * c1[0] + r0[1] * c1[1] + r0[2] * c1[2];
-    for (int i = 0; i < 3; ++i) r1[i] = c1[i] - d * r0[i];
+    for (int i = 0; i < 3; ++i) r1[i] = __fmaf_rn(-d, r0[i], c1[i]);
     const float n1 = sqrtf(r1[0] * r1[0] + r1[1] * r1[1] + r1[2] * r1[2]);
-    for (int i = 0; i < 3; ++i) r1[i] = r1[i] / n1;
-    r2[0] = r0[1] * r1[2] - r0[2] * r1[1];
-    r2[1] = r0[2] * r1[0] - r0[0] * r1[2];
-    r2[2] = r0[0] * r1[1] - r0[1] * r1[0];
+    const float q1 = sel3(r1, t) / n1;
+    for (int i = 0; i < 3; ++i) r1[i] = __shfl_sync(FULL, q1, i);
+    r2[0] = __fmaf_rn(r0[1], r1[2], -__fmul_rn(r0[2], r1[1]));
+    r2[1] = __fmaf_rn(r0[2], r1[0], -__fmul_rn(r0[0], r1[2]));
+    r2[2] = __fmaf_rn(r0[0], r1[1], -__fmul_rn(r0[1], r1[0]));
     for (int i = 0; i < 3; ++i) {
         R[3 * i] = r0[i];
         R[3 * i + 1] = r1[i];
@@ -121,7 +162,27 @@ __device__ void normalize_rotation(float* R) {
     }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// C[:9, :9]'s new entry (r, c) = (T A^T)[r][c] + (B diag(N) B^T)[r][c]
+// from T's row r, A's row c (its first block Ac, its entries c - 3 and c)
+// and B's rows r and c in the block of columns they share (Br, Bc with
+// the noise N there; meet false where they share none)
+__device__ __forceinline__ float cov_entry(const float* Tr, int c, int ct,
+                                           const float* Ac, float ac3,
+                                           float ac, const float* Br,
+                                           const float* N, bool meet,
+                                           const float* Bc) {
+    float s = 0.0f;
+    s += Tr[0] * Ac[0];
+    s += Tr[1] * Ac[1];
+    s += Tr[2] * Ac[2];
+    s += Tr[ct == 2 ? c - 3 : 0] * ac3;
+    s += Tr[c] * ac;
+    float u = 0.0f;
+    for (int k = 0; k < 3; ++k) u += (Br[k] * N[k]) * (meet ? Bc[k] : 0.0f);
+    return s + u;
+}
+
+__global__ void __launch_bounds__(32)
 preintegrate_kernel(const float* __restrict__ acc,
                     const float* __restrict__ gyro,
                     const float* __restrict__ dts,
@@ -132,10 +193,10 @@ preintegrate_kernel(const float* __restrict__ acc,
                     const float* __restrict__ init, int N,
                     float* __restrict__ out) {
     __shared__ float S[PACK];      // the carry, in the packed layout
-    __shared__ float A[81], B[54], T[81];
-    __shared__ float n_s;
-    const int tid = threadIdx.x;
-    for (int k = tid; k < PACK; k += THREADS) {
+    __shared__ float st[32 * ST];  // one chunk's staged samples
+    __shared__ float T[81];
+    const int lane = threadIdx.x;
+    for (int k = lane; k < PACK; k += 32) {
         float v;
         if (k >= O_BIAS) {
             v = bias[k - O_BIAS];
@@ -147,101 +208,220 @@ preintegrate_kernel(const float* __restrict__ acc,
         }
         S[k] = v;
     }
-    if (tid == 0) n_s = init ? 1.0f : 0.0f;   // the averages' count
-    __syncthreads();
+    float cv[6];
+    for (int q = 0; q < 6; ++q) cv[q] = cov[q];
+    float n_s = init ? 1.0f : 0.0f;   // the averages' count
+    // lane l < 27 owns the covariance entries (rb + 3j, c), j = 0..2, and
+    // entry c of the bias Jacobians (lanes 9-26 repeat lanes 0-8's and
+    // lanes 27-31 lane 26's work, storing nothing); lane q < 3 row q of
+    // dP and dV
+    const int l = min(lane, 26), c = l % 9, rb = l / 9;
+    const int ct = c / 3, ci = c % 3, q3 = lane % 3;
+    const bool own = lane < 27;
+    // the chunk sums' lanes: 0 dt, 1-3 the accelerations, 4-6 the rates,
+    // 7-12 the random-walk diagonal (weight 1, or the walk's variance)
+    const int so = lane == 0 ? O_DT
+                   : (lane < 4 ? O_AVGA + lane - 1
+                      : (lane < 7 ? O_AVGW + lane - 4
+                         : O_C + 16 * (lane - 7) + 144));
+    const int sf = lane == 0 ? S_DT
+                   : (lane < 4 ? S_ACC + lane - 1
+                      : (lane < 7 ? S_GYR + lane - 4 : S_DT));
+    const float sw = lane < 7 ? 1.0f : cov_walk[lane < 13 ? lane - 7 : 0];
+    __syncwarp();
+    float dR[9];                      // the carry's dR, on every lane
+    for (int k = 0; k < 9; ++k) dR[k] = S[O_DR + k];
 
-    for (int i = 0; i < N; ++i) {
-        if (!mask[i]) continue;
-        const float dt = dts[i];
-        if (tid == 0) {
+    for (int base = 0; base < N; base += 32) {
+        // staging: a lane a sample
+        const int i = base + lane;
+        const bool valid = i < N && mask[i];
+        float* me = st + lane * ST;
+        if (valid) {
+            const float dt = dts[i];
             const float dt2 = dt * dt;
-            float a[3], w[3], phi[3];
+            float a[3], w[3], phi[3], dRi[9], Jr[9], Wa[9];
             for (int q = 0; q < 3; ++q) {
                 a[q] = acc[3 * i + q] - bias[3 + q];
                 w[q] = gyro[3 * i + q] - bias[q];
                 phi[q] = w[q] * dt;
+                me[S_A + q] = a[q];
+                me[S_ACC + q] = acc[3 * i + q];
+                me[S_GYR + q] = gyro[3 * i + q];
             }
-            float dR[9], Wa[9], RWa[9], dRi[9], Jr[9], Ra[3];
-            for (int k = 0; k < 9; ++k) dR[k] = S[O_DR + k];
             hat(a, Wa);
-            mm3(dR, Wa, RWa);
             exp_and_jr(phi, dRi, Jr);
+            for (int k = 0; k < 9; ++k) {
+                me[S_WA + k] = Wa[k];
+                me[S_DRI + k] = dRi[k];
+                me[S_JR + k] = Jr[k];
+            }
+            me[S_DT] = dt;
+            me[S_DT2] = dt2;
+        }
+        const unsigned vm = __ballot_sync(FULL, valid);
+        __syncwarp();
+        // the rotation chain, on every lane: each sample's old dR staged,
+        // dR <- normalize(dR dRi)
+        for (unsigned m = vm; m; m &= m - 1) {
+            float* sm = st + (__ffs(m) - 1) * ST;
+            float dRi[9], Rn[9];
+            for (int k = 0; k < 9; ++k) {
+                dRi[k] = sm[S_DRI + k];
+                if (lane == k) sm[S_DRO + k] = dR[k];
+            }
             for (int r = 0; r < 3; ++r)
-                Ra[r] = dR[3 * r] * a[0] + dR[3 * r + 1] * a[1] +
-                        dR[3 * r + 2] * a[2];
-            // transition blocks from the old carry (imu.py A, B)
-            for (int k = 0; k < 81; ++k) A[k] = (k % 10 == 0) ? 1.0f : 0.0f;
-            for (int k = 0; k < 54; ++k) B[k] = 0.0f;
-            for (int r = 0; r < 3; ++r)
-                for (int c = 0; c < 3; ++c) {
-                    A[9 * r + c] = dRi[3 * c + r];
-                    A[9 * (3 + r) + c] = -RWa[3 * r + c] * dt;
-                    A[9 * (6 + r) + c] = -0.5f * RWa[3 * r + c] * dt2;
-                    B[6 * r + c] = Jr[3 * r + c] * dt;
-                    B[6 * (3 + r) + 3 + c] = dR[3 * r + c] * dt;
-                    B[6 * (6 + r) + 3 + c] = 0.5f * dR[3 * r + c] * dt2;
-                }
-            for (int r = 0; r < 3; ++r) A[9 * (6 + r) + 3 + r] = dt;
-            // position / velocity (old dR)
+                for (int k = 0; k < 3; ++k)
+                    Rn[3 * r + k] = dR[3 * r] * dRi[k] +
+                                    dR[3 * r + 1] * dRi[3 + k] +
+                                    dR[3 * r + 2] * dRi[6 + k];
+            normalize_rotation(Rn, lane);
+            for (int k = 0; k < 9; ++k) dR[k] = Rn[k];
+        }
+        __syncwarp();
+        // a lane a sample: dR hat(a), dR a and the sample's blocks of
+        // imu.py's A (9x9) and B (9x6), from its old dR
+        if (valid) {
+            const float dt = me[S_DT], dt2 = me[S_DT2];
+            float R[9], Wa[9];
+            for (int k = 0; k < 9; ++k) {
+                R[k] = me[S_DRO + k];
+                Wa[k] = me[S_WA + k];
+            }
             for (int r = 0; r < 3; ++r) {
-                const float dV = S[O_DV + r];
-                S[O_DP + r] = S[O_DP + r] + dV * dt + 0.5f * Ra[r] * dt2;
-                S[O_DV + r] = dV + Ra[r] * dt;
+                me[S_RA + r] = R[3 * r] * me[S_A] + R[3 * r + 1] * me[S_A + 1] +
+                               R[3 * r + 2] * me[S_A + 2];
+                for (int k = 0; k < 3; ++k) {
+                    const int e = 3 * r + k;
+                    const float v = R[3 * r] * Wa[k] + R[3 * r + 1] * Wa[3 + k] +
+                                    R[3 * r + 2] * Wa[6 + k];
+                    me[S_RWA + e] = v;
+                    me[S_A1 + e] = -v * dt;
+                    me[S_A2 + e] = -0.5f * v * dt2;
+                    me[S_B0 + e] = me[S_JR + e] * dt;
+                    me[S_B1 + e] = R[e] * dt;
+                    me[S_B2 + e] = 0.5f * R[e] * dt2;
+                }
             }
-            // bias Jacobians (old values throughout)
-            float JRg[9], JVg[9], JVa[9], JPg[9], JPa[9], RWaJ[9], dRiT[9],
-                RiJ[9];
-            for (int k = 0; k < 9; ++k) {
-                JRg[k] = S[O_JRG + k]; JVg[k] = S[O_JVG + k];
-                JVa[k] = S[O_JVA + k]; JPg[k] = S[O_JPG + k];
-                JPa[k] = S[O_JPA + k];
-            }
-            mm3(RWa, JRg, RWaJ);
-            for (int r = 0; r < 3; ++r)
-                for (int c = 0; c < 3; ++c) dRiT[3 * r + c] = dRi[3 * c + r];
-            mm3(dRiT, JRg, RiJ);
-            for (int k = 0; k < 9; ++k) {
-                S[O_JPA + k] = JPa[k] + JVa[k] * dt - 0.5f * dR[k] * dt2;
-                S[O_JPG + k] = JPg[k] + JVg[k] * dt - 0.5f * RWaJ[k] * dt2;
-                S[O_JVA + k] = JVa[k] - dR[k] * dt;
-                S[O_JVG + k] = JVg[k] - RWaJ[k] * dt;
-                S[O_JRG + k] = RiJ[k] - Jr[k] * dt;
-            }
-            float dRn[9];
-            mm3(dR, dRi, dRn);
-            normalize_rotation(dRn);
-            for (int k = 0; k < 9; ++k) S[O_DR + k] = dRn[k];
-            S[O_DT] = S[O_DT] + dt;
-            for (int q = 0; q < 3; ++q) {
-                S[O_AVGA + q] = S[O_AVGA + q] + acc[3 * i + q];
-                S[O_AVGW + q] = S[O_AVGW + q] + gyro[3 * i + q];
-            }
-            n_s = n_s + 1.0f;
         }
-        __syncthreads();
-        if (tid < 81) {           // T = A C[:9, :9]
-            const int r = tid / 9, c = tid % 9;
-            float s = 0.0f;
-            for (int k = 0; k < 9; ++k) s += A[9 * r + k] * S[O_C + 15 * k + c];
-            T[tid] = s;
+        __syncwarp();
+        // the covariance and the bias Jacobians, sample by sample. A and
+        // B are I and 0 outside the sample's blocks: row r < 3 of A is
+        // [dRi^T row r, 0, 0], row 3 + r [A1 row r, e_r, 0], row 6 + r
+        // [A2 row r, dt e_r, e_r]; row r of B is [B0 row r, 0], row 3 + r
+        // [0, B1 row r], row 6 + r [0, B2 row r]. A zero term never
+        // changes a sum here (the sums start at +0 and the covariance is
+        // finite), so the sums take the non-zero terms alone, in index
+        // order: the bits of the dense products.
+        for (unsigned m = vm; m; m &= m - 1) {
+            const float* sm = st + (__ffs(m) - 1) * ST;
+            const float dt = sm[S_DT], dt2 = sm[S_DT2];
+            float A0[3], A1[3], A2[3], B0[3], B1[3], B2[3], Ac[3], Bc[3];
+            const float* ac = ct == 0 ? sm + S_DRI + ci
+                                      : sm + (ct == 1 ? S_A1 : S_A2) + 3 * ci;
+            const int as = ct == 0 ? 3 : 1;
+            const float* bc = sm + (ct == 0 ? S_B0 : (ct == 1 ? S_B1 : S_B2)) +
+                              3 * ci;
+            for (int k = 0; k < 3; ++k) {
+                A0[k] = sm[S_DRI + 3 * k + rb];
+                A1[k] = sm[S_A1 + 3 * rb + k];
+                A2[k] = sm[S_A2 + 3 * rb + k];
+                B0[k] = sm[S_B0 + 3 * rb + k];
+                B1[k] = sm[S_B1 + 3 * rb + k];
+                B2[k] = sm[S_B2 + 3 * rb + k];
+                Ac[k] = ac[as * k];
+                Bc[k] = bc[k];
+            }
+            const float ac3 = ct == 2 ? dt : 0.0f;     // A[c][c - 3]
+            const float acd = ct > 0 ? 1.0f : 0.0f;    // A[c][c]
+            // T = A C[:9, :9] at (rb + 3j, c)
+            {
+                const float* Cc = S + O_C + c;
+                const float C0 = Cc[0], C1 = Cc[15], C2 = Cc[30];
+                const float C3 = Cc[15 * (rb + 3)], C6 = Cc[15 * (rb + 6)];
+                float t0 = 0.0f, t1 = 0.0f, t2 = 0.0f;
+                t0 += A0[0] * C0;
+                t0 += A0[1] * C1;
+                t0 += A0[2] * C2;
+                t1 += A1[0] * C0;
+                t1 += A1[1] * C1;
+                t1 += A1[2] * C2;
+                t1 += C3;
+                t2 += A2[0] * C0;
+                t2 += A2[1] * C1;
+                t2 += A2[2] * C2;
+                t2 += dt * C3;
+                t2 += C6;
+                if (own) {
+                    T[9 * rb + c] = t0;
+                    T[9 * (rb + 3) + c] = t1;
+                    T[9 * (rb + 6) + c] = t2;
+                }
+            }
+            // the bias Jacobians' entry c from the old values: the
+            // products that are B's entries (Jr dt, dR dt, dR dt^2 / 2)
+            // subtracted as rounded, dR hat(a) J_Rg's fused
+            float nJ[5];
+            {
+                const float* JRg = S + O_JRG;
+                const float* u = sm + S_RWA + 3 * ct;
+                const float RWaJ = u[0] * JRg[ci] + u[1] * JRg[3 + ci] +
+                                   u[2] * JRg[6 + ci];
+                const float RiJ = sm[S_DRI + ct] * JRg[ci] +
+                                  sm[S_DRI + 3 + ct] * JRg[3 + ci] +
+                                  sm[S_DRI + 6 + ct] * JRg[6 + ci];
+                const float JVg = S[O_JVG + c], JVa = S[O_JVA + c];
+                nJ[0] = S[O_JPA + c] + JVa * dt - sm[S_B2 + c];
+                nJ[1] = __fmaf_rn(-(0.5f * RWaJ), dt2,
+                                  S[O_JPG + c] + JVg * dt);
+                nJ[2] = JVa - sm[S_B1 + c];
+                nJ[3] = __fmaf_rn(-RWaJ, dt, JVg);
+                nJ[4] = RiJ - sm[S_B0 + c];
+            }
+            // dP and dV row q3
+            const float Ra = sm[S_RA + q3];
+            const float dV = S[O_DV + q3];
+            const float nP = S[O_DP + q3] + dV * dt + 0.5f * Ra * dt2;
+            const float nV = dV + Ra * dt;
+            __syncwarp();
+            // C[:9, :9] = T A^T + (B N) B^T at (rb + 3j, c)
+            if (own) {
+                const float* Tr = T + 9 * rb;
+                S[O_C + 15 * rb + c] =
+                    cov_entry(Tr, c, ct, Ac, ac3, acd, B0, cv, ct == 0, Bc);
+                S[O_C + 15 * (rb + 3) + c] = cov_entry(
+                    Tr + 27, c, ct, Ac, ac3, acd, B1, cv + 3, ct > 0, Bc);
+                S[O_C + 15 * (rb + 6) + c] = cov_entry(
+                    Tr + 54, c, ct, Ac, ac3, acd, B2, cv + 3, ct > 0, Bc);
+            }
+            if (lane < 9) {
+                S[O_JPA + c] = nJ[0];
+                S[O_JPG + c] = nJ[1];
+                S[O_JVA + c] = nJ[2];
+                S[O_JVG + c] = nJ[3];
+                S[O_JRG + c] = nJ[4];
+            }
+            if (lane < 3) {
+                S[O_DP + q3] = nP;
+                S[O_DV + q3] = nV;
+            }
+            __syncwarp();
         }
-        __syncthreads();
-        if (tid < 81) {           // C[:9, :9] = T A^T + (B N) B^T
-            const int r = tid / 9, c = tid % 9;
-            float s = 0.0f;
-            for (int k = 0; k < 9; ++k) s += T[9 * r + k] * A[9 * c + k];
-            float u = 0.0f;
-            for (int k = 0; k < 6; ++k)
-                u += (B[6 * r + k] * cov[k]) * B[6 * c + k];
-            S[O_C + 15 * r + c] = s + u;
-        } else if (tid < 87) {    // random-walk block
-            const int q = tid - 81;
-            S[O_C + 15 * (9 + q) + 9 + q] += cov_walk[q] * dt;
+        // the chunk's sums in sample order (x + y as fma(1, y, x))
+        if (lane < 13) {
+            float x = S[so];
+            for (int j = 0; j < 32; ++j)
+                if ((vm >> j) & 1u) x = fmaf(sw, st[j * ST + sf], x);
+            S[so] = x;
         }
-        __syncthreads();
+        n_s += (float)__popc(vm);
+        __syncwarp();
     }
+    for (int k = 0; k < 9; ++k)
+        if (lane == k) S[O_DR + k] = dR[k];
+    __syncwarp();
     const float n = fmaxf(n_s, 1.0f);
-    for (int k = tid; k < PACK; k += THREADS) {
+    for (int k = lane; k < PACK; k += 32) {
         float v = S[k];
         if (k >= O_AVGA && k < O_BIAS) v = v / n;
         out[k] = v;
@@ -253,7 +433,7 @@ extern "C" int preintegrate(const void* acc, const void* gyro,
                             const void* bias, const void* cov,
                             const void* cov_walk, const void* init, int N,
                             void* out, void* stream) {
-    preintegrate_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
+    preintegrate_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
         (const float*)acc, (const float*)gyro, (const float*)dts,
         (const uint8_t*)mask, (const float*)bias, (const float*)cov,
         (const float*)cov_walk, (const float*)init, N, (float*)out);

@@ -3,8 +3,9 @@ covariance (counterpart of `morb_slam_tpu/imu.py`).
 
 `preintegrate` is kernel K11: on CUDA tensors it launches
 `csrc/preintegrate.cu`, which runs the whole sample recursion of one call in
-one block and leaves the result on the card as one packed tensor that the
-returned `Preintegrated` views; on CPU tensors it runs
+one warp and leaves the result on the card as one packed tensor that the
+returned `Preintegrated` views (passed to the next call as its `init`, that
+tensor goes to the kernel as it is); on CPU tensors it runs
 `preintegrate_plain`, a loop over the valid samples.
 
 Conventions: world gravity (0, 0, -9.81); bias vectors pack [bg(3), ba(3)].
@@ -90,6 +91,23 @@ def pack(p: Preintegrated):
     """The (PACK,) float32 tensor of a Preintegrated (field order of
     `_FIELDS`)."""
     return torch.cat([getattr(p, n).reshape(-1) for n, _ in _FIELDS])
+
+
+def packed_buffer(p: Preintegrated):
+    """The (PACK,) float32 tensor whose views `p`'s fields are, laid out as
+    `unpack` makes them (so `pack(p)` would copy it), or None."""
+    buf = p.dt._base
+    if buf is None or buf.dtype != torch.float32 or buf.shape != (PACK,) \
+            or not buf.is_contiguous():
+        return None
+    o = buf.storage_offset()
+    for name, shape in _FIELDS:
+        t = getattr(p, name)
+        if t._base is not buf or t.storage_offset() != o or \
+                t.shape != shape or not t.is_contiguous():
+            return None
+        o += math.prod(shape)
+    return buf
 
 
 def unpack(buf) -> Preintegrated:
@@ -208,7 +226,10 @@ def preintegrate(acc, gyro, dts, mask, bias, calib: ImuCalib,
                          "bool mask (N,) on one card")
     init_buf = None
     if init is not None:
-        init_buf = pack(init).to(f32).contiguous()
+        # a previous call's result passes straight through
+        init_buf = packed_buffer(init)
+        if init_buf is None:
+            init_buf = pack(init).to(f32).contiguous()
         if init_buf.device != acc.device:
             raise ValueError("preintegrate: init lies on another device")
     acc, gyro, dts, mask, bias = (x.contiguous()

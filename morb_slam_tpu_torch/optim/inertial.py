@@ -411,8 +411,9 @@ def inertial_system(p: InitProblem, x):
     ins = [(p.cst, (K, N_INIT_CONST)), (p.R_wb, (K, 3, 3)),
            (p.p_wb, (K, 3)), (x, (n,)), (p.base, (3, 3))]
     if any(t.dtype != f32 or tuple(t.shape) != s or t.device != x.device
-           for t, s in ins) or p.ki.prev.dtype != torch.int32 or \
-            p.ki.prev.shape != (K,) or K == 0:
+           for t, s in ins) or \
+            p.ki.prev.dtype != torch.int32 or p.ki.prev.shape != (K,) or \
+            p.ki.prev.device != x.device or K == 0:
         raise ValueError("inertial_system: needs float32 constants "
                          "(K, 149), poses (K, 3, 3), (K, 3), x (9 + 3K,) "
                          "and int32 prev (K,) on one device")

@@ -2,10 +2,13 @@
 two runs of the two-camera match may rightly differ, the term
 magnitudes that scale K17's rounding, and the packing of separately
 computed pyramid levels into the one buffer K2's `orb_describe_levels`
-takes. Used by `chip_smoke.py` and the tests; no pipeline path calls them.
+takes, and a synthetic IMU-initialization problem for K17. Used by
+`chip_smoke.py`, `tools_kernel_phases.py` and the tests; no pipeline path
+calls them.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .ops import hamming, stereo
@@ -61,3 +64,50 @@ def pack_levels(levels):
     buf = torch.cat([l.reshape(-1) for l in levels])
     parts = torch.split(buf, [l.numel() for l in levels])
     return [v.view(l.shape) for v, l in zip(parts, levels)]
+
+
+def init_store(dev, K=256, n_kf=13, seed=0, slots=None):
+    """An IMU-initialization problem like the rig's first stage: n_kf
+    keyframes 0.25 s apart on a wiggly accelerating path (bias, noise),
+    preintegrated by the plain K11 into a K-slot store; the visual poses
+    rotated off gravity and scaled by 1 / 2.5. `slots[k]` is the slot of
+    the chain's k-th keyframe (default k; a recycled slot holds a later
+    keyframe than the slots after it). Returns (ki, R_wb, p_wb,
+    kf_valid)."""
+    from scipy.spatial.transform import Rotation as Rot
+    from . import imu as imu_mod
+    rng = np.random.default_rng(seed)
+    dt, every = 0.005, 50
+    ts = np.arange((n_kf - 1) * every + 1) * dt
+    p = np.stack([0.8 * np.sin(1.3 * ts), 0.5 * np.sin(0.9 * ts + 1.0),
+                  0.3 * np.sin(1.7 * ts)], -1)
+    a = np.stack([-0.8 * 1.3 ** 2 * np.sin(1.3 * ts),
+                  -0.5 * 0.9 ** 2 * np.sin(0.9 * ts + 1.0),
+                  -0.3 * 1.7 ** 2 * np.sin(1.7 * ts)], -1)
+    w_b = np.array([0.3, -0.2, 0.25])
+    R = np.stack([Rot.from_rotvec(w_b * t).as_matrix() for t in ts])
+    acc = np.einsum('nji,nj->ni', R, a - [0, 0, -9.81]) + [0.03, -0.02, 0.04]
+    gyr = np.tile(w_b, (len(ts), 1)) + [0.004, -0.003, 0.002]
+    acc = 0.5 * (acc[:-1] + acc[1:]) + rng.normal(0, 0.02, (len(ts) - 1, 3))
+    gyr = 0.5 * (gyr[:-1] + gyr[1:]) + rng.normal(0, 0.002, (len(ts) - 1, 3))
+    calib = imu_mod.make_calib(np.eye(3), np.zeros(3), 1.7e-4, 2e-3, 1.9e-5,
+                               3e-3, 200.0)
+    f = lambda v: torch.tensor(np.asarray(v), dtype=torch.float32)
+    slots = list(range(n_kf)) if slots is None else list(slots)
+    ki = inertial.empty_kf_imu(K)
+    for k in range(1, n_kf):
+        sl = slice((k - 1) * every, k * every)
+        pre = imu_mod.preintegrate_plain(
+            f(acc[sl]), f(gyr[sl]), torch.full((every,), dt),
+            torch.ones(every, dtype=torch.bool), torch.zeros(6), calib)
+        ki = inertial.set_kf_imu(ki, slots[k], pre, slots[k - 1])
+    idx = np.arange(n_kf) * every
+    R_vg = Rot.from_rotvec([0.25, -0.15, 0.1]).as_matrix()
+    R_wb = np.tile(np.eye(3), (K, 1, 1))
+    p_wb = np.zeros((K, 3))
+    R_wb[slots] = np.einsum('ij,njk->nik', R_vg, R[idx])
+    p_wb[slots] = (p[idx] @ R_vg.T) / 2.5
+    kf_valid = torch.zeros(K, dtype=torch.bool)
+    kf_valid[slots] = True
+    ki = inertial.KfImu(*(t.to(dev) for t in ki))
+    return ki, f(R_wb).to(dev), f(p_wb).to(dev), kf_valid.to(dev)

@@ -21,7 +21,8 @@ segment lengths that are no multiple of 32, landmarks and a keyframe with
 no observation, every observation masked and nothing optimized, bitwise
 repeatable, and the PCG LM loop over both kernels;
 preintegrations (K11) of an all-padding batch, one sample, fresh and
-continued frame batches and a keyframe buffer; inertial pose problems
+continued frame batches and a keyframe buffer, bitwise repeatable, a
+previous result passed through as `init` bitwise equal to a packed copy; inertial pose problems
 (K12) of 0-4096 observations with a near-identity edge, no visual rows,
 mono and mixed stereo; K2 over all levels of an image in one launch
 (752x480, 512x512 and 384x288, a level without keypoints) against the
@@ -36,7 +37,9 @@ path's shapes, odd and tiny sizes and levels that are no views of one
 buffer; the two-camera match (K16) on KB8 and radtan rigs of 1, 64, 333
 and 1200 features, partly invalid, with tied descriptors and an empty
 left set; the IMU-init system (K17) at 256, 40 and 4 slots with the
-scale free and fixed, and the whole `inertial_only_optimize` over it;
+scale free and fixed, 9 live edges of 256 slots, a recycled slot and a
+slot that precedes two edges (nothing written outside the live edges'
+blocks), and the whole `inertial_only_optimize` over it;
 the guided Sim(3) verification (K18) with inliers and outliers, no
 pair, one pair and 257 features; and every new wrapper refusing bad
 dtypes and shapes.
@@ -1133,6 +1136,25 @@ def test_preintegrate_matches_plain(cuda, n, n_valid):
                                       init=want))
 
 
+@pytest.mark.parametrize("n,n_valid", [(64, 10), (768, 512), (96, 33)])
+def test_preintegrate_repeats_and_passes_init_through(cuda, n, n_valid):
+    """Two launches give the same bits; a previous result's packed buffer
+    passed through as `init` gives the bits of a packed copy of it."""
+    acc, gyr, dts, mask, bias = _imu_batch(cuda, n, n_valid, seed=3)
+    calib = _calib(cuda)
+    got = imu.preintegrate(acc, gyr, dts, mask, bias, calib)
+    assert torch.equal(imu.pack(got),
+                       imu.pack(imu.preintegrate(acc, gyr, dts, mask, bias,
+                                                 calib)))
+    assert imu.packed_buffer(got) is not None
+    copy = imu.Preintegrated(*(t.clone() for t in got))
+    assert imu.packed_buffer(copy) is None
+    acc2, gyr2, dts2, mask2, _ = _imu_batch(cuda, 64, 9, seed=4)
+    a = imu.preintegrate(acc2, gyr2, dts2, mask2, bias, calib, init=got)
+    b = imu.preintegrate(acc2, gyr2, dts2, mask2, bias, calib, init=copy)
+    assert torch.equal(imu.pack(a), imu.pack(b))
+
+
 def test_preintegrate_all_padding_is_identity(cuda):
     acc, gyr, dts, mask, bias = _imu_batch(cuda, 64, 0)
     got = imu.preintegrate(acc, gyr, dts, mask, bias, _calib(cuda))
@@ -1711,59 +1733,32 @@ def test_stereo_general_repeats_and_empty_left(cuda):
     assert e.depth.shape == (0,) and ei.shape == (0,)
 
 
-def _init_store(dev, K=256, n_kf=13, seed=0):
-    """An IMU-initialization problem like the rig's first stage: n_kf
-    keyframes 0.25 s apart on a wiggly accelerating path (bias, noise),
-    preintegrated by the plain K11 into a K-slot store; the visual poses
-    rotated off gravity and scaled by 1 / 2.5."""
-    from scipy.spatial.transform import Rotation as Rot
-    from morb_slam_tpu_torch import imu as imu_mod
-    from morb_slam_tpu_torch.optim import inertial
-    rng = np.random.default_rng(seed)
-    dt, every = 0.005, 50
-    ts = np.arange((n_kf - 1) * every + 1) * dt
-    p = np.stack([0.8 * np.sin(1.3 * ts), 0.5 * np.sin(0.9 * ts + 1.0),
-                  0.3 * np.sin(1.7 * ts)], -1)
-    a = np.stack([-0.8 * 1.3 ** 2 * np.sin(1.3 * ts),
-                  -0.5 * 0.9 ** 2 * np.sin(0.9 * ts + 1.0),
-                  -0.3 * 1.7 ** 2 * np.sin(1.7 * ts)], -1)
-    w_b = np.array([0.3, -0.2, 0.25])
-    R = np.stack([Rot.from_rotvec(w_b * t).as_matrix() for t in ts])
-    acc = np.einsum('nji,nj->ni', R, a - [0, 0, -9.81]) + [0.03, -0.02, 0.04]
-    gyr = np.tile(w_b, (len(ts), 1)) + [0.004, -0.003, 0.002]
-    acc = 0.5 * (acc[:-1] + acc[1:]) + rng.normal(0, 0.02, (len(ts) - 1, 3))
-    gyr = 0.5 * (gyr[:-1] + gyr[1:]) + rng.normal(0, 0.002, (len(ts) - 1, 3))
-    calib = imu_mod.make_calib(np.eye(3), np.zeros(3), 1.7e-4, 2e-3, 1.9e-5,
-                               3e-3, 200.0)
-    f = lambda v: torch.tensor(np.asarray(v), dtype=torch.float32)
-    ki = inertial.empty_kf_imu(K)
-    for k in range(1, n_kf):
-        sl = slice((k - 1) * every, k * every)
-        pre = imu_mod.preintegrate_plain(
-            f(acc[sl]), f(gyr[sl]), torch.full((every,), dt),
-            torch.ones(every, dtype=torch.bool), torch.zeros(6), calib)
-        ki = inertial.set_kf_imu(ki, k, pre, k - 1)
-    idx = np.arange(n_kf) * every
-    R_vg = Rot.from_rotvec([0.25, -0.15, 0.1]).as_matrix()
-    R_wb = np.tile(np.eye(3), (K, 1, 1))
-    p_wb = np.zeros((K, 3))
-    R_wb[:n_kf] = np.einsum('ij,njk->nik', R_vg, R[idx])
-    p_wb[:n_kf] = (p[idx] @ R_vg.T) / 2.5
-    kf_valid = torch.arange(K) < n_kf
-    ki = inertial.KfImu(*(t.to(dev) for t in ki))
-    return ki, f(R_wb).to(dev), f(p_wb).to(dev), kf_valid.to(dev)
-
-
 def _by_magnitude(got, want, mag):
     return float(((got - want).abs() / mag.clamp(min=1e-30)).max())
 
 
-@pytest.mark.parametrize("K,n_kf,opt_scale", [(256, 13, True),
-                                              (256, 13, False), (4, 4, True),
-                                              (40, 2, True)])
-def test_inertial_init_system_matches_plain(cuda, K, n_kf, opt_scale):
+# keyframe chains in slots: in order; slot 3 recycled for the newest
+# keyframe (its edge from slot 12, slot 4's from slot 2); and a fork, slot
+# 3 the predecessor of two edges (4 and 5, whose own edge from 4 is
+# dropped), with slot 0's edge live from itself (prev -1 reads as slot 0)
+_RECYCLED = [0, 1, 2] + list(range(4, 13)) + [3]
+
+
+@pytest.mark.parametrize("K,n_kf,opt_scale,layout", [
+    (256, 13, True, None), (256, 13, False, None), (4, 4, True, None),
+    (40, 2, True, None), (256, 10, True, None), (256, 13, True, "recycled"),
+    (256, 13, True, "fork")])
+def test_inertial_init_system_matches_plain(cuda, K, n_kf, opt_scale,
+                                            layout):
     from morb_slam_tpu_torch.optim import inertial
-    ki, R_wb, p_wb, kf_valid = _init_store(cuda, K, n_kf)
+    ki, R_wb, p_wb, kf_valid = testing.init_store(
+        cuda, K, n_kf, slots=_RECYCLED if layout == "recycled" else None)
+    if layout == "fork":
+        prev = ki.prev.clone()
+        prev[5] = 3
+        valid = ki.valid.clone()
+        valid[0] = True
+        ki = ki._replace(prev=prev, valid=valid)
     rng = np.random.default_rng(K)
     p = inertial.init_problem(ki, R_wb, p_wb, kf_valid, opt_scale,
                               1e2, 1e6, torch.eye(3, device=cuda))
@@ -1777,6 +1772,8 @@ def test_inertial_init_system_matches_plain(cuda, K, n_kf, opt_scale):
     H0, g0, c0 = inertial.inertial_system_plain(p, x)
     Ha, ga, ca = testing.inertial_system_magnitudes(p, x)
     assert torch.equal(H, H2) and torch.equal(g, g2) and torch.equal(c, c2)
+    # nothing outside the live edges' blocks
+    assert torch.equal(H[Ha == 0], torch.zeros_like(H[Ha == 0]))
     assert _by_magnitude(H, H0, Ha) <= 1e-4
     assert _by_magnitude(g, g0, ga) <= 1e-4
     assert abs(float(c - c0)) <= 1e-4 * float(ca)
@@ -1784,7 +1781,7 @@ def test_inertial_init_system_matches_plain(cuda, K, n_kf, opt_scale):
 
 def test_inertial_only_optimize_kernel_matches_plain(cuda):
     from morb_slam_tpu_torch.optim import inertial
-    ki, R_wb, p_wb, kf_valid = _init_store(cuda)
+    ki, R_wb, p_wb, kf_valid = testing.init_store(cuda)
     s, g_vis, v0, _ = inertial.linear_alignment(ki, R_wb, p_wb, kf_valid)
     kw = dict(n_iters=25, prior_gyro=1e2, prior_acc=1e6, s0=float(s),
               v0=v0, R_wg0=inertial.gravity_rotation(g_vis))
@@ -1901,7 +1898,7 @@ def test_k16_k17_k18_refuse_bad_inputs_on_the_card(cuda):
         stereo.match_stereo_general(*args[:2], args[2].double(), *args[3:])
     with pytest.raises(ValueError):
         stereo.match_stereo_general(*args[:10], args[10][:7])
-    ki, R_wb, p_wb, kf_valid = _init_store(cuda, 8, 4)
+    ki, R_wb, p_wb, kf_valid = testing.init_store(cuda, 8, 4)
     p = inertial.init_problem(ki, R_wb, p_wb, kf_valid)
     with pytest.raises(ValueError):
         inertial.inertial_system(p, torch.zeros(9 + 3 * 7, device=cuda))

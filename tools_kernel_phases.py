@@ -1,15 +1,16 @@
 """Phase shares of hand-written kernels on the card, stamped with
-`clock64()`: this tree's K12 (`csrc/pose_inertial.cu`), K5
+`clock64()`, and earlier forms of kernels against this tree's: this
+tree's K12 (`csrc/pose_inertial.cu`), K5
 (`csrc/pose_opt.cu`), K1 (`csrc/fast_select.cu`), K3
-(`csrc/hamming_top2.cu`) and K6 (`csrc/pyramid_blur.cu`), and K3 and K6 in
-their earlier forms (as of commit a873e66: the masked K3 on a dense gate,
-K6 launched per level).
+(`csrc/hamming_top2.cu`), K6 (`csrc/pyramid_blur.cu`) and K11
+(`csrc/preintegrate.cu`), and K11 and K17 against their earlier forms.
 
     python3 tools_kernel_phases.py --new
     python3 tools_kernel_phases.py --k5 --k1 --new
     python3 tools_kernel_phases.py --k3 --k6 --new
-    git archive a873e66 morb_slam_tpu_torch/csrc | tar -x -C old11/
-    python3 tools_kernel_phases.py --k3 --k6 --csrc old11/morb_slam_tpu_torch/csrc
+    git archive 133af77 morb_slam_tpu_torch/csrc | tar -x -C old12/
+    python3 tools_kernel_phases.py --k11 --k17 --csrc old12/morb_slam_tpu_torch/csrc
+    python3 tools_kernel_phases.py --k11 --new
 
 Copies the sources (and the headers) into a temporary directory, inserts
 the stamps, builds them with the port's `nvcc` flags and runs them at
@@ -20,23 +21,39 @@ their last stamp to their own phase counters. `--k5`: K5 at the tracking
 (1,200 observations, 60% stereo, 2 x 8) and relocalization (mono, 3 x 10)
 shapes; thread 0 (the solver warp) and thread 32 (a row warp) stamp, at
 256 and 512 threads a block. `--k1`: K1 on the 8 levels of a 752x480
-frame, its cell stage and level stage stamped by block. `--k3`: K3 on
-chip_smoke.py's gated inputs (a 4096x1200 projection window, a 1200x1200
-window with NaN rows, a 1200x1200 stereo row band); the earlier masked
-kernel on the dense gate, lane 0 of every warp stamping its phases, with
-the gate composition's kernels and device time, or this tree's gated mode
-stamped the same way, with unstamped builds at 1, 2, 4 and 8 warps a row.
-`--k6`: K6 on the first rendered 752x480 frame, 8 levels; the earlier
-per-level launches stamped by block with each launch's and the whole
-path's device time, or this tree's one launch stamped by block (phases
-over all levels, each grid barrier's wait) with unstamped builds at other
-grid sizes. Prints one JSON object (also written to
-chiprun_out/kernel_phases_new.json, kernel_phases_k5_k1_new.json or
-kernel_phases_k3_k6[_new].json). The stamp anchors match those sources
+frame, its cell stage and level stage stamped by block. `--k3`: K3's
+gated mode on chip_smoke.py's gated inputs (a 4096x1200 projection
+window, a 1200x1200 window with NaN rows, a 1200x1200 stereo row band),
+lane 0 of every warp stamping its phases, with unstamped builds at 1, 2,
+4 and 8 warps a row. `--k6`: K6's one launch on the first rendered
+752x480 frame, 8 levels, stamped by block (phases over all levels, each
+grid barrier's wait) with unstamped builds at other grid sizes. `--k11` / `--k17` with `--csrc`: this tree's K11
+(`csrc/preintegrate.cu`, one warp) and K17 (`csrc/inertial_init.cu`, the
+live edges only) against the earlier sources (as of commit 133af77: K11
+on one block of 96 threads, K17 summing every entry over all K slots),
+built beside them and called on the same inputs: K11 in chip_smoke.py's
+four cases (frame batch and keyframe buffer, fresh and continued; bits,
+the errors against plain, device ms of both, and the wrapper's call ms
+with the previous result passed through and with a copy it packs) and on
+40 random batches (bits), K17 on
+the synthetic problems of the gpu tests (bits of H, g and the cost; span
+and parts of both), then the vi path (120 frames, noise seed 7) with
+every K11 and K17 call also run through the earlier kernel (how many gave
+the same bits, the largest difference) and each IMU init's first problem
+timed with both. `--k11 --new`: this tree's K11 stamped by lane 0 (the
+staging, the rotation chain, the per-sample blocks, the covariance and
+carry steps, each __syncwarp, the chunk sums) in chip_smoke.py's cases.
+Prints one JSON object (also written to
+chiprun_out/kernel_phases_new.json, kernel_phases_k5_k1_new.json,
+kernel_phases_k3_k6_new.json, kernel_phases_k11_k17.json (the
+synthetic part first to kernel_phases_k11_k17_synthetic.json) or
+kernel_phases_k11_new.json). The stamp anchors match those sources
 only. Needs a CUDA card and nvcc.
 
 The earlier forms of K12, K2 (as of commit 4ceff5a), K5 and K1 (as of
-commit ea2e66d) are stamped by this script as of commit a873e66.
+commit ea2e66d) are stamped by this script as of commit a873e66, and those
+of K3 and K6 (as of commit a873e66: the masked K3 on a dense gate, K6
+launched per level) by this script as of commit 133af77.
 """
 import argparse
 import ctypes
@@ -601,14 +618,9 @@ PH_GLOBAL = ("__device__ long long* g_ph = nullptr;\n"
              "    return (int)cudaMemcpyToSymbol(g_ph, &p, sizeof(p));\n}\n"
              "#define STAMP(k) { long long t_ = clock64(); ph_[k] += t_ - "
              "last_; last_ = t_; }\n")
-K3_MASKED_PHASES = ["set-up", "descriptor staging (barriers included)",
-                    "mask reads and popcounts", "butterfly and write"]
 K3_GATED_PHASES = ["set-up (row inputs)", "pair tests and popcounts",
                    "the warp's butterfly",
                    "the row's parts merged (barrier included), write"]
-K6_LEVEL_PHASES = ["pass 1 (rows, barrier included)", "pass 2 (columns)"]
-K6_BLUR_PHASES = ["tile and halo load (barrier included)",
-                  "vertical pass (barrier included)", "horizontal pass"]
 K6_FUSED_PHASES = ["pyramid tile: bands (barrier included)",
                    "pyramid tile: input window (barrier included)",
                    "pyramid tile: passes 1 and 2, write",
@@ -616,42 +628,6 @@ K6_FUSED_PHASES = ["pyramid tile: bands (barrier included)",
                    "blur tile: passes and write",
                    "grid barriers",
                    "barrier before each work item"]
-
-
-def _k3_masked_source(text):
-    """The masked K3 (hamming_top2_kernel): lane 0 of every warp (one row)
-    adds the cycles of each phase to its counters."""
-    return _patch(text, [
-        ("#define BIG (1 << 20)\n", "#define BIG (1 << 20)\n" + PH_GLOBAL),
-        ("    int best = INT_MAX, bidx = INT_MAX, second = INT_MAX;\n"
-         "    for (int c0 = 0; c0 < M; c0 += CHUNK) {\n"
-         "        const int nc = min(CHUNK, M - c0);\n",
-         "    int best = INT_MAX, bidx = INT_MAX, second = INT_MAX;\n"
-         "    long long ph_[4] = {0, 0, 0, 0};\n    long long last_ = clock64();\n"
-         "    for (int c0 = 0; c0 < M; c0 += CHUNK) {\n"
-         "        const int nc = min(CHUNK, M - c0);\n"
-         "        STAMP(c0 ? 2 : 0)\n"),
-        ("            sb[t] = b[2 * (size_t)c0 + t];\n        __syncthreads();\n",
-         "            sb[t] = b[2 * (size_t)c0 + t];\n        __syncthreads();\n"
-         "        STAMP(1)\n"),
-        ("    }\n#pragma unroll\n    for (int off = 16; off > 0; off >>= 1) {\n"
-         "        const int ob = __shfl_xor_sync(0xffffffffu, best, off);\n"
-         "        const int oi = __shfl_xor_sync(0xffffffffu, bidx, off);\n"
-         "        const int os = __shfl_xor_sync(0xffffffffu, second, off);\n"
-         "        if (ob < best",
-         "    }\n    STAMP(2)\n#pragma unroll\n"
-         "    for (int off = 16; off > 0; off >>= 1) {\n"
-         "        const int ob = __shfl_xor_sync(0xffffffffu, best, off);\n"
-         "        const int oi = __shfl_xor_sync(0xffffffffu, bidx, off);\n"
-         "        const int os = __shfl_xor_sync(0xffffffffu, second, off);\n"
-         "        if (ob < best"),
-        ("        second_out[row] = min(second, BIG);\n    }\n}",
-         "        second_out[row] = min(second, BIG);\n    }\n    STAMP(3)\n"
-         "    if (lane == 0 && g_ph)\n"
-         "        for (int q = 0; q < 4; ++q)\n"
-         "            g_ph[((size_t)blockIdx.x * ROWS_PER_BLOCK + "
-         "(threadIdx.x >> 5)) * 4 + q] = ph_[q];\n}"),
-    ])
 
 
 def _k3_gated_source(text):
@@ -678,47 +654,6 @@ def _k3_gated_source(text):
          "        for (int q = 0; q < 4; ++q)\n"
          "            g_ph[((size_t)blockIdx.x * GATED_WARPS + warp) * 4 + q]"
          " = ph_[q];\n}"),
-    ])
-
-
-def _k6_level_source(text):
-    """The per-level K6 (pyramid_level_kernel, blur_levels_kernel): thread
-    0 of every block records the cycles of each phase."""
-    out = lambda n: ("    if (threadIdx.x == 0 && threadIdx.y == 0 && g_ph)\n"
-                     f"        for (int q = 0; q < {n}; ++q)\n"
-                     "            g_ph[(size_t)(blockIdx.y * gridDim.x + "
-                     f"blockIdx.x) * {n} + q] = ph_[q];\n")
-    return _patch(text, [
-        ("struct Kernel7 {", PH_GLOBAL + "\nstruct Kernel7 {"),
-        ("    __shared__ float tmp[TY][CX];\n",
-         "    __shared__ float tmp[TY][CX];\n"
-         "    long long ph_[2] = {0, 0};\n    long long last_ = clock64();\n"),
-        ("            tmp[ty][c] = acc;\n        }\n    }\n    __syncthreads();\n",
-         "            tmp[ty][c] = acc;\n        }\n    }\n    __syncthreads();\n"
-         "    STAMP(0)\n"),
-        ("    const int ox = ox0 + tx;\n    if (oy >= h_out || ox >= w_out) "
-         "return;\n",
-         "    const int ox = ox0 + tx;\n    if (oy >= h_out || ox >= w_out) "
-         "{\n        STAMP(1)\n" + out(2) + "        return;\n    }\n"),
-        ("    dst[(size_t)oy * w_out + ox] = acc;\n}",
-         "    dst[(size_t)oy * w_out + ox] = acc;\n    STAMP(1)\n" + out(2)
-         + "}"),
-        ("    __shared__ float mid[TY][TX + 2 * R];\n    int l = 0;",
-         "    __shared__ float mid[TY][TX + 2 * R];\n"
-         "    long long ph_[3] = {0, 0, 0};\n    long long last_ = clock64();\n"
-         "    int l = 0;"),
-        ("        in[r][c] = __ldg(s + (size_t)y * w + x);\n    }\n"
-         "    __syncthreads();\n",
-         "        in[r][c] = __ldg(s + (size_t)y * w + x);\n    }\n"
-         "    __syncthreads();\n    STAMP(0)\n"),
-        ("        mid[r][c] = acc;\n    }\n    __syncthreads();\n",
-         "        mid[r][c] = acc;\n    }\n    __syncthreads();\n    STAMP(1)\n"),
-        ("    if (x >= w || y >= h) return;\n",
-         "    if (x >= w || y >= h) {\n        STAMP(2)\n" + out(3)
-         + "        return;\n    }\n"),
-        ("    dst[lv.off[l] + (size_t)y * w + x] = acc;\n}",
-         "    dst[lv.off[l] + (size_t)y * w + x] = acc;\n    STAMP(2)\n"
-         + out(3) + "}"),
     ])
 
 
@@ -819,27 +754,23 @@ def _phase_summary(c, names):
                 total_cycles_max=float(c.sum(1).max()))
 
 
-def _k3(csrc, new):
-    """K3 on the gated inputs (4096x1200 window, 1200x1200 window with NaN
-    rows, 1200x1200 row band). Earlier sources: the masked kernel stamped
-    on the dense gate, its device time and the gate composition's (kernels
-    and device ms a call). This tree: the gated kernel stamped, and
+def _k3():
+    """This tree's gated K3 on the gated inputs (4096x1200 window,
+    1200x1200 window with NaN rows, 1200x1200 row band), stamped, and
     unstamped builds at 1, 2, 4 and 8 warps a row."""
     from morb_slam_tpu_torch.ops import hamming
     P, I = ctypes.c_void_p, ctypes.c_int
     cases = _k3_inputs()
     res = {}
-    text = open(os.path.join(csrc, "hamming_top2.cu")).read()
+    text = open(os.path.join(cuda_build.CSRC, "hamming_top2.cu")).read()
     with tempfile.TemporaryDirectory() as tmp:
-        lib, ptx = _build(tmp, "hamming_top2", _k3_gated_source(text) if new
-                          else _k3_masked_source(text))
+        lib, ptx = _build(tmp, "hamming_top2", _k3_gated_source(text))
         lib.hamming_top2.argtypes = [P, P, P, I, I, P, P, P, P]
         lib.hamming_top2.restype = I
         lib.set_phase_buf.argtypes = [P]
-        if new:
-            lib.hamming_top2_gated.argtypes = [P] * 9 + [I, I, I,
-                                                         ctypes.c_float, P, P]
-            lib.hamming_top2_gated.restype = I
+        lib.hamming_top2_gated.argtypes = [P] * 9 + [I, I, I,
+                                                     ctypes.c_float, P, P]
+        lib.hamming_top2_gated.restype = I
         old = _swap_lib("hamming_top2", lib)
         try:
             for mode, args, max_d in cases:
@@ -850,14 +781,8 @@ def _k3(csrc, new):
                 # a warp's 4 counters: at most 8 warps a row
                 ph = torch.zeros(n * 32 + 64, dtype=torch.int64,
                                  device="cuda")
-                if new:
-                    call = lambda args=args, mode=mode, max_d=max_d: \
-                        hamming.hamming_top2_gated(*args, mode, max_d=max_d)
-                    kname = "hamming_top2_gated_kernel"
-                else:
-                    call = lambda args=args, mask=mask: \
-                        hamming.hamming_top2(args[0], args[1], mask)
-                    kname = "hamming_top2_kernel"
+                call = lambda args=args, mode=mode, max_d=max_d: \
+                    hamming.hamming_top2_gated(*args, mode, max_d=max_d)
                 cuda_build.check(lib.set_phase_buf(ph.data_ptr()), "phases")
                 for _ in range(3):
                     got = call()
@@ -872,22 +797,13 @@ def _k3(csrc, new):
                            pairs_passed=int(mask.sum()),
                            bitwise_equal_plain=all(
                                torch.equal(a, b) for a, b in zip(got, want)),
-                           **_phase_summary(c, K3_GATED_PHASES if new
-                                            else K3_MASKED_PHASES),
-                           device_ms_stamped=cs.device_ms(call, kname))
-                if not new:
-                    gate = lambda args=args, mode=mode, max_d=max_d: \
-                        hamming.gate_mask(*args[2:], mode, max_d=max_d)
-                    row["gate_composition"] = dict(
-                        device_ms=cs.device_ms(gate, None),
-                        kernels=cs.kernels_per_call(gate),
-                        call_ms=cs.time_ms(gate))
+                           **_phase_summary(c, K3_GATED_PHASES),
+                           device_ms_stamped=cs.device_ms(
+                               call, "hamming_top2_gated_kernel"))
                 res[mode] = row
         finally:
             _restore_lib("hamming_top2", old)
         res["ptxas"] = ptx.strip()
-        if not new:
-            return res
         res["unstamped"] = {}
         for wpr in (1, 2, 4, 8):
             d = os.path.join(tmp, f"w{wpr}")
@@ -913,20 +829,17 @@ def _k3(csrc, new):
     return res
 
 
-def _k6(csrc, new):
-    """K6 on the first rendered 752x480 frame, 8 levels. Earlier sources:
-    the per-level launches stamped (thread 0 of every block), each launch's
-    device time, and the whole path (the copy, 7 level launches, the blur:
-    kernels, device ms and call ms an image). This tree: the one launch
-    stamped (phases over all levels, each grid barrier's wait), and
+def _k6():
+    """This tree's one-launch K6 on the first rendered 752x480 frame, 8
+    levels, stamped (phases over all levels, each grid barrier's wait), and
     unstamped builds at 1, 2 and 4 blocks a multiprocessor and as many as
-    are co-resident."""
+    are co-resident, each bitwise against the per-level path."""
     P, I = ctypes.c_void_p, ctypes.c_int
     IP = ctypes.POINTER(ctypes.c_int)
     world, poses = cs._world({})
     frame = world.render(*poses[0]).clamp(0, 255).to(torch.uint8).float()
     L, sc = 8, 1.2
-    text = open(os.path.join(csrc, "pyramid_blur.cu")).read()
+    text = open(os.path.join(cuda_build.CSRC, "pyramid_blur.cu")).read()
     res = {}
 
     def set_args(lib):
@@ -935,85 +848,43 @@ def _k6(csrc, new):
         lib.blur_levels.argtypes = [P, P, I, IP, IP, IP,
                                     ctypes.POINTER(ctypes.c_float), P]
         lib.blur_levels.restype = I
-        if new:
-            lib.pyramid_blur.argtypes = [P] * 6
-            lib.pyramid_blur.restype = I
+        lib.pyramid_blur.argtypes = [P] * 6
+        lib.pyramid_blur.restype = I
     with tempfile.TemporaryDirectory() as tmp:
-        lib, ptx = _build(tmp, "pyramid_blur", _k6_fused_source(text) if new
-                          else _k6_level_source(text))
+        lib, ptx = _build(tmp, "pyramid_blur", _k6_fused_source(text))
         set_args(lib)
         lib.set_phase_buf.argtypes = [P]
         old = _swap_lib("pyramid_blur", lib)
         try:
             ref = image.build_pyramid(frame, L, sc)
             ref_blur = image.blur_levels(ref)
-            if new:
-                ph = torch.zeros(4096 * 24, dtype=torch.int64, device="cuda")
-                call = lambda: image.pyramid_blur(frame, L, sc)
-                cuda_build.check(lib.set_phase_buf(ph.data_ptr()), "phases")
-                for _ in range(3):
-                    call()
-                ph.zero_()
-                lv, bl = call()
-                torch.cuda.synchronize()
-                cuda_build.check(lib.set_phase_buf(None), "phases")
-                c = ph.view(-1, 24).cpu().numpy().astype(float)
-                c = c[c.sum(1) > 0]
-                res["blocks"] = int(c.shape[0])
-                res["bitwise_equal_per_level_path"] = all(
-                    torch.equal(a, b) for a, b in zip(lv + bl,
-                                                      ref + ref_blur))
-                res.update(_phase_summary(c[:, :7], K6_FUSED_PHASES))
-                # the wait at the barrier before phase p = 2..L; the least
-                # wait is the barrier's own cost for the last block in
-                bars = c[:, 7 + 2:7 + L + 1]
-                res["barrier_wait_cycles_by_phase"] = dict(
-                    mean=bars.mean(0).tolist(), min=bars.min(0).tolist(),
-                    max=bars.max(0).tolist())
-                res["device_ms_stamped"] = cs.device_ms(
-                    call, "pyramid_blur_kernel")
-            else:
-                rows = []
-                shapes = image.level_shapes(frame.shape[0], frame.shape[1],
-                                            L, sc)
-                for l in range(1, L):
-                    ph = torch.zeros(4096 * 2, dtype=torch.int64,
-                                     device="cuda")
-                    cuda_build.check(lib.set_phase_buf(ph.data_ptr()),
-                                     "phases")
-                    # levels 1..l; level l's launch, the last, writes
-                    # its blocks' stamps over the earlier ones
-                    image.build_pyramid(frame, l + 1, sc)
-                    torch.cuda.synchronize()
-                    nb = -(-shapes[l][1] // 32) * -(-shapes[l][0] // 8)
-                    c = ph.view(-1, 2)[:nb].cpu().numpy().astype(float)
-                    rows.append(dict(shape=list(shapes[l]),
-                                     blocks=int(c.shape[0]),
-                                     **_phase_summary(c, K6_LEVEL_PHASES)))
-                res["levels"] = rows
-                ph = torch.zeros(8192 * 3, dtype=torch.int64, device="cuda")
-                cuda_build.check(lib.set_phase_buf(ph.data_ptr()), "phases")
-                image.blur_levels(ref)
-                torch.cuda.synchronize()
-                cuda_build.check(lib.set_phase_buf(None), "phases")
-                c = ph.view(-1, 3).cpu().numpy().astype(float)
-                c = c[c.sum(1) > 0]
-                res["blur"] = dict(blocks=int(c.shape[0]),
-                                   **_phase_summary(c, K6_BLUR_PHASES))
-                path = lambda: image.blur_levels(image.build_pyramid(
-                    frame, L, sc))
-                res["path"] = dict(
-                    device_ms=cs.device_ms(path, None),
-                    pyramid_level_ms=cs.device_ms(path,
-                                                  "pyramid_level_kernel"),
-                    blur_ms=cs.device_ms(path, "blur_levels_kernel"),
-                    kernels=cs.kernels_per_call(path),
-                    call_ms=cs.time_ms(path))
+            ph = torch.zeros(4096 * 24, dtype=torch.int64, device="cuda")
+            call = lambda: image.pyramid_blur(frame, L, sc)
+            cuda_build.check(lib.set_phase_buf(ph.data_ptr()), "phases")
+            for _ in range(3):
+                call()
+            ph.zero_()
+            lv, bl = call()
+            torch.cuda.synchronize()
+            cuda_build.check(lib.set_phase_buf(None), "phases")
+            c = ph.view(-1, 24).cpu().numpy().astype(float)
+            c = c[c.sum(1) > 0]
+            res["blocks"] = int(c.shape[0])
+            res["bitwise_equal_per_level_path"] = all(
+                torch.equal(a, b) for a, b in zip(lv + bl,
+                                                  ref + ref_blur))
+            res.update(_phase_summary(c[:, :7], K6_FUSED_PHASES))
+            # the wait at the barrier before phase p = 2..L; the least
+            # wait is the barrier's own cost for the last block in
+            bars = c[:, 7 + 2:7 + L + 1]
+            res["barrier_wait_cycles_by_phase"] = dict(
+                mean=bars.mean(0).tolist(), min=bars.min(0).tolist(),
+                max=bars.max(0).tolist())
+            res["device_ms_stamped"] = cs.device_ms(
+                call, "pyramid_blur_kernel")
         finally:
             _restore_lib("pyramid_blur", old)
         res["ptxas"] = ptx.strip()
-        if not new:
-            return res
         res["unstamped"] = {}
         for v in (1, 2, 4, 0):
             d = os.path.join(tmp, f"grid_per_sm{v}")
@@ -1039,40 +910,367 @@ def _k6(csrc, new):
     return res
 
 
+def _old_k11(lib, acc, gyr, dts, mask, bias, calib, init=None):
+    """The earlier K11's packed result (its wrapper packs `init` anew)."""
+    buf = None if init is None else imu.pack(init).contiguous()
+    out = torch.empty(imu.PACK, device="cuda")
+    acc, gyr, dts, mask = (t.contiguous() for t in (acc, gyr, dts, mask))
+    cuda_build.check(lib.preintegrate(
+        acc.data_ptr(), gyr.data_ptr(), dts.data_ptr(), mask.data_ptr(),
+        bias.contiguous().data_ptr(), calib.cov.data_ptr(),
+        calib.cov_walk.data_ptr(), None if buf is None else buf.data_ptr(),
+        acc.shape[0], out.data_ptr(), cuda_build.stream_ptr(acc)), "old K11")
+    return out
+
+
+def _old_k17(lib, p, x):
+    """The earlier K17 (every slot's edge, every entry summed over all K
+    slots) on (p, x): (H, g, cost)."""
+    K = p.w.shape[0]
+    n = 9 + 3 * K
+    e = lambda *s: torch.empty(s, device="cuda")    # noqa: E731
+    He, ge, ce, H, g, c = e(K, 15, 15), e(K, 15), e(K), e(n, n), e(n), e()
+    cuda_build.check(lib.inertial_init_system(
+        *(t.contiguous().data_ptr() for t in (p.cst, p.R_wb, p.p_wb, x,
+                                               p.base, p.ki.prev)),
+        K, int(p.opt_scale), p.prior_gyro, p.prior_acc,
+        *(t.data_ptr() for t in (He, ge, ce, H, g, c)),
+        cuda_build.stream_ptr(x)), "old K17")
+    return H, g, c
+
+
+def _k11_cases():
+    """chip_smoke.py's K11 cases: a frame batch (64 slots, 10 samples) and
+    a keyframe buffer (768, 512), each fresh and continued by a frame."""
+    rng = np.random.default_rng(11)
+    bias = torch.tensor([0.002, -0.001, 0.003, 0.02, -0.03, 0.01],
+                        device="cuda")
+    cases = []
+    for name, cap, n in (("frame", 64, 10), ("keyframe", 768, 512)):
+        args = cs._imu_batch(1.0, cap, n, rng)
+        nxt = cs._imu_batch(1.0 + n / 200.0, 64, 10, rng)
+        cases.append((name, args, nxt))
+    return cases, bias
+
+
+def _k11_compare(lib):
+    """This tree's K11 against the earlier one and the plain version in
+    the four cases: bitwise equal fields, the errors chip_smoke.py gates,
+    device ms of both kernels; the wrapper's call ms with the previous
+    result passed through and with a copy that it packs."""
+    calib = cs._imu_calib()
+    cases, bias = _k11_cases()
+    res = {}
+    for name, args, nxt in cases:
+        got = imu.preintegrate(*args, bias, calib)
+        old = _old_k11(lib, *args, bias, calib)
+        want = imu.preintegrate_plain(*args, bias, calib)
+        got2 = imu.preintegrate(*nxt, bias, calib, init=got)
+        old2 = _old_k11(lib, *nxt, bias, calib, init=imu.unpack(old))
+        want2 = imu.preintegrate_plain(*nxt, bias, calib, init=want)
+        for case, g, o, w, call, ocall in (
+                ("fresh", got, old, want,
+                 lambda a=args: imu.preintegrate(*a, bias, calib),
+                 lambda a=args: _old_k11(lib, *a, bias, calib)),
+                ("continued", got2, old2, want2,
+                 lambda a=nxt, i=got: imu.preintegrate(*a, bias, calib,
+                                                       init=i),
+                 lambda a=nxt, i=imu.unpack(old): _old_k11(
+                     lib, *a, bias, calib, init=i))):
+            ab, rel, c = cs._pre_errors(g, w)
+            row = dict(
+                bitwise_equal_earlier=torch.equal(imu.pack(g), o),
+                fields_differing=[f for f, _ in imu._FIELDS if not
+                                  torch.equal(getattr(g, f),
+                                              getattr(imu.unpack(o), f))],
+                max_abs_diff_earlier=float((imu.pack(g) - o).abs().max()),
+                vs_plain=dict(abs=ab, rel=rel, C=c),
+                ms=cs.device_ms(call, "preintegrate_kernel"),
+                ms_earlier=cs.device_ms(ocall, "preintegrate_kernel"))
+            if case == "continued":
+                copy = imu.Preintegrated(*(t.clone() for t in got))
+                row["call_ms_pass_through"] = cs.time_ms(call)
+                row["call_ms_packed_copy"] = cs.time_ms(
+                    lambda a=nxt: imu.preintegrate(*a, bias, calib,
+                                                   init=copy))
+            res[f"{name} {case}"] = row
+    # random frame batches (64 slots, 1-64 valid samples) and keyframe
+    # buffers (768 slots), fresh: how many give the earlier kernel's bits
+    same, n = 0, 0
+    for k in range(40):
+        rng = np.random.default_rng(100 + k)
+        cap, nv = (64, 1 + (7 * k) % 64) if k < 36 else (768, 300 + 40 * k)
+        args = cs._imu_batch(1.0 + k, cap, min(nv, cap), rng)
+        same += torch.equal(imu.pack(imu.preintegrate(*args, bias, calib)),
+                            _old_k11(lib, *args, bias, calib))
+        n += 1
+    res["random_batches"] = dict(batches=n, bitwise_equal_earlier=same)
+    return res
+
+
+K11_PHASES = ["staging", "rotation chain", "per-sample blocks",
+              "T, Jacobians, dP dV", "first __syncwarp", "C and the carry",
+              "second __syncwarp", "chunk sums"]
+
+
+def _k11_new_source(text):
+    st = ("    long long ph_[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+          "    long long last_ = clock64();\n"
+          "#define STAMP(k) { long long t_ = clock64(); ph_[k] += t_ - last_; "
+          "last_ = t_; }\n")
+    return _patch(text, [
+        ("                    float* __restrict__ out) {\n",
+         "                    float* __restrict__ out, long long* ph) {\n" + st),
+        ("        const unsigned vm = __ballot_sync(FULL, valid);\n"
+         "        __syncwarp();\n",
+         "        const unsigned vm = __ballot_sync(FULL, valid);\n"
+         "        __syncwarp();\n        STAMP(0)\n"),
+        ("            for (int k = 0; k < 9; ++k) dR[k] = Rn[k];\n        }\n"
+         "        __syncwarp();\n",
+         "            for (int k = 0; k < 9; ++k) dR[k] = Rn[k];\n        }\n"
+         "        __syncwarp();\n        STAMP(1)\n"),
+        ("            }\n        }\n        __syncwarp();\n"
+         "        // the covariance and the bias Jacobians",
+         "            }\n        }\n        __syncwarp();\n        STAMP(2)\n"
+         "        // the covariance and the bias Jacobians"),
+        ("            const float nV = dV + Ra * dt;\n            __syncwarp();\n",
+         "            const float nV = dV + Ra * dt;\n            STAMP(3)\n"
+         "            __syncwarp();\n            STAMP(4)\n"),
+        ("                S[O_DV + q3] = nV;\n            }\n"
+         "            __syncwarp();\n",
+         "                S[O_DV + q3] = nV;\n            }\n            STAMP(5)\n"
+         "            __syncwarp();\n            STAMP(6)\n"),
+        ("        n_s += (float)__popc(vm);\n",
+         "        n_s += (float)__popc(vm);\n        STAMP(7)\n"),
+        ("    __syncwarp();\n    const float n = fmaxf(n_s, 1.0f);",
+         "    __syncwarp();\n"
+         "    if (lane == 0 && ph) for (int q = 0; q < 8; ++q) ph[q] = ph_[q];\n"
+         "    const float n = fmaxf(n_s, 1.0f);"),
+        ('extern "C" int preintegrate(',
+         'static long long* phase_buf = 0;\n'
+         'extern "C" int set_phase_buf(void* p) {\n'
+         '    phase_buf = (long long*)p;\n    return 0;\n}\n\n'
+         'extern "C" int preintegrate('),
+        ("        (const float*)cov_walk, (const float*)init, N, (float*)out);",
+         "        (const float*)cov_walk, (const float*)init, N, (float*)out,\n"
+         "        phase_buf);"),
+    ])
+
+
+def _k11_new():
+    """This tree's K11 stamped by lane 0 (cycles of each phase, each
+    stamp at its place in the instruction stream) in chip_smoke.py's
+    cases, and its device ms unstamped."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    calib = cs._imu_calib()
+    cases, bias = _k11_cases()
+    text = open(os.path.join(cuda_build.CSRC, "preintegrate.cu")).read()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, ptx = _build(tmp, "preintegrate", _k11_new_source(text))
+        lib.preintegrate.argtypes = [P] * 8 + [I, P, P]
+        lib.preintegrate.restype = I
+        lib.set_phase_buf.argtypes = [P]
+        ph = torch.zeros(8, dtype=torch.int64, device="cuda")
+        cuda_build.check(lib.set_phase_buf(ph.data_ptr()), "phases")
+        for name, args, _ in cases:
+            got = _old_k11(lib, *args, bias, calib)
+            ph.zero_()
+            _old_k11(lib, *args, bias, calib)
+            torch.cuda.synchronize()
+            c = ph.cpu().numpy().astype(float)
+            n = int(args[3].sum())
+            res[name] = dict(
+                valid_samples=n,
+                bitwise_equal_unstamped=torch.equal(
+                    got, imu.pack(imu.preintegrate(*args, bias, calib))),
+                cycles=dict(zip(K11_PHASES, c.tolist())),
+                cycles_per_sample=float(c.sum()) / n,
+                share=dict(zip(K11_PHASES, (c / c.sum()).tolist())),
+                device_ms_unstamped=cs.device_ms(
+                    lambda a=args: imu.preintegrate(*a, bias, calib),
+                    "preintegrate_kernel"))
+        cuda_build.check(lib.set_phase_buf(None), "phases")
+        res["ptxas_stamped"] = ptx.strip()
+    return res
+
+
+def _k17_compare(lib):
+    """This tree's K17 against the earlier one on the synthetic problems
+    of the gpu tests (K = 256: 12 and 9 live edges, a recycled slot; 40
+    slots): H, g and cost bitwise equal, each one's span and device
+    times."""
+    from morb_slam_tpu_torch import testing
+    from morb_slam_tpu_torch.optim import inertial
+    rec = [0, 1, 2] + list(range(4, 13)) + [3]
+    res = {}
+    for name, K, n_kf, slots in (("K256 13 keyframes", 256, 13, None),
+                                 ("K256 10 keyframes", 256, 10, None),
+                                 ("K256 recycled slot", 256, 13, rec),
+                                 ("K40 13 keyframes", 40, 13, None)):
+        ki, R_wb, p_wb, kf_valid = testing.init_store("cuda", K, n_kf,
+                                                      slots=slots)
+        p = inertial.init_problem(ki, R_wb, p_wb, kf_valid, True, 1e2, 1e6,
+                                  torch.eye(3, device="cuda"))
+        x = torch.tensor(np.random.default_rng(K).normal(0, 0.05, 9 + 3 * K),
+                         dtype=torch.float32, device="cuda")
+        res[name] = _k17_pair(lib, p, x)
+    return res
+
+
+def _k17_pair(lib, p, x):
+    from morb_slam_tpu_torch.optim import inertial
+    new = lambda: inertial.inertial_system(p, x)      # noqa: E731
+    old = lambda: _old_k17(lib, p, x)                 # noqa: E731
+    a, b = new(), old()
+    names = ("init_edge_kernel", "init_assemble_kernel")
+    return dict(
+        live_edges=int(p.w.sum()), K=int(p.w.shape[0]),
+        bitwise_equal_earlier=[torch.equal(u, v) for u, v in zip(a, b)],
+        ms=cs.span_ms(new, *names), ms_earlier=cs.span_ms(old, *names),
+        ms_parts={k: cs.device_ms(new, k) for k in names},
+        ms_parts_earlier={k: cs.device_ms(old, k) for k in names},
+        call_ms=cs.time_ms(new), call_ms_earlier=cs.time_ms(old))
+
+
+def _vi_path_compare(lib11, lib17):
+    """The vi path's 120 frames (chip_smoke.py's phase, noise seed 7) with
+    every K11 and K17 call also run through the earlier kernel on the same
+    inputs: how many gave the same bits, the largest difference, and the
+    first IMU-init problem of each stage timed with both."""
+    from morb_slam_tpu_torch.optim import inertial
+    state = {}
+    gt = [cs.analytic_pose(i * cs.VI_DT) for i in range(cs.N_VI)]
+    pairs = [cs._raw_pair(state, *q) for q in gt]
+    batches = cs._vi_batches(7, cs.N_VI)
+    sysm = cs._vi_system(state)
+    k11 = dict(calls=0, equal=0, max_abs_diff=0.0)
+    k17 = dict(calls=0, equal=0, max_abs_diff=[0.0, 0.0, 0.0])
+    firsts = []
+    f11, f17 = imu.preintegrate, inertial.inertial_system
+
+    def hook11(acc, gyro, dts, mask, bias, calib, init=None):
+        out = f11(acc, gyro, dts, mask, bias, calib, init)
+        o = _old_k11(lib11, acc, gyro, dts, mask, bias, calib, init)
+        k11["calls"] += 1
+        k11["equal"] += int(torch.equal(imu.pack(out), o))
+        k11["max_abs_diff"] = max(k11["max_abs_diff"], float(
+            (imu.pack(out) - o).abs().max()))
+        return out
+
+    def hook17(p, x):
+        out = f17(p, x)
+        o = _old_k17(lib17, p, x)
+        k17["calls"] += 1
+        k17["equal"] += int(all(torch.equal(u, v) for u, v in zip(out, o)))
+        k17["max_abs_diff"] = [max(m, float((u - v).abs().max())) for m, u, v
+                               in zip(k17["max_abs_diff"], out, o)]
+        if k17["calls"] % 26 == 1:
+            firsts.append(cs._cloned((p, x)))
+        return out
+    if lib11 is not None:
+        imu.preintegrate = hook11
+    if lib17 is not None:
+        inertial.inertial_system = hook17
+    try:
+        states = [sysm.track_stereo(pairs[i][0], pairs[i][1], i * cs.VI_DT,
+                                    imu_batch=batches[i])[0]
+                  for i in range(cs.N_VI)]
+        sysm.tracker.flush()
+    finally:
+        imu.preintegrate, inertial.inertial_system = f11, f17
+    tr = sysm.tracker
+    ate, scale, ate_se3, extent, _ = cs._ate(tr, gt, cs.VI_DT)
+    res = dict(frames_ok=sum(s == "OK" for s in states),
+               imu_ready=tr.imu_ready, viba_stage=tr.viba_stage,
+               ate_se3_m=ate_se3, sim3_scale=scale)
+    if lib11 is not None:
+        res["k11_calls"] = k11
+    if lib17 is not None:
+        res["k17_calls"] = k17
+        res["k17_first_problem_of_each_init"] = [
+            _k17_pair(lib17, p, x) for p, x in firsts]
+    return res
+
+
+def _k11_k17(csrc, do11, do17):
+    """K11 and / or K17 of this tree against the earlier sources in
+    `csrc`, built beside them."""
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib11 = lib17 = None
+        if do11:
+            lib11, ptx = _build(tmp, "preintegrate", open(os.path.join(
+                csrc, "preintegrate.cu")).read())
+            lib11.preintegrate.argtypes = [P] * 8 + [I, P, P]
+            lib11.preintegrate.restype = I
+            res["k11"] = _k11_compare(lib11)
+            res["k11"]["ptxas_earlier"] = ptx.strip()
+            res["k11"]["ptxas"] = cuda_build.ptxas_report(
+                "preintegrate").strip()
+        if do17:
+            shutil.copy(os.path.join(csrc, "dual.cuh"), tmp)
+            lib17, ptx = _build(tmp, "inertial_init", open(os.path.join(
+                csrc, "inertial_init.cu")).read())
+            lib17.inertial_init_system.argtypes = [P] * 6 + [I, I, Fl, Fl] \
+                + [P] * 7
+            lib17.inertial_init_system.restype = I
+            res["k17"] = _k17_compare(lib17)
+            res["k17"]["ptxas_earlier"] = ptx.strip()
+            res["k17"]["ptxas"] = cuda_build.ptxas_report(
+                "inertial_init").strip()
+        _write(res, "kernel_phases_k11_k17_synthetic.json")
+        res["vi_path"] = _vi_path_compare(lib11, lib17)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--csrc", help="morb_slam_tpu_torch/csrc of commit "
-                    "a873e66 (the masked K3 and the per-level K6; with "
-                    "--k3 / --k6)")
+                    "133af77 (the earlier K11 and K17; with --k11 / "
+                    "--k17)")
     ap.add_argument("--new", action="store_true",
                     help="stamp this tree's kernels (K12 unless --k5, --k1, "
                     "--k3 or --k6 is given)")
     ap.add_argument("--k5", action="store_true", help="stamp K5 instead")
     ap.add_argument("--k1", action="store_true", help="stamp K1 instead")
     ap.add_argument("--k3", action="store_true",
-                    help="stamp K3 instead (with --csrc: the masked kernel "
-                    "on the dense gate; with --new: this tree's gated mode)")
+                    help="stamp K3's gated mode instead")
     ap.add_argument("--k6", action="store_true",
-                    help="stamp K6 instead (with --csrc: the per-level "
-                    "launches; with --new: this tree's one launch)")
+                    help="stamp K6's one launch instead")
+    ap.add_argument("--k11", action="store_true",
+                    help="with --csrc: this tree's K11 against the earlier "
+                    "one, bit for bit and timed; with --new: this tree's "
+                    "K11 stamped")
+    ap.add_argument("--k17", action="store_true",
+                    help="with --csrc: this tree's K17 against the earlier "
+                    "one, bit for bit and timed")
     ap.add_argument("--reps", type=int, default=20)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     if a.new == bool(a.csrc):
         raise SystemExit("give --csrc or --new")
-    if a.csrc and not (a.k3 or a.k6) or a.csrc and (a.k5 or a.k1):
-        raise SystemExit("--csrc goes with --k3 / --k6 only")
+    if a.k11 and a.new and not (a.k17 or a.k3 or a.k6 or a.k5 or a.k1):
+        return _write(dict(card=cs.nvidia_smi(), sources="this tree",
+                           k11=_k11_new()), "kernel_phases_k11_new.json")
+    if a.k11 or a.k17:
+        if not a.csrc or a.k3 or a.k6 or a.k5 or a.k1:
+            raise SystemExit("--k11 / --k17 go with --csrc alone, or "
+                             "--k11 with --new")
+        res = dict(card=cs.nvidia_smi(), sources=a.csrc,
+                   **_k11_k17(a.csrc, a.k11, a.k17))
+        return _write(res, "kernel_phases_k11_k17.json")
+    if a.csrc:
+        raise SystemExit("--csrc goes with --k11 / --k17 only")
     if a.k3 or a.k6:
-        csrc = cuda_build.CSRC if a.new else a.csrc
-        res = dict(card=cs.nvidia_smi(), sources="this tree" if a.new
-                   else csrc)
+        res = dict(card=cs.nvidia_smi(), sources="this tree")
         if a.k3:
-            res["k3"] = _k3(csrc, a.new)
+            res["k3"] = _k3()
         if a.k6:
-            res["k6"] = _k6(csrc, a.new)
-        return _write(res, "kernel_phases_k3_k6%s.json"
-                      % ("_new" if a.new else ""))
+            res["k6"] = _k6()
+        return _write(res, "kernel_phases_k3_k6_new.json")
     if a.k5 or a.k1:
         res = dict(card=cs.nvidia_smi(), sources="this tree")
         if a.k5:
