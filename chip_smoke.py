@@ -37,10 +37,15 @@ Phases:
                 (ba_assemble) is held against its plain version in the
                 stereo phase, on the local BA problem that path built, and
                 in its per-observation mode, with K14 (schur_pcg: S x, the
-                right-hand side and the back-substitution), on a global BA
-                problem at the loop phase's capacities (512 keyframe slots
-                of 1200 features, 32,768 landmark slots; 120 keyframes,
-                ~84,000 active observations).
+                right-hand side and the back-substitution through the pass
+                launches, and the whole solve in one cooperative launch,
+                against the plain solve within testing.PCG_TOL after 40
+                CG iterations and testing.PCG_TOL_FIRST after 0, 1 and 2,
+                and bitwise equal at two grid sizes), on a global BA
+                problem at the loop
+                phase's capacities (512 keyframe slots of 1200 features,
+                32,768 landmark slots; 120 keyframes, ~84,000 active
+                observations).
   3. main   — render the 752x480 synthetic world on the card and run 80
                 frames through `Tracker.track_mono` (1200 features, 8
                 levels), check initialization, the share of OK frames, the
@@ -110,8 +115,9 @@ Phases:
                 the closing insert's parts and every GBA slice, count host
                 syncs per maybe_close; then hold one GBA slice of the path's
                 own problem against the slice over the plain versions
-                (accepts, costs within 1e-3) and check its peak memory stays
-                under one dense coupling.
+                (accepts, costs within 1e-3), check its peak memory stays
+                under one dense coupling, and time K14's whole solve on
+                that problem (held against the plain solve as above).
   9. merge    — the bench's multi-session merge: mono 384x288, 500
                 features, the plane world out (28 frames) and back (27), a
                 new map at the turn; the stashed map must weld back and the
@@ -198,7 +204,11 @@ checks that K18 ran the guided verification (and the merge phase that no
 plain version ran). `--only rig` runs the device phase and the rig.
 `--only vi_loop,fisheye` (any phase names; `persist,euroc_synth` for the
 persistence slice) runs the device phase and those phases alone, without
-the kernels line.
+the kernels line. `--loop-variants` runs the loop path at the System's own
+tracker settings pipelined and not and at the loop test's pipelined;
+`--pcg-ab N` runs it 2 N times at the System's own settings pipelined, its
+global BA over K14's solve and over the plain solve in turn; both print
+the gates each run meets and enforce none.
 
 Any failure raises (nonzero exit). The line before the last is the card's
 `nvidia-smi` name and power limit; the last line is the JSON result.
@@ -262,8 +272,8 @@ RANGES = ("K4 ba_solve", "K4 ba_assemble", "K5 optimize_pose",
           "K10 bow_l1", "K11 preintegrate", "K12 optimize_pose_inertial",
           "K13 vi_ba edges", "K13 inertial_system", "K13 inertial_cost",
           "K15 normal_equations", "inertial_only_optimize",
-          "K14 schur_lm_pass",
-          "K14 schur_kf_pass", "ba_solve_pcg", "GBA slice", "GBATotal",
+          "K14 schur_lm_pass", "K14 schur_kf_pass", "K14 schur_pcg",
+          "ba_solve_pcg", "GBA slice", "GBATotal",
           "LoopTotal", "maybe_close", "maybe_merge", "correct_loop",
           "pose_graph.optimize", "guided_sim3_verify", "search_and_fuse",
           "TrackTotal", "LMTotal")
@@ -1186,7 +1196,8 @@ def _kernel_counters():
             "bow_l1": tree.LAUNCHES["bow_l1"], "ba_assemble": ba.LAUNCHES,
             "preintegrate": imu.LAUNCHES, "pose_inertial": vi_ba.LAUNCHES,
             "ba_assemble_per_obs": ba.OBS_LAUNCHES,
-            "schur_pcg": ba.SCHUR_LAUNCHES,
+            "schur_pcg": ba.PCG_LAUNCHES,
+            "schur_passes": ba.SCHUR_LAUNCHES,
             "vi_edges": vi_ba.INERTIAL_LAUNCHES,
             "pose_graph": pose_graph.LAUNCHES,
             "pyramid_blur": image.LAUNCHES,
@@ -1202,12 +1213,14 @@ def _reset_counters():
         c["plain"] = 0
 
 
-def _read_counters(names, path, state):
+def _read_counters(names, path, state, allow_plain=()):
     """Kernel and plain counts of one path's run; fail unless each kernel
-    of the path launched and no plain version ran."""
+    of the path launched and no plain version ran (but those of
+    `allow_plain`)."""
     counters = _kernel_counters()
     launches = {k: counters[k]["kernel"] for k in names}
-    plain = {k: c["plain"] for k, c in counters.items()}
+    plain = {k: c["plain"] for k, c in counters.items()
+             if k not in allow_plain}
     log(f"{path}: kernel launches", launches, "plain calls", plain)
     for k in names:
         check(launches[k] > 0, f"{k} never launched on the {path} path")
@@ -2904,22 +2917,75 @@ def _global_problem(seed=0, n_valid_kf=120, n_valid_lm=20000, per_kf=700,
 
 def _schur_bound(p):
     """K14's least time for one S x: every active observation's 72-byte
-    block, its keyframe and landmark ids and its place in the two sorted
-    orders (16 B) read once, the segment starts, Hpp, Hll^-1, x and the
-    flags read once, S x written once (y is internal); 36 flops per
-    observation and pass, 15 per landmark, 72 per keyframe."""
+    block and its keyframe and landmark ids (8 B) read once, Hpp, Hll^-1,
+    x and the flags read once, S x written once (y is internal; the sorted
+    orders and their segment starts are the kernel's own layout, which the
+    function does not need); 36 flops per observation and pass, 15 per
+    landmark, 72 per keyframe."""
     K, L = p.R.shape[0], p.X.shape[0]
     n_obs = int(p.obs_mask.sum())
-    nbytes = n_obs * (72 + 16) + 4 * (K + L + 2) + K * (144 + 24 + 1) \
-        + L * (36 + 1) + K * 24
+    nbytes = n_obs * (72 + 8) + K * (144 + 24 + 1) + L * (36 + 1) + K * 24
     return bound(nbytes, n_obs * 72 + L * 15 + K * 72), n_obs
+
+
+def _pcg_bound(p, iters):
+    """K14's least time for one whole solve: the inputs read once (every
+    active observation's block and ids as in `_schur_bound`, Hpp, Minv, bp
+    and kf_opt a keyframe, Hll^-1, bl and lm_opt a landmark), dxp and dxl
+    written once; per CG iteration S x (72 flops an observation, 15 a
+    landmark, 72 a keyframe) and ~132 flops a keyframe of vector work (two
+    dot products, the x, r and p updates, Minv r), the right-hand side and
+    the back-substitution one pass each."""
+    K, L = p.R.shape[0], p.X.shape[0]
+    n_obs = int(p.obs_mask.sum())
+    nbytes = n_obs * (72 + 8) + K * (144 + 144 + 24 + 1) \
+        + L * (36 + 12 + 1) + K * 24 + L * 12
+    ops = iters * (n_obs * 72 + L * 15 + K * (72 + 132)) \
+        + 2 * (n_obs * 36 + L * 15) + K * 72
+    return bound(nbytes, ops)
+
+
+def _pcg_check(args, cg_iters, where):
+    """K14's solve against pcg_solve_plain on the same inputs: dxp and dxl
+    within testing.PCG_TOL of the plain result's max-abs after cg_iters
+    iterations and within testing.PCG_TOL_FIRST after 0, 1 and 2 (before CG
+    has converged onto the same answer whatever its alpha, beta and
+    preconditioner); bitwise equal on two launches and at a grid of 7
+    blocks. Returns the relative errors after cg_iters iterations and
+    after the first ones."""
+    from morb_slam_tpu_torch import testing
+    from morb_slam_tpu_torch.optim import ba
+
+    def rel_of(n_it):
+        got = ba.pcg_solve(*args, n_it)
+        want = ba.pcg_solve_plain(*args, n_it)
+        return got, {n: float((a - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+            for n, a, b in zip(("dxp", "dxl"), got, want)}
+    got, rel = rel_of(cg_iters)
+    first = {n_it: rel_of(n_it)[1] for n_it in (0, 1, 2)}
+    again = ba.pcg_solve(*args, cg_iters)
+    small = ba._pcg_launch(*args, cg_iters, grid=7)
+    same = all(torch.equal(a, b) for a, b in zip(got, again)) and \
+        all(torch.equal(a, b) for a, b in zip(got, small))
+    first_max = max(max(r.values()) for r in first.values())
+    log(f"K14 schur_pcg solve ({where}, {cg_iters} CG iterations): dxp "
+        f"within {rel['dxp']:.2e}, dxl within {rel['dxl']:.2e} of the plain "
+        f"solve's max-abs (tolerance {testing.PCG_TOL}); after 0 / 1 / 2 "
+        f"iterations {' / '.join(f'{max(r.values()):.2e}' for r in first.values())} "
+        f"(tolerance {testing.PCG_TOL_FIRST}); bitwise equal on two "
+        f"launches and at 7 blocks: {same}")
+    check(max(rel.values()) <= testing.PCG_TOL and
+          first_max <= testing.PCG_TOL_FIRST and same,
+          ("K14 solve vs plain", where, rel, first, same))
+    return rel, first
 
 
 def _gba_kernels(rows):
     """K4's per-observation mode and K14 against their plain versions at
     the loop phase's capacities: max relative errors, two launches bitwise
     equal, times and bounds."""
-    from morb_slam_tpu_torch.optim import ba, linalg
+    from morb_slam_tpu_torch.optim import ba
     t0 = time.perf_counter()
     p = _global_problem()
     order = ba.obs_order(p)
@@ -2938,12 +3004,8 @@ def _gba_kernels(rows):
         f"Wpl against _obs_terms' Jp^T w Jl {rel['Wpl']:.2e}; two launches "
         f"bitwise equal: {same4}")
     check(max(rel.values()) <= 1e-4 and same4, ("K4 per-obs", rel, same4))
-    lam = torch.tensor(1e-3, device=DEV)
-    Hpp = ba._damp(want.Hpp, lam)
-    Hll_inv = linalg.inv3x3(torch.where(
-        p.lm_opt[:, None, None], ba._damp(want.Hll, lam),
-        torch.eye(3, device=DEV).expand(want.Hll.shape)))
-    bl = want.bl * p.lm_opt.float()[:, None]
+    args = ba.pcg_args(p, want, torch.tensor(1e-3, device=DEV), order)
+    _, _, Hpp, _, Hll_inv, _, bl, _ = args
     x = torch.randn(p.R.shape[0], 6, device=DEV,
                     generator=torch.Generator(device=DEV).manual_seed(3))
     y0 = torch.einsum('lab,lb->la', Hll_inv, bl)
@@ -2982,22 +3044,49 @@ def _gba_kernels(rows):
     matvec = uses["S x"][0]
     ms14 = device_ms(matvec, "schur_lm_kernel") + \
         device_ms(matvec, "schur_kf_kernel")
+    rel_s, first_s = _pcg_check(args, 40, "the loop phase's capacities")
+
+    def solve():
+        return ba.pcg_solve(*args, 40)
+    b_s, by_s = _pcg_bound(p, 40)
     rows.append(dict(
         name="schur_pcg", route="cuda",
         source="morb_slam_tpu_torch/csrc/schur_pcg.cu",
         replaces="morb_slam_tpu/optim/ba.py:373", max_abs_err=max(
-            err14.values()),
-        max_abs_err_is="relative to each output entry's term magnitude "
-                       "(S x, the right-hand side, the back-substitution)",
-        ms=ms14, ms_is="one S x: the landmark pass and the keyframe pass",
-        ms_by="profiler" if not EVENT_TIMED & {"schur_lm_kernel",
-                                               "schur_kf_kernel"}
+            rel_s.values()),
+        max_abs_err_is="the solve's dxp and dxl, relative to the plain "
+                       "solve's max-abs",
+        first_iters_max_abs_err={n: max(r.values())
+                                 for n, r in first_s.items()},
+        first_iters_max_abs_err_is="the same after 0, 1 and 2 CG "
+                                   "iterations",
+        passes_max_abs_err=max(err14.values()),
+        passes_max_abs_err_is="relative to each output entry's term "
+                              "magnitude (S x, the right-hand side, the "
+                              "back-substitution)",
+        ms=device_ms(solve, "schur_pcg_kernel"),
+        ms_is="one whole solve: the right-hand side, 40 CG iterations and "
+              "the back-substitution in one cooperative launch (replaced "
+              "by the loop path's own problem where the loop phase ran)",
+        ms_sx=ms14, ms_sx_is="one S x through the pass launches (the "
+                             "landmark pass and the keyframe pass)",
+        ms_by="profiler" if not EVENT_TIMED & {
+            "schur_pcg_kernel", "schur_lm_kernel", "schur_kf_kernel"}
         else "cuda events",
-        call_ms=time_ms(matvec), plain_ms=time_ms(uses["S x"][1], reps=5,
-                                                  inner=2),
-        bound_ms=b14, bound_by=by14, library_ms=None,
+        call_ms=time_ms(solve, reps=10, inner=2),
+        call_ms_sx=time_ms(matvec),
+        plain_ms=time_ms(lambda: ba.pcg_solve_plain(*args, 40), reps=3,
+                         inner=1),
+        plain_ms_sx=time_ms(uses["S x"][1], reps=5, inner=2),
+        bound_ms=b_s, bound_by=by_s, bound_ms_sx=b14, bound_sx_by=by14,
+        bound_ms_82_passes=b14 * 41,
+        bound_ms_82_passes_is="one S x's bound (two passes) x 41: the 82 "
+                              "passes of a solve, comparable with the rows "
+                              "of the pass launches",
+        library_ms=None,
         library_note="none: no single PyTorch call computes the implicit "
-                     "Schur product",
+                     "Schur product or its CG solve",
+        ptxas=_ptxas("schur_pcg"),
         shape=f"K = {LOOP_K}, L = {LOOP_L}, O = {p.obs_mask.numel()} "
               f"({n_obs} active, 30% stereo)"))
     call4 = lambda: ba.assemble(p, p.R, p.t, p.X, order, per_obs=True)
@@ -3025,23 +3114,25 @@ def _gba_kernels(rows):
 
 class _PlainPCG:
     """ba_solve_pcg over the plain versions of K4's per-observation mode
-    and K14 (module attributes swapped for the duration)."""
+    and K14's solve, or (`solve_only`) of K14's solve alone (module
+    attributes swapped for the duration)."""
+
+    def __init__(self, solve_only=False):
+        self.solve_only = solve_only
 
     def __enter__(self):
         from morb_slam_tpu_torch.optim import ba
-        self.saved = (ba.assemble, ba.schur_lm_pass, ba.schur_kf_pass)
-        ba.assemble = lambda p, R, t, X, order=None, body=False, \
-            per_obs=False: (ba.assemble_obs_plain if per_obs else
-                            ba.assemble_plain)(p, R, t, X, body)
-        ba.schur_lm_pass = lambda p, W, x, Hi, order=None, c=None: \
-            ba.schur_lm_pass_plain(p, W, x, Hi, c)
-        ba.schur_kf_pass = lambda p, W, y, order=None, Hpp=None, x=None, \
-            a=None: ba.schur_kf_pass_plain(p, W, y, Hpp, x, a)
+        self.saved = (ba.assemble, ba.pcg_solve)
+        if not self.solve_only:
+            ba.assemble = lambda p, R, t, X, order=None, body=False, \
+                per_obs=False: (ba.assemble_obs_plain if per_obs else
+                                ba.assemble_plain)(p, R, t, X, body)
+        ba.pcg_solve = ba.pcg_solve_plain
         return self
 
     def __exit__(self, *exc):
         from morb_slam_tpu_torch.optim import ba
-        ba.assemble, ba.schur_lm_pass, ba.schur_kf_pass = self.saved
+        ba.assemble, ba.pcg_solve = self.saved
 
 
 def _loop_vocabulary(state, pairs):
@@ -3079,7 +3170,7 @@ class _LoopProbe:
     """Instrument one loop-phase run: each maybe_close's milliseconds and
     host syncs (the card synchronized around it), the milliseconds of
     correct_loop, the pose graph, search_and_fuse and each GBA slice (with
-    the K14 launches in it and whether it ran inside the closing
+    the K14 solves in it and whether it ran inside the closing
     maybe_close), the GBA jobs' problems and carries."""
 
     def __init__(self, inserts):
@@ -3118,7 +3209,7 @@ class _LoopProbe:
                     if job not in self.jobs:
                         self.jobs.append(job)
                     job.__dict__.setdefault("carries", []).append(job.carry)
-                    k14 = self.ba.SCHUR_LAUNCHES["kernel"]
+                    k14 = dict(self.ba.PCG_LAUNCHES)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 if _name == "maybe_close":
@@ -3150,7 +3241,9 @@ class _LoopProbe:
                     self.slices.append(dict(
                         job=self.jobs.index(a[0]), ms=ms,
                         in_close=self.in_close,
-                        k14=self.ba.SCHUR_LAUNCHES["kernel"] - k14))
+                        k14=self.ba.PCG_LAUNCHES["kernel"] - k14["kernel"],
+                        k14_plain=self.ba.PCG_LAUNCHES["plain"]
+                        - k14["plain"]))
                 if _name == "maybe_close" and r:
                     # the insert calling it is the next one to be timed
                     self.closing = dict(maybe_close_ms=ms,
@@ -3179,12 +3272,15 @@ def phase_loop(state, variant=None):
     loop test's tracker settings, every frame decided at once. A `variant`
     (settings, pipelined) runs it at the "test" settings or the System's
     own ("system": no tracker overrides), pipelined or not, and reports the
-    loop's gates without enforcing them."""
+    loop's gates without enforcing them; a third entry "plain solve" runs
+    the global BA over K14's plain solve (K4 and every other kernel
+    stay)."""
     from morb_slam_tpu_torch import alignment, system
     from morb_slam_tpu_torch.optim import ba
     from morb_slam_tpu_torch.pipeline import loop_closing
     gated = variant is None
-    settings, pipelined = variant or ("test", False)
+    settings, pipelined, solve = (tuple(variant or ("test", False))
+                                  + ("kernel",))[:3]
     rig = _rig(state)
     t0 = time.perf_counter()
     world = RingWorld(np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]]),
@@ -3215,7 +3311,9 @@ def phase_loop(state, variant=None):
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
     states, live_of = [], {}
-    with _LoopProbe(inserts) as probe:
+    plain = contextlib.nullcontext() if solve == "kernel" else \
+        _PlainPCG(solve_only=True)
+    with _LoopProbe(inserts) as probe, plain:
         torch.cuda.synchronize()
         t_run = time.perf_counter()
         for i in range(N_LOOP):
@@ -3245,7 +3343,9 @@ def phase_loop(state, variant=None):
         ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
          "pyramid_blur",
          "stereo_sad", "remap_bilinear", "ba_assemble", "vocab_transform",
-         "bow_l1"] + (loop_kernels if gated else []), "loop", state)
+         "bow_l1"] + (loop_kernels if gated else []), "loop", state,
+        allow_plain=() if solve == "kernel" else ("schur_pcg",
+                                                  "schur_passes"))
     launches.update({k: _kernel_counters()[k]["kernel"] for k in loop_kernels})
     n_ok = sum(s == "OK" for s in states)
     gate("loop closed", tr.n_loops_closed >= 1,
@@ -3260,8 +3360,13 @@ def phase_loop(state, variant=None):
     gate("GBA slices", last_job >= 0 and sum(
         1 for sl in probe.slices if sl["job"] == last_job) == 4,
         "the last GBA job did not run its 4 slices")
-    check(all(sl["k14"] > 0 for sl in probe.slices),
-          "a GBA slice launched no K14")
+    if solve == "kernel":
+        check(all(sl["k14"] > 0 for sl in probe.slices),
+              "a GBA slice launched no K14")
+    else:
+        check(all(sl["k14"] == 0 and sl["k14_plain"] > 0
+                  for sl in probe.slices),
+              "a GBA slice over the plain solve launched K14")
     post_of = {int(round(ts / LOOP_DT)): p for ts, p in
                tr.trajectory_world()}
     period = int(round(LOOP_PERIOD))
@@ -3312,13 +3417,15 @@ def phase_loop(state, variant=None):
         guided_matches=probe.counts["guided_sim3_verify"],
         later_gba_slices_ms=[sl["ms"] for sl in later],
         k14_launches_per_slice=[sl["k14"] for sl in probe.slices],
+        plain_solves_per_slice=[sl["k14_plain"] for sl in probe.slices],
+        solve=solve,
         slices_before_flush=n_slices_before_flush,
         gba_jobs=len(probe.jobs),
         peak_device_mem_gib=peak / 2 ** 30,
         launches={k: v for k, v in launches.items()}, gates=gates)
     if not gated:
-        log(f"loop path, {settings} settings, pipelined {pipelined}:",
-            json.dumps(out))
+        log(f"loop path, {settings} settings, pipelined {pipelined}, "
+            f"solve {solve}:", json.dumps(out))
         return
 
     # one GBA slice on the path's own problem: device time, the kernels'
@@ -3353,13 +3460,45 @@ def phase_loop(state, variant=None):
     later_dev = [device_ms(lambda c=c: ba.ba_solve_pcg(
         p, n_iters=job.slice_iters, cg_iters=job.cg_iters, carry=c), None,
         reps=1) for c in job.carries[2:]]
+    # K14's whole solve on the path's own problem: the first LM step of
+    # the replayed slice
+    Rc, tc, Xc, lam_c, _ = carry
+    order = ba.obs_order(p)
+    args = ba.pcg_args(p, ba.assemble(p, Rc, tc, Xc, order, per_obs=True),
+                       lam_c, order)
+    rel_s, first_s = _pcg_check(args, job.cg_iters,
+                                "the loop path's GBA problem")
+
+    def solve():
+        return ba.pcg_solve(*args, job.cg_iters)
+    b_s, by_s = _pcg_bound(p, job.cg_iters)
+    pcg = dict(ms=device_ms(solve, "schur_pcg_kernel"),
+               call_ms=time_ms(solve, reps=10, inner=2), bound_ms=b_s,
+               bound_by=by_s, bound_ms_82_passes=_schur_bound(p)[0][0] * 41,
+               vs_plain_rel=rel_s, vs_plain_rel_first_iters=first_s,
+               cg_iters=job.cg_iters,
+               active_obs=int(p.obs_mask.sum()))
+    row = next((r for r in state.get("kernel_rows", [])
+                if r["name"] == "schur_pcg"), None)
+    if row is not None:
+        row.update(ms_capacities=row["ms"],
+                   bound_ms_capacities=row["bound_ms"],
+                   max_abs_err=max(row["max_abs_err"], *rel_s.values()),
+                   first_iters_max_abs_err={
+                       n: max(row["first_iters_max_abs_err"][n],
+                              *first_s[n].values()) for n in first_s},
+                   ms=pcg["ms"], bound_ms=b_s, bound_by=by_s,
+                   bound_ms_82_passes=pcg["bound_ms_82_passes"],
+                   call_ms=pcg["call_ms"],
+                   shape_of_ms=f"the loop path's GBA problem: "
+                               f"{pcg['active_obs']} active observations")
     out["gba_slice"] = dict(
         device_ms=slice_dev, later_slices_device_ms=later_dev,
         ms=time_ms(slice_fn, reps=3, inner=1),
         active_obs=int(p.obs_mask.sum()), kfs=int(p.kf_opt.sum()) + 1,
         landmarks=int(p.lm_opt.sum()), vs_plain_cost_rel=c_rel,
         accepts=acc_g, peak_mib=slice_peak / 2 ** 20,
-        dense_coupling_mib=dense_bt / 2 ** 20)
+        dense_coupling_mib=dense_bt / 2 ** 20, pcg_solve=pcg)
     log("loop path:", json.dumps(out))
     state["loop"] = out
     state["k18_inputs"] = probe.first_guided
@@ -4206,7 +4345,8 @@ RIG_SCALE, RIG_SP, RIG_FP = 0.5, 1024, 256.0
 RIG_N, RIG_VI_N, RIG_DT, RIG_VI_TIMED = 80, 120, 0.05, 60
 RIG_IMU_NOISE = dict(noise_g=2.4e-3, noise_a=2.8e-2)   # the fisheye phase's
 # K16-K18's device kernels, for the profiler's hand-written share
-K16_K18_KERNELS = ("search_kernel", "triangulate_kernel", "init_edge_kernel",
+K16_K18_KERNELS = ("general_pairs_kernel", "triangulate_kernel",
+                   "init_edge_kernel",
                    "init_assemble_kernel", "window_rows_kernel",
                    "window_cols_kernel", "window_final_kernel",
                    "refine_kernel")
@@ -4383,8 +4523,12 @@ def _k16_row(state):
     # projection per cross-checked match
     b16, by16 = bound(nl * 61 + nr * 57 + nl * 13,
                       nl * nr * 10 + n_cand * 16 + n_match * 300)
-    parts = {k: device_ms(call, k) for k in ("search_kernel",
+    # the rows kernel starts while the pairs run and waits for them
+    # (programmatic dependent launch): `ms` is the span from the pairs
+    # kernel's start to the rows kernel's end
+    parts = {k: device_ms(call, k) for k in ("general_pairs_kernel",
                                               "triangulate_kernel")}
+    span = span_ms(call, "general_pairs_kernel", "triangulate_kernel")
     return dict(
         name="stereo_general", route="cuda",
         source="morb_slam_tpu_torch/csrc/stereo_general.cu",
@@ -4392,9 +4536,16 @@ def _k16_row(state):
         max_abs_err=rel, max_abs_err_is="depth, relative, on rows valid in "
         "both", rows_differ=int((~same).sum()),
         rows_at_gate_margin=int(exempt.sum()), bitwise_repeatable=repeat,
-        ms=sum(parts.values()), ms_parts=parts,
-        ms_is="one call: the row and column searches and the triangulation",
-        ms_by="cuda events" if EVENT_TIMED & set(parts) else "profiler",
+        ms=span if span is not None else sum(parts.values()),
+        ms_parts=parts,
+        ms_is="one call: from the pairs kernel's start (both searches in "
+              "one pass) to the rows kernel's end (the cross check and the "
+              "triangulation)" if span is not None else
+              "one call: the pairs and rows kernels' device times summed "
+              "(the profiler gave no span)",
+        ms_by="profiler span" if span is not None else
+              "cuda events" if EVENT_TIMED & set(parts) else "profiler",
+        kernels_per_call=kernels_per_call(call),
         call_ms=time_ms(call), plain_ms=time_ms(plain, reps=5, inner=2),
         bound_ms=b16, bound_by=by16, library_ms=None,
         library_note="none: no single PyTorch call computes a gated Hamming "
@@ -5075,6 +5226,12 @@ def main():
                          "tracker settings pipelined and not, and at the "
                          "loop test's settings pipelined, and print which "
                          "of its gates each run meets")
+    ap.add_argument("--pcg-ab", type=int, default=0, metavar="N",
+                    help="run only the loop path at the System's own "
+                         "tracker settings pipelined, 2 N times, its global "
+                         "BA alternately over K14's solve and over the "
+                         "plain solve (kernel, plain, plain, kernel, ...), "
+                         "and print which of its gates each run meets")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the device "
                          "phase (for trying one path; the kernel rows they "
@@ -5091,6 +5248,13 @@ def main():
         phase_device(state)
         for variant in (("system", True), ("system", False), ("test", True)):
             phase_loop(state, variant)
+            torch.cuda.empty_cache()
+        return
+    if args.pcg_ab:
+        phase_device(state)
+        for i in range(2 * args.pcg_ab):
+            solve = ("kernel", "plain solve")[(i + i // 2) % 2]
+            phase_loop(state, ("system", True, solve))
             torch.cuda.empty_cache()
         return
     phases = (("device", phase_device), ("kernels", phase_kernels),

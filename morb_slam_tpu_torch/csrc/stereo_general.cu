@@ -12,24 +12,34 @@
 // pixel, octave, flag, sigma2) and writes three (NL,) results: ~0.2 MB at
 // 1200 x 1200, 0.05 us at 3.35 TB/s. Each of the NL x NR pairs costs its
 // gate (3 products and 2 sums of the epipolar residual, the octave and
-// flag tests) and 8 XOR + 8 popcount, once for the row search and once
-// for the column search: ~30 operations a pair, ~90 Mop at 1200 x 1200,
-// ~1.3 us at the float32 rate. The reference program writes the (NL, NR)
-// residual and distance matrices to device memory and reads them back for
-// two argmins.
+// flag tests) and, for a candidate, 8 XOR + 8 popcount: ~10 operations a
+// pair and 16 a candidate, ~17 Mop at 1200 x 1200 with the rig's ~175,000
+// candidates, 0.26 us at the float32 rate. The reference program writes
+// the (NL, NR) residual and distance matrices to device memory and reads
+// them back for two argmins.
 //
-// Design: three kernels in one call, no matrix in device memory.
-//  - Rows: one warp per left feature, 8 per block. Lane 0's E b_l (E from
-//    the wrapper, the plain version's own product) goes to every lane; the
-//    block stages the right features' descriptors, bearings, octaves and
-//    flags in shared memory, CHUNK at a time; lane j takes columns j,
-//    j + 32, ... and keeps a running (distance, column) minimum, masked
-//    pairs counting BIG as the reference's jnp.where(cand, dist, BIG)
-//    does; a butterfly of shuffles merges the lanes lexicographically, so
-//    the first column wins ties as argmin does. E b_l goes to scratch.
-//  - Columns: the same over left features per right feature (the cross
-//    check's argmin over rows, first row on ties), reading E b_l back.
-//  - Rows again, one thread each: the cross check, then the midpoint
+// Design: two kernels in one call, no matrix in device memory.
+//  - Pairs (general_pairs_kernel): the NL x NR pairs in 64 x 64 tiles, a
+//    block of 8 warps a tile (361 blocks at 1200 x 1200, all co-resident).
+//    The block stages its 64 left features with E b_l (E from the wrapper,
+//    the plain version's own product; each entry summed left to right) in
+//    shared memory; lane j holds right features j and 32 + j of the tile
+//    in registers; warp w walks rows 8w .. 8w + 7. Each pair is evaluated
+//    once: the residual |E b_l . b_r| in the row search's operand order
+//    (the column search needs no other: the products commute exactly),
+//    the octave and flag tests, the distance
+//    for candidates; masked pairs count BIG, as the reference's
+//    jnp.where(cand, dist, BIG). The pair folds into its row's and its
+//    column's minimum of the key (distance, index), compared as one
+//    integer: the first index wins ties in both directions, as argmin
+//    does. Rows merge over the lanes (__reduce_min_sync), columns over
+//    the warps in shared memory; each tile writes one key per row and per
+//    column (row_part (tiles across, NL), col_part (tiles down, NR)): the
+//    merge is on integers, so exact and independent of order.
+//  - Rows (triangulate_kernel), one warp each, a programmatic dependent
+//    launch that waits for the pairs (griddepcontrol): the lanes merge the
+//    row's key over the column tiles and the matched column's key over
+//    the row tiles (the cross check), then lane 0 runs the midpoint
 //    triangulation, both projections (kb8.cuh) and the gates.
 // The float work repeats the plain version's operations in its order and
 // is compiled without FMA contraction (ops/cuda_build.py), so the gate and
@@ -43,15 +53,10 @@
 #define BIG (1 << 20)
 #define TH_ORB 75
 #define EP_GATE 0.01f
-#define WARPS 8
-#define CHUNK 256
-
-struct Feat {
-    uint4 d0, d1;
-    float b0, b1, b2;
-    int oct;
-    int ok;
-};
+#define TILE 64                        // rows and columns of a pair tile
+#define PAIR_WARPS 8
+#define ROWS_PER_WARP (TILE / PAIR_WARPS)
+#define TRI_WARPS 4                    // rows a block of the rows kernel
 
 __device__ __forceinline__ int hamming8(uint4 a0, uint4 a1, uint4 b0,
                                         uint4 b1) {
@@ -66,113 +71,141 @@ __device__ __forceinline__ float ep_of(float e0, float e1, float e2, float b0,
     return fabsf(e0 * b0 + e1 * b1 + e2 * b2);
 }
 
-__device__ __forceinline__ void warp_argmin(int& best, int& bidx) {
+// a tile's key: distance (<= BIG, 21 bits) above a 6-bit index in the tile
+__device__ __forceinline__ unsigned tile_key(int d, int i) {
+    return ((unsigned)d << 6) | (unsigned)i;
+}
+
+// the global key: distance above the feature's index
+__device__ __forceinline__ unsigned long long global_key(unsigned k,
+                                                         int base) {
+    return ((unsigned long long)(k >> 6) << 32) |
+           (unsigned)(base + (int)(k & 63u));
+}
+
+__global__ void __launch_bounds__(PAIR_WARPS * 32)
+general_pairs_kernel(const uint4* __restrict__ desc_l,
+                     const int* __restrict__ oct_l,
+                     const uint8_t* __restrict__ ok_l,
+                     const float* __restrict__ bear_l,
+                     const float* __restrict__ E, int nl,
+                     const uint4* __restrict__ desc_r,
+                     const int* __restrict__ oct_r,
+                     const uint8_t* __restrict__ ok_r,
+                     const float* __restrict__ bear_r, int nr,
+                     unsigned long long* __restrict__ row_part,
+                     unsigned long long* __restrict__ col_part) {
+    // the rows kernel may start; it waits for this grid before reading
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+    __shared__ uint4 sd0[TILE], sd1[TILE];
+    __shared__ float se[TILE][3];
+    __shared__ int so[TILE], sok[TILE];
+    __shared__ unsigned cmin[PAIR_WARPS][TILE];
+    const int c0 = blockIdx.x * TILE, r0 = blockIdx.y * TILE;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (tid < TILE && r0 + tid < nl) {
+        const int i = r0 + tid;
+        sd0[tid] = desc_l[2 * (size_t)i];
+        sd1[tid] = desc_l[2 * (size_t)i + 1];
+        const float* b = bear_l + 3 * (size_t)i;
+        // E b_l, each entry summed left to right
+        se[tid][0] = E[0] * b[0] + E[1] * b[1] + E[2] * b[2];
+        se[tid][1] = E[3] * b[0] + E[4] * b[1] + E[5] * b[2];
+        se[tid][2] = E[6] * b[0] + E[7] * b[1] + E[8] * b[2];
+        so[tid] = oct_l[i];
+        sok[tid] = ok_l[i];
+    }
+    uint4 d0[2], d1[2];
+    float b0[2], b1[2], b2[2];
+    int ro[2], rok[2], real[2];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        const int ob = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bidx, off);
-        if (ob < best || (ob == best && oi < bidx)) {
-            best = ob;
-            bidx = oi;
-        }
+    for (int q = 0; q < 2; ++q) {
+        const int j = c0 + 32 * q + lane;
+        real[q] = j < nr;
+        const int jj = real[q] ? j : c0;
+        d0[q] = desc_r[2 * (size_t)jj];
+        d1[q] = desc_r[2 * (size_t)jj + 1];
+        b0[q] = bear_r[3 * (size_t)jj];
+        b1[q] = bear_r[3 * (size_t)jj + 1];
+        b2[q] = bear_r[3 * (size_t)jj + 2];
+        ro[q] = oct_r[jj];
+        rok[q] = ok_r[jj];
     }
-}
-
-// One warp per query feature (rows: left against right with its own E b_l;
-// columns: right against left with the left features' E b_l as their
-// bearings). `qb` is the query's vector in the dot product.
-__global__ void __launch_bounds__(WARPS * 32)
-search_kernel(const uint4* __restrict__ qdesc, const int* __restrict__ qoct,
-              const uint8_t* __restrict__ qok, const float* __restrict__ qvec,
-              const float* __restrict__ E, int nq,
-              const uint4* __restrict__ tdesc, const int* __restrict__ toct,
-              const uint8_t* __restrict__ tok, const float* __restrict__ tvec,
-              int nt, float* __restrict__ ebl_out, int* __restrict__ best_out,
-              int* __restrict__ idx_out) {
-    __shared__ Feat sf[CHUNK];
-    const int lane = threadIdx.x & 31;
-    const int q = blockIdx.x * WARPS + (threadIdx.x >> 5);
-    const bool active = q < nq;
-    uint4 a0 = make_uint4(0, 0, 0, 0), a1 = a0;
-    float e0 = 0.0f, e1 = 0.0f, e2 = 0.0f;
-    int qo = 0, qv = 0;
-    if (active) {
-        a0 = qdesc[2 * (size_t)q];
-        a1 = qdesc[2 * (size_t)q + 1];
-        qo = qoct[q];
-        qv = qok[q];
-        const float* b = qvec + 3 * (size_t)q;
-        if (E) {  // rows: E b_l, each entry summed left to right
-            e0 = E[0] * b[0] + E[1] * b[1] + E[2] * b[2];
-            e1 = E[3] * b[0] + E[4] * b[1] + E[5] * b[2];
-            e2 = E[6] * b[0] + E[7] * b[1] + E[8] * b[2];
-            if (lane == 0 && ebl_out) {
-                ebl_out[3 * (size_t)q] = e0;
-                ebl_out[3 * (size_t)q + 1] = e1;
-                ebl_out[3 * (size_t)q + 2] = e2;
-            }
-        } else {
-            e0 = b[0];
-            e1 = b[1];
-            e2 = b[2];
-        }
-    }
-    int best = INT_MAX, bidx = INT_MAX;
-    for (int c0 = 0; c0 < nt; c0 += CHUNK) {
-        const int nc = min(CHUNK, nt - c0);
-        __syncthreads();
-        for (int t = threadIdx.x; t < nc; t += blockDim.x) {
-            const int j = c0 + t;
-            Feat f;
-            f.d0 = tdesc[2 * (size_t)j];
-            f.d1 = tdesc[2 * (size_t)j + 1];
-            f.b0 = tvec[3 * (size_t)j];
-            f.b1 = tvec[3 * (size_t)j + 1];
-            f.b2 = tvec[3 * (size_t)j + 2];
-            f.oct = toct[j];
-            f.ok = tok[j];
-            sf[t] = f;
-        }
-        __syncthreads();
-        if (!active) continue;
-        for (int t = lane; t < nc; t += 32) {
-            const Feat& f = sf[t];
+    __syncthreads();
+    unsigned cbest[2] = {UINT_MAX, UINT_MAX};
+    for (int t = 0; t < ROWS_PER_WARP; ++t) {
+        const int lr = warp * ROWS_PER_WARP + t;
+        if (r0 + lr >= nl) break;                   // warp-uniform
+        const float e0 = se[lr][0], e1 = se[lr][1], e2 = se[lr][2];
+        const uint4 a0 = sd0[lr], a1 = sd1[lr];
+        const int qo = so[lr], qv = sok[lr];
+        unsigned rkey = UINT_MAX;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+            if (!real[q]) continue;
             int d = BIG;
-            // rows: (E b_l) . b_r; columns: (E b_l) . b_r with the
-            // operands the other way round (products commute exactly)
-            const float ep = E ? ep_of(e0, e1, e2, f.b0, f.b1, f.b2)
-                               : ep_of(f.b0, f.b1, f.b2, e0, e1, e2);
-            if (ep < EP_GATE && abs(qo - f.oct) <= 1 && qv && f.ok)
-                d = hamming8(a0, a1, f.d0, f.d1);
-            if (d < best) {
-                best = d;
-                bidx = c0 + t;
-            }
+            if (ep_of(e0, e1, e2, b0[q], b1[q], b2[q]) < EP_GATE &&
+                abs(qo - ro[q]) <= 1 && qv && rok[q])
+                d = hamming8(a0, a1, d0[q], d1[q]);
+            rkey = min(rkey, tile_key(d, 32 * q + lane));
+            cbest[q] = min(cbest[q], tile_key(d, lr));
         }
+        rkey = __reduce_min_sync(0xffffffffu, rkey);
+        if (lane == 0)
+            row_part[(size_t)blockIdx.x * nl + r0 + lr] = global_key(rkey, c0);
     }
-    warp_argmin(best, bidx);
-    if (active && lane == 0) {
-        if (best_out) best_out[q] = best;
-        idx_out[q] = bidx;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) cmin[warp][32 * q + lane] = cbest[q];
+    __syncthreads();
+    if (tid < TILE && c0 + tid < nr) {
+        unsigned m = cmin[0][tid];
+#pragma unroll
+        for (int w = 1; w < PAIR_WARPS; ++w) m = min(m, cmin[w][tid]);
+        col_part[(size_t)blockIdx.y * nr + c0 + tid] = global_key(m, r0);
     }
 }
 
-// The cross check, triangulation and gates, one thread per left feature,
-// in ops/stereo.py:_triangulate_gate's order of operations.
+__device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
+    return v;
+}
+
+// The cross check, triangulation and gates, one warp per left feature: the
+// lanes merge the tiles' keys, lane 0 triangulates in
+// ops/stereo.py:_triangulate_gate's order of operations.
 __global__ void triangulate_kernel(
     const float* __restrict__ bear_l, const float* __restrict__ bear_r,
     const float* __restrict__ uv_l, const float* __restrict__ uv_r,
     const float* __restrict__ sigma2, const float* __restrict__ R,
     const float* __restrict__ t, const float* __restrict__ cam_l,
-    const float* __restrict__ cam_r, int kind_l, int kind_r, int nl,
-    float max_chi2, float max_cos, const int* __restrict__ row_best,
-    const int* __restrict__ row_idx, const int* __restrict__ col_idx,
+    const float* __restrict__ cam_r, int kind_l, int kind_r, int nl, int nr,
+    float max_chi2, float max_cos,
+    const unsigned long long* __restrict__ row_part,
+    const unsigned long long* __restrict__ col_part,
     float* __restrict__ u_right, float* __restrict__ depth,
     uint8_t* __restrict__ valid, int* __restrict__ idx_out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const int i = blockIdx.x * TRI_WARPS + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
     if (i >= nl) return;
-    const int j = row_idx[i];
-    const bool matched = row_best[i] <= TH_ORB && col_idx[j] == i;
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    // the row's (distance, column) over the column tiles, then the
+    // matched column's (distance, row) over the row tiles
+    const int n_ct = (nr + TILE - 1) / TILE, n_rt = (nl + TILE - 1) / TILE;
+    unsigned long long rk = ULLONG_MAX;
+    for (int c = lane; c < n_ct; c += 32)
+        rk = min(rk, row_part[(size_t)c * nl + i]);
+    rk = warp_min(rk);
+    const int best = (int)(rk >> 32), j = (int)(rk & 0xffffffffu);
+    bool matched = best <= TH_ORB;
+    if (matched) {
+        unsigned long long ck = ULLONG_MAX;
+        for (int r = lane; r < n_rt; r += 32)
+            ck = min(ck, col_part[(size_t)r * nr + j]);
+        matched = (int)(warp_min(ck) & 0xffffffffu) == i;
+    }
+    if (lane != 0) return;
     idx_out[i] = matched ? j : -1;
     u_right[i] = -1.0f;
     depth[i] = -1.0f;
@@ -216,36 +249,46 @@ __global__ void triangulate_kernel(
     }
 }
 
+// row_part: (ceil(nr / TILE), nl) and col_part: (ceil(nl / TILE), nr)
+// uint64 scratch, every entry written by the pairs kernel.
 extern "C" int stereo_general(
     const void* desc_l, const void* desc_r, const void* oct_l,
     const void* oct_r, const void* valid_l, const void* valid_r,
     const void* bear_l, const void* bear_r, const void* uv_l,
     const void* uv_r, const void* sigma2, const void* R, const void* t,
     const void* E, const void* cam_l, const void* cam_r, int kind_l,
-    int kind_r, int nl, int nr, float max_chi2, float max_cos, void* ebl,
-    void* row_best, void* row_idx, void* col_idx, void* u_right,
-    void* depth, void* valid, void* idx, void* stream) {
+    int kind_r, int nl, int nr, float max_chi2, float max_cos,
+    void* row_part, void* col_part, void* u_right, void* depth, void* valid,
+    void* idx, void* stream) {
+    if (nl == 0 || nr == 0) return 0;
+    if ((nl + TILE - 1) / TILE > 65535) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    search_kernel<<<(nl + WARPS - 1) / WARPS, WARPS * 32, 0, s>>>(
+    general_pairs_kernel<<<dim3((nr + TILE - 1) / TILE,
+                                (nl + TILE - 1) / TILE),
+                           PAIR_WARPS * 32, 0, s>>>(
         (const uint4*)desc_l, (const int*)oct_l, (const uint8_t*)valid_l,
         (const float*)bear_l, (const float*)E, nl, (const uint4*)desc_r,
         (const int*)oct_r, (const uint8_t*)valid_r, (const float*)bear_r, nr,
-        (float*)ebl, (int*)row_best, (int*)row_idx);
+        (unsigned long long*)row_part, (unsigned long long*)col_part);
     int rc = (int)cudaGetLastError();
     if (rc) return rc;
-    search_kernel<<<(nr + WARPS - 1) / WARPS, WARPS * 32, 0, s>>>(
-        (const uint4*)desc_r, (const int*)oct_r, (const uint8_t*)valid_r,
-        (const float*)bear_r, nullptr, nr, (const uint4*)desc_l,
-        (const int*)oct_l, (const uint8_t*)valid_l, (const float*)ebl, nl,
-        nullptr, nullptr, (int*)col_idx);
-    rc = (int)cudaGetLastError();
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((nl + TRI_WARPS - 1) / TRI_WARPS);
+    cfg.blockDim = dim3(TRI_WARPS * 32);
+    cfg.stream = s;
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    at[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    rc = (int)cudaLaunchKernelEx(
+        &cfg, triangulate_kernel, (const float*)bear_l,
+        (const float*)bear_r, (const float*)uv_l, (const float*)uv_r,
+        (const float*)sigma2, (const float*)R, (const float*)t,
+        (const float*)cam_l, (const float*)cam_r, kind_l, kind_r, nl, nr,
+        max_chi2, max_cos, (const unsigned long long*)row_part,
+        (const unsigned long long*)col_part, (float*)u_right, (float*)depth,
+        (uint8_t*)valid, (int*)idx);
     if (rc) return rc;
-    triangulate_kernel<<<(nl + 127) / 128, 128, 0, s>>>(
-        (const float*)bear_l, (const float*)bear_r, (const float*)uv_l,
-        (const float*)uv_r, (const float*)sigma2, (const float*)R,
-        (const float*)t, (const float*)cam_l, (const float*)cam_r, kind_l,
-        kind_r, nl, max_chi2, max_cos, (const int*)row_best,
-        (const int*)row_idx, (const int*)col_idx, (float*)u_right,
-        (float*)depth, (uint8_t*)valid, (int*)idx);
     return (int)cudaGetLastError();
 }

@@ -295,8 +295,10 @@ def match_stereo_general(feats_l, feats_r, bear_l, bear_r, uv_l, uv_r,
                          max_cos_parallax: float = 0.9998):
     """K16: the non-rectified two-camera match (reference
     KannalaBrandt8::TriangulateMatches), `match_stereo_general_plain`'s
-    result. CUDA tensors: the kernel (raises if it cannot run), which never
-    forms the NL x NR distance matrix; CPU tensors: the plain version."""
+    result. CUDA tensors: the kernel (raises if it cannot run): one pass
+    over the NL x NR pairs that folds each into its row's and its column's
+    minimum, then the rows' cross check and triangulation, two kernels
+    that never form the distance matrix; CPU tensors: the plain version."""
     if bear_l.device.type == "cpu":
         return match_stereo_general_plain(
             feats_l, feats_r, bear_l, bear_r, uv_l, uv_r, cam_l, cam_r, R_rl,
@@ -331,11 +333,11 @@ def match_stereo_general(feats_l, feats_r, bear_l, bear_r, uv_l, uv_r,
     # E by the plain version's own product, so both gate the same values
     ins.insert(13, (lie.so3_hat(t_rl) @ R_rl).contiguous())
     dev = bear_l.device
-    # pass 1's E b_l, row best and index; pass 2's column index
-    ebl = torch.empty((nl, 3), dtype=f32, device=dev)
-    row_best = torch.empty(nl, dtype=i32, device=dev)
-    row_idx = torch.empty(nl, dtype=i32, device=dev)
-    col_idx = torch.empty(nr, dtype=i32, device=dev)
+    # each 64 x 64 tile's (distance, index) key of its rows and its columns
+    row_part = torch.empty(((nr + 63) // 64, nl), dtype=torch.int64,
+                           device=dev)
+    col_part = torch.empty(((nl + 63) // 64, nr), dtype=torch.int64,
+                           device=dev)
     u_right = torch.empty(nl, dtype=f32, device=dev)
     depth = torch.empty(nl, dtype=f32, device=dev)
     valid = torch.empty(nl, dtype=torch.uint8, device=dev)
@@ -343,9 +345,9 @@ def match_stereo_general(feats_l, feats_r, bear_l, bear_r, uv_l, uv_r,
     rc = _general_lib().stereo_general(
         *(t.data_ptr() for t in ins), cam_l.kind, cam_r.kind, nl, nr,
         ctypes.c_float(max_reproj_chi2), ctypes.c_float(max_cos_parallax),
-        ebl.data_ptr(), row_best.data_ptr(), row_idx.data_ptr(),
-        col_idx.data_ptr(), u_right.data_ptr(), depth.data_ptr(),
-        valid.data_ptr(), idx.data_ptr(), cuda_build.stream_ptr(bear_l))
+        row_part.data_ptr(), col_part.data_ptr(), u_right.data_ptr(),
+        depth.data_ptr(), valid.data_ptr(), idx.data_ptr(),
+        cuda_build.stream_ptr(bear_l))
     cuda_build.check(rc, "stereo_general")
     GENERAL_LAUNCHES["kernel"] += 1
     return StereoMatches(u_right=u_right, depth=depth,
@@ -357,7 +359,7 @@ def _general_lib():
     if lib.stereo_general.argtypes is None:
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.stereo_general.argtypes = [P] * 16 + [I, I, I, I, Fl, Fl] + \
-            [P] * 9
+            [P] * 7
         lib.stereo_general.restype = I
     return lib
 

@@ -19,8 +19,11 @@ dense coupling. K4 runs there in its per-observation mode (`assemble(...,
 per_obs=True)`: the coupling as Wpl (O, 6, 3), one 6 x 3 block per
 observation in observation order), and the implicit product S x, the
 right-hand side and the back-substitution are kernel K14
-(`schur_lm_pass` + `schur_kf_pass`, `csrc/schur_pcg.cu`), whose plain
-versions are the reference's gathers and segment sums.
+(`csrc/schur_pcg.cu`): `pcg_solve` runs the whole CG solve of an LM step
+(right-hand side, iterations, back-substitution) in one cooperative launch;
+`schur_lm_pass` + `schur_kf_pass` launch its two passes alone, for S x as a
+product of its own. Their plain versions are the reference's gathers and
+segment sums and its CG loop.
 """
 from __future__ import annotations
 
@@ -39,9 +42,11 @@ HUBER2_MONO = 5.991
 HUBER2_STEREO = 7.815
 
 LAUNCHES = {"kernel": 0, "plain": 0}
-# K4's per-observation mode (counted in LAUNCHES too) and K14
+# K4's per-observation mode (counted in LAUNCHES too); K14's passes and
+# its whole solve
 OBS_LAUNCHES = {"kernel": 0, "plain": 0}
 SCHUR_LAUNCHES = {"kernel": 0, "plain": 0}
+PCG_LAUNCHES = {"kernel": 0, "plain": 0}
 
 
 class BAProblem(NamedTuple):
@@ -435,6 +440,13 @@ def _ptr(x):
     return None if x is None else x.contiguous().data_ptr()
 
 
+def _aligned8(W):
+    """W contiguous from an 8-byte aligned address (the kernels read each
+    observation's 72-byte block as 9 float pairs)."""
+    W = W.contiguous()
+    return W if W.data_ptr() % 8 == 0 else W.clone()
+
+
 @record_function("K14 schur_lm_pass")
 def schur_lm_pass(p: BAProblem, Wpl, x, Hll_inv, order: ObsOrder = None,
                   c=None):
@@ -448,7 +460,7 @@ def schur_lm_pass(p: BAProblem, Wpl, x, Hll_inv, order: ObsOrder = None,
                                  "Hll_inv": (Hll_inv, (L, 3, 3)),
                                  "c": (c, (L, 3))})
     y = torch.empty((L, 3), dtype=torch.float32, device=x.device)
-    keep = [t.contiguous() for t in (Wpl, x, Hll_inv) + (
+    keep = [_aligned8(Wpl)] + [t.contiguous() for t in (x, Hll_inv) + (
         () if c is None else (c,))]
     rc = _schur_lib().schur_lm_pass(
         _ptr(keep[0]), _ptr(keep[1]), p.kf_opt.data_ptr(),
@@ -475,8 +487,8 @@ def schur_kf_pass(p: BAProblem, Wpl, y, order: ObsOrder = None, Hpp=None,
     _schur_check(p, Wpl, order, {"y": (y, (L, 3)), "Hpp": (Hpp, (K, 6, 6)),
                                  "x": (x, (K, 6)), "a": (a, (K, 6))})
     out = torch.empty((K, 6), dtype=torch.float32, device=y.device)
-    keep = [None if t is None else t.contiguous()
-            for t in (Wpl, y, Hpp, x, a)]
+    keep = [_aligned8(Wpl)] + [None if t is None else t.contiguous()
+                               for t in (y, Hpp, x, a)]
     rc = _schur_lib().schur_kf_pass(
         *(_ptr(t) for t in keep[:2]), p.kf_opt.data_ptr(),
         *(_ptr(t) for t in keep[2:]), p.obs_lm.data_ptr(),
@@ -502,7 +514,111 @@ def _schur_lib():
         lib.schur_lm_pass.restype = I
         lib.schur_kf_pass.argtypes = [P] * 9 + [I, P, P]
         lib.schur_kf_pass.restype = I
+        lib.schur_pcg.argtypes = [P] * 14 + [I] * 5 + [P] * 6
+        lib.schur_pcg.restype = I
     return lib
+
+
+def pcg_args(p: BAProblem, ob: ObsBlocks, lam, order: ObsOrder = None):
+    """One LM step's solve inputs at damping lam, as `pcg_solve` takes them:
+    (p, Wpl, Hpp, Minv, Hll_inv, bp, bl, order), with Hpp and Hll damped,
+    the non-optimized landmarks' Hll the identity and bl zero there."""
+    dev, f32 = ob.Hpp.device, ob.Hpp.dtype
+    Hpp = _damp(ob.Hpp, lam)
+    Hll_d = torch.where(p.lm_opt[:, None, None], _damp(ob.Hll, lam),
+                        torch.eye(3, dtype=f32, device=dev)
+                        .expand(ob.Hll.shape))
+    return (p, ob.Wpl, Hpp, linalg.inv6x6(Hpp), linalg.inv3x3(Hll_d), ob.bp,
+            ob.bl * p.lm_opt.to(f32)[:, None], order)
+
+
+def pcg_solve_plain(p: BAProblem, Wpl, Hpp, Minv, Hll_inv, bp, bl,
+                    order: ObsOrder = None, cg_iters: int = 40):
+    """The Schur system of one LM step solved by `cg_iters` iterations of
+    CG preconditioned by Minv (block-diagonal, kf_opt-masked), x0 = 0, no
+    early exit (the reference's lax.scan), over the plain passes; then the
+    back-substitution. Returns (dxp (K, 6) = kf_opt x, dxl (L, 3)).
+    `order` is unused (the kernel's)."""
+    PCG_LAUNCHES["plain"] += 1
+    f32, dev = bp.dtype, bp.device
+    kf_opt_f = p.kf_opt.to(f32)[:, None]
+    tiny = torch.tensor(1e-20, dtype=f32, device=dev)
+
+    def guard(v):
+        return torch.where(torch.abs(v) < 1e-20, tiny, v)
+
+    def precond(v):
+        return torch.einsum('kab,kb->ka', Minv, v) * kf_opt_f
+    # rhs: bp - B Hll^-1 bl
+    y0 = torch.einsum('lab,lb->la', Hll_inv, bl)
+    rhs = schur_kf_pass_plain(p, Wpl, y0, a=bp)
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = precond(rhs)
+    pdir = z
+    rz = torch.sum(r * z)
+    for _ in range(cg_iters):
+        Ap = schur_kf_pass_plain(
+            p, Wpl, schur_lm_pass_plain(p, Wpl, pdir, Hll_inv), Hpp=Hpp,
+            x=pdir)
+        alpha = rz / guard(torch.sum(pdir * Ap))
+        x = x + alpha * pdir
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        pdir = z + rz_new / guard(rz) * pdir
+        rz = rz_new
+    dxp = x * kf_opt_f
+    # back-substitution: dxl = Hll^-1 (bl - B^T dxp)
+    return dxp, schur_lm_pass_plain(p, Wpl, dxp, Hll_inv, c=bl)
+
+
+@record_function("K14 schur_pcg")
+def pcg_solve(p: BAProblem, Wpl, Hpp, Minv, Hll_inv, bp, bl,
+              order: ObsOrder = None, cg_iters: int = 40):
+    """K14's whole solve: `pcg_solve_plain`'s function. CUDA tensors: one
+    cooperative launch (the right-hand side, `cg_iters` iterations of three
+    grid-wide phases, the back-substitution; raises if the card refuses
+    it); CPU tensors: the plain version."""
+    if Wpl.device.type == "cpu":
+        return pcg_solve_plain(p, Wpl, Hpp, Minv, Hll_inv, bp, bl, order,
+                               cg_iters)
+    return _pcg_launch(p, Wpl, Hpp, Minv, Hll_inv, bp, bl, order, cg_iters)
+
+
+def _pcg_launch(p: BAProblem, Wpl, Hpp, Minv, Hll_inv, bp, bl, order,
+                cg_iters, grid: int = 0):
+    """pcg_solve's launch on `grid` blocks (0: as many as are co-resident;
+    the result has the same bits at any grid)."""
+    K, L = p.R.shape[0], p.X.shape[0]
+    ins = {"Hpp": (Hpp, (K, 6, 6)), "Minv": (Minv, (K, 6, 6)),
+           "Hll_inv": (Hll_inv, (L, 3, 3)), "bp": (bp, (K, 6)),
+           "bl": (bl, (L, 3))}
+    cg_iters, grid = int(cg_iters), int(grid)
+    if any(t is None for t, _ in ins.values()) or cg_iters < 0 or grid < 0:
+        raise ValueError("pcg_solve: needs Hpp, Minv, Hll_inv, bp, bl and "
+                         "cg_iters >= 0")
+    _schur_check(p, Wpl, order, ins)
+    dev, O = Wpl.device, Wpl.shape[0]
+    f32 = torch.float32
+    keep = [_aligned8(Wpl)] + [t.contiguous()
+                               for t in (Hpp, Minv, Hll_inv, bp, bl)]
+    # the CG vectors and y; the observations' blocks and ids in the two
+    # slot orders, copied once by the launch
+    scratch = torch.empty(26 * K + 3 * L, dtype=f32, device=dev)
+    wscratch = torch.empty(36 * O, dtype=f32, device=dev)
+    iscratch = torch.empty(2 * O, dtype=torch.int32, device=dev)
+    dxp = torch.empty((K, 6), dtype=f32, device=dev)
+    dxl = torch.empty((L, 3), dtype=f32, device=dev)
+    rc = _schur_lib().schur_pcg(
+        *(t.data_ptr() for t in keep), p.kf_opt.data_ptr(),
+        p.lm_opt.data_ptr(), p.obs_kf.data_ptr(), p.obs_lm.data_ptr(),
+        *(t.data_ptr() for t in order), K, L, O, cg_iters, grid,
+        scratch.data_ptr(), wscratch.data_ptr(), iscratch.data_ptr(),
+        dxp.data_ptr(), dxl.data_ptr(), cuda_build.stream_ptr(Wpl))
+    cuda_build.check(rc, "schur_pcg")
+    PCG_LAUNCHES["kernel"] += 1
+    return dxp, dxl
 
 
 @record_function("ba_solve_pcg")
@@ -518,45 +634,10 @@ def ba_solve_pcg(p: BAProblem, n_iters: int = 8, cg_iters: int = 40,
     accepted candidate's blocks serve the next step. No host
     synchronisation: the CG and LM scalars stay on the device."""
     dev, f32 = p.obs_uv.device, p.obs_uv.dtype
-    kf_opt_f = p.kf_opt.to(f32)[:, None]
-    lm_opt_f = p.lm_opt.to(f32)[:, None]
     order = obs_order(p) if dev.type == "cuda" else None
-    tiny = torch.tensor(1e-20, dtype=f32, device=dev)
-
-    def guard(v):
-        return torch.where(torch.abs(v) < 1e-20, tiny, v)
 
     def lm_step(ob: ObsBlocks, R, t, X, lam):
-        Hpp = _damp(ob.Hpp, lam)
-        Hll_d = torch.where(p.lm_opt[:, None, None], _damp(ob.Hll, lam),
-                            torch.eye(3, dtype=f32, device=dev)
-                            .expand(ob.Hll.shape))
-        bl = ob.bl * lm_opt_f
-        Hll_inv = linalg.inv3x3(Hll_d)
-        # rhs: bp - B Hll^-1 bl
-        y0 = torch.einsum('lab,lb->la', Hll_inv, bl)
-        rhs = schur_kf_pass(p, ob.Wpl, y0, order, a=ob.bp)
-        Minv = linalg.inv6x6(Hpp)
-
-        def precond(v):
-            return torch.einsum('kab,kb->ka', Minv, v) * kf_opt_f
-        x = torch.zeros_like(rhs)
-        r = rhs
-        z = precond(rhs)
-        pdir = z
-        rz = torch.sum(r * z)
-        for _ in range(cg_iters):
-            Ap = schur_matvec(p, ob.Wpl, Hpp, Hll_inv, pdir, order)
-            alpha = rz / guard(torch.sum(pdir * Ap))
-            x = x + alpha * pdir
-            r = r - alpha * Ap
-            z = precond(r)
-            rz_new = torch.sum(r * z)
-            pdir = z + rz_new / guard(rz) * pdir
-            rz = rz_new
-        dxp = x * kf_opt_f
-        # back-substitution: dxl = Hll^-1 (bl - B^T dxp)
-        dxl = schur_lm_pass(p, ob.Wpl, dxp, Hll_inv, order, c=bl)
+        dxp, dxl = pcg_solve(*pcg_args(p, ob, lam, order), cg_iters)
         dR, dt = lie.se3_exp(dxp)
         R_new, t_new = lie.se3_mul(dR, dt, R, t)
         return R_new, t_new, X + dxl

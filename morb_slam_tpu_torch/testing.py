@@ -2,7 +2,8 @@
 two runs of the two-camera match may rightly differ, the term
 magnitudes that scale K17's rounding, and the packing of separately
 computed pyramid levels into the one buffer K2's `orb_describe_levels`
-takes, and a synthetic IMU-initialization problem for K17. Used by
+takes, a synthetic IMU-initialization problem for K17, and the
+tolerances that hold K14's solve against its plain version. Used by
 `chip_smoke.py`, `tools_kernel_phases.py` and the tests; no pipeline path
 calls them.
 """
@@ -13,6 +14,19 @@ import torch
 
 from .ops import hamming, stereo
 from .optim import inertial
+
+# K14's solve (`optim/ba.py:pcg_solve`) against `pcg_solve_plain` on the
+# same inputs: dxp and dxl within this share of the plain result's max-abs.
+# After 40 CG iterations summed in other orders: the plain solve with its
+# dot products in float64 and its observations permuted moved them by up to
+# 4.3e-4 on the tests' problems on the CPU.
+PCG_TOL = 5e-3
+# ... and after 0, 1 and 2 iterations, before CG has converged: float32
+# against float64 and a permutation of the observations moved the plain
+# solve by up to 1.2e-4 on the tests' problems and at the loop path's
+# capacities on the CPU; a fault in alpha, beta or one keyframe's
+# preconditioner moved it by 2.2e-2 or more at 2 iterations.
+PCG_TOL_FIRST = 1e-3
 
 
 def general_margins(feats_l, feats_r, bear_l, bear_r, uv_l, uv_r, cam_l,

@@ -19,7 +19,9 @@ queries; BA assemblies (K4) of an empty window, one observation, repeated
 and in its per-observation mode; the implicit Schur passes (K14) with
 segment lengths that are no multiple of 32, landmarks and a keyframe with
 no observation, every observation masked and nothing optimized, bitwise
-repeatable, and the PCG LM loop over both kernels;
+repeatable, K14's whole solve on the same problems against the plain CG
+loop after 0, 1, 2 and 40 iterations and bitwise equal at grids of 1, 7 and the co-resident maximum of
+blocks, and the PCG LM loop over both kernels;
 preintegrations (K11) of an all-padding batch, one sample, fresh and
 continued frame batches and a keyframe buffer, bitwise repeatable, a
 previous result passed through as `init` bitwise equal to a packed copy; inertial pose problems
@@ -36,7 +38,8 @@ the Gauss-Newton loop over them; the pyramid and blur (K6) at the main
 path's shapes, odd and tiny sizes and levels that are no views of one
 buffer; the two-camera match (K16) on KB8 and radtan rigs of 1, 64, 333
 and 1200 features, partly invalid, with tied descriptors and an empty
-left set; the IMU-init system (K17) at 256, 40 and 4 slots with the
+left set, and with E = 0 (every pair gated in) so that 41 descriptors
+tie both ways beside an all-BIG row and column; the IMU-init system (K17) at 256, 40 and 4 slots with the
 scale free and fixed, 9 live edges of 256 slots, a recycled slot and a
 slot that precedes two edges (nothing written outside the live edges'
 blocks), and the whole `inertial_only_optimize` over it;
@@ -66,7 +69,10 @@ within 1e-5, v and bias within 1e-4, the same inlier count, H_marg within
 launches (the same per-keypoint code); K14 within
 1e-5 of each output entry's term magnitude (the same sums over absolute
 values: the back-substitution's bl - B^T x cancels, so the rounding of
-its sums is bounded by the terms, not the result); K13 and K15 H within
+its sums is bounded by the terms, not the result), its whole solve's dxp
+and dxl within `testing.PCG_TOL` (5e-3) of the plain solve's max-abs
+after 40 CG iterations summed in other orders and within
+`testing.PCG_TOL_FIRST` (1e-3) after 0, 1 and 2; K13 and K15 H within
 1e-5 under Jacobi scaling (|dH_ij| / sqrt(H_ii H_jj)), b within 1e-5 of
 its scaled max-abs, the cost within 1e-5 relative, both bitwise repeatable
 (the plain K13 Jacobian carries some tangents in float64, the kernel's
@@ -1053,23 +1059,76 @@ def test_schur_pcg_matches_plain_and_repeats(cuda, case):
         assert not bool(uses[0][0]().any())
 
 
+def _pcg_args(cuda, p):
+    """One LM step's solve inputs (lambda 1e-3) on the plain blocks."""
+    return ba.pcg_args(p, ba.assemble_obs_plain(p, p.R, p.t, p.X),
+                       torch.tensor(1e-3, device=cuda), ba.obs_order(p))
+
+
+@pytest.mark.parametrize("case", PCG_CASES)
+def test_pcg_solve_matches_plain(cuda, case):
+    """K14's whole solve (one cooperative launch) against the plain CG loop
+    on the same inputs; nothing optimized gives exact zeros."""
+    args = _pcg_args(cuda, _pcg_problem(cuda, case))
+    n0 = ba.PCG_LAUNCHES["kernel"]
+    got = ba.pcg_solve(*args, 40)
+    assert ba.PCG_LAUNCHES["kernel"] == n0 + 1
+    want = ba.pcg_solve_plain(*args, 40)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert _rel(a, b) <= testing.PCG_TOL, _rel(a, b)
+    if case == "none_opt":
+        assert not bool(got[0].any()) and not bool(got[1].any())
+
+
+@pytest.mark.parametrize("case", PCG_CASES)
+@pytest.mark.parametrize("cg_iters", [0, 1, 2])
+def test_pcg_solve_first_iterations_match_plain(cuda, case, cg_iters):
+    """K14's solve after 0, 1 and 2 CG iterations, before CG has
+    converged onto the same answer whatever its alpha, beta and
+    preconditioner: within rounding of the plain CG loop."""
+    args = _pcg_args(cuda, _pcg_problem(cuda, case))
+    got = ba.pcg_solve(*args, cg_iters)
+    want = ba.pcg_solve_plain(*args, cg_iters)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert _rel(a, b) <= testing.PCG_TOL_FIRST, _rel(a, b)
+    if cg_iters == 0:
+        assert not bool(got[0].any())
+
+
+@pytest.mark.parametrize("case", ["odd", "empty_kf", "large"])
+@pytest.mark.parametrize("cg_iters", [0, 1, 40])
+def test_pcg_solve_same_bits_at_any_grid(cuda, case, cg_iters):
+    """The solve's dot products reduce per-keyframe partials in one fixed
+    order, never per block: the same bits on two launches and at grids of
+    the co-resident maximum, 1 and 7 blocks."""
+    args = _pcg_args(cuda, _pcg_problem(cuda, case))
+    got = ba.pcg_solve(*args, cg_iters)
+    for grid in (0, 1, 7):
+        again = ba._pcg_launch(*args, cg_iters, grid=grid)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b), grid
+
+
 def test_ba_solve_pcg_kernels_match_plain(cuda, monkeypatch):
-    """The PCG LM loop over K4 (per-observation) and K14 against the loop
-    over their plain versions: the same accepts, costs within 1e-3
-    relative."""
+    """The PCG LM loop over K4 (per-observation) and K14's solve against the
+    loop over their plain versions: the same accepts, costs within 1e-3
+    relative; one solve launch an LM step."""
     p = _ba_problem(cuda, 8, 600, 300, seed=7, dup=0.0)
     dR = lie.so3_exp(torch.tensor([0.01, -0.01, 0.005], device=cuda))
     p = p._replace(R=dR @ p.R, t=p.t + 0.02)
+    n0 = dict(ba.PCG_LAUNCHES), dict(ba.SCHUR_LAUNCHES)
     got = ba.ba_solve_pcg(p, n_iters=4, cg_iters=40)
+    assert ba.PCG_LAUNCHES == {"kernel": n0[0]["kernel"] + 4,
+                               "plain": n0[0]["plain"]}
+    assert ba.SCHUR_LAUNCHES == n0[1]
     monkeypatch.setattr(ba, "assemble", lambda p_, R, t, X, order=None,
                         body=False, per_obs=False:
                         ba.assemble_obs_plain(p_, R, t, X))
-    monkeypatch.setattr(ba, "schur_lm_pass", lambda p_, W, x, Hi, order=None,
-                        c=None: ba.schur_lm_pass_plain(p_, W, x, Hi, c))
-    monkeypatch.setattr(ba, "schur_kf_pass", lambda p_, W, y, order=None,
-                        Hpp=None, x=None, a=None:
-                        ba.schur_kf_pass_plain(p_, W, y, Hpp, x, a))
+    monkeypatch.setattr(ba, "pcg_solve", ba.pcg_solve_plain)
     want = ba.ba_solve_pcg(p, n_iters=4, cg_iters=40)
+    assert ba.PCG_LAUNCHES["kernel"] == n0[0]["kernel"] + 4
     assert torch.equal(got[3]["accepted"], want[3]["accepted"])
     assert _rel(got[3]["costs"], want[3]["costs"]) <= 1e-3
 
@@ -1089,6 +1148,18 @@ def test_k14_refuses_bad_inputs_on_the_card(cuda):
     with pytest.raises(ValueError):
         ba.schur_kf_pass(p, ob.Wpl, torch.zeros(p.X.shape[0], 3,
                                                 device=cuda), order)
+    args = list(_pcg_args(cuda, p))
+    before = dict(ba.PCG_LAUNCHES)
+    for i, bad in ((1, args[1].double()), (3, args[3][:, :5]),
+                   (5, args[5].cpu()), (6, args[6][:-1]), (7, None),
+                   (0, p._replace(obs_kf=p.obs_kf.long()))):
+        with pytest.raises(ValueError):
+            ba.pcg_solve(*args[:i], bad, *args[i + 1:], 40)
+    with pytest.raises(ValueError):
+        ba.pcg_solve(*args, -1)
+    with pytest.raises(RuntimeError):      # more blocks than fit at once
+        ba._pcg_launch(*args, 40, grid=10 ** 6)
+    assert ba.PCG_LAUNCHES == before
 
 
 # ---------------------------------------------------------------------------
@@ -1718,6 +1789,31 @@ def test_stereo_general_matches_plain(cuda, n, kind, n_valid, dup):
     assert exempt <= max(2, 0.01 * n)
     if n == 1200 and n_valid is None:
         assert matched > 500
+
+
+def test_stereo_general_ties_and_all_big_rows(cuda):
+    """With t_rl = 0 (E = 0: every pair passes the epipolar gate) and one
+    octave, 41 identical left and 41 identical right descriptors tie in
+    both searches: the first column and the first row win, as argmin; an
+    invalid left feature's row and an invalid right feature's column are
+    all BIG (index 0). The matches equal the plain version's; the result
+    repeats bitwise."""
+    args = list(_rig_features(cuda, 64, seed=2, dup=40))
+    fl, fr = args[0], args[1]
+    zero = torch.zeros_like(fl.octave)
+    args[0] = fl._replace(octave=zero, valid=fl.valid & (
+        torch.arange(64, device=cuda) != 5))
+    args[1] = fr._replace(octave=zero, valid=fr.valid & (
+        torch.arange(64, device=cuda) != 0))
+    args[9] = torch.zeros_like(args[9])
+    got, gi = stereo.match_stereo_general(*args)
+    _, wi = stereo.match_stereo_general_plain(*args)
+    assert torch.equal(gi, wi)
+    assert int(gi[5]) == -1 and int((gi[1:41] >= 0).sum()) == 0
+    again, ai = stereo.match_stereo_general(*args)
+    assert torch.equal(ai, gi) and torch.equal(again.valid, got.valid)
+    assert torch.equal(again.depth, got.depth)
+    assert torch.equal(again.u_right, got.u_right)
 
 
 def test_stereo_general_repeats_and_empty_left(cuda):

@@ -19,7 +19,9 @@ the CPU (plain kernel versions), on the same numpy-seeded inputs:
   package); two carry-resumed slices equal to one call; the implicit
   Schur product (K14's plain passes) within 1e-5 of the reference's
   S_matvec on the same blocks; K4's per-observation blocks against
-  `_assemble_blocks`;
+  `_assemble_blocks`; K14's whole solve (`pcg_solve`) on CPU tensors
+  bitwise its plain version, and within 1e-4 of the reference's 40-step
+  CG scan (its ops run eagerly) on the same blocks;
 - `global_bundle_adjustment` (the first cost, the gate's 20x decrease,
   rotations within 1e-5, camera centres within 1e-4 after a Sim3 alignment,
   the same detached outliers) and `gba_reconcile` (within 1e-5) on
@@ -254,6 +256,61 @@ def test_ba_solve_pcg_parity(pcg_case):
         tuple(map(_np, ji["carry"])))
     _close_rel(ba.assemble(p, R3, t3, X3, per_obs=True).cost.numpy(),
                c3.numpy(), 1e-3)
+
+
+def test_pcg_solve_cpu_is_plain_and_matches_reference(pcg_case):
+    """K14's whole solve on CPU tensors: the plain version, bit for bit
+    (no kernel launched), and within 1e-4 of each output's max-abs of the
+    reference's solve (its CG scan body, step for step in eager JAX) on
+    the same damped blocks."""
+    from morb_slam_tpu_torch.optim import linalg
+    prob, p = pcg_case
+    lam = 1e-2
+    Hpp, Hll_inv, bp, bl, Wpl = j_ba._assemble_blocks(prob, prob.R, prob.t,
+                                                      prob.X, lam)
+    Minv = j_ba._inv6x6(Hpp)
+    kf_f = prob.kf_opt.astype(jnp.float32)[:, None]
+    lm_f = prob.lm_opt.astype(jnp.float32)[:, None]
+    args = (p, _t(Wpl), _t(Hpp), linalg.inv6x6(_t(Hpp)), _t(Hll_inv),
+            _t(bp), _t(bl) * p.lm_opt.float()[:, None], None)
+    before = dict(ba.PCG_LAUNCHES)
+    got = ba.pcg_solve(*args, 40)
+    want = ba.pcg_solve_plain(*args, 40)
+    assert ba.PCG_LAUNCHES == {"kernel": before["kernel"],
+                               "plain": before["plain"] + 2}
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    K, L = p.R.shape[0], p.X.shape[0]
+
+    def seg(v, ids, n):
+        return jax.ops.segment_sum(v, ids, num_segments=n)
+
+    def matvec(xp):
+        xp = xp * kf_f
+        y = jnp.einsum('lab,lb->la', Hll_inv, seg(jnp.einsum(
+            'oab,oa->ob', Wpl, xp[prob.obs_kf]), prob.obs_lm, L)) * lm_f
+        return (jnp.einsum('kab,kb->ka', Hpp, xp) - seg(jnp.einsum(
+            'oab,ob->oa', Wpl, y[prob.obs_lm]), prob.obs_kf, K)) * kf_f
+
+    def guard(v):
+        return jnp.where(jnp.abs(v) < 1e-20, 1e-20, v)
+    y0 = jnp.einsum('lab,lb->la', Hll_inv, bl)
+    r = (bp - seg(jnp.einsum('oab,ob->oa', Wpl, y0[prob.obs_lm]),
+                  prob.obs_kf, K)) * kf_f
+    z = jnp.einsum('kab,kb->ka', Minv, r) * kf_f
+    x, d, rz = jnp.zeros_like(r), z, jnp.sum(r * z)
+    for _ in range(40):
+        Ap = matvec(d)
+        alpha = rz / guard(jnp.sum(d * Ap))
+        x, r = x + alpha * d, r - alpha * Ap
+        z = jnp.einsum('kab,kb->ka', Minv, r) * kf_f
+        rz_new = jnp.sum(r * z)
+        d, rz = z + rz_new / guard(rz) * d, rz_new
+    dxp = x * kf_f
+    dxl = jnp.einsum('lab,lb->la', Hll_inv, bl - seg(jnp.einsum(
+        'oab,oa->ob', Wpl, dxp[prob.obs_kf]), prob.obs_lm, L)) * lm_f
+    _close_rel(got[0].numpy(), _np(dxp), 1e-4)
+    _close_rel(got[1].numpy(), _np(dxl), 1e-4)
 
 
 def test_schur_product_parity(pcg_case):

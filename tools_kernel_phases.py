@@ -1,16 +1,14 @@
 """Phase shares of hand-written kernels on the card, stamped with
 `clock64()`, and earlier forms of kernels against this tree's: this
-tree's K12 (`csrc/pose_inertial.cu`), K5
-(`csrc/pose_opt.cu`), K1 (`csrc/fast_select.cu`), K3
-(`csrc/hamming_top2.cu`), K6 (`csrc/pyramid_blur.cu`) and K11
-(`csrc/preintegrate.cu`), and K11 and K17 against their earlier forms.
+tree's K12 (`csrc/pose_inertial.cu`), K5 (`csrc/pose_opt.cu`), K1
+(`csrc/fast_select.cu`), K3 (`csrc/hamming_top2.cu`) and K6
+(`csrc/pyramid_blur.cu`), and K14 and K16 against their earlier forms.
 
     python3 tools_kernel_phases.py --new
     python3 tools_kernel_phases.py --k5 --k1 --new
     python3 tools_kernel_phases.py --k3 --k6 --new
-    git archive 133af77 morb_slam_tpu_torch/csrc | tar -x -C old12/
-    python3 tools_kernel_phases.py --k11 --k17 --csrc old12/morb_slam_tpu_torch/csrc
-    python3 tools_kernel_phases.py --k11 --new
+    git archive 5e4d05b morb_slam_tpu_torch/csrc | tar -x -C old13/
+    python3 tools_kernel_phases.py --k14 --k16 --csrc old13/morb_slam_tpu_torch/csrc
 
 Copies the sources (and the headers) into a temporary directory, inserts
 the stamps, builds them with the port's `nvcc` flags and runs them at
@@ -27,33 +25,33 @@ window, a 1200x1200 window with NaN rows, a 1200x1200 stereo row band),
 lane 0 of every warp stamping its phases, with unstamped builds at 1, 2,
 4 and 8 warps a row. `--k6`: K6's one launch on the first rendered
 752x480 frame, 8 levels, stamped by block (phases over all levels, each
-grid barrier's wait) with unstamped builds at other grid sizes. `--k11` / `--k17` with `--csrc`: this tree's K11
-(`csrc/preintegrate.cu`, one warp) and K17 (`csrc/inertial_init.cu`, the
-live edges only) against the earlier sources (as of commit 133af77: K11
-on one block of 96 threads, K17 summing every entry over all K slots),
-built beside them and called on the same inputs: K11 in chip_smoke.py's
-four cases (frame batch and keyframe buffer, fresh and continued; bits,
-the errors against plain, device ms of both, and the wrapper's call ms
-with the previous result passed through and with a copy it packs) and on
-40 random batches (bits), K17 on
-the synthetic problems of the gpu tests (bits of H, g and the cost; span
-and parts of both), then the vi path (120 frames, noise seed 7) with
-every K11 and K17 call also run through the earlier kernel (how many gave
-the same bits, the largest difference) and each IMU init's first problem
-timed with both. `--k11 --new`: this tree's K11 stamped by lane 0 (the
-staging, the rotation chain, the per-sample blocks, the covariance and
-carry steps, each __syncwarp, the chunk sums) in chip_smoke.py's cases.
-Prints one JSON object (also written to
+grid barrier's wait) with unstamped builds at other grid sizes.
+`--k14` with `--csrc`: on chip_smoke.py's global BA problem at the loop
+phase's capacities (K = 512, L = 32,768, ~84,000 active observations),
+this tree's S x through the pass launches against the earlier source's
+(as of commit 5e4d05b: the pass launches alone, the CG loop in torch;
+bits and device ms), this tree's whole solve (device ms at several grids
+and CG iteration counts, against the plain solve, its last S p against
+the pass launches' S p bit for bit) and the solve stamped by thread 0 of
+every block (each phase's and each grid barrier's cycles, summed over the
+blocks). `--k16` with `--csrc`: this tree's K16 (two kernels: one pass
+over the pairs, then the rows) against the earlier one (three kernels:
+the row search, the column search, the rows), built beside it, on
+chip_smoke.py's rig features (bits of idx, valid, u_right and depth;
+span, parts, kernels and call ms of both), then the rig paths (a) and (b)
+with every K16 call also run through the earlier kernel (how many gave
+the same bits). Prints one JSON object (also written to
 chiprun_out/kernel_phases_new.json, kernel_phases_k5_k1_new.json,
-kernel_phases_k3_k6_new.json, kernel_phases_k11_k17.json (the
-synthetic part first to kernel_phases_k11_k17_synthetic.json) or
-kernel_phases_k11_new.json). The stamp anchors match those sources
-only. Needs a CUDA card and nvcc.
+kernel_phases_k3_k6_new.json or kernel_phases_k14_k16.json (K16's
+features part first to kernel_phases_k16_features.json)). The stamp
+anchors match those sources only. Needs a CUDA card and nvcc.
 
 The earlier forms of K12, K2 (as of commit 4ceff5a), K5 and K1 (as of
-commit ea2e66d) are stamped by this script as of commit a873e66, and those
+commit ea2e66d) are stamped by this script as of commit a873e66, those
 of K3 and K6 (as of commit a873e66: the masked K3 on a dense gate, K6
-launched per level) by this script as of commit 133af77.
+launched per level) by this script as of commit 133af77, and K11 and K17
+(as of commit 133af77), and this tree's K11 stamped, by this script as
+of commit 5e4d05b.
 """
 import argparse
 import ctypes
@@ -183,8 +181,8 @@ def _build(src_dir, name, text):
     with open(path, "w") as f:
         f.write(text)
     so = os.path.join(src_dir, name + ".so")
-    r = subprocess.run([cuda_build.nvcc_path(), *cuda_build.FLAGS, "-o", so,
-                        path], capture_output=True, text=True)
+    r = subprocess.run([cuda_build.nvcc_path(), *cuda_build._flags(name),
+                        "-o", so, path], capture_output=True, text=True)
     if r.returncode:
         raise SystemExit(r.stdout + r.stderr)
     return ctypes.CDLL(so), "".join(l for l in (r.stdout + r.stderr).split(
@@ -910,326 +908,324 @@ def _k6():
     return res
 
 
-def _old_k11(lib, acc, gyr, dts, mask, bias, calib, init=None):
-    """The earlier K11's packed result (its wrapper packs `init` anew)."""
-    buf = None if init is None else imu.pack(init).contiguous()
-    out = torch.empty(imu.PACK, device="cuda")
-    acc, gyr, dts, mask = (t.contiguous() for t in (acc, gyr, dts, mask))
-    cuda_build.check(lib.preintegrate(
-        acc.data_ptr(), gyr.data_ptr(), dts.data_ptr(), mask.data_ptr(),
-        bias.contiguous().data_ptr(), calib.cov.data_ptr(),
-        calib.cov_walk.data_ptr(), None if buf is None else buf.data_ptr(),
-        acc.shape[0], out.data_ptr(), cuda_build.stream_ptr(acc)), "old K11")
-    return out
+K14_PHASES = ["setup: rhs, z = Minv r, x = 0", "barrier after the setup",
+              "iteration scalars: r.z, beta", "(a) landmarks: y",
+              "barrier after (a)", "(b) keyframes: Ap, p, p.Ap",
+              "barrier after (b)", "(c) keyframes: alpha, x, r, z, r.z",
+              "barrier after (c)", "back-substitution"]
 
 
-def _old_k17(lib, p, x):
-    """The earlier K17 (every slot's edge, every entry summed over all K
-    slots) on (p, x): (H, g, cost)."""
-    K = p.w.shape[0]
-    n = 9 + 3 * K
-    e = lambda *s: torch.empty(s, device="cuda")    # noqa: E731
-    He, ge, ce, H, g, c = e(K, 15, 15), e(K, 15), e(K), e(n, n), e(n), e()
-    cuda_build.check(lib.inertial_init_system(
-        *(t.contiguous().data_ptr() for t in (p.cst, p.R_wb, p.p_wb, x,
-                                               p.base, p.ki.prev)),
-        K, int(p.opt_scale), p.prior_gyro, p.prior_acc,
-        *(t.data_ptr() for t in (He, ge, ce, H, g, c)),
-        cuda_build.stream_ptr(x)), "old K17")
-    return H, g, c
-
-
-def _k11_cases():
-    """chip_smoke.py's K11 cases: a frame batch (64 slots, 10 samples) and
-    a keyframe buffer (768, 512), each fresh and continued by a frame."""
-    rng = np.random.default_rng(11)
-    bias = torch.tensor([0.002, -0.001, 0.003, 0.02, -0.03, 0.01],
-                        device="cuda")
-    cases = []
-    for name, cap, n in (("frame", 64, 10), ("keyframe", 768, 512)):
-        args = cs._imu_batch(1.0, cap, n, rng)
-        nxt = cs._imu_batch(1.0 + n / 200.0, 64, 10, rng)
-        cases.append((name, args, nxt))
-    return cases, bias
-
-
-def _k11_compare(lib):
-    """This tree's K11 against the earlier one and the plain version in
-    the four cases: bitwise equal fields, the errors chip_smoke.py gates,
-    device ms of both kernels; the wrapper's call ms with the previous
-    result passed through and with a copy that it packs."""
-    calib = cs._imu_calib()
-    cases, bias = _k11_cases()
-    res = {}
-    for name, args, nxt in cases:
-        got = imu.preintegrate(*args, bias, calib)
-        old = _old_k11(lib, *args, bias, calib)
-        want = imu.preintegrate_plain(*args, bias, calib)
-        got2 = imu.preintegrate(*nxt, bias, calib, init=got)
-        old2 = _old_k11(lib, *nxt, bias, calib, init=imu.unpack(old))
-        want2 = imu.preintegrate_plain(*nxt, bias, calib, init=want)
-        for case, g, o, w, call, ocall in (
-                ("fresh", got, old, want,
-                 lambda a=args: imu.preintegrate(*a, bias, calib),
-                 lambda a=args: _old_k11(lib, *a, bias, calib)),
-                ("continued", got2, old2, want2,
-                 lambda a=nxt, i=got: imu.preintegrate(*a, bias, calib,
-                                                       init=i),
-                 lambda a=nxt, i=imu.unpack(old): _old_k11(
-                     lib, *a, bias, calib, init=i))):
-            ab, rel, c = cs._pre_errors(g, w)
-            row = dict(
-                bitwise_equal_earlier=torch.equal(imu.pack(g), o),
-                fields_differing=[f for f, _ in imu._FIELDS if not
-                                  torch.equal(getattr(g, f),
-                                              getattr(imu.unpack(o), f))],
-                max_abs_diff_earlier=float((imu.pack(g) - o).abs().max()),
-                vs_plain=dict(abs=ab, rel=rel, C=c),
-                ms=cs.device_ms(call, "preintegrate_kernel"),
-                ms_earlier=cs.device_ms(ocall, "preintegrate_kernel"))
-            if case == "continued":
-                copy = imu.Preintegrated(*(t.clone() for t in got))
-                row["call_ms_pass_through"] = cs.time_ms(call)
-                row["call_ms_packed_copy"] = cs.time_ms(
-                    lambda a=nxt: imu.preintegrate(*a, bias, calib,
-                                                   init=copy))
-            res[f"{name} {case}"] = row
-    # random frame batches (64 slots, 1-64 valid samples) and keyframe
-    # buffers (768 slots), fresh: how many give the earlier kernel's bits
-    same, n = 0, 0
-    for k in range(40):
-        rng = np.random.default_rng(100 + k)
-        cap, nv = (64, 1 + (7 * k) % 64) if k < 36 else (768, 300 + 40 * k)
-        args = cs._imu_batch(1.0 + k, cap, min(nv, cap), rng)
-        same += torch.equal(imu.pack(imu.preintegrate(*args, bias, calib)),
-                            _old_k11(lib, *args, bias, calib))
-        n += 1
-    res["random_batches"] = dict(batches=n, bitwise_equal_earlier=same)
-    return res
-
-
-K11_PHASES = ["staging", "rotation chain", "per-sample blocks",
-              "T, Jacobians, dP dV", "first __syncwarp", "C and the carry",
-              "second __syncwarp", "chunk sums"]
-
-
-def _k11_new_source(text):
-    st = ("    long long ph_[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+def _k14_stamped_source(text):
+    """schur_pcg.cu with thread 0 of every block adding the cycles since
+    its last stamp to the phase it closes; summed over the blocks into
+    `pcg_phase_buf` (set by set_phase_buf)."""
+    st = ("    long long ph_[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};\n"
           "    long long last_ = clock64();\n"
-          "#define STAMP(k) { long long t_ = clock64(); ph_[k] += t_ - last_; "
-          "last_ = t_; }\n")
+          "#define STAMP(k) if (threadIdx.x == 0) { long long t_ = clock64(); "
+          "ph_[k] += t_ - last_; last_ = t_; }\n")
     return _patch(text, [
-        ("                    float* __restrict__ out) {\n",
-         "                    float* __restrict__ out, long long* ph) {\n" + st),
-        ("        const unsigned vm = __ballot_sync(FULL, valid);\n"
-         "        __syncwarp();\n",
-         "        const unsigned vm = __ballot_sync(FULL, valid);\n"
-         "        __syncwarp();\n        STAMP(0)\n"),
-        ("            for (int k = 0; k < 9; ++k) dR[k] = Rn[k];\n        }\n"
-         "        __syncwarp();\n",
-         "            for (int k = 0; k < 9; ++k) dR[k] = Rn[k];\n        }\n"
-         "        __syncwarp();\n        STAMP(1)\n"),
-        ("            }\n        }\n        __syncwarp();\n"
-         "        // the covariance and the bias Jacobians",
-         "            }\n        }\n        __syncwarp();\n        STAMP(2)\n"
-         "        // the covariance and the bias Jacobians"),
-        ("            const float nV = dV + Ra * dt;\n            __syncwarp();\n",
-         "            const float nV = dV + Ra * dt;\n            STAMP(3)\n"
-         "            __syncwarp();\n            STAMP(4)\n"),
-        ("                S[O_DV + q3] = nV;\n            }\n"
-         "            __syncwarp();\n",
-         "                S[O_DV + q3] = nV;\n            }\n            STAMP(5)\n"
-         "            __syncwarp();\n            STAMP(6)\n"),
-        ("        n_s += (float)__popc(vm);\n",
-         "        n_s += (float)__popc(vm);\n        STAMP(7)\n"),
-        ("    __syncwarp();\n    const float n = fmaxf(n_s, 1.0f);",
-         "    __syncwarp();\n"
-         "    if (lane == 0 && ph) for (int q = 0; q < 8; ++q) ph[q] = ph_[q];\n"
-         "    const float n = fmaxf(n_s, 1.0f);"),
-        ('extern "C" int preintegrate(',
-         'static long long* phase_buf = 0;\n'
+        ("schur_pcg_kernel(PcgArgs A) {\n",
+         "schur_pcg_kernel(PcgArgs A) {\n" + st),
+        ("    grid.sync();\n\n    float rz = 0.0f;",
+         "    STAMP(0)\n    grid.sync();\n    STAMP(1)\n\n    float rz = 0.0f;"),
+        ("        rz = rz_new;\n", "        rz = rz_new;\n        STAMP(2)\n"),
+        ("        grid.sync();\n\n        // (b)",
+         "        STAMP(3)\n        grid.sync();\n        STAMP(4)\n\n"
+         "        // (b)"),
+        ("        grid.sync();\n\n        // (c)",
+         "        STAMP(5)\n        grid.sync();\n        STAMP(6)\n\n"
+         "        // (c)"),
+        ("        grid.sync();\n    }\n\n    // back-substitution",
+         "        STAMP(7)\n        grid.sync();\n        STAMP(8)\n    }\n\n"
+         "    // back-substitution"),
+        ("A.Hll_inv, A.bl, A.dxl);\n    }\n}",
+         "A.Hll_inv, A.bl, A.dxl);\n    }\n    STAMP(9)\n"
+         "    if (threadIdx.x == 0 && pcg_phase_buf)\n"
+         "        for (int q = 0; q < 10; ++q)\n"
+         "            atomicAdd(pcg_phase_buf + q, "
+         "(unsigned long long)ph_[q]);\n}"),
+        ("struct PcgArgs {",
+         "__device__ unsigned long long* pcg_phase_buf;\n"
          'extern "C" int set_phase_buf(void* p) {\n'
-         '    phase_buf = (long long*)p;\n    return 0;\n}\n\n'
-         'extern "C" int preintegrate('),
-        ("        (const float*)cov_walk, (const float*)init, N, (float*)out);",
-         "        (const float*)cov_walk, (const float*)init, N, (float*)out,\n"
-         "        phase_buf);"),
+         "    return (int)cudaMemcpyToSymbol(pcg_phase_buf, &p, sizeof(p));\n"
+         "}\n\nstruct PcgArgs {"),
     ])
 
 
-def _k11_new():
-    """This tree's K11 stamped by lane 0 (cycles of each phase, each
-    stamp at its place in the instruction stream) in chip_smoke.py's
-    cases, and its device ms unstamped."""
+GRID_SYNC_SOURCE = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+__global__ void __launch_bounds__(512) sync_kernel(int n) {
+    cooperative_groups::grid_group g = cooperative_groups::this_grid();
+    for (int i = 0; i < n; ++i) g.sync();
+}
+extern "C" int sync_launch(int grid, int n, void* stream) {
+    void* args[] = {(void*)&n};
+    return (int)cudaLaunchCooperativeKernel((const void*)sync_kernel,
+                                            dim3(grid), dim3(512), args, 0,
+                                            (cudaStream_t)stream);
+}
+"""
+
+
+def _grid_sync_us(tmp, grids):
+    """Microseconds a grid barrier (cooperative_groups' grid.sync) costs
+    with nothing else to do, 512-thread blocks: (100 barriers - none) /
+    100 by CUDA events, at each grid size."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    calib = cs._imu_calib()
-    cases, bias = _k11_cases()
-    text = open(os.path.join(cuda_build.CSRC, "preintegrate.cu")).read()
-    res = {}
+    lib, _ = _build(tmp, "grid_sync", GRID_SYNC_SOURCE)
+    lib.sync_launch.argtypes = [I, I, P]
+    lib.sync_launch.restype = I
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for g in grids:
+        ms = [cs.time_ms(lambda n=n: cuda_build.check(lib.sync_launch(
+            g, n, stream), "sync"), reps=10, inner=5) for n in (0, 100)]
+        out[g] = (ms[1] - ms[0]) * 10.0
+    return out
+
+
+def _schur_argtypes(lib, solve):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.schur_lm_pass.argtypes = [P] * 9 + [I, P, P]
+    lib.schur_lm_pass.restype = I
+    lib.schur_kf_pass.argtypes = [P] * 9 + [I, P, P]
+    lib.schur_kf_pass.restype = I
+    if solve:
+        lib.schur_pcg.argtypes = [P] * 14 + [I] * 5 + [P] * 6
+        lib.schur_pcg.restype = I
+        lib.schur_pcg_max_grid.argtypes = [P]
+        lib.schur_pcg_max_grid.restype = I
+
+
+def _pcg_raw(lib, args, iters, grid=0):
+    """One launch of `lib`'s schur_pcg on pcg_solve's inputs, with its
+    scratch returned: (dxp, dxl, p of the last iteration, S p of it)."""
+    p, order = args[0], args[7]
+    K, L, O = p.R.shape[0], p.X.shape[0], args[1].shape[0]
+    scratch = torch.empty(26 * K + 3 * L, device="cuda")
+    wscratch = torch.empty(36 * O, device="cuda")
+    iscratch = torch.empty(2 * O, dtype=torch.int32, device="cuda")
+    dxp = torch.empty((K, 6), device="cuda")
+    dxl = torch.empty((L, 3), device="cuda")
+    cuda_build.check(lib.schur_pcg(
+        *(t.contiguous().data_ptr() for t in args[1:7]),
+        p.kf_opt.data_ptr(), p.lm_opt.data_ptr(), p.obs_kf.data_ptr(),
+        p.obs_lm.data_ptr(), *(t.data_ptr() for t in order), K, L, O, iters,
+        grid, scratch.data_ptr(), wscratch.data_ptr(), iscratch.data_ptr(),
+        dxp.data_ptr(), dxl.data_ptr(), cuda_build.stream_ptr(dxp)),
+        "schur_pcg")
+    return (dxp, dxl, scratch[:6 * K].view(K, 6),
+            scratch[18 * K:24 * K].view(K, 6))
+
+
+def _k14(csrc, reps):
+    """This tree's K14 against the earlier one (commit 5e4d05b: the pass
+    launches alone, the CG loop in torch) on chip_smoke.py's global BA
+    problem at the loop phase's capacities: S x of both (bits, device ms),
+    the whole solve (device ms at several grids; its last S p against the
+    pass launches' S p, bit for bit), and the solve stamped: the cycles of
+    each phase and each barrier, summed over the blocks."""
+    from morb_slam_tpu_torch.optim import ba
+    p = cs._global_problem()
+    order = ba.obs_order(p)
+    ob = ba.assemble(p, p.R, p.t, p.X, order, per_obs=True)
+    args = ba.pcg_args(p, ob, torch.tensor(1e-3, device="cuda"), order)
+    _, Wpl, Hpp, _, Hi = args[:5]
+    K = p.R.shape[0]
+    x = torch.randn(K, 6, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+
+    def sx():
+        return ba.schur_matvec(p, Wpl, Hpp, Hi, x, order)
+
+    def sx_ms():
+        return cs.device_ms(sx, "schur_lm_kernel", reps) + \
+            cs.device_ms(sx, "schur_kf_kernel", reps)
+
+    def solve():
+        return ba.pcg_solve(*args, 40)
+    lib = ba._schur_lib()
+    _schur_argtypes(lib, True)
+    g = ctypes.c_int(0)
+    cuda_build.check(lib.schur_pcg_max_grid(ctypes.byref(g)), "max grid")
+    got = solve()
+    want = ba.pcg_solve_plain(*args, 40)
+    _, _, p_last, sp_last = _pcg_raw(lib, args, 40)
+    new_sx = sx()
+    res = dict(
+        problem=dict(K=K, L=p.X.shape[0], active_obs=int(p.obs_mask.sum())),
+        ptxas=cuda_build.ptxas_report("schur_pcg").strip(),
+        sx_ms=sx_ms(), sx_call_ms=cs.time_ms(sx),
+        solve_ms=cs.device_ms(solve, "schur_pcg_kernel", reps),
+        solve_call_ms=cs.time_ms(solve, reps=10, inner=2),
+        solve_plain_ms=cs.time_ms(lambda: ba.pcg_solve_plain(*args, 40),
+                                  reps=3, inner=1),
+        solve_vs_plain_rel=[float((a - b).abs().max()) / float(
+            b.abs().max()) for a, b in zip(got, want)],
+        max_grid=g.value,
+        solve_ms_by_grid={gr: cs.device_ms(
+            lambda gr=gr: ba._pcg_launch(*args, 40, grid=gr),
+            "schur_pcg_kernel", reps) for gr in sorted({
+                g.value, g.value // 2, 132})},
+        solve_ms_by_cg_iters={n: cs.device_ms(
+            lambda n=n: ba.pcg_solve(*args, n), "schur_pcg_kernel", reps)
+            for n in (0, 1, 10, 40)},
+        solve_last_sx_bitwise_equal_pass_launches=torch.equal(
+            ba.schur_matvec(p, Wpl, Hpp, Hi, p_last.clone(), order),
+            sp_last))
     with tempfile.TemporaryDirectory() as tmp:
-        lib, ptx = _build(tmp, "preintegrate", _k11_new_source(text))
-        lib.preintegrate.argtypes = [P] * 8 + [I, P, P]
-        lib.preintegrate.restype = I
-        lib.set_phase_buf.argtypes = [P]
-        ph = torch.zeros(8, dtype=torch.int64, device="cuda")
-        cuda_build.check(lib.set_phase_buf(ph.data_ptr()), "phases")
-        for name, args, _ in cases:
-            got = _old_k11(lib, *args, bias, calib)
+        d_old, d_st = os.path.join(tmp, "old"), os.path.join(tmp, "stamped")
+        os.makedirs(d_old)
+        os.makedirs(d_st)
+        lib_old, ptx_old = _build(d_old, "schur_pcg", open(os.path.join(
+            csrc, "schur_pcg.cu")).read())
+        _schur_argtypes(lib_old, False)
+        prev = _swap_lib("schur_pcg", lib_old)
+        try:
+            old_sx = sx()
+            res["earlier"] = dict(
+                ptxas=ptx_old.strip(), sx_ms=sx_ms(),
+                sx_call_ms=cs.time_ms(sx),
+                sx_bitwise_equal=torch.equal(old_sx, new_sx),
+                sx_max_rel_diff=float((old_sx - new_sx).abs().max()) /
+                float(old_sx.abs().max()))
+        finally:
+            _restore_lib("schur_pcg", prev)
+        text = open(os.path.join(cuda_build.CSRC, "schur_pcg.cu")).read()
+        lib_st, ptx_st = _build(d_st, "schur_pcg", _k14_stamped_source(text))
+        _schur_argtypes(lib_st, True)
+        lib_st.set_phase_buf.argtypes = [ctypes.c_void_p]
+        ph = torch.zeros(10, dtype=torch.int64, device="cuda")
+        cuda_build.check(lib_st.set_phase_buf(ph.data_ptr()), "phases")
+        stamped = {}
+        for n in (40, 1):
+            _pcg_raw(lib_st, args, n)
             ph.zero_()
-            _old_k11(lib, *args, bias, calib)
+            _pcg_raw(lib_st, args, n)
             torch.cuda.synchronize()
             c = ph.cpu().numpy().astype(float)
-            n = int(args[3].sum())
-            res[name] = dict(
-                valid_samples=n,
-                bitwise_equal_unstamped=torch.equal(
-                    got, imu.pack(imu.preintegrate(*args, bias, calib))),
-                cycles=dict(zip(K11_PHASES, c.tolist())),
-                cycles_per_sample=float(c.sum()) / n,
-                share=dict(zip(K11_PHASES, (c / c.sum()).tolist())),
-                device_ms_unstamped=cs.device_ms(
-                    lambda a=args: imu.preintegrate(*a, bias, calib),
-                    "preintegrate_kernel"))
-        cuda_build.check(lib.set_phase_buf(None), "phases")
-        res["ptxas_stamped"] = ptx.strip()
+            stamped[f"{n} CG iterations"] = dict(
+                cycles_summed_over_blocks=dict(zip(K14_PHASES, c.tolist())),
+                share=dict(zip(K14_PHASES, (c / c.sum()).tolist())),
+                cycles_per_block=float(c.sum()) / g.value,
+                bitwise_equal_unstamped=all(
+                    torch.equal(a, b) for a, b in zip(
+                        _pcg_raw(lib_st, args, n)[:2],
+                        ba.pcg_solve(*args, n))))
+        cuda_build.check(lib_st.set_phase_buf(None), "phases")
+        res["stamped"] = dict(ptxas=ptx_st.strip(), **stamped)
+        d_sync = os.path.join(tmp, "sync")
+        os.makedirs(d_sync)
+        res["grid_sync_us"] = _grid_sync_us(d_sync, sorted({
+            g.value, g.value // 2, 132}))
     return res
 
 
-def _k17_compare(lib):
-    """This tree's K17 against the earlier one on the synthetic problems
-    of the gpu tests (K = 256: 12 and 9 live edges, a recycled slot; 40
-    slots): H, g and cost bitwise equal, each one's span and device
-    times."""
-    from morb_slam_tpu_torch import testing
-    from morb_slam_tpu_torch.optim import inertial
-    rec = [0, 1, 2] + list(range(4, 13)) + [3]
-    res = {}
-    for name, K, n_kf, slots in (("K256 13 keyframes", 256, 13, None),
-                                 ("K256 10 keyframes", 256, 10, None),
-                                 ("K256 recycled slot", 256, 13, rec),
-                                 ("K40 13 keyframes", 40, 13, None)):
-        ki, R_wb, p_wb, kf_valid = testing.init_store("cuda", K, n_kf,
-                                                      slots=slots)
-        p = inertial.init_problem(ki, R_wb, p_wb, kf_valid, True, 1e2, 1e6,
-                                  torch.eye(3, device="cuda"))
-        x = torch.tensor(np.random.default_rng(K).normal(0, 0.05, 9 + 3 * K),
-                         dtype=torch.float32, device="cuda")
-        res[name] = _k17_pair(lib, p, x)
-    return res
+def _old_k16(lib, args):
+    """The earlier K16 (commit 5e4d05b: a row search, a column search and
+    the rows, three kernels) on match_stereo_general's arguments, through
+    the same preparation as its wrapper: (u_right, depth, valid, idx)."""
+    from morb_slam_tpu_torch import lie
+    from morb_slam_tpu_torch.ops import hamming
+    fl, fr, bear_l, bear_r, uv_l, uv_r, cam_l, cam_r, R, t, sigma2 = args
+    nl, nr = bear_l.shape[0], bear_r.shape[0]
+    ins = [x.contiguous() for x in (
+        fl.desc, fr.desc, fl.octave, fr.octave, fl.valid, fr.valid, bear_l,
+        bear_r, uv_l, uv_r, sigma2, R, t, cam_l.params, cam_r.params)]
+    ins[4], ins[5] = ins[4].to(torch.uint8), ins[5].to(torch.uint8)
+    ins[0], ins[1] = (hamming._aligned(x) for x in ins[:2])
+    ins.insert(13, (lie.so3_hat(t) @ R).contiguous())
+    e = lambda n, d=torch.float32: torch.empty(n, dtype=d,  # noqa: E731
+                                               device="cuda")
+    i32 = torch.int32
+    scratch = [e((nl, 3)), e(nl, i32), e(nl, i32), e(nr, i32)]
+    out = [e(nl), e(nl), e(nl, torch.uint8), e(nl, i32)]
+    cuda_build.check(lib.stereo_general(
+        *(x.data_ptr() for x in ins), cam_l.kind, cam_r.kind, nl, nr,
+        ctypes.c_float(5.991), ctypes.c_float(0.9998),
+        *(x.data_ptr() for x in scratch + out),
+        cuda_build.stream_ptr(bear_l)), "old K16")
+    return out[0], out[1], out[2].bool(), out[3]
 
 
-def _k17_pair(lib, p, x):
-    from morb_slam_tpu_torch.optim import inertial
-    new = lambda: inertial.inertial_system(p, x)      # noqa: E731
-    old = lambda: _old_k17(lib, p, x)                 # noqa: E731
-    a, b = new(), old()
-    names = ("init_edge_kernel", "init_assemble_kernel")
+def _k16_pair(lib, args, reps):
+    from morb_slam_tpu_torch.ops import stereo
+    new = lambda: stereo.match_stereo_general(*args)        # noqa: E731
+    old = lambda: _old_k16(lib, args)                       # noqa: E731
+    (m, i), o = new(), old()
+    parts_old = {k: cs.device_ms(old, k, reps) for k in (
+        "search_kernel", "triangulate_kernel")}
     return dict(
-        live_edges=int(p.w.sum()), K=int(p.w.shape[0]),
-        bitwise_equal_earlier=[torch.equal(u, v) for u, v in zip(a, b)],
-        ms=cs.span_ms(new, *names), ms_earlier=cs.span_ms(old, *names),
-        ms_parts={k: cs.device_ms(new, k) for k in names},
-        ms_parts_earlier={k: cs.device_ms(old, k) for k in names},
+        bitwise_equal_earlier=dict(
+            u_right=torch.equal(m.u_right, o[0]),
+            depth=torch.equal(m.depth, o[1]),
+            valid=torch.equal(m.valid, o[2]), idx=torch.equal(i, o[3])),
+        ms=cs.span_ms(new, "general_pairs_kernel", "triangulate_kernel",
+                      reps),
+        ms_is="from the pairs kernel's start to the rows kernel's end",
+        ms_parts={k: cs.device_ms(new, k, reps) for k in (
+            "general_pairs_kernel", "triangulate_kernel")},
+        ms_parts_earlier=parts_old,
+        ms_earlier=sum(parts_old.values()),
+        ms_earlier_is="its three kernels' device times summed (they run "
+                      "back to back: both searches, then the rows)",
+        kernels_per_call=cs.kernels_per_call(new),
+        kernels_per_call_earlier=cs.kernels_per_call(old),
         call_ms=cs.time_ms(new), call_ms_earlier=cs.time_ms(old))
 
 
-def _vi_path_compare(lib11, lib17):
-    """The vi path's 120 frames (chip_smoke.py's phase, noise seed 7) with
-    every K11 and K17 call also run through the earlier kernel on the same
-    inputs: how many gave the same bits, the largest difference, and the
-    first IMU-init problem of each stage timed with both."""
-    from morb_slam_tpu_torch.optim import inertial
-    state = {}
-    gt = [cs.analytic_pose(i * cs.VI_DT) for i in range(cs.N_VI)]
-    pairs = [cs._raw_pair(state, *q) for q in gt]
-    batches = cs._vi_batches(7, cs.N_VI)
-    sysm = cs._vi_system(state)
-    k11 = dict(calls=0, equal=0, max_abs_diff=0.0)
-    k17 = dict(calls=0, equal=0, max_abs_diff=[0.0, 0.0, 0.0])
-    firsts = []
-    f11, f17 = imu.preintegrate, inertial.inertial_system
-
-    def hook11(acc, gyro, dts, mask, bias, calib, init=None):
-        out = f11(acc, gyro, dts, mask, bias, calib, init)
-        o = _old_k11(lib11, acc, gyro, dts, mask, bias, calib, init)
-        k11["calls"] += 1
-        k11["equal"] += int(torch.equal(imu.pack(out), o))
-        k11["max_abs_diff"] = max(k11["max_abs_diff"], float(
-            (imu.pack(out) - o).abs().max()))
-        return out
-
-    def hook17(p, x):
-        out = f17(p, x)
-        o = _old_k17(lib17, p, x)
-        k17["calls"] += 1
-        k17["equal"] += int(all(torch.equal(u, v) for u, v in zip(out, o)))
-        k17["max_abs_diff"] = [max(m, float((u - v).abs().max())) for m, u, v
-                               in zip(k17["max_abs_diff"], out, o)]
-        if k17["calls"] % 26 == 1:
-            firsts.append(cs._cloned((p, x)))
-        return out
-    if lib11 is not None:
-        imu.preintegrate = hook11
-    if lib17 is not None:
-        inertial.inertial_system = hook17
-    try:
-        states = [sysm.track_stereo(pairs[i][0], pairs[i][1], i * cs.VI_DT,
-                                    imu_batch=batches[i])[0]
-                  for i in range(cs.N_VI)]
-        sysm.tracker.flush()
-    finally:
-        imu.preintegrate, inertial.inertial_system = f11, f17
-    tr = sysm.tracker
-    ate, scale, ate_se3, extent, _ = cs._ate(tr, gt, cs.VI_DT)
-    res = dict(frames_ok=sum(s == "OK" for s in states),
-               imu_ready=tr.imu_ready, viba_stage=tr.viba_stage,
-               ate_se3_m=ate_se3, sim3_scale=scale)
-    if lib11 is not None:
-        res["k11_calls"] = k11
-    if lib17 is not None:
-        res["k17_calls"] = k17
-        res["k17_first_problem_of_each_init"] = [
-            _k17_pair(lib17, p, x) for p, x in firsts]
-    return res
-
-
-def _k11_k17(csrc, do11, do17):
-    """K11 and / or K17 of this tree against the earlier sources in
-    `csrc`, built beside them."""
+def _k16(csrc, reps):
+    """This tree's K16 against the earlier one (commit 5e4d05b), built
+    beside it: on chip_smoke.py's rig features (the first pair, 1200
+    features) bits and times; then the rig paths (a) and (b) with every
+    K16 call also run through the earlier kernel on the same inputs."""
+    from morb_slam_tpu_torch.ops import stereo
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    res = {}
+    state = {}
     with tempfile.TemporaryDirectory() as tmp:
-        lib11 = lib17 = None
-        if do11:
-            lib11, ptx = _build(tmp, "preintegrate", open(os.path.join(
-                csrc, "preintegrate.cu")).read())
-            lib11.preintegrate.argtypes = [P] * 8 + [I, P, P]
-            lib11.preintegrate.restype = I
-            res["k11"] = _k11_compare(lib11)
-            res["k11"]["ptxas_earlier"] = ptx.strip()
-            res["k11"]["ptxas"] = cuda_build.ptxas_report(
-                "preintegrate").strip()
-        if do17:
-            shutil.copy(os.path.join(csrc, "dual.cuh"), tmp)
-            lib17, ptx = _build(tmp, "inertial_init", open(os.path.join(
-                csrc, "inertial_init.cu")).read())
-            lib17.inertial_init_system.argtypes = [P] * 6 + [I, I, Fl, Fl] \
-                + [P] * 7
-            lib17.inertial_init_system.restype = I
-            res["k17"] = _k17_compare(lib17)
-            res["k17"]["ptxas_earlier"] = ptx.strip()
-            res["k17"]["ptxas"] = cuda_build.ptxas_report(
-                "inertial_init").strip()
-        _write(res, "kernel_phases_k11_k17_synthetic.json")
-        res["vi_path"] = _vi_path_compare(lib11, lib17)
+        shutil.copy(os.path.join(csrc, "kb8.cuh"), tmp)
+        lib, ptx = _build(tmp, "stereo_general", open(os.path.join(
+            csrc, "stereo_general.cu")).read())
+        lib.stereo_general.argtypes = [P] * 16 + [I, I, I, I, Fl, Fl] + \
+            [P] * 9
+        lib.stereo_general.restype = I
+        res = dict(ptxas=cuda_build.ptxas_report("stereo_general").strip(),
+                   ptxas_earlier=ptx.strip(),
+                   rig_features=_k16_pair(lib, cs._rig_features(state),
+                                          reps))
+        _write(res, "kernel_phases_k16_features.json")
+        calls = dict(calls=0, equal=0)
+        f16 = stereo.match_stereo_general
+
+        def hook(*a, **kw):
+            m, i = f16(*a, **kw)
+            o = _old_k16(lib, a)
+            calls["calls"] += 1
+            calls["equal"] += int(
+                torch.equal(m.u_right, o[0]) and torch.equal(m.depth, o[1])
+                and torch.equal(m.valid, o[2]) and torch.equal(i, o[3]))
+            return m, i
+        stereo.match_stereo_general = hook
+        try:
+            for name, inertial in (("rig (a)", False), ("rig (b)", True)):
+                before = dict(calls)
+                out = cs._rig_run(state, inertial)
+                res[name] = dict(
+                    k16_calls=calls["calls"] - before["calls"],
+                    bitwise_equal_earlier=calls["equal"] - before["equal"],
+                    frames_ok=out.get("frames_ok"),
+                    ate_se3_m=out.get("ate_se3_m"))
+        finally:
+            stereo.match_stereo_general = f16
     return res
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--csrc", help="morb_slam_tpu_torch/csrc of commit "
-                    "133af77 (the earlier K11 and K17; with --k11 / "
-                    "--k17)")
+                    "5e4d05b (the earlier K14 and K16; with --k14 / "
+                    "--k16)")
     ap.add_argument("--new", action="store_true",
                     help="stamp this tree's kernels (K12 unless --k5, --k1, "
                     "--k3 or --k6 is given)")
@@ -1239,31 +1235,30 @@ def main():
                     help="stamp K3's gated mode instead")
     ap.add_argument("--k6", action="store_true",
                     help="stamp K6's one launch instead")
-    ap.add_argument("--k11", action="store_true",
-                    help="with --csrc: this tree's K11 against the earlier "
-                    "one, bit for bit and timed; with --new: this tree's "
-                    "K11 stamped")
-    ap.add_argument("--k17", action="store_true",
-                    help="with --csrc: this tree's K17 against the earlier "
-                    "one, bit for bit and timed")
+    ap.add_argument("--k14", action="store_true",
+                    help="with --csrc: this tree's K14 (the pass launches "
+                    "and the whole solve, stamped) against the earlier one")
+    ap.add_argument("--k16", action="store_true",
+                    help="with --csrc: this tree's K16 against the earlier "
+                    "one, bit for bit and timed, on the rig's inputs")
     ap.add_argument("--reps", type=int, default=20)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     if a.new == bool(a.csrc):
         raise SystemExit("give --csrc or --new")
-    if a.k11 and a.new and not (a.k17 or a.k3 or a.k6 or a.k5 or a.k1):
-        return _write(dict(card=cs.nvidia_smi(), sources="this tree",
-                           k11=_k11_new()), "kernel_phases_k11_new.json")
-    if a.k11 or a.k17:
+    if a.k14 or a.k16:
         if not a.csrc or a.k3 or a.k6 or a.k5 or a.k1:
-            raise SystemExit("--k11 / --k17 go with --csrc alone, or "
-                             "--k11 with --new")
-        res = dict(card=cs.nvidia_smi(), sources=a.csrc,
-                   **_k11_k17(a.csrc, a.k11, a.k17))
-        return _write(res, "kernel_phases_k11_k17.json")
+            raise SystemExit("--k14 / --k16 go with --csrc alone")
+        res = dict(card=cs.nvidia_smi(), sources=a.csrc)
+        if a.k14:
+            res["k14"] = _k14(a.csrc, a.reps)
+            _write(res, "kernel_phases_k14_k16.json")
+        if a.k16:
+            res["k16"] = _k16(a.csrc, a.reps)
+        return _write(res, "kernel_phases_k14_k16.json")
     if a.csrc:
-        raise SystemExit("--csrc goes with --k11 / --k17 only")
+        raise SystemExit("--csrc goes with --k14 / --k16 only")
     if a.k3 or a.k6:
         res = dict(card=cs.nvidia_smi(), sources="this tree")
         if a.k3:
