@@ -94,7 +94,8 @@ Phases:
                 Check > 85% of frames OK, the IMU initialized with
                 viba_stage >= 2, the Sim3 scale within 0.06 of 1 and the SE3
                 ATE under 0.04 x extent, and that K1-K5, K7, K8, K11-K13
-                launched while no plain version ran; time frames 60-119,
+                launched while no plain version ran, K13 n + 1 times for
+                every n-iteration vi_ba_solve; time frames 60-119,
                 each keyframe insert's mapping step (visual until the IMU
                 initialization, inertial after) and each IMU-init stage;
                 profile 5 more frames, then the plain
@@ -131,7 +132,8 @@ Phases:
                 trained in-run, unpipelined): 300 frames at 1.3 circuits,
                 then flush(); > 90% OK, imu_ready, finite velocities and
                 biases, every keyframe's pitch / roll < 0.01 rad, circuit
-                gap < 0.2; K13 on every LM step. Then the inertial loop
+                gap < 0.2; K13 n + 1 times a vi_ba_solve of n iterations
+                (fisheye too). Then the inertial loop
                 branch on the drifted inertial map (the numpy construction
                 below): no loop on the first detection, one on the second,
                 the four_dof pose graph through K15 and full_inertial_ba
@@ -148,14 +150,16 @@ Phases:
                 > 75% OK, imu_ready with viba_stage >= 1, a finite
                 trajectory, Sim3 ATE < 0.04 x extent; fps over frames
                 70-99.
- 12. new kernels — K13 (vi_edges) on the vi path's last window problem and
-                K15 (pose_graph) on the loop path's essential graph (and
+ 12. new kernels — K13 (vi_edges: inertial_terms, H, b and the cost at
+                one state in one call) on the vi path's last window problem
+                and K15 (pose_graph) on the loop path's essential graph (and
                 K17, K18 as below) against their plain versions (H
                 under Jacobi scaling, b, the cost, within 1e-5; two
-                launches bitwise equal), their
-                times and bounds, and an LM step / the whole pose graph
-                over kernel and plain; then bench.py:398's ba_iters_per_s
-                problem through the port's ba_solve.
+                calls bitwise equal), their
+                times and bounds, and the whole vi_ba_solve (n + 1 K13
+                calls) / the whole pose graph over kernel and plain; then
+                bench.py:398's ba_iters_per_s problem through the port's
+                ba_solve.
  13. persist  — the JAX lifecycle test (tests/test_system.py:24) at the
                 main path's size through `System(settings,
                 Sensor.MONOCULAR, vocabulary=...)`: 80 frames, every
@@ -270,7 +274,7 @@ RANGES = ("K4 ba_solve", "K4 ba_assemble", "K5 optimize_pose",
           "K6 build_pyramid", "K6 blur_levels", "K6 pyramid_blur",
           "lm_obs_count", "K9 vocab_transform",
           "K10 bow_l1", "K11 preintegrate", "K12 optimize_pose_inertial",
-          "K13 vi_ba edges", "K13 inertial_system", "K13 inertial_cost",
+          "K13 vi_ba edges", "K13 inertial_terms",
           "K15 normal_equations", "inertial_only_optimize",
           "K14 schur_lm_pass", "K14 schur_kf_pass", "K14 schur_pcg",
           "ba_solve_pcg", "GBA slice", "GBATotal",
@@ -2084,20 +2088,20 @@ def _ba_bound(p, per_obs=False):
     each one's inputs (25 B) and its places in the two sorted orders (8 B)
     are read once, the segment starts (4 B each), poses, points and lm_opt
     once; Hpp, bp, Hll, bl and the cost are written once, and the coupling:
-    the dense (L, K, 6, 3) tensor, written whole, or with `per_obs` one
-    72-byte block per active observation (the wrapper's zero fill of the
-    masked slots is another launch, not timed with the kernel). Per active
-    observation ~120 flops for its residual, Jacobians and Huber weight
-    (taken in both the keyframe and the landmark pass) and per residual row
-    ~114 for its block products (Hpp 42, bp 12, coupling 36, Hll 18, bl
-    6)."""
+    the dense (L, K, 6, 3) tensor, written whole, or with `per_obs` the
+    whole (O, 6, 3) Wpl, a 72-byte block per observation slot, the masked
+    slots' zero blocks included (the kernel writes them; it reads every
+    slot's mask flag, 1 B, to tell them apart). Per active observation ~120
+    flops for its residual, Jacobians and Huber weight (taken in both the
+    keyframe and the landmark pass) and per residual row ~114 for its block
+    products (Hpp 42, bp 12, coupling 36, Hll 18, bl 6)."""
     from morb_slam_tpu_torch.optim import ba
     O = p.obs_uv.shape[0]
     K, L = p.R.shape[0], p.X.shape[0]
     act = p.obs_mask
     n_obs = int(act.sum())
     n_st = int((act & torch.isfinite(p.obs_ur)).sum())
-    coupling = n_obs * 72 if per_obs else L * K * 72
+    coupling = O * (72 + 1) if per_obs else L * K * 72
     nbytes = (n_obs * (25 + 8) + 4 * (K + L + 2) + K * 48 + L * 13
               + K * (144 + 24) + coupling + L * 48 + 4)
     nops = n_obs * 120 + (2 * n_obs + n_st) * 114
@@ -2119,7 +2123,7 @@ def _path_profile(tracker, step, frames, name, out, inserts,
     ours = tuple(f"{k}_kernel" for k in _kernel_counters()) + (
         "schur_lm_kernel", "schur_kf_kernel", "pyramid_level_kernel",
         "blur_levels_kernel", "fast_cells_kernel", "fast_level_kernel",
-        "hamming_top2_gated_kernel") + K16_K18_KERNELS
+        "hamming_top2_gated_kernel", "vi_terms_kernel") + K16_K18_KERNELS
     n_kern, dev_us, ours_us, wall, nf, skipped = 0, 0.0, 0.0, 0.0, 0, []
     kern = collections.Counter(), collections.Counter()
     in_range = collections.Counter(), collections.Counter()
@@ -2417,6 +2421,7 @@ def _k4_kernel(state, p, per_frame):
         plain_ms=time_ms(lambda: ba.assemble_plain(p, p.R, p.t, p.X),
                          reps=5, inner=2),
         bound_ms=b4, bound_by=by4, library_ms=None,
+        kernels_per_call=kernels_per_call(call), ptxas=_ptxas("ba_assemble"),
         ba_solve_device_ms=device_ms(lambda: ba.ba_solve(p, n_iters=n_it),
                                      None, reps=3),
         ba_solve_plain_assembly_device_ms=plain_solve_ms,
@@ -2736,8 +2741,9 @@ def phase_vi(state):
     n_ok = sum(s == "OK" for s in states)
     ate, scale, ate_se3, extent, n_traj = _ate(tracker, gt, VI_DT)
     log(f"vi trajectory: {n_traj} poses, SE3 ATE {ate_se3:.4f} m (gate "
-        f"{0.04 * extent:.4f}), Sim3 ATE {ate:.4f} m, scale {scale:.4f}, "
-        f"over {extent:.3f} m")
+        f"{0.04 * extent:.4f}; 0.0515 at commit 001dca8), Sim3 ATE "
+        f"{ate:.4f} m, scale {scale:.4f}, over {extent:.3f} m")
+    k13 = _k13_per_solve("vi", calls, launches["vi_edges"])
     check(n_ok > 0.85 * N_VI, f"vi: only {n_ok} of {N_VI} OK")
     check(tracker.imu_ready and tracker.viba_stage >= 2,
           ("vi: IMU init", tracker.imu_ready, tracker.viba_stage))
@@ -2761,7 +2767,7 @@ def phase_vi(state):
         mapping_step_visual_ms_mean=mean(calls.ms["mapping_step"]),
         mapping_step_inertial_ms_mean=mean(calls.ms["mapping_step_inertial"]),
         local_ba_calls=calls.counts["ba_solve"],
-        vi_ba_solve_calls=calls.counts["vi_ba_solve"],
+        vi_ba_solve_calls=calls.counts["vi_ba_solve"], **k13,
         ate_se3_m=ate_se3, ate_sim3_m=ate, sim3_scale=scale,
         extent_m=extent, landmarks=int(tracker.m.lm_valid.sum()),
         peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -2785,6 +2791,19 @@ def phase_vi(state):
     state["vi"] = out
     state["plain_rows"] += _vi_plain_rows(calls, state)
     _log_plain_rows(state["plain_rows"][-1:])
+
+
+def _k13_per_solve(path, calls, k13):
+    """K13 calls on a path against its vi_ba_solve calls: one at the start
+    state and one at each candidate, n + 1 for an n-iteration solve."""
+    solves = calls.kwargs["vi_ba_solve"]
+    want = sum(kw.get("n_iters", 8) + 1 for kw in solves)
+    log(f"{path}: {k13} K13 calls over {len(solves)} vi_ba_solve calls "
+        f"({k13 / max(len(solves), 1):.2f} a solve; n + 1 a solve makes "
+        f"{want})")
+    check(k13 == want, (f"{path}: K13 calls", k13, want))
+    return dict(k13_calls=k13, k13_calls_per_solve=k13 / max(len(solves), 1),
+                k13_calls_n_plus_1=want)
 
 
 def _vi_plain_rows(calls, state):
@@ -2997,13 +3016,15 @@ def _gba_kernels(rows):
                                                      1e-30)
     again = ba.assemble(p, p.R, p.t, p.X, order, per_obs=True)
     same4 = all(torch.equal(a, b) for a, b in zip(got, again))
+    masked_zero = not bool(got.Wpl[~p.obs_mask].any())
     n_obs = int(p.obs_mask.sum())
     log(f"K4 per-observation mode ({n_obs} of {p.obs_mask.numel()} "
         f"observations active): blocks within {max(rel.values()):.2e} of "
         f"plain relative to their max-abs ({', '.join(f'{k} {v:.1e}' for k, v in rel.items())}); "
         f"Wpl against _obs_terms' Jp^T w Jl {rel['Wpl']:.2e}; two launches "
-        f"bitwise equal: {same4}")
-    check(max(rel.values()) <= 1e-4 and same4, ("K4 per-obs", rel, same4))
+        f"bitwise equal: {same4}; masked slots' blocks zero: {masked_zero}")
+    check(max(rel.values()) <= 1e-4 and same4 and masked_zero,
+          ("K4 per-obs", rel, same4, masked_zero))
     args = ba.pcg_args(p, want, torch.tensor(1e-3, device=DEV), order)
     _, _, Hpp, _, Hll_inv, _, bl, _ = args
     x = torch.randn(p.R.shape[0], 6, device=DEV,
@@ -3098,8 +3119,11 @@ def _gba_kernels(rows):
             rel.values()),
         max_abs_err_is="relative to each block tensor's max-abs",
         ms=device_ms(call4, "ba_assemble_kernel"),
-        ms_is="the assembly kernel alone (the wrapper's zero fill of Wpl "
-              "is another launch)",
+        ms_is="the whole assembly in one launch, the masked slots' zero "
+              "blocks of Wpl included (the kernel writes every slot; the "
+              "wrapper runs no fill of Wpl)",
+        kernels_per_call=kernels_per_call(call4),
+        ptxas=_ptxas("ba_assemble"),
         ms_by="profiler" if "ba_assemble_kernel" not in EVENT_TIMED
         else "cuda events",
         call_ms=time_ms(call4),
@@ -3384,8 +3408,9 @@ def phase_loop(state, variant=None):
         return float(alignment.ate_rmse(est, ref, with_scale=False)[0])
     ate_raw, ate_post = ate(live_of), ate(post_of)
     log(f"loop: {tr.n_loops_closed} closed, {n_ok}/{N_LOOP} OK, loop gap "
-        f"{gap_post:.4f} after correction vs {gap_raw:.4f} raw (gate 0.3), "
-        f"SE3 ATE {ate_post:.4f} vs raw {ate_raw:.4f} m (gate 1.1 x raw)")
+        f"{gap_post:.4f} after correction vs {gap_raw:.4f} raw (gate 0.3; "
+        f"0.2588 at commit 001dca8 on the routine settings), SE3 ATE "
+        f"{ate_post:.4f} vs raw {ate_raw:.4f} m (gate 1.1 x raw)")
     gate("loop gap", gap_post < 0.3 and gap_post <= gap_raw + 1e-6,
          ("loop gap", gap_post, gap_raw))
     gate("SE3 ATE", ate_post < 1.1 * ate_raw,
@@ -3933,6 +3958,7 @@ def phase_vi_loop(state):
         secs = time.perf_counter() - t_run
     lm_steps = sum(kw.get("n_iters", 8) for kw in calls.kwargs["vi_ba_solve"])
     k13 = vi_ba.INERTIAL_LAUNCHES["kernel"]
+    k13_solve = _k13_per_solve("vi_loop", calls, k13)
     launches = _read_counters(
         ["fast_select", "orb_describe", "hamming_top2", "pose_opt",
          "pyramid_blur",
@@ -3968,7 +3994,7 @@ def phase_vi_loop(state):
         kf_insert_ms_p90=float(np.percentile(inserts, 90)) if inserts
         else None,
         vi_ba_solve_calls=calls.counts["vi_ba_solve"], lm_steps=lm_steps,
-        k13_launches=k13, bow_loop_fired=tr.n_loops_closed > 0,
+        k13_launches=k13, **k13_solve, bow_loop_fired=tr.n_loops_closed > 0,
         plain_target_calls=_plain_calls(calls),
         loops_closed=tr.n_loops_closed,
         peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -4139,6 +4165,7 @@ def phase_fisheye(state):
         vi_ba_solve_calls=calls.counts["vi_ba_solve"],
         lm_steps=sum(kw.get("n_iters", 8)
                      for kw in calls.kwargs["vi_ba_solve"]),
+        **_k13_per_solve("fisheye", calls, launches["vi_edges"]),
         k8_render_launches=k8, plain_target_calls=_plain_calls(calls),
         peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         launches=launches)
@@ -4157,9 +4184,10 @@ def phase_fisheye(state):
 
 def _k13_row(pv, kw):
     """K13 against its plain version on the vi path's last window problem:
-    H and b under Jacobi scaling, the cost, two launches bitwise equal;
-    device and call times, the bound, and one LM step of vi_ba_solve over
-    the kernel and over the plain version."""
+    H and b under Jacobi scaling, the cost, two calls bitwise equal; the
+    device time of one call (one cooperative launch), call times, the
+    bound, and the whole vi_ba_solve over the kernel and over the plain
+    route (K4 in both)."""
     from morb_slam_tpu_torch import lie
     from morb_slam_tpu_torch.optim import ba, vi_ba
     bap = vi_ba._ba_problem(pv)
@@ -4167,19 +4195,12 @@ def _k13_row(pv, kw):
     vis = ba.assemble(bap, R_cw, t_cw, pv.X, ba.obs_order(bap), body=True)
     st = (pv.R_wb, pv.p_wb, pv.v, pv.bias)
 
-    def sys_k():
-        return vi_ba.inertial_system(pv, *st, vis.Hpp, vis.bp)
+    def call():
+        return vi_ba.inertial_terms(pv, *st, vis.Hpp, vis.bp)
 
-    def sys_p():
-        return vi_ba.inertial_system_plain(pv, *st, vis.Hpp, vis.bp)
-
-    def cost_k():
-        return vi_ba.inertial_cost(pv, *st)
-
-    def cost_p():
-        return vi_ba.inertial_cost_plain(pv, *st)
-    (H, b), (H2, b2), (H0, b0) = sys_k(), sys_k(), sys_p()
-    c, c2, c0 = cost_k(), cost_k(), cost_p()
+    def plain():
+        return vi_ba.inertial_terms_plain(pv, *st, vis.Hpp, vis.bp)
+    (H, b, c), (H2, b2, c2), (H0, b0, c0) = call(), call(), plain()
     eH, eb = _scaled_gaps(H, b, H0, b0)
     ec = abs(float(c) - float(c0)) / max(abs(float(c0)), 1e-30)
     same = torch.equal(H, H2) and torch.equal(b, b2) and torch.equal(c, c2)
@@ -4187,33 +4208,41 @@ def _k13_row(pv, kw):
     n_e = int(pv.e_valid.sum())
     log(f"K13 vi_edges (W = {Wn}, {n_e} valid edges): H within {eH:.2e} "
         f"and b within {eb:.2e} of plain under Jacobi scaling, the cost "
-        f"within {ec:.2e} relative; two launches bitwise equal: {same}")
+        f"within {ec:.2e} relative; two calls bitwise equal: {same}")
     check(eH <= 1e-5 and eb <= 1e-5 and ec <= 1e-5 and same,
           ("K13 vs plain", eH, eb, ec, same))
     n_it = kw.get("n_iters", 8)
 
     def solve():
         return vi_ba.vi_ba_solve(pv, **kw)
+    before = vi_ba.INERTIAL_LAUNCHES["kernel"]
+    got = solve()
+    calls = vi_ba.INERTIAL_LAUNCHES["kernel"] - before
+    check(calls == n_it + 1, ("K13 calls a vi_ba_solve", calls, n_it))
     step_ms = time_ms(solve, reps=3, inner=1, warmup=1) / n_it
     step_dev = device_ms(solve, None, reps=2) / n_it
-    saved = vi_ba.inertial_system, vi_ba.inertial_cost
-    vi_ba.inertial_system = vi_ba.inertial_system_plain
-    vi_ba.inertial_cost = vi_ba.inertial_cost_plain
+    saved = vi_ba.inertial_terms
+    vi_ba.inertial_terms = vi_ba.inertial_terms_plain
     try:
+        want = solve()
         step_ms_plain = time_ms(solve, reps=3, inner=1, warmup=1) / n_it
         step_dev_plain = device_ms(solve, None, reps=2) / n_it
     finally:
-        vi_ba.inertial_system, vi_ba.inertial_cost = saved
+        vi_ba.inertial_terms = saved
+    c_rel = float((got[5]["costs"][-1] - want[5]["costs"][-1]).abs()
+                  / want[5]["costs"][-1].abs())
+    log(f"K13: vi_ba_solve ({n_it} iterations, {calls} K13 calls) over the "
+        f"kernel against the plain route: final cost within {c_rel:.2e} "
+        f"relative, accepts {got[5]['accepted'].tolist()} vs "
+        f"{want[5]['accepted'].tolist()}")
     # inputs: each slot's state (84 B), edge constants (640 B), visual pose
-    # blocks (168 B) and e_prev / e_valid (5 B); out the dense (15W)^2 H
-    # and b; per valid edge ~45 kflop of dual-number Jacobian (30 tangents
-    # through the residual) and ~21 kflop of J^T Omega J and gradient
+    # blocks (168 B) and e_prev / e_valid (5 B); out the dense (15W)^2 H,
+    # b and the cost; per valid edge ~45 kflop of dual-number Jacobian (30
+    # tangents through the residual), ~21 kflop of J^T Omega J and
+    # gradient and ~2.2 kflop of its cost
     D = 15 * Wn
-    b13, by13 = bound(Wn * (84 + 640 + 168 + 5) + (D * D + D) * 4,
-                      n_e * 66e3)
-    bc, byc = bound(Wn * (84 + 640 + 5) + 4, n_e * 2.2e3)
-    ms_sys = device_ms(sys_k, "vi_edge_kernel") + \
-        device_ms(sys_k, "vi_assemble_kernel")
+    b13, by13 = bound(Wn * (84 + 640 + 168 + 5) + (D * D + D + 1) * 4,
+                      n_e * 68.2e3)
     return dict(
         name="vi_edges", route="cuda",
         source="morb_slam_tpu_torch/csrc/vi_edges.cu",
@@ -4221,19 +4250,17 @@ def _k13_row(pv, kw):
         max_abs_err_is="H: max |dH_ij| / sqrt(H_ii H_jj); b: max |db_i| / "
                        "sqrt(H_ii) over the scaled max-abs",
         err_H_jacobi=eH, err_b_scaled=eb, err_cost_rel=ec, bitwise=same,
-        ms=ms_sys, ms_is="one inertial_system: the edge and assembly "
-                         "kernels",
-        ms_by="profiler" if not EVENT_TIMED & {"vi_edge_kernel",
-                                               "vi_assemble_kernel"}
+        ms=device_ms(call, "vi_terms_kernel"),
+        ms_is="one inertial_terms call (H, b and the cost at one state): "
+              "its one cooperative launch",
+        ms_by="profiler" if "vi_terms_kernel" not in EVENT_TIMED
         else "cuda events",
-        call_ms=time_ms(sys_k), plain_ms=time_ms(sys_p, reps=5, inner=2),
-        cost_ms=device_ms(cost_k, "vi_cost_kernel"),
-        cost_call_ms=time_ms(cost_k),
-        cost_plain_ms=time_ms(cost_p, reps=5, inner=2),
-        bound_ms=b13, bound_by=by13, cost_bound_ms=bc, cost_bound_by=byc,
-        library_ms=None,
+        kernels_per_call=kernels_per_call(call),
+        call_ms=time_ms(call), plain_ms=time_ms(plain, reps=5, inner=2),
+        bound_ms=b13, bound_by=by13, library_ms=None,
         library_note="none: no single PyTorch call computes the inertial "
                      "edge Jacobians and their dense assembly",
+        k13_calls_per_solve=calls, solve_cost_rel_plain=c_rel,
         lm_step_ms=step_ms, lm_step_ms_plain=step_ms_plain,
         lm_step_device_ms=step_dev, lm_step_device_ms_plain=step_dev_plain,
         ptxas=_ptxas("vi_edges"),

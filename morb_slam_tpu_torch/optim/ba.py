@@ -271,21 +271,22 @@ def assemble(p: BAProblem, R, t, X, order: ObsOrder = None,
                                   p.obs_ur, p.obs_info, p.obs_mask,
                                   p.lm_opt) + tuple(order)]
     base = p.baseline.to(device=dev, dtype=f32).reshape(1)
-    # per_obs: the landmark pass writes each active observation's block in
-    # observation order; masked ones are never visited and stay zero
-    coupling = torch.zeros((O, 6, 3), dtype=f32, device=dev) if per_obs \
-        else torch.empty((L, K, 6, 3), dtype=f32, device=dev)
+    # every entry of the coupling is written by the kernel: the dense rows
+    # whole, or each observation slot's block (masked slots as zeros)
+    coupling = torch.empty((O, 6, 3) if per_obs else (L, K, 6, 3),
+                           dtype=f32, device=dev)
+    # one zero fill: the cost (stays 0 without keyframes), the keyframes'
+    # partial costs and the ticket
+    zeroed = torch.zeros(max(K, 1) + 2, dtype=f32, device=dev)
     out = (BlockSums if not per_obs else ObsBlocks)(
         torch.empty((K, 6, 6), dtype=f32, device=dev),
         torch.empty((K, 6), dtype=f32, device=dev), coupling,
         torch.empty((L, 3, 3), dtype=f32, device=dev),
-        torch.empty((L, 3), dtype=f32, device=dev),
-        torch.zeros((), dtype=f32, device=dev))
-    scratch = torch.zeros(max(K, 1) + 1, dtype=f32, device=dev)
+        torch.empty((L, 3), dtype=f32, device=dev), zeroed[0])
     rc = _lib().ba_assemble(
         *(x.data_ptr() for x in c), base.data_ptr(), int(body),
         int(per_obs), K, L, O,
-        *(x.data_ptr() for x in out), scratch.data_ptr(),
+        *(x.data_ptr() for x in out), zeroed[1:].data_ptr(),
         cuda_build.stream_ptr(R))
     cuda_build.check(rc, "ba_assemble")
     LAUNCHES["kernel"] += 1

@@ -8,10 +8,13 @@ dense (15W)^2 system with the landmarks Schur-reduced: its visual blocks and
 visual cost come from K4 (`optim.ba.assemble`) in body-tangent mode; the
 inertial edges (9-dof residual, (9, 30) Jacobian at zero tangent), the bias
 random walk and the bias priors assembled into that system, and the
-inertial cost of the accept test, are kernel K13 (`inertial_system`,
-`inertial_cost`: `csrc/vi_edges.cu` on CUDA tensors; on CPU tensors
-`inertial_system_plain` / `inertial_cost_plain`, whose Jacobian is
-`torch.func.vmap(jacfwd)`).
+inertial cost of the accept test, are kernel K13 (`inertial_terms`: the
+system and the cost at one state in one call of `csrc/vi_edges.cu` on CUDA
+tensors; on CPU tensors `inertial_terms_plain`, which composes
+`inertial_system_plain`, whose Jacobian is `torch.func.vmap(jacfwd)`, and
+`inertial_cost_plain`). `vi_ba_solve` calls it once at the start state and
+once at each candidate, keeping the accepted state's system for the next
+step.
 
 `optimize_pose_inertial` is kernel K12: on CUDA tensors one launch of
 `csrc/pose_inertial.cu` runs every Gauss-Newton step and reclassification
@@ -38,7 +41,7 @@ HUBER2_MONO = 5.991
 HUBER2_STEREO = 7.815
 
 LAUNCHES = {"kernel": 0, "plain": 0}
-# K13 (inertial_system and inertial_cost)
+# K13 (inertial_terms)
 INERTIAL_LAUNCHES = {"kernel": 0, "plain": 0}
 
 
@@ -178,8 +181,7 @@ def _edge_residuals(p: VIBAProblem, R_wb, p_wb, v, bias):
 
 
 def inertial_cost_plain(p: VIBAProblem, R_wb, p_wb, v, bias):
-    """Inertial + bias random walk + bias prior costs (K13's cost mode)."""
-    INERTIAL_LAUNCHES["plain"] += 1
+    """Inertial + bias random walk + bias prior costs (K13's cost)."""
     r = _edge_residuals(p, R_wb, p_wb, v, bias)
     c_in = torch.sum(torch.einsum('ei,eij,ej->e', r, p.e_info, r))
     prev = torch.clamp(p.e_prev, min=0).long()
@@ -187,12 +189,6 @@ def inertial_cost_plain(p: VIBAProblem, R_wb, p_wb, v, bias):
     c_rw = torch.sum(r_rw * r_rw * p.e_rw_info)
     c_pr = torch.sum(bias * bias * p.prior_bias_info)
     return c_in + c_rw + c_pr
-
-
-def _total_cost(p: VIBAProblem, vis: ba.BlockSums, R_wb, p_wb, v, bias):
-    """The robust visual cost (K4's, from the blocks `vis` assembled at this
-    state) plus the inertial, random-walk and bias-prior costs."""
-    return vis.cost + inertial_cost(p, R_wb, p_wb, v, bias)
 
 
 def _free_mask(p: VIBAProblem):
@@ -216,8 +212,7 @@ def inertial_system_plain(p: VIBAProblem, R_wb, p_wb, v, bias, Hpp, bp):
     """The dense window system of `_lm_step` before the landmark Schur step:
     H (15W, 15W) and b (15W,) holding the visual pose blocks Hpp (W, 6, 6)
     and bp (W, 6), the inertial edges' J^T Omega J and -J^T Omega r, the
-    bias random walk and the bias priors (K13's function)."""
-    INERTIAL_LAUNCHES["plain"] += 1
+    bias random walk and the bias priors (K13's system)."""
     W = p.R_wb.shape[0]
     D = 15 * W
     f32, dev = p.p_wb.dtype, p.p_wb.device
@@ -301,13 +296,30 @@ def _k13_inputs(p: VIBAProblem, R_wb, p_wb, v, bias):
             p.e_valid.contiguous())
 
 
-@record_function("K13 inertial_system")
-def inertial_system(p: VIBAProblem, R_wb, p_wb, v, bias, Hpp, bp):
-    """K13: `inertial_system_plain`'s function. CUDA tensors: two launches
-    of `csrc/vi_edges.cu` (a warp per edge, then a thread per entry of H and
-    b); CPU tensors: the plain version."""
+def inertial_terms_plain(p: VIBAProblem, R_wb, p_wb, v, bias, Hpp, bp,
+                         system: bool = True):
+    """K13's function in plain PyTorch: (H, b, cost) at one state, the
+    system from `inertial_system_plain` and the cost from
+    `inertial_cost_plain`; without `system`, (None, None, cost)."""
+    INERTIAL_LAUNCHES["plain"] += 1
+    H, b = inertial_system_plain(p, R_wb, p_wb, v, bias, Hpp, bp) \
+        if system else (None, None)
+    return H, b, inertial_cost_plain(p, R_wb, p_wb, v, bias)
+
+
+@record_function("K13 inertial_terms")
+def inertial_terms(p: VIBAProblem, R_wb, p_wb, v, bias, Hpp, bp,
+                   system: bool = True):
+    """K13: `inertial_terms_plain`'s function, the inertial terms at one
+    state: the dense window system H (15W, 15W) and b (15W,) with the visual
+    pose blocks Hpp (W, 6, 6) and bp (W, 6), and the inertial cost. CUDA
+    tensors: one cooperative launch of `csrc/vi_edges.cu` (a block per
+    edge, then the live blocks' assembly after one grid barrier), every
+    output on the card; `system` is ignored there (the call costs the
+    same). CPU tensors: the plain version, which skips the system when
+    `system` is False."""
     if p_wb.device.type == "cpu":
-        return inertial_system_plain(p, R_wb, p_wb, v, bias, Hpp, bp)
+        return inertial_terms_plain(p, R_wb, p_wb, v, bias, Hpp, bp, system)
     W = p.R_wb.shape[0]
     state, cst, prev, valid = _k13_inputs(p, R_wb, p_wb, v, bias)
     if Hpp.shape != (W, 6, 6) or bp.shape != (W, 6) or \
@@ -317,52 +329,37 @@ def inertial_system(p: VIBAProblem, R_wb, p_wb, v, bias, Hpp, bp):
                          "(W, 6) on the window's card")
     Hpp, bp = Hpp.contiguous(), bp.contiguous()
     D = 15 * W
-    dev = p_wb.device
-    He = torch.empty((W, 30, 30), dtype=torch.float32, device=dev)
-    ge = torch.empty((W, 30), dtype=torch.float32, device=dev)
-    H = torch.empty((D, D), dtype=torch.float32, device=dev)
-    b = torch.empty(D, dtype=torch.float32, device=dev)
-    rc = _k13_lib().vi_edges_system(
+    dev, f32 = p_wb.device, torch.float32
+    # each edge's He (30, 30), ge (30) and its slot's cost
+    scratch = torch.empty(W * 931, dtype=f32, device=dev)
+    H = torch.empty((D, D), dtype=f32, device=dev)
+    b = torch.empty(D, dtype=f32, device=dev)
+    cost = torch.empty((), dtype=f32, device=dev)
+    rc = _k13_lib().vi_terms(
         state.data_ptr(), cst.data_ptr(), prev.data_ptr(), valid.data_ptr(),
-        Hpp.data_ptr(), bp.data_ptr(), W, He.data_ptr(), ge.data_ptr(),
-        H.data_ptr(), b.data_ptr(), cuda_build.stream_ptr(p_wb))
-    cuda_build.check(rc, "vi_edges_system")
+        Hpp.data_ptr(), bp.data_ptr(), W, scratch.data_ptr(),
+        scratch[W * 900:].data_ptr(), scratch[W * 930:].data_ptr(),
+        H.data_ptr(), b.data_ptr(), cost.data_ptr(),
+        cuda_build.stream_ptr(p_wb))
+    cuda_build.check(rc, "vi_terms")
     INERTIAL_LAUNCHES["kernel"] += 1
-    return H, b
-
-
-@record_function("K13 inertial_cost")
-def inertial_cost(p: VIBAProblem, R_wb, p_wb, v, bias):
-    """K13's cost mode: `inertial_cost_plain`'s function. CUDA tensors: one
-    launch (a warp, fixed-order reduction); CPU tensors: the plain
-    version."""
-    if p_wb.device.type == "cpu":
-        return inertial_cost_plain(p, R_wb, p_wb, v, bias)
-    state, cst, prev, valid = _k13_inputs(p, R_wb, p_wb, v, bias)
-    out = torch.empty((), dtype=torch.float32, device=p_wb.device)
-    rc = _k13_lib().vi_edges_cost(
-        state.data_ptr(), cst.data_ptr(), prev.data_ptr(), valid.data_ptr(),
-        p.R_wb.shape[0], out.data_ptr(), cuda_build.stream_ptr(p_wb))
-    cuda_build.check(rc, "vi_edges_cost")
-    INERTIAL_LAUNCHES["kernel"] += 1
-    return out
+    return H, b, cost
 
 
 def _k13_lib():
     lib = cuda_build.library("vi_edges")
-    if lib.vi_edges_system.argtypes is None:
+    if lib.vi_terms.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.vi_edges_system.argtypes = [P, P, P, P, P, P, I, P, P, P, P, P]
-        lib.vi_edges_system.restype = I
-        lib.vi_edges_cost.argtypes = [P, P, P, P, I, P, P]
-        lib.vi_edges_cost.restype = I
+        lib.vi_terms.argtypes = [P] * 6 + [I] + [P] * 7
+        lib.vi_terms.restype = I
     return lib
 
 
 def _lm_step(p: VIBAProblem, R_wb, p_wb, v, bias, X, lam,
-             vis: ba.BlockSums):
+             vis: ba.BlockSums, H, b):
     """One damped LM step of the window system; `vis` holds K4's visual
-    blocks at (R_wb, p_wb, X)."""
+    blocks at (R_wb, p_wb, X), H and b K13's system at this state (read,
+    not written: the caller keeps them)."""
     W = p.R_wb.shape[0]
     L = p.X.shape[0]
     D = 15 * W
@@ -371,7 +368,6 @@ def _lm_step(p: VIBAProblem, R_wb, p_wb, v, bias, X, lam,
     eyeL = torch.eye(3, dtype=f32, device=dev)
     free = _free_mask(p)
     ks = torch.arange(W, device=dev)
-    H, b = inertial_system(p, R_wb, p_wb, v, bias, vis.Hpp, vis.bp)
 
     # landmark Schur complement
     Hll_d = vis.Hll + lam * eyeL * torch.clamp(
@@ -386,8 +382,9 @@ def _lm_step(p: VIBAProblem, R_wb, p_wb, v, bias, X, lam,
     rhs_off = BC.reshape(W * 6, L * 3) @ bl_m.reshape(L * 3)
     pose_idx = (ks[:, None] * 15 + torch.arange(6, device=dev)[None]
                 ).reshape(-1)
-    H[pose_idx[:, None], pose_idx[None, :]] -= S_off
-    b[pose_idx] -= rhs_off
+    rows, cols = pose_idx[:, None], pose_idx[None, :]
+    H = H.index_put((rows, cols), H[rows, cols] - S_off)
+    b = b.index_put((pose_idx,), b[pose_idx] - rhs_off)
 
     # Jacobi scaling + damping + fixing + solve
     H = 0.5 * (H + H.T)
@@ -410,7 +407,12 @@ def _lm_step(p: VIBAProblem, R_wb, p_wb, v, bias, X, lam,
 
 def vi_ba_solve(p: VIBAProblem, n_iters: int = 8, lambda0: float = 1e-3):
     """Visual-inertial LM over the window. Returns (R_wb, p_wb, v, bias, X,
-    info) with info["cost0"], info["costs"] (per iteration)."""
+    info) with info["cost0"], info["costs"] and info["accepted"] (per
+    iteration). K4 and K13 run once at the start state and once at each
+    candidate (n_iters + 1 calls each); an accepted candidate's visual
+    blocks and inertial system serve the next step, which is the system
+    that step would compute at that state. On CPU tensors the last
+    candidate's system, which no step uses, is not computed."""
     f32, dev = p.p_wb.dtype, p.p_wb.device
     bap = _ba_problem(p)
     order = ba.obs_order(bap) if dev.type == "cuda" else None
@@ -421,20 +423,28 @@ def vi_ba_solve(p: VIBAProblem, n_iters: int = 8, lambda0: float = 1e-3):
 
     state = (p.R_wb, p.p_wb, p.v, p.bias, p.X)
     vis = visual(p.R_wb, p.p_wb, p.X)
-    cost0 = cost = _total_cost(p, vis, *state[:4])
+    H, b, c_in = inertial_terms(p, *state[:4], vis.Hpp, vis.bp,
+                                system=n_iters > 0)
+    cost0 = cost = vis.cost + c_in
     lam = torch.tensor(lambda0, dtype=f32, device=dev)
-    costs = []
-    for _ in range(n_iters):
-        out = _lm_step(p, *state, lam, vis)
+    costs, accepted = [], []
+    for it in range(n_iters):
+        out = _lm_step(p, *state, lam, vis, H, b)
         vis_c = visual(out[0], out[1], out[4])
-        new_cost = _total_cost(p, vis_c, *out[:4])
+        H_c, b_c, c_in = inertial_terms(p, *out[:4], vis_c.Hpp, vis_c.bp,
+                                        system=it + 1 < n_iters)
+        new_cost = vis_c.cost + c_in
         ok = torch.isfinite(new_cost) & (new_cost < cost)
         state = tuple(torch.where(ok, n, o) for n, o in zip(out, state))
         vis = ba._where(ok, vis_c, vis)
+        if H_c is not None:
+            H, b = torch.where(ok, H_c, H), torch.where(ok, b_c, b)
         cost = torch.where(ok, new_cost, cost)
         lam = torch.clamp(torch.where(ok, lam * 0.5, lam * 8.0), 1e-9, 1e7)
         costs.append(cost)
-    return (*state, {"cost0": cost0, "costs": torch.stack(costs)})
+        accepted.append(ok)
+    return (*state, {"cost0": cost0, "costs": torch.stack(costs),
+                     "accepted": torch.stack(accepted)})
 
 
 def classify_outliers(p: VIBAProblem, R_wb, p_wb, X):

@@ -10,7 +10,8 @@ loop-closing slice's `solvers/sim3.py`, `optim/pose_graph.py`,
 `pipeline/loop_closing.py`, and the persistence and CLI slice's
 `io/trajectory.py`, `io/datasets.py`, `io/native_loader.py`,
 `eval/ate.py`, `utils/`, `viz.py`, `examples/` and `tools/`; K13's
-wrappers (`optim/vi_ba.py` inertial_system, inertial_cost), K15's
+wrapper (`optim/vi_ba.py` inertial_terms, with and without the system),
+K15's
 (`optim/pose_graph.py` normal_equations), K6's (`ops/image.py`
 pyramid_blur, build_pyramid, blur_levels) and K3's gated mode
 (`ops/hamming.py` hamming_top2_gated) are held to the same device rules. The native
@@ -267,10 +268,10 @@ def test_wrappers_refuse_other_devices(kernel):
                                          n_iters=1)
         elif kernel == "inertial_system":
             p, st, Hpp, bp = _vi_args(meta)
-            vi_ba.inertial_system(p, *st, Hpp, bp)
+            vi_ba.inertial_terms(p, *st, Hpp, bp)
         elif kernel == "inertial_cost":
-            p, st, _, _ = _vi_args(meta)
-            vi_ba.inertial_cost(p, *st)
+            p, st, Hpp, bp = _vi_args(meta)
+            vi_ba.inertial_terms(p, *st, Hpp, bp, system=False)
         elif kernel == "normal_equations":
             pose_graph.normal_equations(*_graph_args(meta))
         elif kernel == "build_pyramid":
@@ -320,8 +321,8 @@ def test_wrappers_use_plain_versions_on_cpu():
     ba.schur_lm_pass(_ba_args("cpu")[0], torch.zeros((4, 6, 3)),
                      torch.zeros((2, 6)), torch.eye(3).expand(3, 3, 3))
     p, st, Hpp, bp = _vi_args("cpu")
-    H, b = vi_ba.inertial_system(p, *st, Hpp, bp)
-    assert H.shape == (30, 30) and b.shape == (30,)
+    H, b, c = vi_ba.inertial_terms(p, *st, Hpp, bp)
+    assert H.shape == (30, 30) and b.shape == (30,) and c.dim() == 0
     H, b, c = pose_graph.normal_equations(*_graph_args("cpu"))
     assert H.shape == (21, 21) and b.shape == (21,) and c.dim() == 0
     levels = image.build_pyramid(img, 3, 1.2)

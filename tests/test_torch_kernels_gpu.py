@@ -909,11 +909,34 @@ def _blocks_close(got, want, tol=1e-4):
         assert d <= tol, (name, d)
 
 
+def _k4_special(p, case):
+    """`all_masked`: every observation masked; `lm_masked`: the first 5
+    landmarks' observations all masked (and landmarks 5-9 fixed)."""
+    if case == "all_masked":
+        return p._replace(obs_mask=torch.zeros_like(p.obs_mask))
+    if case == "lm_masked":
+        return p._replace(obs_mask=p.obs_mask & (p.obs_lm >= 5),
+                          lm_opt=p.lm_opt & ((torch.arange(
+                              p.X.shape[0], device=p.X.device) < 5) |
+                              (torch.arange(p.X.shape[0],
+                                            device=p.X.device) >= 10)))
+    return p
+
+
+# (K, L, per_kf, case): the stereo path's size; a few landmarks; one
+# observation; no observation; 7 landmarks seen ~170 times each (many
+# repeated (landmark, keyframe) pairs); K = 1 with L = 333, no multiple of
+# 32; every observation masked; landmarks whose observations are all masked
+K4_CASES = [(18, 6144, 1200, None), (3, 40, 30, None), (1, 1, 1, None),
+            (4, 50, 0, None), (40, 7, 30, None), (1, 333, 500, None),
+            (6, 100, 40, "all_masked"), (6, 70, 40, "lm_masked")]
+
+
 @pytest.mark.parametrize("body", [False, True])
-@pytest.mark.parametrize("K,L,per_kf", [(18, 6144, 1200), (3, 40, 30),
-                                        (1, 1, 1), (4, 50, 0)])
-def test_ba_assemble_matches_plain_and_repeats(cuda, K, L, per_kf, body):
-    p = _ba_problem(cuda, K, L, per_kf, seed=K)
+@pytest.mark.parametrize("K,L,per_kf,case", K4_CASES)
+def test_ba_assemble_matches_plain_and_repeats(cuda, K, L, per_kf, case,
+                                               body):
+    p = _k4_special(_ba_problem(cuda, K, L, per_kf, seed=K), case)
     order = ba.obs_order(p)
     got = ba.assemble(p, p.R, p.t, p.X, order, body=body)
     want = ba.assemble_plain(p, p.R, p.t, p.X, body=body)
@@ -987,16 +1010,25 @@ def _rel(a, b):
 PCG_CASES = ["odd", "empty_kf", "all_masked", "none_opt", "large"]
 
 
-@pytest.mark.parametrize("case", PCG_CASES)
-def test_ba_assemble_per_obs_matches_plain_and_repeats(cuda, case):
-    p = _pcg_problem(cuda, case)
+@pytest.mark.parametrize("body", [False, True])
+@pytest.mark.parametrize("case", PCG_CASES + ["dense_lm", "k1"])
+def test_ba_assemble_per_obs_matches_plain_and_repeats(cuda, case, body):
+    """Also `dense_lm` (7 landmarks seen ~170 times each, slots no multiple
+    of 32) and `k1` (one keyframe, L = 333): Wpl allocated uninitialized,
+    the kernel writes every slot (masked ones as zeros)."""
+    if case == "dense_lm":
+        p = _ba_problem(cuda, 40, 7, 31, seed=7)
+    elif case == "k1":
+        p = _ba_problem(cuda, 1, 333, 501, seed=1)
+    else:
+        p = _pcg_problem(cuda, case)
     order = ba.obs_order(p)
-    got = ba.assemble(p, p.R, p.t, p.X, order, per_obs=True)
-    want = ba.assemble_obs_plain(p, p.R, p.t, p.X)
+    got = ba.assemble(p, p.R, p.t, p.X, order, body=body, per_obs=True)
+    want = ba.assemble_obs_plain(p, p.R, p.t, p.X, body=body)
     for name, a, b in zip(ba.ObsBlocks._fields, got, want):
         assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
     assert not bool(got.Wpl[~p.obs_mask].any())
-    again = ba.assemble(p, p.R, p.t, p.X, order, per_obs=True)
+    again = ba.assemble(p, p.R, p.t, p.X, order, body=body, per_obs=True)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
 
@@ -1315,14 +1347,17 @@ def test_k4_k11_k12_refuse_bad_inputs_on_the_card(cuda):
 # ---------------------------------------------------------------------------
 
 def _vi_window(dev, W, seed=0, skip=None, invalid=(), prior=1.0,
-               noise=None):
+               noise=None, neg_prev=False):
     """A W-slot inertial window (no visual rows): random body states, a
     chain of edges (slot 0 and the `invalid` slots without one, slot `skip`
     chained to skip - 2), preintegration constants of plausible size and
     information near the floor_info scale (1e4-1e8); K4-shaped visual pose
-    blocks Hpp (W, 6, 6) at the 1e5 scale and bp. With `noise`, the
-    preintegrations are those of the states (zero residual at bias0) and
-    the states are then perturbed by `noise`."""
+    blocks Hpp (W, 6, 6) at the 1e5 scale and bp. With `neg_prev`, e_prev
+    is -1 where there is no edge (as the map leaves it) and slot 0 holds a
+    valid edge with e_prev -1 (clamped to 0: an edge from slot 0 to
+    itself). With `noise`, the preintegrations are those of the states
+    (zero residual at bias0) and the states are then perturbed by
+    `noise`."""
     from morb_slam_tpu_torch.optim import vi_ba as v
     g = torch.Generator().manual_seed(seed)
 
@@ -1334,7 +1369,10 @@ def _vi_window(dev, W, seed=0, skip=None, invalid=(), prior=1.0,
         prev[skip] = skip - 2
     for k in invalid:
         valid[k] = False
-    prev = torch.where(valid, prev, torch.zeros_like(prev))
+    prev = torch.where(valid, prev, torch.full_like(prev, -1) if neg_prev
+                       else torch.zeros_like(prev))
+    if neg_prev:
+        valid[0] = True
     A = rn(W, 9, 9)
     info = v.floor_info(A @ A.transpose(1, 2) * 1e6 +
                         1e4 * torch.eye(9, device=dev))
@@ -1389,23 +1427,36 @@ def _scaled_errs(H, b, H0, b0):
     return float(eH), float(eb)
 
 
-@pytest.mark.parametrize("W,skip,invalid,prior", [
-    (14, None, (), 1.0), (14, 6, (9,), 1e4), (32, 5, (3, 17, 31), 1.0),
-    (32, None, (), 0.0), (1, None, (), 1.0)])
-def test_vi_edges_match_plain_and_repeat(cuda, W, skip, invalid, prior):
+@pytest.mark.parametrize("W,skip,invalid,prior,neg_prev", [
+    (14, None, (), 1.0, False), (14, 6, (9,), 1e4, False),
+    (32, 5, (3, 17, 31), 1.0, False), (32, None, (), 0.0, False),
+    (1, None, (), 1.0, False), (2, None, (), 1.0, False),
+    (2, None, (), 1.0, True), (14, 6, (4, 9), 1.0, True),
+    (32, None, (8,), 1.0, True), (1, None, (), 1.0, True)])
+def test_vi_edges_match_plain_and_repeat(cuda, W, skip, invalid, prior,
+                                         neg_prev):
+    """inertial_terms (H, b and the cost in one call) against the plain
+    composition, and two calls bitwise equal; every block of H that no
+    valid edge links exactly zero."""
     p, Hpp, bp = _vi_window(cuda, W, seed=W, skip=skip, invalid=invalid,
-                            prior=prior)
+                            prior=prior, neg_prev=neg_prev)
     st = (p.R_wb, p.p_wb, p.v, p.bias)
-    H, b = vi_ba.inertial_system(p, *st, Hpp, bp)
-    H2, b2 = vi_ba.inertial_system(p, *st, Hpp, bp)
-    H0, b0 = vi_ba.inertial_system_plain(p, *st, Hpp, bp)
-    assert torch.equal(H, H2) and torch.equal(b, b2)
+    before = dict(vi_ba.INERTIAL_LAUNCHES)
+    H, b, c = vi_ba.inertial_terms(p, *st, Hpp, bp)
+    H2, b2, c2 = vi_ba.inertial_terms(p, *st, Hpp, bp)
+    assert vi_ba.INERTIAL_LAUNCHES["kernel"] - before["kernel"] == 2
+    H0, b0, c0 = vi_ba.inertial_terms_plain(p, *st, Hpp, bp)
+    assert torch.equal(H, H2) and torch.equal(b, b2) and torch.equal(c, c2)
     eH, eb = _scaled_errs(H, b, H0, b0)
     assert eH < 1e-5 and eb < 1e-5, (eH, eb)
-    c, c2 = vi_ba.inertial_cost(p, *st), vi_ba.inertial_cost(p, *st)
-    c0 = vi_ba.inertial_cost_plain(p, *st)
-    assert torch.equal(c, c2)
     assert abs(float(c) - float(c0)) <= 1e-5 * abs(float(c0)), (c, c0)
+    # a 15 x 15 block that no valid edge links (off the diagonal) is zero
+    prev = p.e_prev.clamp(min=0).long()
+    live = torch.eye(W, dtype=torch.bool, device=cuda)
+    live[prev[p.e_valid], torch.arange(W, device=cuda)[p.e_valid]] = True
+    live = live | live.T
+    dead = ~live.repeat_interleave(15, 0).repeat_interleave(15, 1)
+    assert bool((H[dead] == 0).all()) and bool((H0[dead] == 0).all())
 
 
 def test_vi_ba_lm_step_kernel_matches_plain(cuda, monkeypatch):
@@ -1447,11 +1498,16 @@ def test_vi_ba_lm_step_kernel_matches_plain(cuda, monkeypatch):
                           body=True)
     lam = torch.tensor(1e-3, device=cuda)
     st = (p.R_wb, p.p_wb, p.v, p.bias, p.X)
-    step = vi_ba._lm_step(p, *st, lam, vis)
+    H, b, _ = vi_ba.inertial_terms(p, *st[:4], vis.Hpp, vis.bp)
+    Hc, bc = H.clone(), b.clone()
+    step = vi_ba._lm_step(p, *st, lam, vis, H, b)
+    assert torch.equal(H, Hc) and torch.equal(b, bc)
+    before = vi_ba.INERTIAL_LAUNCHES["kernel"]
     got = vi_ba.vi_ba_solve(p, n_iters=6)
-    monkeypatch.setattr(vi_ba, "inertial_system", vi_ba.inertial_system_plain)
-    monkeypatch.setattr(vi_ba, "inertial_cost", vi_ba.inertial_cost_plain)
-    step0 = vi_ba._lm_step(p, *st, lam, vis)
+    assert vi_ba.INERTIAL_LAUNCHES["kernel"] - before == 7
+    monkeypatch.setattr(vi_ba, "inertial_terms", vi_ba.inertial_terms_plain)
+    H0, b0, _ = vi_ba.inertial_terms_plain(p, *st[:4], vis.Hpp, vis.bp)
+    step0 = vi_ba._lm_step(p, *st, lam, vis, H0, b0)
     want = vi_ba.vi_ba_solve(p, n_iters=6)
     for a, b_ in zip(step, step0):
         assert torch.allclose(a, b_, atol=1e-4), (a - b_).abs().max()
@@ -1541,13 +1597,15 @@ def test_k13_k15_refuse_bad_inputs_on_the_card(cuda):
     p, Hpp, bp = _vi_window(cuda, 6)
     st = (p.R_wb, p.p_wb, p.v, p.bias)
     with pytest.raises(ValueError):
-        vi_ba.inertial_system(p, p.R_wb.double(), *st[1:], Hpp, bp)
+        vi_ba.inertial_terms(p, p.R_wb.double(), *st[1:], Hpp, bp)
     with pytest.raises(ValueError):
-        vi_ba.inertial_system(p, *st, Hpp[:, :5], bp)
+        vi_ba.inertial_terms(p, *st, Hpp[:, :5], bp)
     with pytest.raises(ValueError):
-        vi_ba.inertial_cost(p._replace(e_valid=p.e_valid.int()), *st)
+        vi_ba.inertial_terms(p._replace(e_valid=p.e_valid.int()), *st,
+                             Hpp, bp)
     with pytest.raises(ValueError):
-        vi_ba.inertial_cost(p._replace(e_info=p.e_info[:, :8]), *st)
+        vi_ba.inertial_terms(p._replace(e_info=p.e_info[:, :8]), *st, Hpp,
+                             bp, system=False)
     g = _graph(cuda, 8, 8)
     with pytest.raises(ValueError):
         pg.normal_equations(g._replace(edge_i=g.edge_i.long()), g.s, g.R,

@@ -2,13 +2,13 @@
 `clock64()`, and earlier forms of kernels against this tree's: this
 tree's K12 (`csrc/pose_inertial.cu`), K5 (`csrc/pose_opt.cu`), K1
 (`csrc/fast_select.cu`), K3 (`csrc/hamming_top2.cu`) and K6
-(`csrc/pyramid_blur.cu`), and K14 and K16 against their earlier forms.
+(`csrc/pyramid_blur.cu`), and K4 and K13 against their earlier forms.
 
     python3 tools_kernel_phases.py --new
     python3 tools_kernel_phases.py --k5 --k1 --new
     python3 tools_kernel_phases.py --k3 --k6 --new
-    git archive 5e4d05b morb_slam_tpu_torch/csrc | tar -x -C old13/
-    python3 tools_kernel_phases.py --k14 --k16 --csrc old13/morb_slam_tpu_torch/csrc
+    git archive 001dca8 morb_slam_tpu_torch/csrc | tar -x -C old14/
+    python3 tools_kernel_phases.py --k4 --k13 --csrc old14/morb_slam_tpu_torch/csrc
 
 Copies the sources (and the headers) into a temporary directory, inserts
 the stamps, builds them with the port's `nvcc` flags and runs them at
@@ -26,32 +26,35 @@ lane 0 of every warp stamping its phases, with unstamped builds at 1, 2,
 4 and 8 warps a row. `--k6`: K6's one launch on the first rendered
 752x480 frame, 8 levels, stamped by block (phases over all levels, each
 grid barrier's wait) with unstamped builds at other grid sizes.
-`--k14` with `--csrc`: on chip_smoke.py's global BA problem at the loop
-phase's capacities (K = 512, L = 32,768, ~84,000 active observations),
-this tree's S x through the pass launches against the earlier source's
-(as of commit 5e4d05b: the pass launches alone, the CG loop in torch;
-bits and device ms), this tree's whole solve (device ms at several grids
-and CG iteration counts, against the plain solve, its last S p against
-the pass launches' S p bit for bit) and the solve stamped by thread 0 of
-every block (each phase's and each grid barrier's cycles, summed over the
-blocks). `--k16` with `--csrc`: this tree's K16 (two kernels: one pass
-over the pairs, then the rows) against the earlier one (three kernels:
-the row search, the column search, the rows), built beside it, on
-chip_smoke.py's rig features (bits of idx, valid, u_right and depth;
-span, parts, kernels and call ms of both), then the rig paths (a) and (b)
-with every K16 call also run through the earlier kernel (how many gave
-the same bits). Prints one JSON object (also written to
-chiprun_out/kernel_phases_new.json, kernel_phases_k5_k1_new.json,
-kernel_phases_k3_k6_new.json or kernel_phases_k14_k16.json (K16's
-features part first to kernel_phases_k16_features.json)). The stamp
-anchors match those sources only. Needs a CUDA card and nvcc.
+`--k4 --k13` with `--csrc`: this tree's K4 (`csrc/ba_assemble.cu`, both
+modes) and K13 (`csrc/vi_edges.cu`) against the earlier ones (as of
+commit 001dca8: K4 a warp a landmark with one lane walking it, K13 a
+system of two launches and a cost of one), built beside them. The
+stereo, vi and loop paths of chip_smoke.py run with every K4 and K13
+call also run through the earlier kernel on the same inputs (calls and
+bitwise-equal calls by mode: local BA in the camera and the body tangent,
+per-observation; the inertial terms); then, on each mode's last problem
+of the paths and on chip_smoke.py's global BA problem at the loop phase's
+capacities, both trees' bits and times (device ms of the kernels, kernels
+and event ms per call), the device time of each kind of K4 block alone
+(keyframe, landmark and slot blocks, the others returning at once) in
+both trees, this tree's K4 built at 32-256 landmarks a landmark block
+and its K13 at 128 and 256 threads a block, and K13 stamped by phase
+(thread 0 of every block: edge terms, lists and dead zeros, the grid
+barrier, the live sums; clock64 cycles). Prints one JSON object (also written to chiprun_out/
+kernel_phases_new.json, kernel_phases_k5_k1_new.json,
+kernel_phases_k3_k6_new.json or kernel_phases_k4_k13.json, the last also
+after each path). The stamp anchors match those sources only. Needs a
+CUDA card and nvcc.
 
 The earlier forms of K12, K2 (as of commit 4ceff5a), K5 and K1 (as of
 commit ea2e66d) are stamped by this script as of commit a873e66, those
 of K3 and K6 (as of commit a873e66: the masked K3 on a dense gate, K6
-launched per level) by this script as of commit 133af77, and K11 and K17
+launched per level) by this script as of commit 133af77, K11 and K17
 (as of commit 133af77), and this tree's K11 stamped, by this script as
-of commit 5e4d05b.
+of commit 5e4d05b, and K14 and K16 (as of commit 5e4d05b: K14's pass
+launches with the CG loop in torch, K16 in three kernels) by this script
+as of commit 001dca8.
 """
 import argparse
 import ctypes
@@ -908,324 +911,449 @@ def _k6():
     return res
 
 
-K14_PHASES = ["setup: rhs, z = Minv r, x = 0", "barrier after the setup",
-              "iteration scalars: r.z, beta", "(a) landmarks: y",
-              "barrier after (a)", "(b) keyframes: Ap, p, p.Ap",
-              "barrier after (b)", "(c) keyframes: alpha, x, r, z, r.z",
-              "barrier after (c)", "back-substitution"]
+K4_OLD_ARGS = 15, 5, 8
 
 
-def _k14_stamped_source(text):
-    """schur_pcg.cu with thread 0 of every block adding the cycles since
-    its last stamp to the phase it closes; summed over the blocks into
-    `pcg_phase_buf` (set by set_phase_buf)."""
-    st = ("    long long ph_[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};\n"
-          "    long long last_ = clock64();\n"
-          "#define STAMP(k) if (threadIdx.x == 0) { long long t_ = clock64(); "
-          "ph_[k] += t_ - last_; last_ = t_; }\n")
-    return _patch(text, [
-        ("schur_pcg_kernel(PcgArgs A) {\n",
-         "schur_pcg_kernel(PcgArgs A) {\n" + st),
-        ("    grid.sync();\n\n    float rz = 0.0f;",
-         "    STAMP(0)\n    grid.sync();\n    STAMP(1)\n\n    float rz = 0.0f;"),
-        ("        rz = rz_new;\n", "        rz = rz_new;\n        STAMP(2)\n"),
-        ("        grid.sync();\n\n        // (b)",
-         "        STAMP(3)\n        grid.sync();\n        STAMP(4)\n\n"
-         "        // (b)"),
-        ("        grid.sync();\n\n        // (c)",
-         "        STAMP(5)\n        grid.sync();\n        STAMP(6)\n\n"
-         "        // (c)"),
-        ("        grid.sync();\n    }\n\n    // back-substitution",
-         "        STAMP(7)\n        grid.sync();\n        STAMP(8)\n    }\n\n"
-         "    // back-substitution"),
-        ("A.Hll_inv, A.bl, A.dxl);\n    }\n}",
-         "A.Hll_inv, A.bl, A.dxl);\n    }\n    STAMP(9)\n"
-         "    if (threadIdx.x == 0 && pcg_phase_buf)\n"
-         "        for (int q = 0; q < 10; ++q)\n"
-         "            atomicAdd(pcg_phase_buf + q, "
-         "(unsigned long long)ph_[q]);\n}"),
-        ("struct PcgArgs {",
-         "__device__ unsigned long long* pcg_phase_buf;\n"
-         'extern "C" int set_phase_buf(void* p) {\n'
-         "    return (int)cudaMemcpyToSymbol(pcg_phase_buf, &p, sizeof(p));\n"
-         "}\n\nstruct PcgArgs {"),
-    ])
-
-
-GRID_SYNC_SOURCE = r"""
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-__global__ void __launch_bounds__(512) sync_kernel(int n) {
-    cooperative_groups::grid_group g = cooperative_groups::this_grid();
-    for (int i = 0; i < n; ++i) g.sync();
-}
-extern "C" int sync_launch(int grid, int n, void* stream) {
-    void* args[] = {(void*)&n};
-    return (int)cudaLaunchCooperativeKernel((const void*)sync_kernel,
-                                            dim3(grid), dim3(512), args, 0,
-                                            (cudaStream_t)stream);
-}
-"""
-
-
-def _grid_sync_us(tmp, grids):
-    """Microseconds a grid barrier (cooperative_groups' grid.sync) costs
-    with nothing else to do, 512-thread blocks: (100 barriers - none) /
-    100 by CUDA events, at each grid size."""
+def _k4_old_lib(tmp, csrc, patch=None):
+    """The earlier K4 (commit 001dca8: a warp a landmark, its lane 0 walking
+    the observations, the coupling added into global memory) built from
+    `csrc`, optionally with a text patch."""
+    text = open(os.path.join(csrc, "ba_assemble.cu")).read()
+    lib, ptx = _build(tmp, "ba_assemble", patch(text) if patch else text)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib, _ = _build(tmp, "grid_sync", GRID_SYNC_SOURCE)
-    lib.sync_launch.argtypes = [I, I, P]
-    lib.sync_launch.restype = I
-    stream = torch.cuda.current_stream().cuda_stream
-    out = {}
-    for g in grids:
-        ms = [cs.time_ms(lambda n=n: cuda_build.check(lib.sync_launch(
-            g, n, stream), "sync"), reps=10, inner=5) for n in (0, 100)]
-        out[g] = (ms[1] - ms[0]) * 10.0
+    n_p, n_i, n_q = K4_OLD_ARGS
+    lib.ba_assemble.argtypes = [P] * n_p + [I] * n_i + [P] * n_q
+    lib.ba_assemble.restype = I
+    return lib, ptx
+
+
+def _k4_old(lib, p, R, t, X, order=None, body=False, per_obs=False):
+    """The earlier K4 through the earlier wrapper's steps (Wpl zero-filled
+    by torch, then the kernel): BlockSums or ObsBlocks."""
+    from morb_slam_tpu_torch.optim import ba
+    dev, f32 = R.device, torch.float32
+    K, L, O = R.shape[0], X.shape[0], p.obs_uv.shape[0]
+    order = ba.obs_order(p) if order is None else order
+    c = [x.contiguous() for x in (R, t, X, p.obs_kf, p.obs_lm, p.obs_uv,
+                                  p.obs_ur, p.obs_info, p.obs_mask,
+                                  p.lm_opt) + tuple(order)]
+    base = p.baseline.to(device=dev, dtype=f32).reshape(1)
+    coupling = torch.zeros((O, 6, 3), dtype=f32, device=dev) if per_obs \
+        else torch.empty((L, K, 6, 3), dtype=f32, device=dev)
+    out = (ba.ObsBlocks if per_obs else ba.BlockSums)(
+        torch.empty((K, 6, 6), dtype=f32, device=dev),
+        torch.empty((K, 6), dtype=f32, device=dev), coupling,
+        torch.empty((L, 3, 3), dtype=f32, device=dev),
+        torch.empty((L, 3), dtype=f32, device=dev),
+        torch.zeros((), dtype=f32, device=dev))
+    scratch = torch.zeros(max(K, 1) + 1, dtype=f32, device=dev)
+    cuda_build.check(lib.ba_assemble(
+        *(x.data_ptr() for x in c), base.data_ptr(), int(body),
+        int(per_obs), K, L, O, *(x.data_ptr() for x in out),
+        scratch.data_ptr(), cuda_build.stream_ptr(R)), "earlier K4")
     return out
 
 
-def _schur_argtypes(lib, solve):
+def _k13_old_lib(tmp, csrc):
+    """The earlier K13 (commit 001dca8: a warp an edge, a thread an entry
+    of H, a one-warp cost kernel) built from `csrc`."""
+    for h in ("imu_edge.cuh", "dual.cuh"):
+        shutil.copy(os.path.join(csrc, h), tmp)
+    lib, ptx = _build(tmp, "vi_edges", open(os.path.join(
+        csrc, "vi_edges.cu")).read())
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.schur_lm_pass.argtypes = [P] * 9 + [I, P, P]
-    lib.schur_lm_pass.restype = I
-    lib.schur_kf_pass.argtypes = [P] * 9 + [I, P, P]
-    lib.schur_kf_pass.restype = I
-    if solve:
-        lib.schur_pcg.argtypes = [P] * 14 + [I] * 5 + [P] * 6
-        lib.schur_pcg.restype = I
-        lib.schur_pcg_max_grid.argtypes = [P]
-        lib.schur_pcg_max_grid.restype = I
+    lib.vi_edges_system.argtypes = [P] * 6 + [I] + [P] * 5
+    lib.vi_edges_system.restype = I
+    lib.vi_edges_cost.argtypes = [P] * 4 + [I, P, P]
+    lib.vi_edges_cost.restype = I
+    return lib, ptx
 
 
-def _pcg_raw(lib, args, iters, grid=0):
-    """One launch of `lib`'s schur_pcg on pcg_solve's inputs, with its
-    scratch returned: (dxp, dxl, p of the last iteration, S p of it)."""
-    p, order = args[0], args[7]
-    K, L, O = p.R.shape[0], p.X.shape[0], args[1].shape[0]
-    scratch = torch.empty(26 * K + 3 * L, device="cuda")
-    wscratch = torch.empty(36 * O, device="cuda")
-    iscratch = torch.empty(2 * O, dtype=torch.int32, device="cuda")
-    dxp = torch.empty((K, 6), device="cuda")
-    dxl = torch.empty((L, 3), device="cuda")
-    cuda_build.check(lib.schur_pcg(
-        *(t.contiguous().data_ptr() for t in args[1:7]),
-        p.kf_opt.data_ptr(), p.lm_opt.data_ptr(), p.obs_kf.data_ptr(),
-        p.obs_lm.data_ptr(), *(t.data_ptr() for t in order), K, L, O, iters,
-        grid, scratch.data_ptr(), wscratch.data_ptr(), iscratch.data_ptr(),
-        dxp.data_ptr(), dxl.data_ptr(), cuda_build.stream_ptr(dxp)),
-        "schur_pcg")
-    return (dxp, dxl, scratch[:6 * K].view(K, 6),
-            scratch[18 * K:24 * K].view(K, 6))
+def _k13_old(lib, p, R_wb, p_wb, v, bias, Hpp, bp):
+    """The earlier K13's system and cost at one state: (H, b, cost)."""
+    W = p.R_wb.shape[0]
+    state, cst, prev, valid = vi_ba._k13_inputs(p, R_wb, p_wb, v, bias)
+    Hpp, bp = Hpp.contiguous(), bp.contiguous()
+    dev, f32, D = p_wb.device, torch.float32, 15 * W
+    He = torch.empty((W, 30, 30), dtype=f32, device=dev)
+    ge = torch.empty((W, 30), dtype=f32, device=dev)
+    H = torch.empty((D, D), dtype=f32, device=dev)
+    b = torch.empty(D, dtype=f32, device=dev)
+    cost = torch.empty((), dtype=f32, device=dev)
+    st = cuda_build.stream_ptr(p_wb)
+    cuda_build.check(lib.vi_edges_system(
+        state.data_ptr(), cst.data_ptr(), prev.data_ptr(), valid.data_ptr(),
+        Hpp.data_ptr(), bp.data_ptr(), W, He.data_ptr(), ge.data_ptr(),
+        H.data_ptr(), b.data_ptr(), st), "earlier K13 system")
+    cuda_build.check(lib.vi_edges_cost(
+        state.data_ptr(), cst.data_ptr(), prev.data_ptr(), valid.data_ptr(),
+        W, cost.data_ptr(), st), "earlier K13 cost")
+    return H, b, cost
 
 
-def _k14(csrc, reps):
-    """This tree's K14 against the earlier one (commit 5e4d05b: the pass
-    launches alone, the CG loop in torch) on chip_smoke.py's global BA
-    problem at the loop phase's capacities: S x of both (bits, device ms),
-    the whole solve (device ms at several grids; its last S p against the
-    pass launches' S p, bit for bit), and the solve stamped: the cycles of
-    each phase and each barrier, summed over the blocks."""
+def _equal_fields(a, b, names):
+    """{field: True where bitwise equal, else the max difference relative
+    to the earlier field's max-abs}."""
+    out = {}
+    for n, x, y in zip(names, a, b):
+        if torch.equal(x, y):
+            out[n] = True
+        else:
+            out[n] = float((x - y).abs().max()) / max(
+                float(y.abs().max()), 1e-30)
+    return out
+
+
+class _Compare:
+    """Every K4 and K13 call of a path also run through the earlier
+    kernels on the same inputs (module attributes wrapped): calls and
+    bitwise-equal calls by mode, the first unequal call's fields, and each
+    mode's last problem kept for the timings."""
+
+    def __init__(self, lib4, lib13):
+        from morb_slam_tpu_torch.optim import ba
+        self.ba, self.lib4, self.lib13 = ba, lib4, lib13
+        self.stats, self.last = {}, {}
+
+    def _count(self, mode, eq):
+        st = self.stats.setdefault(mode, dict(calls=0, bitwise_equal=0))
+        st["calls"] += 1
+        ok = all(v is True for v in eq.values())
+        st["bitwise_equal"] += int(ok)
+        if not ok and "first_unequal" not in st:
+            st["first_unequal"] = eq
+
+    def __enter__(self):
+        ba = self.ba
+        self.saved = (ba.assemble, vi_ba.inertial_terms)
+        a4, t13 = self.saved
+
+        def assemble(p, R, t, X, order=None, body=False, per_obs=False):
+            got = a4(p, R, t, X, order, body, per_obs)
+            old = _k4_old(self.lib4, p, R, t, X, order, body, per_obs)
+            mode = "per_obs" if per_obs else ("local, body tangent" if body
+                                              else "local, camera tangent")
+            self._count(mode, _equal_fields(got, old, got._fields))
+            self.last[mode] = (p, R, t, X, order, body, per_obs)
+            return got
+
+        def terms(p, R_wb, p_wb, v, bias, Hpp, bp, system=True):
+            got = t13(p, R_wb, p_wb, v, bias, Hpp, bp, system)
+            old = _k13_old(self.lib13, p, R_wb, p_wb, v, bias, Hpp, bp)
+            self._count("inertial_terms", _equal_fields(
+                got, old, ("H", "b", "cost")))
+            self.last["inertial_terms"] = (p, R_wb, p_wb, v, bias, Hpp, bp)
+            return got
+        ba.assemble, vi_ba.inertial_terms = assemble, terms
+        return self
+
+    def __exit__(self, *exc):
+        self.ba.assemble, vi_ba.inertial_terms = self.saved
+
+
+def _k4_times(lib_old, args, reps):
+    """This tree's K4 against the earlier one on one problem: bits,
+    kernel device ms, kernels and call ms per call."""
     from morb_slam_tpu_torch.optim import ba
-    p = cs._global_problem()
-    order = ba.obs_order(p)
-    ob = ba.assemble(p, p.R, p.t, p.X, order, per_obs=True)
-    args = ba.pcg_args(p, ob, torch.tensor(1e-3, device="cuda"), order)
-    _, Wpl, Hpp, _, Hi = args[:5]
-    K = p.R.shape[0]
-    x = torch.randn(K, 6, device="cuda",
-                    generator=torch.Generator(device="cuda").manual_seed(3))
-
-    def sx():
-        return ba.schur_matvec(p, Wpl, Hpp, Hi, x, order)
-
-    def sx_ms():
-        return cs.device_ms(sx, "schur_lm_kernel", reps) + \
-            cs.device_ms(sx, "schur_kf_kernel", reps)
-
-    def solve():
-        return ba.pcg_solve(*args, 40)
-    lib = ba._schur_lib()
-    _schur_argtypes(lib, True)
-    g = ctypes.c_int(0)
-    cuda_build.check(lib.schur_pcg_max_grid(ctypes.byref(g)), "max grid")
-    got = solve()
-    want = ba.pcg_solve_plain(*args, 40)
-    _, _, p_last, sp_last = _pcg_raw(lib, args, 40)
-    new_sx = sx()
-    res = dict(
-        problem=dict(K=K, L=p.X.shape[0], active_obs=int(p.obs_mask.sum())),
-        ptxas=cuda_build.ptxas_report("schur_pcg").strip(),
-        sx_ms=sx_ms(), sx_call_ms=cs.time_ms(sx),
-        solve_ms=cs.device_ms(solve, "schur_pcg_kernel", reps),
-        solve_call_ms=cs.time_ms(solve, reps=10, inner=2),
-        solve_plain_ms=cs.time_ms(lambda: ba.pcg_solve_plain(*args, 40),
-                                  reps=3, inner=1),
-        solve_vs_plain_rel=[float((a - b).abs().max()) / float(
-            b.abs().max()) for a, b in zip(got, want)],
-        max_grid=g.value,
-        solve_ms_by_grid={gr: cs.device_ms(
-            lambda gr=gr: ba._pcg_launch(*args, 40, grid=gr),
-            "schur_pcg_kernel", reps) for gr in sorted({
-                g.value, g.value // 2, 132})},
-        solve_ms_by_cg_iters={n: cs.device_ms(
-            lambda n=n: ba.pcg_solve(*args, n), "schur_pcg_kernel", reps)
-            for n in (0, 1, 10, 40)},
-        solve_last_sx_bitwise_equal_pass_launches=torch.equal(
-            ba.schur_matvec(p, Wpl, Hpp, Hi, p_last.clone(), order),
-            sp_last))
-    with tempfile.TemporaryDirectory() as tmp:
-        d_old, d_st = os.path.join(tmp, "old"), os.path.join(tmp, "stamped")
-        os.makedirs(d_old)
-        os.makedirs(d_st)
-        lib_old, ptx_old = _build(d_old, "schur_pcg", open(os.path.join(
-            csrc, "schur_pcg.cu")).read())
-        _schur_argtypes(lib_old, False)
-        prev = _swap_lib("schur_pcg", lib_old)
-        try:
-            old_sx = sx()
-            res["earlier"] = dict(
-                ptxas=ptx_old.strip(), sx_ms=sx_ms(),
-                sx_call_ms=cs.time_ms(sx),
-                sx_bitwise_equal=torch.equal(old_sx, new_sx),
-                sx_max_rel_diff=float((old_sx - new_sx).abs().max()) /
-                float(old_sx.abs().max()))
-        finally:
-            _restore_lib("schur_pcg", prev)
-        text = open(os.path.join(cuda_build.CSRC, "schur_pcg.cu")).read()
-        lib_st, ptx_st = _build(d_st, "schur_pcg", _k14_stamped_source(text))
-        _schur_argtypes(lib_st, True)
-        lib_st.set_phase_buf.argtypes = [ctypes.c_void_p]
-        ph = torch.zeros(10, dtype=torch.int64, device="cuda")
-        cuda_build.check(lib_st.set_phase_buf(ph.data_ptr()), "phases")
-        stamped = {}
-        for n in (40, 1):
-            _pcg_raw(lib_st, args, n)
-            ph.zero_()
-            _pcg_raw(lib_st, args, n)
-            torch.cuda.synchronize()
-            c = ph.cpu().numpy().astype(float)
-            stamped[f"{n} CG iterations"] = dict(
-                cycles_summed_over_blocks=dict(zip(K14_PHASES, c.tolist())),
-                share=dict(zip(K14_PHASES, (c / c.sum()).tolist())),
-                cycles_per_block=float(c.sum()) / g.value,
-                bitwise_equal_unstamped=all(
-                    torch.equal(a, b) for a, b in zip(
-                        _pcg_raw(lib_st, args, n)[:2],
-                        ba.pcg_solve(*args, n))))
-        cuda_build.check(lib_st.set_phase_buf(None), "phases")
-        res["stamped"] = dict(ptxas=ptx_st.strip(), **stamped)
-        d_sync = os.path.join(tmp, "sync")
-        os.makedirs(d_sync)
-        res["grid_sync_us"] = _grid_sync_us(d_sync, sorted({
-            g.value, g.value // 2, 132}))
-    return res
-
-
-def _old_k16(lib, args):
-    """The earlier K16 (commit 5e4d05b: a row search, a column search and
-    the rows, three kernels) on match_stereo_general's arguments, through
-    the same preparation as its wrapper: (u_right, depth, valid, idx)."""
-    from morb_slam_tpu_torch import lie
-    from morb_slam_tpu_torch.ops import hamming
-    fl, fr, bear_l, bear_r, uv_l, uv_r, cam_l, cam_r, R, t, sigma2 = args
-    nl, nr = bear_l.shape[0], bear_r.shape[0]
-    ins = [x.contiguous() for x in (
-        fl.desc, fr.desc, fl.octave, fr.octave, fl.valid, fr.valid, bear_l,
-        bear_r, uv_l, uv_r, sigma2, R, t, cam_l.params, cam_r.params)]
-    ins[4], ins[5] = ins[4].to(torch.uint8), ins[5].to(torch.uint8)
-    ins[0], ins[1] = (hamming._aligned(x) for x in ins[:2])
-    ins.insert(13, (lie.so3_hat(t) @ R).contiguous())
-    e = lambda n, d=torch.float32: torch.empty(n, dtype=d,  # noqa: E731
-                                               device="cuda")
-    i32 = torch.int32
-    scratch = [e((nl, 3)), e(nl, i32), e(nl, i32), e(nr, i32)]
-    out = [e(nl), e(nl), e(nl, torch.uint8), e(nl, i32)]
-    cuda_build.check(lib.stereo_general(
-        *(x.data_ptr() for x in ins), cam_l.kind, cam_r.kind, nl, nr,
-        ctypes.c_float(5.991), ctypes.c_float(0.9998),
-        *(x.data_ptr() for x in scratch + out),
-        cuda_build.stream_ptr(bear_l)), "old K16")
-    return out[0], out[1], out[2].bool(), out[3]
-
-
-def _k16_pair(lib, args, reps):
-    from morb_slam_tpu_torch.ops import stereo
-    new = lambda: stereo.match_stereo_general(*args)        # noqa: E731
-    old = lambda: _old_k16(lib, args)                       # noqa: E731
-    (m, i), o = new(), old()
-    parts_old = {k: cs.device_ms(old, k, reps) for k in (
-        "search_kernel", "triangulate_kernel")}
+    p, R, t, X, order, body, per_obs = args
+    order = ba.obs_order(p) if order is None else order
+    new = lambda: ba.assemble(p, R, t, X, order, body, per_obs)  # noqa
+    old = lambda: _k4_old(lib_old, p, R, t, X, order, body,  # noqa: E731
+                          per_obs)
+    got = new()
     return dict(
-        bitwise_equal_earlier=dict(
-            u_right=torch.equal(m.u_right, o[0]),
-            depth=torch.equal(m.depth, o[1]),
-            valid=torch.equal(m.valid, o[2]), idx=torch.equal(i, o[3])),
-        ms=cs.span_ms(new, "general_pairs_kernel", "triangulate_kernel",
-                      reps),
-        ms_is="from the pairs kernel's start to the rows kernel's end",
-        ms_parts={k: cs.device_ms(new, k, reps) for k in (
-            "general_pairs_kernel", "triangulate_kernel")},
-        ms_parts_earlier=parts_old,
-        ms_earlier=sum(parts_old.values()),
-        ms_earlier_is="its three kernels' device times summed (they run "
-                      "back to back: both searches, then the rows)",
+        K=R.shape[0], L=X.shape[0], O=p.obs_uv.shape[0],
+        active_obs=int(p.obs_mask.sum()), body=body, per_obs=per_obs,
+        bitwise_equal_earlier=_equal_fields(got, old(), got._fields),
+        repeat_bitwise_equal=all(torch.equal(a, b)
+                                 for a, b in zip(got, new())),
+        ms=cs.device_ms(new, "ba_assemble_kernel", reps),
+        ms_earlier=cs.device_ms(old, "ba_assemble_kernel", reps),
+        ms_earlier_all_kernels=cs.device_ms(old, None, reps),
+        ms_earlier_all_kernels_is="the kernel, its zero fills and copies",
+        ms_all_kernels=cs.device_ms(new, None, reps),
+        kernels_per_call=cs.kernels_per_call(new),
+        kernels_per_call_earlier=cs.kernels_per_call(old),
+        call_ms=cs.time_ms(new), call_ms_earlier=cs.time_ms(old),
+        bound_ms=cs._ba_bound(p, per_obs)[0][0])
+
+
+def _k13_times(lib_old, args, reps):
+    """This tree's K13 against the earlier one on one window problem."""
+    new = lambda: vi_ba.inertial_terms(*args)              # noqa: E731
+    old = lambda: _k13_old(lib_old, *args)                 # noqa: E731
+    got = new()
+    p = args[0]
+    return dict(
+        W=p.R_wb.shape[0], valid_edges=int(p.e_valid.sum()),
+        bitwise_equal_earlier=_equal_fields(got, old(), ("H", "b", "cost")),
+        repeat_bitwise_equal=all(torch.equal(a, b)
+                                 for a, b in zip(got, new())),
+        ms=cs.device_ms(new, "vi_terms_kernel", reps),
+        ms_is="its one cooperative launch",
+        ms_earlier=cs.span_ms(old, "vi_edge_kernel", "vi_cost_kernel", reps),
+        ms_earlier_is="from its edge kernel's start to its cost kernel's "
+                      "end (system and cost: three launches)",
+        ms_parts_earlier={k: cs.device_ms(old, k, reps) for k in (
+            "vi_edge_kernel", "vi_assemble_kernel", "vi_cost_kernel")},
         kernels_per_call=cs.kernels_per_call(new),
         kernels_per_call_earlier=cs.kernels_per_call(old),
         call_ms=cs.time_ms(new), call_ms_earlier=cs.time_ms(old))
 
 
-def _k16(csrc, reps):
-    """This tree's K16 against the earlier one (commit 5e4d05b), built
-    beside it: on chip_smoke.py's rig features (the first pair, 1200
-    features) bits and times; then the rig paths (a) and (b) with every
-    K16 call also run through the earlier kernel on the same inputs."""
-    from morb_slam_tpu_torch.ops import stereo
-    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    state = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        shutil.copy(os.path.join(csrc, "kb8.cuh"), tmp)
-        lib, ptx = _build(tmp, "stereo_general", open(os.path.join(
-            csrc, "stereo_general.cu")).read())
-        lib.stereo_general.argtypes = [P] * 16 + [I, I, I, I, Fl, Fl] + \
-            [P] * 9
-        lib.stereo_general.restype = I
-        res = dict(ptxas=cuda_build.ptxas_report("stereo_general").strip(),
-                   ptxas_earlier=ptx.strip(),
-                   rig_features=_k16_pair(lib, cs._rig_features(state),
-                                          reps))
-        _write(res, "kernel_phases_k16_features.json")
-        calls = dict(calls=0, equal=0)
-        f16 = stereo.match_stereo_general
+def _k4_part(text, part):
+    """ba_assemble.cu (either tree's) with every block but one kind's
+    returning at once: `kf` the keyframe blocks, `lm` the landmark blocks,
+    `slot` the slot blocks (this tree's per-observation mode) alone."""
+    kf = "    if ((int)blockIdx.x < K) {\n"
+    if part == "kf":
+        after = "    const int b0 = blockIdx.x - K;\n"
+        if after not in text:
+            after = "    // ---- landmark l"
+        return _replace_once(text, after, "    return;\n" + after)
+    if part == "lm":
+        text = _replace_once(text, kf, kf + "        if (K >= 0) return;\n")
+        if "// ---- per-observation mode" in text:
+            text = _replace_once(text, "    // ---- per-observation mode",
+                                 "    return;\n    // ---- per-observation "
+                                 "mode")
+        return text
+    text = _replace_once(text, kf, kf + "        if (K >= 0) return;\n")
+    return _replace_once(text, "    if (b0 < lm_blocks) {\n",
+                         "    if (b0 < lm_blocks) {\n        return;\n")
 
-        def hook(*a, **kw):
-            m, i = f16(*a, **kw)
-            o = _old_k16(lib, a)
-            calls["calls"] += 1
-            calls["equal"] += int(
-                torch.equal(m.u_right, o[0]) and torch.equal(m.depth, o[1])
-                and torch.equal(m.valid, o[2]) and torch.equal(i, o[3]))
-            return m, i
-        stereo.match_stereo_general = hook
-        try:
-            for name, inertial in (("rig (a)", False), ("rig (b)", True)):
-                before = dict(calls)
-                out = cs._rig_run(state, inertial)
+
+def _k4_parts(tmp, csrc, args, reps):
+    """Device ms of each kind of block alone, in both trees' K4, on one
+    problem (the others return at once; outputs not checked)."""
+    from morb_slam_tpu_torch.optim import ba
+    p, R, t, X, order, body, per_obs = args
+    order = ba.obs_order(p) if order is None else order
+    out = {}
+    parts = ("kf", "lm") + (("slot",) if per_obs else ())
+    for part in parts:
+        d = os.path.join(tmp, f"new_{part}_{int(per_obs)}")
+        os.makedirs(d, exist_ok=True)
+        lib, _ = _k4_old_lib(d, cuda_build.CSRC,
+                             lambda x, part=part: _k4_part(x, part))
+        out[part] = cs.device_ms(lambda: _k4_old(
+            lib, p, R, t, X, order, body, per_obs), "ba_assemble_kernel",
+            reps)
+        if part == "slot":
+            continue
+        d = os.path.join(tmp, f"old_{part}_{int(per_obs)}")
+        os.makedirs(d, exist_ok=True)
+        lib, _ = _k4_old_lib(d, csrc, lambda x, part=part: _k4_part(x, part))
+        out[f"earlier {part}"] = cs.device_ms(lambda: _k4_old(
+            lib, p, R, t, X, order, body, per_obs), "ba_assemble_kernel",
+            reps)
+    return out
+
+
+def _k4_per_block(tmp, named_args, reps):
+    """This tree's K4 built at 32, 64, 128 and 256 landmarks a landmark
+    block: bits against the default build and device ms on each problem."""
+    from morb_slam_tpu_torch.optim import ba
+    text = open(os.path.join(cuda_build.CSRC, "ba_assemble.cu")).read()
+    out = {}
+    for n in (32, 64, 128, 256):
+        d = os.path.join(tmp, f"lm_per_block_{n}")
+        os.makedirs(d)
+        lib, ptx = _build(d, "ba_assemble", _define(text, "LM_PER_BLOCK", n))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        n_p, n_i, n_q = K4_OLD_ARGS
+        lib.ba_assemble.argtypes = [P] * n_p + [I] * n_i + [P] * n_q
+        lib.ba_assemble.restype = I
+        res = {"ptxas": ptx.strip()}
+        for name, (p, R, t, X, order, body, per_obs) in named_args.items():
+            order = ba.obs_order(p) if order is None else order
+            want = ba.assemble(p, R, t, X, order, body, per_obs)
+            old = _swap_lib("ba_assemble", lib)
+            try:
+                call = lambda: ba.assemble(p, R, t, X, order, body,  # noqa
+                                           per_obs)
                 res[name] = dict(
-                    k16_calls=calls["calls"] - before["calls"],
-                    bitwise_equal_earlier=calls["equal"] - before["equal"],
-                    frames_ok=out.get("frames_ok"),
-                    ate_se3_m=out.get("ate_se3_m"))
+                    bitwise_equal=all(torch.equal(a, b)
+                                      for a, b in zip(call(), want)),
+                    ms=cs.device_ms(call, "ba_assemble_kernel", reps))
+            finally:
+                _restore_lib("ba_assemble", old)
+        out[n] = res
+    return out
+
+
+def _k13_threads(tmp, args, reps):
+    """This tree's K13 built at 128 and 256 threads a block (the edge
+    blocks' products and the assembly's grid stride): bits against the
+    default build and device ms of a call."""
+    from morb_slam_tpu_torch.optim import vi_ba as vb
+    text = open(os.path.join(cuda_build.CSRC, "vi_edges.cu")).read()
+    want = vb.inertial_terms(*args)
+    out = {}
+    for n in (128, 256):
+        d = os.path.join(tmp, f"k13_threads_{n}")
+        os.makedirs(d)
+        for h in ("imu_edge.cuh", "dual.cuh"):
+            shutil.copy(os.path.join(cuda_build.CSRC, h), d)
+        lib, ptx = _build(d, "vi_edges", _define(text, "THREADS", n))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.vi_terms.argtypes = [P] * 6 + [I] + [P] * 7
+        lib.vi_terms.restype = I
+        old = _swap_lib("vi_edges", lib)
+        try:
+            call = lambda: vb.inertial_terms(*args)          # noqa: E731
+            got = call()
+            out[n] = dict(
+                bitwise_equal=all(torch.equal(a, b)
+                                  for a, b in zip(got, want)),
+                ms=cs.device_ms(call, "vi_terms_kernel", reps),
+                ptxas=ptx.strip())
         finally:
-            stereo.match_stereo_general = f16
+            _restore_lib("vi_edges", old)
+    return out
+
+
+K13_PHASES = ["edge terms and lists (edge blocks), lists and dead chunks' "
+              "zeros (the others)", "(none)", "grid barrier",
+              "live chunks, b and the cost"]
+
+
+def _k13_stamped_source(text):
+    """vi_edges.cu with thread 0 of every block writing the cycles of its
+    four phases (K13_PHASES) to a buffer set by set_stamp_buf."""
+    text = _patch(text, [
+        ("    cooperative_groups::grid_group grid = "
+         "cooperative_groups::this_grid();\n",
+         "    cooperative_groups::grid_group grid = "
+         "cooperative_groups::this_grid();\n"
+         "    const long long t0_ = clock64();\n"),
+        ("    const Window w{W, NW, smem, (const unsigned*)(smem + W),\n"
+         "                   (const unsigned*)(smem + W) + W * NW};\n"
+         "    grid.sync();\n",
+         "    const long long t1_ = clock64();\n"
+         "    const Window w{W, NW, smem, (const unsigned*)(smem + W),\n"
+         "                   (const unsigned*)(smem + W) + W * NW};\n"
+         "    grid.sync();\n"),
+        ("    grid.sync();\n    if (blockIdx.x",
+         "    const long long t2_ = clock64();\n    grid.sync();\n"
+         "    const long long t3_ = clock64();\n    if (blockIdx.x"),
+        ("            for (int t = 0; f + t < nH; ++t) H[f + t] = v[t];\n    }\n}\n",
+         "            for (int t = 0; f + t < nH; ++t) H[f + t] = v[t];\n    }\n"
+         "    if (k13_stamps && tid == 0) {\n"
+         "        long long* o_ = k13_stamps + 4 * blockIdx.x;\n"
+         "        o_[0] = t1_ - t0_; o_[1] = t2_ - t1_; o_[2] = t3_ - t2_;\n"
+         "        o_[3] = clock64() - t3_;\n    }\n}\n"),
+        ("#define THREADS 256\n",
+         "#define THREADS 256\n__device__ long long* k13_stamps;\n"
+         "extern \"C\" int set_stamp_buf(void* p) {\n"
+         "    return (int)cudaMemcpyToSymbol(k13_stamps, &p, sizeof(p));\n}\n"),
+    ])
+    return text
+
+
+def _k13_stamps(tmp, args):
+    """This tree's K13 with thread 0 of every block stamping its phases
+    (clock64 cycles): edge blocks and assembly blocks summarized apart."""
+    from morb_slam_tpu_torch.optim import vi_ba as vb
+    d = os.path.join(tmp, "k13_stamped")
+    os.makedirs(d)
+    for h in ("imu_edge.cuh", "dual.cuh"):
+        shutil.copy(os.path.join(cuda_build.CSRC, h), d)
+    text = open(os.path.join(cuda_build.CSRC, "vi_edges.cu")).read()
+    lib, ptx = _build(d, "vi_edges", _k13_stamped_source(text))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.vi_terms.argtypes = [P] * 6 + [I] + [P] * 7
+    lib.vi_terms.restype = I
+    lib.set_stamp_buf.argtypes = [P]
+    lib.set_stamp_buf.restype = I
+    buf = torch.zeros(4 * 1024, dtype=torch.int64, device="cuda")
+    want = vb.inertial_terms(*args)
+    old = _swap_lib("vi_edges", lib)
+    try:
+        vb.inertial_terms(*args)
+        cuda_build.check(lib.set_stamp_buf(buf.data_ptr()), "stamps")
+        got = vb.inertial_terms(*args)
+        torch.cuda.synchronize()
+        cuda_build.check(lib.set_stamp_buf(None), "stamps")
+    finally:
+        _restore_lib("vi_edges", old)
+    W = args[0].R_wb.shape[0]
+    c = buf.view(-1, 4).cpu().numpy().astype(float)
+    n = int((c.sum(1) > 0).sum())
+    return dict(bitwise_equal_unstamped=all(
+        torch.equal(a, b) for a, b in zip(got, want)), blocks=n,
+        edge_blocks=_phase_summary(c[:W], K13_PHASES),
+        assembly_blocks=_phase_summary(c[W:n], K13_PHASES),
+        ptxas=ptx.strip())
+
+
+def _k4_k13(csrc, reps):
+    """This tree's K4 and K13 against the earlier ones (commit 001dca8),
+    built beside them: the stereo, vi and loop paths with every K4 and K13
+    call also run through the earlier kernels (bitwise-equal calls by
+    mode), then both trees' times on each mode's last problem of the paths
+    and on the loop phase's global BA problem at its capacities, the
+    device time of each kind of K4 block alone, K4 at other landmark-block
+    sizes and K13 at other block sizes."""
+    from morb_slam_tpu_torch.optim import ba
+    res = dict(card=cs.nvidia_smi(), sources=csrc,
+               ptxas=dict(ba_assemble=cuda_build.ptxas_report(
+                   "ba_assemble").strip(), vi_edges=cuda_build.ptxas_report(
+                   "vi_edges").strip()))
+    with tempfile.TemporaryDirectory() as tmp:
+        d4, d13 = os.path.join(tmp, "old4"), os.path.join(tmp, "old13")
+        os.makedirs(d4)
+        os.makedirs(d13)
+        lib4, ptx4 = _k4_old_lib(d4, csrc)
+        lib13, ptx13 = _k13_old_lib(d13, csrc)
+        res["ptxas_earlier"] = dict(ba_assemble=ptx4.strip(),
+                                    vi_edges=ptx13.strip())
+        state = {"profile_out": None, "plain_rows": []}
+        cs.phase_device(state)
+        last = {}
+        for name, phase in (("stereo", cs.phase_stereo),
+                            ("vi", cs.phase_vi), ("loop", cs.phase_loop)):
+            with _Compare(lib4, lib13) as cmp:
+                try:
+                    phase(state)
+                except AssertionError as e:
+                    # a gate the path missed: kept in the result (the
+                    # comparisons up to it stand), the tool exits non-zero
+                    res.setdefault("gates_missed", {})[name] = repr(e)
+            res[f"{name} path"] = cmp.stats
+            last.update({f"{name}: {k}": v for k, v in cmp.last.items()})
+            _write(res, "kernel_phases_k4_k13.json")
+        torch.cuda.empty_cache()
+        times = {k: (_k13_times(lib13, v, reps) if "inertial_terms" in k
+                     else _k4_times(lib4, v, reps)) for k, v in last.items()}
+        p = cs._global_problem()
+        gargs = (p, p.R, p.t, p.X, ba.obs_order(p), False, True)
+        times["capacities: per_obs"] = _k4_times(lib4, gargs, reps)
+        res["times"] = times
+        _write(res, "kernel_phases_k4_k13.json")
+        parts = {}
+        for k in ("stereo: local, camera tangent", "loop: per_obs"):
+            if k in last:
+                parts[k] = _k4_parts(tmp, csrc, last[k], reps)
+        parts["capacities: per_obs"] = _k4_parts(tmp, csrc, gargs, reps)
+        res["k4_parts_ms"] = parts
+        res["k4_landmarks_per_block"] = _k4_per_block(tmp, {
+            k: v for k, v in list(last.items()) + [
+                ("capacities: per_obs", gargs)]
+            if k in ("stereo: local, camera tangent", "vi: local, body tangent",
+                     "loop: per_obs", "capacities: per_obs")}, reps)
+        _write(res, "kernel_phases_k4_k13.json")
+        if "vi: inertial_terms" in last:
+            res["k13_threads"] = _k13_threads(tmp, last["vi: inertial_terms"],
+                                              reps)
+            res["k13_stamps"] = _k13_stamps(tmp, last["vi: inertial_terms"])
     return res
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--csrc", help="morb_slam_tpu_torch/csrc of commit "
-                    "5e4d05b (the earlier K14 and K16; with --k14 / "
-                    "--k16)")
+                    "001dca8 (the earlier K4 and K13; with --k4 --k13)")
     ap.add_argument("--new", action="store_true",
                     help="stamp this tree's kernels (K12 unless --k5, --k1, "
                     "--k3 or --k6 is given)")
@@ -1235,30 +1363,27 @@ def main():
                     help="stamp K3's gated mode instead")
     ap.add_argument("--k6", action="store_true",
                     help="stamp K6's one launch instead")
-    ap.add_argument("--k14", action="store_true",
-                    help="with --csrc: this tree's K14 (the pass launches "
-                    "and the whole solve, stamped) against the earlier one")
-    ap.add_argument("--k16", action="store_true",
-                    help="with --csrc: this tree's K16 against the earlier "
-                    "one, bit for bit and timed, on the rig's inputs")
+    ap.add_argument("--k4", action="store_true",
+                    help="with --k13 and --csrc: this tree's K4 and K13 "
+                    "against the earlier ones on the paths' problems")
+    ap.add_argument("--k13", action="store_true",
+                    help="with --k4 and --csrc (see --k4)")
     ap.add_argument("--reps", type=int, default=20)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     if a.new == bool(a.csrc):
         raise SystemExit("give --csrc or --new")
-    if a.k14 or a.k16:
-        if not a.csrc or a.k3 or a.k6 or a.k5 or a.k1:
-            raise SystemExit("--k14 / --k16 go with --csrc alone")
-        res = dict(card=cs.nvidia_smi(), sources=a.csrc)
-        if a.k14:
-            res["k14"] = _k14(a.csrc, a.reps)
-            _write(res, "kernel_phases_k14_k16.json")
-        if a.k16:
-            res["k16"] = _k16(a.csrc, a.reps)
-        return _write(res, "kernel_phases_k14_k16.json")
+    if a.k4 or a.k13:
+        if not (a.k4 and a.k13 and a.csrc) or a.k3 or a.k6 or a.k5 or a.k1:
+            raise SystemExit("--k4 --k13 go with --csrc alone")
+        res = _k4_k13(a.csrc, a.reps)
+        _write(res, "kernel_phases_k4_k13.json")
+        if "gates_missed" in res:
+            raise SystemExit(f"gates missed: {res['gates_missed']}")
+        return
     if a.csrc:
-        raise SystemExit("--csrc goes with --k14 / --k16 only")
+        raise SystemExit("--csrc goes with --k4 --k13 only")
     if a.k3 or a.k6:
         res = dict(card=cs.nvidia_smi(), sources="this tree")
         if a.k3:
