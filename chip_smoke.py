@@ -19,9 +19,12 @@ Phases:
                 kernel on the card with torch.profiler (`ms`) and each
                 call, kernel and plain, with CUDA events (`call_ms`,
                 `plain_ms`).
-                Also K7 (stereo_sad) and K8 (remap_bilinear) at the stereo
-                path's shapes (a raw EuRoC-rig pair remapped, 1200
-                features per image), and K1 and K2 once more on that
+                Also K7 (stereo_sad: the whole tail of match_stereo in one
+                launch, bitwise equal to the plain composition on the
+                integer pair, and its sweep alone) and K8 (remap_bilinear)
+                at the stereo path's shapes (a raw EuRoC-rig pair
+                remapped, 1200 features per image), and K1 and K2 once
+                more on that
                 remapped, non-integer frame; K5 (pose_opt) on a
                 tracking-shaped (1200 observations, mixed stereo, 2 x 8)
                 and a relocalization-shaped (1200, mono, 3 x 10) problem,
@@ -60,9 +63,11 @@ Phases:
                 K8 every frame, K7 in every match); check initialization
                 on frame 0, >= 90% of frames OK, the Sim3 scale within 5%,
                 the SE3 ATE under 0.03 x extent, and that K1-K3, K5-K8
-                launched while no plain version ran. Profile 5 more
-                frames for kernels and syncs per frame and K5's device time
-                on the path. Then
+                launched while no plain version ran, K7 once per
+                match_stereo. Profile 5 more frames for kernels and syncs
+                per frame and K5's device time on the path; one
+                match_stereo on the path's last pair: kernels, device ms
+                and event ms per call. Then
                 K4 on the path's last local BA problem: its blocks in both
                 tangent modes against the plain assembly, two launches
                 bitwise equal, and the whole LM loop against the loop over
@@ -1418,7 +1423,8 @@ def _stereo_kernels(state, rows):
     rows[1]["max_abs_err_remapped_frame"] = max_ang
     rows[1]["bits_identical_remapped_frame"] = share
 
-    # K7 on the rectified pair's real features (1200 x 1200)
+    # K7 on the rectified pair's real features (1200 x 1200): the whole
+    # tail of match_stereo in one launch, and its sweep alone
     fl = frontend.extract_orb(rect[0].contiguous(), cfg)
     fr = frontend.extract_orb(rect[1].contiguous(), cfg)
     bf = float(rig["maps"].baseline) * CAM0[0]
@@ -1426,50 +1432,77 @@ def _stereo_kernels(state, rows):
     sf = torch.tensor([1.2 ** i for i in range(8)], device=DEV)
     best_idx, matched = stereo.row_search(fl, fr, sf, max_d)
     u0 = fr.uv[best_idx.long(), 0].contiguous()
-    uv = fl.uv.contiguous()
+    uv, uvr = fl.uv.contiguous(), fr.uv.contiguous()
     for name, (il, ir) in (("integer", (torch.round(rect[0]),
                                         torch.round(rect[1]))),
                            ("non-integer", (rect[0], rect[1]))):
         il, ir = il.contiguous(), ir.contiguous()
+        k7 = (il, ir, uv, uvr, best_idx, matched, bf, max_d)
         got = stereo.sad_refine(il, ir, uv, u0)
         ref = stereo.sad_refine_plain(il, ir, uv, u0)
         ur_err = float((got[0] - ref[0]).abs().max())
-        flips = int((stereo.filter_matches(uv[:, 0], got[0], got[1], matched,
-                                           bf, max_d).valid
-                     != stereo.filter_matches(uv[:, 0], ref[0], ref[1],
-                                              matched, bf, max_d).valid
-                     ).sum())
-        log(f"K7 stereo_sad on the {name} pair: u_right within {ur_err:.2e}"
-            f" px, best offsets equal {bool(torch.equal(got[2], ref[2]))}, "
-            f"{flips} of {uv.shape[0]} match flags flipped, "
-            f"{int(matched.sum())} row matches")
+        sm, sm0 = stereo.refine_and_filter(*k7), \
+            stereo.refine_and_filter_plain(*k7)
+        same = all(torch.equal(a, b) for a, b in zip(sm, sm0))
+        flips = int((sm.valid != sm0.valid).sum())
+        both = sm.valid & sm0.valid
+        sm_err = float((sm.u_right - sm0.u_right)[both].abs().max()) \
+            if bool(both.any()) else 0.0
+        log(f"K7 stereo_sad on the {name} pair: the sweep's u_right within "
+            f"{ur_err:.2e} px, best offsets equal "
+            f"{bool(torch.equal(got[2], ref[2]))}; the whole launch "
+            f"(u_right, depth, valid) bitwise equal to the plain "
+            f"composition {same}, {flips} of {uv.shape[0]} match flags "
+            f"flipped, u_right within {sm_err:.2e} px where both keep, "
+            f"{int(matched.sum())} row matches, {int(sm.valid.sum())} kept")
         if name == "integer":
             check(torch.equal(got[2], ref[2]) and torch.equal(got[1], ref[1])
-                  and ur_err <= 1e-5 and flips == 0, ("K7 integer", ur_err))
+                  and ur_err <= 1e-5 and same, ("K7 integer", ur_err, flips))
         else:
-            check(ur_err <= 1e-3 and flips <= 0.005 * uv.shape[0],
-                  ("K7 non-integer", ur_err, flips))
-            k7_err = ur_err
+            check(ur_err <= 1e-3 and sm_err <= 1e-3
+                  and flips <= 0.005 * uv.shape[0],
+                  ("K7 non-integer", ur_err, sm_err, flips))
+            k7_err = max(ur_err, sm_err)
     il, ir = rect[0].contiguous(), rect[1].contiguous()
+    k7 = (il, ir, uv, uvr, best_idx, matched, bf, max_d)
     n = uv.shape[0]
     wl, strip = stereo._windows(torch.arange(H * W, device=DEV).view(H, W),
                                 torch.arange(H * W, device=DEV).view(H, W),
                                 uv, u0)
-    # distinct pixels of the windows and strips, keypoints in, 3 outputs;
-    # ~5455 flops per keypoint (11 x 121 x 4 + 121 + the parabola)
-    b_ms, b_by = bound((_distinct(wl) + _distinct(strip)) * 4 + n * 24,
-                       n * 5455)
+    # what the function reads and returns: in, the distinct pixels of the
+    # windows and strips, uv_l (8 B), the index and the flag (5 B) and the
+    # matched right x (the distinct right keypoints, 4 B each); out,
+    # u_right, depth, valid (9 B). The kernel's own scratch (ur_ref,
+    # sad_best) is not the function's work. ~5455 flops a keypoint (11 x
+    # 121 x 4 + 121 + the parabola), the gate, the 4 select passes and the
+    # depth (~12 more)
+    b_ms, b_by = bound((_distinct(wl) + _distinct(strip)) * 4
+                       + _distinct(best_idx) * 4 + n * (8 + 5 + 9),
+                       n * (5455 + 12))
+
+    def tail_plain():
+        return stereo.refine_and_filter_plain(*k7)
     rows.append(dict(
         name="stereo_sad", route="cuda",
         source="morb_slam_tpu_torch/csrc/stereo_sad.cu",
-        replaces="morb_slam_tpu/ops/stereo.py:76", max_abs_err=k7_err,
-        ms=device_ms(lambda: stereo.sad_refine(il, ir, uv, u0),
+        replaces="morb_slam_tpu/ops/stereo.py:64-120", max_abs_err=k7_err,
+        max_abs_err_is="u_right, non-integer pair (the integer pair: "
+                       "u_right, depth and valid bitwise equal)",
+        ms=device_ms(lambda: stereo.refine_and_filter(*k7),
                      "stereo_sad_kernel"),
-        call_ms=time_ms(lambda: stereo.sad_refine(il, ir, uv, u0)),
-        plain_ms=time_ms(lambda: stereo.sad_refine_plain(il, ir, uv, u0),
-                         reps=10),
+        ms_is="one launch: the matched right x, the SAD sweep, the "
+              "disparity gate, the median filter and the depth",
+        call_ms=time_ms(lambda: stereo.refine_and_filter(*k7)),
+        plain_ms=time_ms(tail_plain, reps=10),
+        plain_kernels_per_call=kernels_per_call(tail_plain),
+        plain_device_ms=device_ms(tail_plain, None),
+        sweep_ms=device_ms(lambda: stereo.sad_refine(il, ir, uv, u0),
+                           "stereo_sad_kernel"),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ptxas=_ptxas("stereo_sad"),
         shape="1200 left keypoints of a 752x480 rectified pair"))
+    check("0 bytes spill stores, 0 bytes spill loads" in rows[-1]["ptxas"],
+          ("K7 spills", rows[-1]["ptxas"]))
 
 
 # ---------------------------------------------------------------------------
@@ -2281,13 +2314,18 @@ def phase_stereo(state):
         return sysm.track_stereo(pairs[i][0], pairs[i][1], ts)
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
-    with _CountCalls() as calls, _GatedCalls() as gated:
+    from morb_slam_tpu_torch.ops import stereo
+    with _CountCalls() as calls, _GatedCalls() as gated, \
+            _CountCalls([(stereo, "match_stereo")]) as mcalls:
         states, fm, secs, _ = _track_run(tracker, feed, N_FRAMES, dt,
                                          inserts)
     launches = _read_counters(["fast_select", "orb_describe", "hamming_top2",
                                "pose_opt", "stereo_sad", "remap_bilinear",
                                "ba_assemble", "pyramid_blur"], "stereo",
                               state)
+    check(launches["stereo_sad"] == mcalls.counts["match_stereo"],
+          ("K7 once per match_stereo", launches["stereo_sad"],
+           mcalls.counts["match_stereo"]))
     check(launches["remap_bilinear"] == N_FRAMES,
           ("K8 once per pair", launches["remap_bilinear"]))
     check(launches["stereo_sad"] >= N_FRAMES,
@@ -2333,6 +2371,14 @@ def phase_stereo(state):
         k: {f: v[f] for f in ("shape", "rows_flagged", "pairs_passed",
                               "bitwise_equal", "ms", "before_ms")}
         for k, v in _k3_path_searches(state, gated).items()}
+    # one match_stereo on the path's last pair: K3, its 4 torch ops, K7
+    a, kw = mcalls.last_args["match_stereo"]
+    match = lambda: stereo.match_stereo(*a, **kw)    # noqa: E731
+    out["match_stereo"] = dict(
+        calls_per_frame=mcalls.counts["match_stereo"] / N_FRAMES,
+        kernels_per_call=kernels_per_call(match),
+        device_ms_per_call=device_ms(match, None),
+        call_ms=time_ms(match))
     log("stereo path:", json.dumps(out))
     state["stereo"] = out
 
@@ -4883,6 +4929,9 @@ def _k18_row(state):
             call()
         return prof
     gv_dev, _, gv_span = range_device_ms("guided_sim3_verify", gv_profile)
+    ptx = _ptxas("sim3_verify")
+    check(ptx.count(" 0 bytes spill stores, 0 bytes spill loads")
+          == ptx.count("spill stores"), ("K18 spills", ptx))
     return dict(
         name="sim3_verify", route="cuda",
         source="morb_slam_tpu_torch/csrc/sim3_verify.cu",
@@ -4892,6 +4941,8 @@ def _k18_row(state):
         "indices exact", bitwise=same, pairs=n_pairs, candidates=n_cand,
         n_good=int(got[3]),
         ms=sum(parts.values()), ms_parts=parts,
+        refine_ms=parts["refine_kernel"],
+        window_ms=sum(v for k, v in parts.items() if k != "refine_kernel"),
         ms_is="one guided_sim3_verify's K18 kernels: the window match's "
               "three and the refinement's",
         ms_by="cuda events" if EVENT_TIMED & set(parts) else "profiler",
@@ -4902,7 +4953,7 @@ def _k18_row(state):
         bound_ms=b18, bound_by=by18, library_ms=None,
         library_note="none: no single PyTorch call computes a window-gated "
                      "Hamming match or a Sim(3) Gauss-Newton loop",
-        ptxas=_ptxas("sim3_verify"),
+        ptxas=ptx,
         shape=f"F = {F} features per keyframe, {n_cand} window candidates, "
               f"{n_f} + {n_b} refined residuals")
 

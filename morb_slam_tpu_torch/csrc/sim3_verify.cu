@@ -30,23 +30,41 @@
 //    Columns: the same per keyframe feature over the candidate's rows
 //    (the cross check's argmin, first row on ties). A last kernel applies
 //    TH_HIGH, the ratio 1 test (best < second) and the cross check.
-//  - sim3_refine, one block of 128 threads, all in double. Per
-//    Gauss-Newton step threads 0-6 evaluate (s, R, t) and its inverse on
-//    dual numbers seeded with tangent 0-6, into shared memory; each thread
-//    then takes features i, i + 128, ..., evaluating the forward and
-//    backward residuals and their 7 Jacobian columns from those, and sums
-//    its 28 + 7 terms of H and g; the block reduces the partial sums in
-//    thread order, and thread 0 solves (H + 1e-4 I) dx = g by Cholesky. A
-//    candidate seen from near the keyframe's own position leaves the scale
-//    unobservable (on the inertial drifted map H's eigenvalues span 1.4e-9
-//    to 2.9e7): in float32 the rounding of the Jacobians alone moves s by
-//    ~3e-3 there, in double the result follows the inputs. After each
-//    round of 5 steps every feature is reclassified at chi2 9.21; the last
-//    round's forward count is n_good. (s, R, t) and n_good stay on the
-//    device. The plain version repeats every operation in this order.
+//  - sim3_refine, one launch of a cluster of CL (8) blocks of RB threads,
+//    all in double. The sums of H and g keep the order of the earlier
+//    one-block form, 128 strided slots (slot t sums features t, t + 128,
+//    ..., forward then backward, skipping inactive ones), then the 128
+//    slots in order; block b owns slots 16 b .. 16 b + 15, so it alone
+//    touches its features. Per Gauss-Newton step threads 0-7 evaluate
+//    (s, R, t) and its inverse on dual numbers seeded with tangent 0-6
+//    (7: values only), into shared memory.
+//    Then, a chunk of MR rows of features at a time, each thread
+//    evaluates one (feature, direction, tangent) residual, the 7 tangents
+//    of a feature-direction on 7 threads, into shared memory (an inactive
+//    pair's terms as zeros), and a chain per (slot, entry), one or two a
+//    thread, adds its slot's terms in the old order (r.v does not depend
+//    on the tangent; an added +0.0 leaves the sum's bits as skipping the
+//    pair did: a sum that starts at +0.0 is never -0.0). The blocks share
+//    their partials through distributed shared memory after
+//    cluster.sync() (two buffers, so one sync a step); every block sums
+//    the 128 partials of each entry in slot order and solves
+//    (H + 1e-4 I) dx = g by the same Cholesky on its thread 0, so every
+//    block holds the same x without a broadcast. A candidate seen from near the
+//    keyframe's own position leaves the scale unobservable (on the
+//    inertial drifted map H's eigenvalues span 1.4e-9 to 2.9e7): in
+//    float32 the rounding of the Jacobians alone moves s by ~3e-3 there,
+//    in double the result follows the inputs. After each round of 5 steps
+//    every feature is reclassified at chi2 9.21 by its own block; the last
+//    round's forward count is n_good, an integer sum into block 0's shared
+//    memory. (s, R, t) and n_good stay on the device. The plain version
+//    repeats every operation in this order; the build has no FMA
+//    contraction.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 // Forward-mode dual numbers in double (value, one tangent): dual.cuh's
 // operations and so3_exp at the precision the refinement needs (a
@@ -106,6 +124,16 @@ __device__ void dexp(const Dd* w, Dd* R) {
 #define CHUNK 256
 #define RT 128
 #define CHI2 9.21
+// the refinement: blocks in its cluster, threads a block, feature rows (of
+// RT features) a chunk, sums a slot (28 of H's upper triangle, 7 of g)
+#define CL 8
+#define RB 512
+#define MR 10
+#define NENT 35
+#define SLOTS (RT / CL)
+#define FD (MR * SLOTS * 32 > RT * NENT ? MR * SLOTS * 32 : RT * NENT)
+static_assert((SLOTS * NENT) % 2 == 0, "a block's partials in double2");
+static_assert(SLOTS * NENT <= 2 * RB, "at most two chains a thread");
 
 struct Col {
     uint4 d0, d1;
@@ -332,7 +360,87 @@ __device__ __forceinline__ void reproj(const Dd* T, const float* X, float u,
     r[1] = P[1] / z - dd(v);
 }
 
-__global__ void __launch_bounds__(RT)
+// The refinement's cluster: CL blocks on neighbouring SMs, block b owning
+// the partial-sum slots SLOTS b .. SLOTS b + SLOTS - 1 of the RT slots
+// (slot t sums features t, t + RT, ...). Shared memory of one block:
+struct RefineShared {
+    Dd T[8][26];                 // (s, R, t) and its inverse a tangent
+    // a chunk's residuals and Jacobians (16 doubles a feature-direction:
+    // J0[7], J1[7], r0, r1), then the cluster's RT x NENT partial sums
+    alignas(16) double fd[FD];
+    alignas(16) double part[2][SLOTS * NENT];  // two passes apart
+    double sums[NENT];
+    double x[7];
+    float fw[MR * SLOTS * 2];    // a chunk's feature-directions' weights
+    int good;                    // block 0: the last round's forward inliers
+};
+
+// One partial sum: slot SLOTS b + j of the block, entry q of the 28 + 7
+// (H's (a, b) entry: J0a J0b + J1a J1b; g's a: J0a r0 + J1a r1), as the
+// offsets of its factors in a feature-direction's record.
+struct Chain {
+    int j, a, i1, i2;
+};
+
+__device__ Chain chain_of(int w) {
+    if (w >= SLOTS * NENT) return Chain{SLOTS, 0, 0, 0};   // none
+    const int q = w % NENT;
+    if (q >= 28) return Chain{w / NENT, q - 28, 14, 15};
+    int a = 0, r = q;
+    while (r >= 7 - a) {
+        r -= 7 - a;
+        ++a;
+    }
+    return Chain{w / NENT, a, a + r, 7 + a + r};
+}
+
+// a feature-direction's term of a partial sum, as the one-block form
+// formed it: w (Ja Jb + ...), no FMA
+__device__ __forceinline__ double term(const RefineShared& S, int f,
+                                       const Chain& c) {
+    const double* o = S.fd + 16 * f;
+    const double w = S.fw[f];
+    return w * (o[c.a] * o[c.i1] + o[7 + c.a] * o[c.i2]);
+}
+
+// (H + 1e-4 I) dx = g by Cholesky in double, then x -= dx: the one-block
+// form's thread-0 solve, operation for operation (its chain of roots and
+// divisions sets the time; spreading a column over lanes did not shorten
+// it)
+__device__ void cholesky_step(RefineShared& S) {
+    double L[7][7], y[7];
+    int q = 0;
+    for (int a1 = 0; a1 < 7; ++a1)
+        for (int b1 = a1; b1 < 7; ++b1) {
+            L[b1][a1] = S.sums[q];
+            L[a1][b1] = S.sums[q++];
+        }
+    for (int a1 = 0; a1 < 7; ++a1) L[a1][a1] += 1e-4;
+    for (int j = 0; j < 7; ++j) {
+        double d = L[j][j];
+        for (int k = 0; k < j; ++k) d -= L[j][k] * L[j][k];
+        d = sqrt(fmax(d, 1e-300));
+        L[j][j] = d;
+        for (int i = j + 1; i < 7; ++i) {
+            double v = L[i][j];
+            for (int k = 0; k < j; ++k) v -= L[i][k] * L[j][k];
+            L[i][j] = v / d;
+        }
+    }
+    for (int i = 0; i < 7; ++i) {
+        double v = S.sums[28 + i];
+        for (int k = 0; k < i; ++k) v -= L[i][k] * y[k];
+        y[i] = v / L[i][i];
+    }
+    for (int i = 6; i >= 0; --i) {
+        double v = y[i];
+        for (int k = i + 1; k < 7; ++k) v -= L[k][i] * y[k];
+        y[i] = v / L[i][i];
+    }
+    for (int i = 0; i < 7; ++i) S.x[i] = S.x[i] - y[i];
+}
+
+__global__ void __launch_bounds__(RB, 1)
 refine_kernel(const float* __restrict__ X2c, const float* __restrict__ X1o,
               const float* __restrict__ xn1j, const float* __restrict__ xn2,
               const float* __restrict__ info1,
@@ -341,125 +449,134 @@ refine_kernel(const float* __restrict__ X2c, const float* __restrict__ X1o,
               const float* __restrict__ sim, int n,
               uint8_t* __restrict__ act, float* __restrict__ out,
               int* __restrict__ n_good) {
-    __shared__ Dd T[8][26];
-    __shared__ double part[RT][35];
-    __shared__ double sums[35];
-    __shared__ double x[7];
-    __shared__ int cnt[RT];
-    const int tid = threadIdx.x;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    RefineShared& S = *reinterpret_cast<RefineShared*>(smem_raw);
+    cg::cluster_group cluster = cg::this_cluster();
+    const int b = (int)cluster.block_rank();
+    const int tid = threadIdx.x, lane = tid & 31;
     uint8_t* act_f = act;
     uint8_t* act_b = act + n;
-    for (int i = tid; i < n; i += RT) {
-        act_f[i] = pair_ok[i];
-        act_b[i] = has_inv[i];
+    const int rows = (n + RT - 1) / RT;
+    // this block's features i = RT m + SLOTS b + j; only it touches them
+    for (int e = tid; e < rows * SLOTS; e += RB) {
+        const int i = RT * (e / SLOTS) + SLOTS * b + e % SLOTS;
+        if (i < n) {
+            act_f[i] = pair_ok[i];
+            act_b[i] = has_inv[i];
+        }
     }
-    if (tid < 7) x[tid] = 0.0;
+    if (tid < 7) S.x[tid] = 0.0;
+    if (tid == 0) S.good = 0;
+    // this thread's chains tid and tid + RB (where below SLOTS NENT)
+    const Chain ch0 = chain_of(tid), ch1 = chain_of(tid + RB);
     __syncthreads();
+    int buf = 0;
     for (int round = 0; round < 2; ++round) {
         for (int step = 0; step < 6; ++step) {
             // steps 0-4 are Gauss-Newton steps; step 5 reclassifies
             const bool gn = step < 5;
-            if (tid < 8) sim3_duals(tid, x, sim, T[tid]);
+            if (gn ? tid < 8 : tid == 7) sim3_duals(tid, S.x, sim, S.T[tid]);
             __syncthreads();
-            double acc[35];
-            for (int q = 0; q < 35; ++q) acc[q] = 0.0;
-            int c = 0;
-            for (int i = tid; i < n; i += RT) {
-                for (int dir = 0; dir < 2; ++dir) {
-                    uint8_t* a = dir == 0 ? act_f : act_b;
-                    const uint8_t base = dir == 0 ? pair_ok[i] : has_inv[i];
-                    if (gn ? !a[i] : !base) continue;
+            if (!gn) {
+                int c = 0;
+                for (int e = tid; e < rows * SLOTS * 2; e += RB) {
+                    const int dir = e & 1;
+                    const int i = RT * (e / (2 * SLOTS)) + SLOTS * b +
+                                  (e >> 1) % SLOTS;
+                    if (i >= n || !(dir == 0 ? pair_ok[i] : has_inv[i]))
+                        continue;
                     const float* X = (dir == 0 ? X2c : X1o) + 3 * (size_t)i;
                     const float* ob = (dir == 0 ? xn1j : xn2) + 2 * (size_t)i;
-                    const int off = dir == 0 ? 0 : 13;
+                    Dd r[2];
+                    reproj(S.T[7] + (dir == 0 ? 0 : 13), X, ob[0], ob[1], r);
                     const double w = info1[i];
-                    if (!gn) {
-                        Dd r[2];
-                        reproj(T[7] + off, X, ob[0], ob[1], r);
-                        const bool in =
-                            (r[0].v * r[0].v + r[1].v * r[1].v) * w < CHI2;
-                        a[i] = in;
-                        if (dir == 0) c += in;
-                        continue;
-                    }
-                    double J[2][7], rv[2];
-                    for (int d = 0; d < 7; ++d) {
-                        Dd r[2];
-                        reproj(T[d] + off, X, ob[0], ob[1], r);
-                        J[0][d] = r[0].d;
-                        J[1][d] = r[1].d;
-                        rv[0] = r[0].v;
-                        rv[1] = r[1].v;
-                    }
-                    int q = 0;
-                    for (int a1 = 0; a1 < 7; ++a1)
-                        for (int b1 = a1; b1 < 7; ++b1)
-                            acc[q++] += w * (J[0][a1] * J[0][b1] +
-                                             J[1][a1] * J[1][b1]);
-                    for (int a1 = 0; a1 < 7; ++a1)
-                        acc[28 + a1] += w * (J[0][a1] * rv[0] +
-                                             J[1][a1] * rv[1]);
+                    const bool in =
+                        (r[0].v * r[0].v + r[1].v * r[1].v) * w < CHI2;
+                    (dir == 0 ? act_f : act_b)[i] = in;
+                    if (dir == 0) c += in;
                 }
-            }
-            __syncthreads();   // every T read before the next step's write
-            if (!gn) {
-                cnt[tid] = c;
-                __syncthreads();
-                if (tid == 0) {
-                    int total = 0;
-                    for (int t = 0; t < RT; ++t) total += cnt[t];
-                    n_good[0] = total;
+                if (round == 1) {
+                    c = (int)__reduce_add_sync(0xffffffffu, (unsigned)c);
+                    if (lane == 0 && c)
+                        atomicAdd(cluster.map_shared_rank(&S.good, 0), c);
                 }
                 __syncthreads();
                 continue;
             }
-            for (int q = 0; q < 35; ++q) part[tid][q] = acc[q];
+            double acc0 = 0.0, acc1 = 0.0;
+            for (int m0 = 0; m0 < rows; m0 += MR) {
+                const int mr = min(MR, rows - m0);
+                // a thread a (feature, direction, tangent) evaluation
+                for (int e = tid; e < mr * SLOTS * 2 * 7; e += RB) {
+                    const int f = e / 7, d = e - 7 * f, dir = f & 1;
+                    const int i = RT * (m0 + f / (2 * SLOTS)) + SLOTS * b +
+                                  (f >> 1) % SLOTS;
+                    const bool on = i < n && (dir == 0 ? act_f : act_b)[i];
+                    double* o = S.fd + 16 * f;
+                    if (d == 0) S.fw[f] = on ? info1[i] : 0.0f;
+                    if (!on) {
+                        // zero terms: the chains add +0.0, which leaves
+                        // their sums' bits as skipping the pair did
+                        o[d] = 0.0;
+                        o[7 + d] = 0.0;
+                        if (d == 0) o[14] = o[15] = 0.0;
+                        continue;
+                    }
+                    const float* X = (dir == 0 ? X2c : X1o) + 3 * (size_t)i;
+                    const float* ob = (dir == 0 ? xn1j : xn2) + 2 * (size_t)i;
+                    Dd r[2];
+                    reproj(S.T[d] + (dir == 0 ? 0 : 13), X, ob[0], ob[1], r);
+                    o[d] = r[0].d;
+                    o[7 + d] = r[1].d;
+                    if (d == 0) {
+                        o[14] = r[0].v;
+                        o[15] = r[1].v;
+                    }
+                }
+                __syncthreads();
+                // each (slot, entry) adds its features in refine order
+                for (int mm = 0; mm < mr; ++mm) {
+                    for (int dir = 0; dir < 2; ++dir) {
+                        if (ch0.j < SLOTS)
+                            acc0 += term(S, 2 * (SLOTS * mm + ch0.j) + dir,
+                                         ch0);
+                        if (ch1.j < SLOTS)
+                            acc1 += term(S, 2 * (SLOTS * mm + ch1.j) + dir,
+                                         ch1);
+                    }
+                }
+                __syncthreads();
+            }
+            if (ch0.j < SLOTS) S.part[buf][tid] = acc0;
+            if (ch1.j < SLOTS) S.part[buf][tid + RB] = acc1;
+            cluster.sync();
+            // every block sums all RT slots' partials in slot order
+            for (int e = tid; e < RT * NENT / 2; e += RB) {
+                const int owner = 2 * e / (SLOTS * NENT);
+                const double2* src = reinterpret_cast<const double2*>(
+                    cluster.map_shared_rank(S.part[buf], owner));
+                reinterpret_cast<double2*>(S.fd)[e] =
+                    src[e - owner * (SLOTS * NENT / 2)];
+            }
             __syncthreads();
-            if (tid < 35) {
+            if (tid < NENT) {
                 double s = 0.0;
-                for (int t = 0; t < RT; ++t) s += part[t][tid];
-                sums[tid] = s;
+                for (int t = 0; t < RT; ++t) s += S.fd[NENT * t + tid];
+                S.sums[tid] = s;
             }
             __syncthreads();
-            if (tid == 0) {
-                // (H + 1e-4 I) dx = g by Cholesky in double, then x -= dx
-                double L[7][7], y[7];
-                int q = 0;
-                for (int a1 = 0; a1 < 7; ++a1)
-                    for (int b1 = a1; b1 < 7; ++b1) {
-                        L[b1][a1] = sums[q];
-                        L[a1][b1] = sums[q++];
-                    }
-                for (int a1 = 0; a1 < 7; ++a1) L[a1][a1] += 1e-4;
-                for (int j = 0; j < 7; ++j) {
-                    double d = L[j][j];
-                    for (int k = 0; k < j; ++k) d -= L[j][k] * L[j][k];
-                    d = sqrt(fmax(d, 1e-300));
-                    L[j][j] = d;
-                    for (int i = j + 1; i < 7; ++i) {
-                        double v = L[i][j];
-                        for (int k = 0; k < j; ++k) v -= L[i][k] * L[j][k];
-                        L[i][j] = v / d;
-                    }
-                }
-                for (int i = 0; i < 7; ++i) {
-                    double v = sums[28 + i];
-                    for (int k = 0; k < i; ++k) v -= L[i][k] * y[k];
-                    y[i] = v / L[i][i];
-                }
-                for (int i = 6; i >= 0; --i) {
-                    double v = y[i];
-                    for (int k = i + 1; k < 7; ++k) v -= L[k][i] * y[k];
-                    y[i] = v / L[i][i];
-                }
-                for (int i = 0; i < 7; ++i) x[i] = x[i] - y[i];
-            }
+            if (tid == 0) cholesky_step(S);
             __syncthreads();
+            buf ^= 1;
         }
     }
-    if (tid == 0) {
-        sim3_duals(7, x, sim, T[0]);
-        for (int k = 0; k < 13; ++k) out[k] = (float)T[0][k].v;
+    // no block leaves while another may read its partials; block 0 holds
+    // every block's count
+    cluster.sync();
+    if (b == 0 && tid == 0) {
+        n_good[0] = S.good;
+        sim3_duals(7, S.x, sim, S.T[0]);
+        for (int k = 0; k < 13; ++k) out[k] = (float)S.T[0][k].v;
     }
 }
 
@@ -492,10 +609,27 @@ extern "C" int sim3_refine(const void* X2c, const void* X1o, const void* xn1j,
                            const void* pair_ok, const void* has_inv,
                            const void* sim, int n, void* act, void* out,
                            void* n_good, void* stream) {
-    refine_kernel<<<1, RT, 0, (cudaStream_t)stream>>>(
-        (const float*)X2c, (const float*)X1o, (const float*)xn1j,
-        (const float*)xn2, (const float*)info1, (const uint8_t*)pair_ok,
-        (const uint8_t*)has_inv, (const float*)sim, n, (uint8_t*)act,
-        (float*)out, (int*)n_good);
+    const int smem = (int)sizeof(RefineShared);
+    int rc = (int)cudaFuncSetAttribute(
+        refine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc) return rc;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CL);
+    cfg.blockDim = dim3(RB);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = CL;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    rc = (int)cudaLaunchKernelEx(
+        &cfg, refine_kernel, (const float*)X2c, (const float*)X1o,
+        (const float*)xn1j, (const float*)xn2, (const float*)info1,
+        (const uint8_t*)pair_ok, (const uint8_t*)has_inv, (const float*)sim,
+        n, (uint8_t*)act, (float*)out, (int*)n_good);
+    if (rc) return rc;
     return (int)cudaGetLastError();
 }

@@ -5,11 +5,15 @@ two-camera match with midpoint triangulation; RGB-D depth lookup
 
 One launch of K3's gated mode (`hamming.hamming_top2_gated`, "row_band":
 row band, disparity range, octave band, tested per pair in the kernel)
-gives the reference's gated argmin, first column on ties. `sad_refine` is
-kernel K7: on CUDA tensors it launches `csrc/stereo_sad.cu`; on CPU
-tensors it runs `sad_refine_plain`. The median dispersion filter is plain
-PyTorch. `match_stereo_general` is kernel K16 (`csrc/stereo_general.cu`)
-on CUDA tensors and `match_stereo_general_plain` on CPU tensors.
+gives the reference's gated argmin, first column on ties. `refine_and_filter`
+is kernel K7, the rest of the match in one launch (the matched right x, the
+SAD sweep and parabola, the disparity gate and the median dispersion
+filter, the depth): on CUDA tensors it launches `csrc/stereo_sad.cu`; on
+CPU tensors it runs `refine_and_filter_plain` (`sad_refine_plain`, then
+`filter_matches`). `sad_refine` is the sweep's three outputs alone, from
+the same kernel. `match_stereo_general` is kernel K16
+(`csrc/stereo_general.cu`) on CUDA tensors and `match_stereo_general_plain`
+on CPU tensors.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ PAD = SAD_W + SAD_L + 2
 WIN = 2 * SAD_W + 1
 STRIP = WIN + 2 * SAD_L
 NCAND = 2 * SAD_L + 1
+DISPERSION = 1.5 * 1.4   # the median test's factor, a Python double
 
 LAUNCHES = {"kernel": 0, "plain": 0}
 GENERAL_LAUNCHES = {"kernel": 0, "plain": 0}
@@ -53,8 +58,13 @@ def row_search(feats_l, feats_r, scale_factors, max_d: float):
 
 
 def filter_matches(u_l, ur_ref, sad_best, matched, bf: float, max_d: float):
-    """Disparity range, then the 1.5 * 1.4 * median SAD dispersion rule."""
+    """Disparity range, then the 1.5 * 1.4 * median SAD dispersion rule.
+    No keypoint: empty matches."""
     nl = u_l.shape[0]
+    if nl == 0:
+        return StereoMatches(u_right=torch.empty_like(ur_ref),
+                             depth=torch.empty_like(ur_ref),
+                             valid=torch.empty_like(matched))
     disparity = u_l - ur_ref
     matched = matched & (disparity > 0.0) & (disparity < max_d)
     sad_sorted = torch.sort(torch.where(matched, sad_best,
@@ -63,7 +73,7 @@ def filter_matches(u_l, ur_ref, sad_best, matched, bf: float, max_d: float):
     n_m = torch.sum(matched)
     # a gather, not a 0-d index: indexing with a device scalar would sync
     median = sad_sorted.gather(0, torch.clamp(n_m // 2, 0, nl - 1).reshape(1))
-    keep = matched & (sad_best <= 1.5 * 1.4 * median)
+    keep = matched & (sad_best <= DISPERSION * median)
     depth = torch.where(keep, bf / torch.where(keep, disparity,
                                                torch.ones_like(disparity)),
                         torch.full_like(disparity, -1.0))
@@ -80,10 +90,44 @@ def match_stereo(feats_l, feats_r, img_l, img_r, scale_factors,
     bf = baseline * fx; min_z the least admissible depth (the baseline)."""
     max_d = bf / min_z
     best_idx, matched = row_search(feats_l, feats_r, scale_factors, max_d)
-    u0_r = feats_r.uv[best_idx.long(), 0]
-    ur_ref, sad_best, _ = sad_refine(img_l, img_r, feats_l.uv, u0_r)
-    return filter_matches(feats_l.uv[:, 0], ur_ref, sad_best, matched, bf,
-                          max_d)
+    return refine_and_filter(img_l, img_r, feats_l.uv, feats_r.uv, best_idx,
+                             matched, bf, max_d)
+
+
+def refine_and_filter_plain(img_l, img_r, uv_l, uv_r, best_idx, matched,
+                            bf: float, max_d: float) -> StereoMatches:
+    """Plain version of K7: the matched right x, `sad_refine_plain`, then
+    `filter_matches`."""
+    u0_r = uv_r[best_idx.long(), 0]
+    ur_ref, sad_best, _ = sad_refine_plain(img_l, img_r, uv_l, u0_r)
+    return filter_matches(uv_l[:, 0], ur_ref, sad_best, matched, bf, max_d)
+
+
+def refine_and_filter(img_l, img_r, uv_l, uv_r, best_idx, matched,
+                      bf: float, max_d: float) -> StereoMatches:
+    """K7, the rectified match after the row search: the right x of each
+    left keypoint's best match (`best_idx` into `uv_r`), the SAD sweep and
+    parabola, the disparity gate, the median dispersion filter and the
+    depth, `refine_and_filter_plain`'s result bit for bit on integer-valued
+    images. CUDA tensors: one launch (raises if it cannot run); CPU
+    tensors: the plain version."""
+    if img_l.device.type == "cpu":
+        return refine_and_filter_plain(img_l, img_r, uv_l, uv_r, best_idx,
+                                       matched, bf, max_d)
+    if img_l.device.type != "cuda":
+        raise ValueError(f"refine_and_filter: unsupported device "
+                         f"{img_l.device}")
+    n, nr = uv_l.shape[0], uv_r.shape[0]
+    if uv_r.dtype != torch.float32 or uv_r.dim() != 2 or \
+            uv_r.shape[1] != 2 or (nr == 0 and n > 0) or \
+            best_idx.dtype != torch.int32 or best_idx.shape != (n,) or \
+            matched.dtype != torch.bool or matched.shape != (n,) or \
+            any(t.device != img_l.device for t in (uv_r, best_idx, matched)):
+        raise ValueError("refine_and_filter: needs float32 uv_r (NR, 2), "
+                         "int32 best_idx (N,) and bool matched (N,) on the "
+                         "images' device")
+    sm, _ = _k7(img_l, img_r, uv_l, None, uv_r, best_idx, matched, bf, max_d)
+    return sm
 
 
 def _windows(img_l, img_r, uv_l, u0_r):
@@ -141,43 +185,92 @@ def sad_refine_plain(img_l, img_r, uv_l, u0_r):
 
 
 def sad_refine(img_l, img_r, uv_l, u0_r):
-    """K7 over every left keypoint: (ur_ref, sad_best, k_best). CUDA
-    tensors: the kernel (raises if it cannot run); CPU tensors: the plain
-    version."""
+    """K7's sweep over every left keypoint against the right x u0_r:
+    (ur_ref, sad_best, k_best). CUDA tensors: the kernel without its
+    filter (raises if it cannot run); CPU tensors: the plain version."""
     if img_l.device.type == "cpu":
         return sad_refine_plain(img_l, img_r, uv_l, u0_r)
     if img_l.device.type != "cuda":
         raise ValueError(f"sad_refine: unsupported device {img_l.device}")
     n = uv_l.shape[0]
+    if u0_r.dtype != torch.float32 or u0_r.shape != (n,) or \
+            u0_r.device != img_l.device:
+        raise ValueError("sad_refine: needs float32 u0_r (N,) on the "
+                         "images' device")
+    _, sweep = _k7(img_l, img_r, uv_l, u0_r.contiguous())
+    return sweep
+
+
+def _k7(img_l, img_r, uv_l, u0_r=None, uv_r=None, best_idx=None,
+        matched=None, bf=0.0, max_d=0.0):
+    """One K7 launch: (StereoMatches or None without `matched`, (ur_ref,
+    sad_best, k_best)); k_best is None with `matched` (the tail does not
+    write it). No keypoint: empty outputs, no launch and no count."""
+    n = uv_l.shape[0]
     if img_l.dtype != torch.float32 or img_r.dtype != torch.float32 or \
             img_l.dim() != 2 or img_r.shape != img_l.shape or \
             uv_l.dtype != torch.float32 or uv_l.shape != (n, 2) or \
-            u0_r.dtype != torch.float32 or u0_r.shape != (n,) or \
-            any(t.device != img_l.device for t in (img_r, uv_l, u0_r)):
-        raise ValueError("sad_refine: needs two float32 (H, W) images, "
-                         "float32 uv_l (N, 2) and u0_r (N,) on one device")
+            any(t.device != img_l.device for t in (img_r, uv_l)):
+        raise ValueError("K7: needs two float32 (H, W) images and float32 "
+                         "uv_l (N, 2) on one device")
     h, w = img_l.shape
-    img_l, img_r, u0_r = (t.contiguous() for t in (img_l, img_r, u0_r))
-    uv_l = uv_l.contiguous()
-    if uv_l.data_ptr() % 8:
-        uv_l = uv_l.clone()
-    ur_ref = torch.empty(n, dtype=torch.float32, device=img_l.device)
-    sad_best = torch.empty(n, dtype=torch.float32, device=img_l.device)
-    k_best = torch.empty(n, dtype=torch.int32, device=img_l.device)
-    rc = _lib().stereo_sad(img_l.data_ptr(), img_r.data_ptr(), h, w,
-                           uv_l.data_ptr(), u0_r.data_ptr(), n,
-                           ur_ref.data_ptr(), sad_best.data_ptr(),
-                           k_best.data_ptr(), cuda_build.stream_ptr(img_l))
+    dev = img_l.device
+    img_l, img_r = img_l.contiguous(), img_r.contiguous()
+    uv_l = _aligned8(uv_l)
+    f32 = torch.float32
+    ur_ref = torch.empty(n, dtype=f32, device=dev)
+    sad_best = torch.empty(n, dtype=f32, device=dev)
+    k_best, sm = None, None
+    ptr = lambda t: 0 if t is None else t.data_ptr()    # noqa: E731
+    if matched is not None:
+        uv_r, best_idx = _aligned8(uv_r), best_idx.contiguous()
+        matched = matched.contiguous()
+        sm = StereoMatches(torch.empty(n, dtype=f32, device=dev),
+                           torch.empty(n, dtype=f32, device=dev),
+                           torch.empty(n, dtype=torch.bool, device=dev))
+    else:
+        k_best = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return sm, (ur_ref, sad_best, k_best)
+    rc = _lib().stereo_sad(
+        img_l.data_ptr(), img_r.data_ptr(), h, w, uv_l.data_ptr(), ptr(u0_r),
+        ptr(uv_r), ptr(best_idx), 0 if uv_r is None else uv_r.shape[0],
+        ptr(matched), ctypes.c_float(max_d), ctypes.c_float(DISPERSION),
+        ctypes.c_float(bf), n, ur_ref.data_ptr(), sad_best.data_ptr(),
+        ptr(k_best), *(ptr(t) for t in (sm or (None,) * 3)),
+        _ticket(img_l), cuda_build.stream_ptr(img_l))
     cuda_build.check(rc, "stereo_sad")
     LAUNCHES["kernel"] += 1
-    return ur_ref, sad_best, k_best
+    return sm, (ur_ref, sad_best, k_best)
+
+
+def _aligned8(t):
+    """t contiguous on an 8-byte boundary (the kernel reads float2)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 8 else t
+
+
+_TICKETS: dict = {}
+
+
+def _ticket(t) -> int:
+    """The last-block counter of K7 launches on t's current stream: zeroed
+    once, and each launch's last block leaves it at zero again."""
+    key = (t.device, cuda_build.stream_ptr(t))
+    buf = _TICKETS.get(key)
+    if buf is None:
+        buf = _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+                                          device=t.device)
+    return buf.data_ptr()
 
 
 def _lib():
     lib = cuda_build.library("stereo_sad")
     if lib.stereo_sad.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.stereo_sad.argtypes = [P, P, I, I, P, P, I, P, P, P, P]
+        Fl = ctypes.c_float
+        lib.stereo_sad.argtypes = [P, P, I, I, P, P, P, P, I, P, Fl, Fl, Fl,
+                                   I] + [P] * 8
         lib.stereo_sad.restype = I
     return lib
 

@@ -370,9 +370,9 @@ def sim3_refine_plain(X2c, X1c_own, xn1_j, xn2, info1, pair_ok, has_inv,
 def sim3_refine(X2c, X1c_own, xn1_j, xn2, info1, pair_ok, has_inv, s0, R0,
                 t0):
     """K18's second launch (`sim3_refine_plain`'s result; n_good an int32
-    device scalar from the kernel). CUDA tensors: the kernel, one block
-    that runs every step without a host read (raises if it cannot run);
-    CPU tensors: the plain version."""
+    device scalar from the kernel). CUDA tensors: the kernel, one launch
+    of a cluster of 8 blocks that runs every step without a host read
+    (raises if it cannot run); CPU tensors: the plain version."""
     if X2c.device.type == "cpu":
         return sim3_refine_plain(X2c, X1c_own, xn1_j, xn2, info1, pair_ok,
                                  has_inv, s0, R0, t0)

@@ -179,15 +179,24 @@ def _with_depth(feats, sm: stereo_ops.StereoMatches, cam: cameras.Camera):
                                        torch.full_like(sm.depth, -1.0)))
 
 
+def scale_factors(cfg: TrackerConfig, device) -> torch.Tensor:
+    """(n_levels,) float32 scale ** level on `device`."""
+    return torch.tensor([cfg.scale ** i for i in range(cfg.n_levels)],
+                        dtype=torch.float32, device=device)
+
+
 def extract_stereo_frame(img_l, img_r, cam: cameras.Camera,
-                         cfg: TrackerConfig) -> FrameData:
-    """Extract both rectified images and match them along rows."""
+                         cfg: TrackerConfig, sf=None) -> FrameData:
+    """Extract both rectified images and match them along rows. `sf`:
+    `scale_factors(cfg, device)`, built here when not given; a tracker
+    passes its own, built once, since building it copies from the host and
+    waits for the copy."""
     img_l = img_l.to(torch.float32)
     img_r = img_r.to(torch.float32)
     feats_l = frontend.extract_orb(img_l, cfg.orb)
     feats_r = frontend.extract_orb(img_r, cfg.orb)
-    sf = torch.tensor([cfg.scale ** i for i in range(cfg.n_levels)],
-                      dtype=torch.float32, device=img_l.device)
+    if sf is None:
+        sf = scale_factors(cfg, img_l.device)
     sm = stereo_ops.match_stereo(feats_l, feats_r, img_l, img_r, sf,
                                  bf=cfg.baseline * cfg.focal,
                                  min_z=cfg.baseline)
@@ -816,6 +825,7 @@ class Tracker:
         if imu_calib is not None and not cfg.inertial:
             cfg = tracking_replace_inertial(cfg)
         self.cfg = cfg
+        self._scale_factors = scale_factors(cfg, self.device)
         # inertial state: the since-keyframe preintegration and its anchor
         # keyframe, the current velocity and bias, the samples since the
         # last keyframe; the rest is reset with each map
@@ -898,7 +908,8 @@ class Tracker:
             fr = extract_stereo_general_frame(img_l, img_r, self.cam,
                                               *self.stereo_rig, self.cfg)
         else:
-            fr = extract_stereo_frame(img_l, img_r, self.cam, self.cfg)
+            fr = extract_stereo_frame(img_l, img_r, self.cam, self.cfg,
+                                      self._scale_factors)
         if self.state in ("NO_IMAGES", "NOT_INITIALIZED"):
             return self._try_init_from_depth(fr, ts)
         return self._track(fr, ts)

@@ -44,7 +44,11 @@ scale free and fixed, 9 live edges of 256 slots, a recycled slot and a
 slot that precedes two edges (nothing written outside the live edges'
 blocks), and the whole `inertial_only_optimize` over it;
 the guided Sim(3) verification (K18) with inliers and outliers, no
-pair, one pair and 257 features; and every new wrapper refusing bad
+pair, one pair and 257 features, and its refinement (a cluster of 8
+blocks) on one feature, 300, no active pair, backward pairs alone and
+2,000 features; K7's one launch (the sweep and the median filter) of 1,
+333, 1,200 and 4,000 keypoints, none or one matched, tied SADs at the
+median and disparities at 0 and max_d; and every new wrapper refusing bad
 dtypes and shapes.
 
 Marked `gpu`: each test skips without a CUDA card. On a machine with one
@@ -55,7 +59,12 @@ Marked `gpu`: each test skips without a CUDA card. On a machine with one
 Tolerances: K1 (each field of the image-wide call too) and K3 exact; K2 angles within 1e-4 rad and descriptor bits
 >= 99.9% identical (the kernel sums the moments in another order); K7 on
 integer-valued images: best offset and SAD exact, refined x within 1e-5 px,
-on non-integer images within 1e-3 px; K8 exact (same rounding, no FMA); K5
+on non-integer images within 1e-3 px; K7's whole launch
+(`refine_and_filter`: u_right, depth, valid) bitwise equal to the plain
+composition on integer-valued images (exact SADs, the same roundings of
+the parabola and of the depth, an exact median), and empty with no launch
+for no keypoint; K8 exact (same rounding,
+no FMA); K5
 R and t within 1e-4 and the inlier count within 1% (the kernel sums the
 normal equations in another order, so a row whose chi2 sits at its gate
 may flip), chi2 as residual norms within 1e-6; K9 exact (integer work); K10 within 1e-5 (float sums in another
@@ -558,6 +567,97 @@ def test_sad_refine_non_integer(cuda, n):
     assert got[0].shape == (n,)
 
 
+def _k7_case(cuda, case):
+    """Inputs of K7's whole launch on integer-valued images: (img_l, img_r,
+    uv_l, uv_r, best_idx, matched, bf, max_d)."""
+    rng = np.random.default_rng(K7_CASES.index(case))
+    n = dict(n1=1, n333=333, n4000=4000).get(case, 1200)
+    kind = "flat" if case in ("flat_ties", "disparity_edges") else "int"
+    left, right = _sad_pair(cuda, kind, shift=6, shape=(480, 752))
+    uv_l = np.stack([rng.integers(0, 752, n), rng.integers(0, 480, n)],
+                    -1).astype(np.float32)
+    nr = max(n, 16)
+    uv_r = np.stack([rng.uniform(-10, 760, nr), rng.uniform(0, 480, nr)],
+                    -1).astype(np.float32)
+    best = rng.integers(0, nr, n).astype(np.int32)
+    # most rows matched to a right keypoint near the true shift
+    near = rng.uniform(size=n) < 0.8
+    uv_r[best[near], 0] = uv_l[near, 0] - 6 + rng.integers(-3, 4, near.sum())
+    matched = rng.uniform(size=n) < 0.7
+    bf, max_d = 48.0, 40.0
+    if case == "unmatched":
+        matched[:] = False
+    elif case == "one_matched":
+        matched[:] = False
+        matched[n // 2] = True
+    elif case == "sad_ties":
+        # a block of duplicated keypoints: equal SADs around the median
+        uv_l[n // 3:] = uv_l[n // 3]
+        best[n // 3:] = best[n // 3]
+    elif case == "disparity_edges":
+        # flat images: every SAD 0, offset 0, so ur_ref = u0 - 5 exactly;
+        # disparities 0, max_d, just inside both and negative
+        best = np.arange(n, dtype=np.int32) % nr
+        disp = np.resize(np.float32([0.0, max_d, 0.5, max_d - 0.5, -2.0,
+                                     max_d + 1.0, 17.0]), n)
+        uv_r[best, 0] = uv_l[:, 0] - disp + 5.0
+    f = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=cuda)
+    return (left, right, f(uv_l), f(uv_r), f(best, torch.int32),
+            f(matched, torch.bool), bf, max_d)
+
+
+K7_CASES = ["n1", "n333", "unmatched", "one_matched", "sad_ties",
+            "flat_ties", "disparity_edges", "n4000"]
+
+
+@pytest.mark.parametrize("case", K7_CASES)
+def test_refine_and_filter_bitwise_equal_plain(cuda, case):
+    """K7's one launch (the sweep, the disparity gate, the median filter
+    and the depth) against the plain composition on integer images: every
+    output bit for bit, twice (the last block's ticket is reset)."""
+    args = _k7_case(cuda, case)
+    n0 = stereo.LAUNCHES["kernel"]
+    got = stereo.refine_and_filter(*args)
+    again = stereo.refine_and_filter(*args)
+    want = stereo.refine_and_filter_plain(*args)
+    assert stereo.LAUNCHES["kernel"] == n0 + 2
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        assert torch.equal(a, c), (case, int((a != c).sum()))
+        assert torch.equal(b, c)
+    if case == "unmatched":
+        assert not bool(got.valid.any())
+    if case == "one_matched":
+        assert int(got.valid.sum()) <= 1
+    if case == "disparity_edges":
+        m = args[5]
+        disp = args[2][:, 0] - (args[3][args[4].long(), 0] - 5.0)
+        inside = m & (disp > 0) & (disp < args[7])
+        assert torch.equal(got.valid, inside)
+        assert int((m & (disp == 0)).sum()) > 0
+        assert int((m & (disp == args[7])).sum()) > 0
+
+
+@pytest.mark.parametrize("nr", [0, 16])
+def test_refine_and_filter_no_keypoint(cuda, nr):
+    """N == 0: both routes return empty matches, and the kernel route
+    neither launches nor counts a launch."""
+    img = torch.zeros((48, 64), device=cuda)
+    args = (img, img, torch.zeros((0, 2), device=cuda),
+            torch.zeros((nr, 2), device=cuda),
+            torch.zeros(0, dtype=torch.int32, device=cuda),
+            torch.zeros(0, dtype=torch.bool, device=cuda), 48.0, 40.0)
+    n0 = stereo.LAUNCHES["kernel"]
+    got = stereo.refine_and_filter(*args)
+    sweep = stereo.sad_refine(img, img, args[2], torch.zeros(0, device=cuda))
+    assert stereo.LAUNCHES["kernel"] == n0
+    want = stereo.refine_and_filter_plain(*args)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape == (0,)
+        assert a.device == img.device
+    assert [t.shape for t in sweep] == [(0,)] * 3
+
+
 def _remap_case(cuda, hs, ws, h, w, seed=0):
     rng = np.random.default_rng(seed)
     img = torch.from_numpy(rng.uniform(0, 255, (hs, ws)).astype(
@@ -613,6 +713,21 @@ def test_k7_k8_refuse_bad_inputs_on_the_card(cuda):
     with pytest.raises(ValueError):
         stereo.sad_refine(img, img[:, :32], torch.zeros((3, 2), device=cuda),
                           torch.zeros(3, device=cuda))
+    uv = torch.zeros((3, 2), device=cuda)
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda)
+    ok = torch.ones(3, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        stereo.refine_and_filter(img, img, uv, uv, idx.long(), ok, 48.0,
+                                 40.0)
+    with pytest.raises(ValueError):
+        stereo.refine_and_filter(img, img, uv, uv, idx, ok.float(), 48.0,
+                                 40.0)
+    with pytest.raises(ValueError):
+        stereo.refine_and_filter(img, img, uv, uv[:, :1], idx, ok, 48.0,
+                                 40.0)
+    with pytest.raises(ValueError):
+        stereo.refine_and_filter(img.double(), img.double(), uv, uv, idx,
+                                 ok, 48.0, 40.0)
     with pytest.raises(ValueError):
         rectify.remap_bilinear(img, torch.zeros((8, 8, 3), device=cuda))
     with pytest.raises(ValueError):
@@ -2040,6 +2155,51 @@ def test_sim3_verify_matches_plain(cuda, F, n_in, n_out, seed):
     for a, b in zip(got[:3], ref[:3]):
         assert torch.equal(a, b), float((a - b).abs().max())
     assert int(got[3]) == int(ref[3])
+
+
+def _same_bits(a, b):
+    """Bitwise equal, NaN where NaN (its payload aside)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na].view(torch.int32),
+                                               b[~nb].view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["n1", "n300", "inactive", "backward_only",
+                                  "F2000"])
+def test_sim3_refine_cluster_matches_plain(cuda, case):
+    """K18's refinement (a cluster of 8 blocks) against the plain version's
+    order, which is the earlier one-block kernel's: (s, R, t) bitwise,
+    the same n_good, bitwise repeatable, on one pair, a count that is no
+    multiple of the 128 slots, no active pair, backward residuals alone
+    and 2,000 features."""
+    from morb_slam_tpu_torch.pipeline import loop_closing as lc
+    F = dict(n1=1, n300=300, F2000=2000).get(case, 1200)
+    P = _verify_problem(cuda, F, 4, max(1, (2 * F) // 5), F // 10)
+    idx = lc.window_match_plain(
+        P["X2c"], P["ok2"], P["oct2"], P["desc2"], P["xn1"], P["valid1"],
+        P["desc1"], P["s0"], P["R0"], P["t0"], 300.0, 1.2)
+    if case == "n1":
+        idx = torch.zeros(1, dtype=torch.int32, device=cuda)
+    r = list(_refine_inputs(P, idx))
+    if case == "inactive":
+        r[5] = torch.zeros_like(r[5])
+        r[6] = torch.zeros_like(r[6])
+    elif case == "backward_only":
+        r[5] = torch.zeros_like(r[5])
+    n0 = lc.REFINE_LAUNCHES["kernel"]
+    got, got2 = lc.sim3_refine(*r), lc.sim3_refine(*r)
+    want = lc.sim3_refine_plain(*r)
+    assert lc.REFINE_LAUNCHES["kernel"] == n0 + 2
+    for a, b, c in zip(got[:3], got2[:3], want[:3]):
+        assert _same_bits(a, b)
+        assert _same_bits(a, c), (case, float((a - c).abs().max()))
+    assert int(got[3]) == int(got2[3]) == int(want[3])
+    if case in ("inactive", "backward_only"):
+        assert int(got[3]) == 0
+    if case == "inactive":
+        assert torch.equal(got[0], P["s0"]) and torch.equal(got[1], P["R0"])
+    if case == "F2000":
+        assert int(got[3]) > 0.5 * int(r[5].sum())
 
 
 def test_k16_k17_k18_refuse_bad_inputs_on_the_card(cuda):

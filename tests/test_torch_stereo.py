@@ -211,6 +211,68 @@ def test_match_stereo_parity(features, integer):
     assert float(np.abs(got["u_right"] - want["u_right"])[both].max()) < 1e-3
 
 
+def _row_matches(features, integer):
+    il, ir, fl, fr = features[integer]
+    fl, fr = convert.frame_from_numpy(fl), convert.frame_from_numpy(fr)
+    best_idx, matched = stereo.row_search(
+        fl, fr, torch.tensor(SF, dtype=torch.float32), B * FX / B)
+    return _t(il), _t(ir), fl, fr, best_idx, matched
+
+
+@pytest.mark.parametrize("integer", [True, False],
+                         ids=["integer", "non-integer"])
+def test_refine_and_filter_plain_composes_sweep_and_filter(features,
+                                                           integer):
+    """K7's plain version is the sweep, then the filter, bit for bit, and
+    match_stereo on CPU tensors returns it."""
+    il, ir, fl, fr, best_idx, matched = _row_matches(features, integer)
+    bf, max_d = B * FX, B * FX / B
+    got = stereo.refine_and_filter_plain(il, ir, fl.uv, fr.uv, best_idx,
+                                         matched, bf, max_d)
+    u0 = fr.uv[best_idx.long(), 0]
+    ur, sad, _ = stereo.sad_refine_plain(il, ir, fl.uv, u0)
+    want = stereo.filter_matches(fl.uv[:, 0], ur, sad, matched, bf, max_d)
+    via = stereo.refine_and_filter(il, ir, fl.uv, fr.uv, best_idx, matched,
+                                   bf, max_d)
+    ms = stereo.match_stereo(fl, fr, il, ir,
+                             torch.tensor(SF, dtype=torch.float32), bf, B)
+    assert int(want.valid.sum()) > 100
+    for out in (got, via, ms):
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+
+
+def test_filter_depth_is_reciprocal_times_bf(features):
+    """The filter's depth is bf / disparity as torch computes it: the
+    float32 reciprocal, then the product with float32(bf), two roundings
+    (K7 repeats them), not the quotient."""
+    il, ir, fl, fr, best_idx, matched = _row_matches(features, True)
+    bf = 0.1107 * 435.2
+    sm = stereo.refine_and_filter_plain(il, ir, fl.uv, fr.uv, best_idx,
+                                        matched, bf, bf / B)
+    ur, _, _ = stereo.sad_refine_plain(il, ir, fl.uv,
+                                       fr.uv[best_idx.long(), 0])
+    keep = sm.valid.numpy()
+    d = (fl.uv[:, 0] - ur).numpy()[keep]
+    want = (np.float32(1.0) / d) * np.float32(bf)
+    assert want.dtype == np.float32 and keep.sum() > 100
+    np.testing.assert_array_equal(sm.depth.numpy()[keep], want)
+    assert bool(np.all(sm.depth.numpy()[~keep] == -1.0))
+    assert bool(np.all(sm.u_right.numpy()[~keep] == -1.0))
+
+
+def test_refine_and_filter_plain_no_keypoint():
+    """No left keypoint: the plain composition returns empty matches (the
+    card's route returns the same without a launch)."""
+    img = torch.zeros((48, 64))
+    sm = stereo.refine_and_filter_plain(
+        img, img, torch.zeros((0, 2)), torch.zeros((5, 2)),
+        torch.zeros(0, dtype=torch.int32), torch.zeros(0, dtype=torch.bool),
+        48.0, 40.0)
+    assert [(t.dtype, t.shape) for t in sm] == [
+        (torch.float32, (0,)), (torch.float32, (0,)), (torch.bool, (0,))]
+
+
 def test_sad_refine_kernel_contract(features):
     """The plain K7 on keypoints at the image corners and outside: the
     reference's dynamic_slice clamping, integer SADs, offsets in range."""

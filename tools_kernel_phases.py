@@ -2,13 +2,13 @@
 `clock64()`, and earlier forms of kernels against this tree's: this
 tree's K12 (`csrc/pose_inertial.cu`), K5 (`csrc/pose_opt.cu`), K1
 (`csrc/fast_select.cu`), K3 (`csrc/hamming_top2.cu`) and K6
-(`csrc/pyramid_blur.cu`), and K4 and K13 against their earlier forms.
+(`csrc/pyramid_blur.cu`), and K7 and K18 against their earlier forms.
 
     python3 tools_kernel_phases.py --new
     python3 tools_kernel_phases.py --k5 --k1 --new
     python3 tools_kernel_phases.py --k3 --k6 --new
-    git archive 001dca8 morb_slam_tpu_torch/csrc | tar -x -C old14/
-    python3 tools_kernel_phases.py --k4 --k13 --csrc old14/morb_slam_tpu_torch/csrc
+    git archive 08f7233 morb_slam_tpu_torch/csrc | tar -x -C old15/
+    python3 tools_kernel_phases.py --k7 --k18 --csrc old15/morb_slam_tpu_torch/csrc
 
 Copies the sources (and the headers) into a temporary directory, inserts
 the stamps, builds them with the port's `nvcc` flags and runs them at
@@ -26,24 +26,23 @@ lane 0 of every warp stamping its phases, with unstamped builds at 1, 2,
 4 and 8 warps a row. `--k6`: K6's one launch on the first rendered
 752x480 frame, 8 levels, stamped by block (phases over all levels, each
 grid barrier's wait) with unstamped builds at other grid sizes.
-`--k4 --k13` with `--csrc`: this tree's K4 (`csrc/ba_assemble.cu`, both
-modes) and K13 (`csrc/vi_edges.cu`) against the earlier ones (as of
-commit 001dca8: K4 a warp a landmark with one lane walking it, K13 a
-system of two launches and a cost of one), built beside them. The
-stereo, vi and loop paths of chip_smoke.py run with every K4 and K13
-call also run through the earlier kernel on the same inputs (calls and
-bitwise-equal calls by mode: local BA in the camera and the body tangent,
-per-observation; the inertial terms); then, on each mode's last problem
-of the paths and on chip_smoke.py's global BA problem at the loop phase's
-capacities, both trees' bits and times (device ms of the kernels, kernels
-and event ms per call), the device time of each kind of K4 block alone
-(keyframe, landmark and slot blocks, the others returning at once) in
-both trees, this tree's K4 built at 32-256 landmarks a landmark block
-and its K13 at 128 and 256 threads a block, and K13 stamped by phase
-(thread 0 of every block: edge terms, lists and dead zeros, the grid
-barrier, the live sums; clock64 cycles). Prints one JSON object (also written to chiprun_out/
+`--k7 --k18` with `--csrc`: this tree's K7 (`csrc/stereo_sad.cu`, the
+whole tail of match_stereo in one launch) and K18's refinement
+(`csrc/sim3_verify.cu`, a cluster of 8 blocks) against the earlier ones
+(as of commit 08f7233: K7 the sweep alone, then the gather and the
+filter in torch; the refinement one block of 128 threads), built beside
+them. The stereo, vi, loop and vi_loop paths of chip_smoke.py run with
+every K7 launch and every K18 refinement on the card also run through
+the earlier kernels on the same inputs (calls and bitwise-equal calls:
+K7's u_right, depth and valid; K18's s, R, t and n_good); then, on the
+stereo path's last K7 call, both trees' bits and times (the K7 kernel's
+device ms, all kernels' device ms, kernels and event ms per call; the
+same for the whole match_stereo), and, on every K18 call of the loop
+path and the vi_loop branch, the refinement's device ms in both trees
+and in this tree's source built at 16 blocks a cluster (the non-portable
+size). Prints one JSON object (also written to chiprun_out/
 kernel_phases_new.json, kernel_phases_k5_k1_new.json,
-kernel_phases_k3_k6_new.json or kernel_phases_k4_k13.json, the last also
+kernel_phases_k3_k6_new.json or kernel_phases_k7_k18.json, the last also
 after each path). The stamp anchors match those sources only. Needs a
 CUDA card and nvcc.
 
@@ -52,9 +51,11 @@ commit ea2e66d) are stamped by this script as of commit a873e66, those
 of K3 and K6 (as of commit a873e66: the masked K3 on a dense gate, K6
 launched per level) by this script as of commit 133af77, K11 and K17
 (as of commit 133af77), and this tree's K11 stamped, by this script as
-of commit 5e4d05b, and K14 and K16 (as of commit 5e4d05b: K14's pass
+of commit 5e4d05b, K14 and K16 (as of commit 5e4d05b: K14's pass
 launches with the CG loop in torch, K16 in three kernels) by this script
-as of commit 001dca8.
+as of commit 001dca8, and K4 and K13 (as of commit 001dca8: K4 a warp a
+landmark with one lane walking it, K13 a system of two launches and a
+cost of one) by this script as of commit 08f7233.
 """
 import argparse
 import ctypes
@@ -170,6 +171,17 @@ def _define(text, name, value):
     if n != 1:
         raise SystemExit(f"#define {name} not found once")
     return out
+
+
+def _non_portable(text):
+    """sim3_verify.cu with sim3_refine allowing a cluster above the portable
+    8 blocks (cudaFuncAttributeNonPortableClusterSizeAllowed), set before
+    its launch."""
+    return _replace_once(
+        text, "    cudaLaunchConfig_t cfg = {};\n",
+        "    rc = (int)cudaFuncSetAttribute(\n"
+        "        refine_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,"
+        " 1);\n    if (rc) return rc;\n    cudaLaunchConfig_t cfg = {};\n")
 
 
 def _replace_once(text, old, new):
@@ -911,92 +923,18 @@ def _k6():
     return res
 
 
-K4_OLD_ARGS = 15, 5, 8
-
-
-def _k4_old_lib(tmp, csrc, patch=None):
-    """The earlier K4 (commit 001dca8: a warp a landmark, its lane 0 walking
-    the observations, the coupling added into global memory) built from
-    `csrc`, optionally with a text patch."""
-    text = open(os.path.join(csrc, "ba_assemble.cu")).read()
-    lib, ptx = _build(tmp, "ba_assemble", patch(text) if patch else text)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    n_p, n_i, n_q = K4_OLD_ARGS
-    lib.ba_assemble.argtypes = [P] * n_p + [I] * n_i + [P] * n_q
-    lib.ba_assemble.restype = I
-    return lib, ptx
-
-
-def _k4_old(lib, p, R, t, X, order=None, body=False, per_obs=False):
-    """The earlier K4 through the earlier wrapper's steps (Wpl zero-filled
-    by torch, then the kernel): BlockSums or ObsBlocks."""
-    from morb_slam_tpu_torch.optim import ba
-    dev, f32 = R.device, torch.float32
-    K, L, O = R.shape[0], X.shape[0], p.obs_uv.shape[0]
-    order = ba.obs_order(p) if order is None else order
-    c = [x.contiguous() for x in (R, t, X, p.obs_kf, p.obs_lm, p.obs_uv,
-                                  p.obs_ur, p.obs_info, p.obs_mask,
-                                  p.lm_opt) + tuple(order)]
-    base = p.baseline.to(device=dev, dtype=f32).reshape(1)
-    coupling = torch.zeros((O, 6, 3), dtype=f32, device=dev) if per_obs \
-        else torch.empty((L, K, 6, 3), dtype=f32, device=dev)
-    out = (ba.ObsBlocks if per_obs else ba.BlockSums)(
-        torch.empty((K, 6, 6), dtype=f32, device=dev),
-        torch.empty((K, 6), dtype=f32, device=dev), coupling,
-        torch.empty((L, 3, 3), dtype=f32, device=dev),
-        torch.empty((L, 3), dtype=f32, device=dev),
-        torch.zeros((), dtype=f32, device=dev))
-    scratch = torch.zeros(max(K, 1) + 1, dtype=f32, device=dev)
-    cuda_build.check(lib.ba_assemble(
-        *(x.data_ptr() for x in c), base.data_ptr(), int(body),
-        int(per_obs), K, L, O, *(x.data_ptr() for x in out),
-        scratch.data_ptr(), cuda_build.stream_ptr(R)), "earlier K4")
-    return out
-
-
-def _k13_old_lib(tmp, csrc):
-    """The earlier K13 (commit 001dca8: a warp an edge, a thread an entry
-    of H, a one-warp cost kernel) built from `csrc`."""
-    for h in ("imu_edge.cuh", "dual.cuh"):
-        shutil.copy(os.path.join(csrc, h), tmp)
-    lib, ptx = _build(tmp, "vi_edges", open(os.path.join(
-        csrc, "vi_edges.cu")).read())
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.vi_edges_system.argtypes = [P] * 6 + [I] + [P] * 5
-    lib.vi_edges_system.restype = I
-    lib.vi_edges_cost.argtypes = [P] * 4 + [I, P, P]
-    lib.vi_edges_cost.restype = I
-    return lib, ptx
-
-
-def _k13_old(lib, p, R_wb, p_wb, v, bias, Hpp, bp):
-    """The earlier K13's system and cost at one state: (H, b, cost)."""
-    W = p.R_wb.shape[0]
-    state, cst, prev, valid = vi_ba._k13_inputs(p, R_wb, p_wb, v, bias)
-    Hpp, bp = Hpp.contiguous(), bp.contiguous()
-    dev, f32, D = p_wb.device, torch.float32, 15 * W
-    He = torch.empty((W, 30, 30), dtype=f32, device=dev)
-    ge = torch.empty((W, 30), dtype=f32, device=dev)
-    H = torch.empty((D, D), dtype=f32, device=dev)
-    b = torch.empty(D, dtype=f32, device=dev)
-    cost = torch.empty((), dtype=f32, device=dev)
-    st = cuda_build.stream_ptr(p_wb)
-    cuda_build.check(lib.vi_edges_system(
-        state.data_ptr(), cst.data_ptr(), prev.data_ptr(), valid.data_ptr(),
-        Hpp.data_ptr(), bp.data_ptr(), W, He.data_ptr(), ge.data_ptr(),
-        H.data_ptr(), b.data_ptr(), st), "earlier K13 system")
-    cuda_build.check(lib.vi_edges_cost(
-        state.data_ptr(), cst.data_ptr(), prev.data_ptr(), valid.data_ptr(),
-        W, cost.data_ptr(), st), "earlier K13 cost")
-    return H, b, cost
-
-
 def _equal_fields(a, b, names):
-    """{field: True where bitwise equal, else the max difference relative
-    to the earlier field's max-abs}."""
+    """{field: True where bitwise equal (NaN where NaN), else the max
+    difference relative to the earlier field's max-abs}."""
     out = {}
     for n, x, y in zip(names, a, b):
-        if torch.equal(x, y):
+        x, y = torch.as_tensor(x), torch.as_tensor(y)
+        if x.dtype == torch.bool or not x.is_floating_point():
+            out[n] = True if torch.equal(x, y) else int((x != y).sum())
+            continue
+        nx, ny = torch.isnan(x), torch.isnan(y)
+        if torch.equal(nx, ny) and torch.equal(
+                x[~nx].view(torch.int32), y[~ny].view(torch.int32)):
             out[n] = True
         else:
             out[n] = float((x - y).abs().max()) / max(
@@ -1004,16 +942,290 @@ def _equal_fields(a, b, names):
     return out
 
 
-class _Compare:
-    """Every K4 and K13 call of a path also run through the earlier
-    kernels on the same inputs (module attributes wrapped): calls and
-    bitwise-equal calls by mode, the first unequal call's fields, and each
-    mode's last problem kept for the timings."""
+def _k7_old_lib(tmp, csrc):
+    """The earlier K7 (commit 08f7233: the sweep alone, a warp a keypoint)
+    built from `csrc`."""
+    lib, ptx = _build(tmp, "stereo_sad", open(os.path.join(
+        csrc, "stereo_sad.cu")).read())
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.stereo_sad.argtypes = [P, P, I, I, P, P, I, P, P, P, P]
+    lib.stereo_sad.restype = I
+    return lib, ptx
 
-    def __init__(self, lib4, lib13):
-        from morb_slam_tpu_torch.optim import ba
-        self.ba, self.lib4, self.lib13 = ba, lib4, lib13
-        self.stats, self.last = {}, {}
+
+def _k7_old(lib, img_l, img_r, uv_l, uv_r, best_idx, matched, bf, max_d):
+    """The earlier match_stereo after the row search: the gather of the
+    matched right x, the earlier kernel, then filter_matches in torch."""
+    from morb_slam_tpu_torch.ops import stereo
+    n = uv_l.shape[0]
+    u0 = uv_r[best_idx.long(), 0].contiguous()
+    uv = uv_l.contiguous()
+    out = [torch.empty(n, dtype=torch.float32, device=uv.device)
+           for _ in range(2)] + [torch.empty(n, dtype=torch.int32,
+                                             device=uv.device)]
+    img_l, img_r = img_l.contiguous(), img_r.contiguous()
+    cuda_build.check(lib.stereo_sad(
+        img_l.data_ptr(), img_r.data_ptr(), img_l.shape[0], img_l.shape[1],
+        uv.data_ptr(), u0.data_ptr(), n, *(t.data_ptr() for t in out),
+        cuda_build.stream_ptr(uv)), "earlier K7")
+    return stereo.filter_matches(uv[:, 0], out[0], out[1], matched, bf,
+                                 max_d)
+
+
+def _k18_lib(tmp, csrc, text=None):
+    """The earlier K18 (commit 08f7233: the refinement one block of 128
+    threads) built from `csrc`, or this tree's source `text` as given."""
+    lib, ptx = _build(tmp, "sim3_verify", text or open(os.path.join(
+        csrc, "sim3_verify.cu")).read())
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sim3_window_match.argtypes = [P] * 8 + [I, I, Fl, Fl] + [P] * 7
+    lib.sim3_window_match.restype = I
+    lib.sim3_refine.argtypes = [P] * 8 + [I, P, P, P, P]
+    lib.sim3_refine.restype = I
+    return lib, ptx
+
+
+def _k18_with(lib, args, refine=None):
+    """sim3_refine (or the unwrapped `refine`) through `lib` in place of
+    this tree's build."""
+    from morb_slam_tpu_torch.pipeline import loop_closing as lc
+    old = _swap_lib("sim3_verify", lib)
+    try:
+        return (refine or lc.sim3_refine)(*args)
+    finally:
+        _restore_lib("sim3_verify", old)
+
+
+K18_PHASES = ["duals (tangent 0)", "wait: the other tangents' duals",
+              "evaluations", "wait: the chunk's evaluations",
+              "chains (slot 0 entry 0, slot 14 entry 22)",
+              "wait: the chains", "partials written", "cluster.sync",
+              "staging the 128 x 35 partials (DSMEM)", "wait: staging",
+              "sums (128 in slot order)", "wait: sums",
+              "reclassification", "wait: reclassification",
+              "Cholesky and substitutions (thread 0)", "wait: the solve"]
+
+
+def _k18_stamped_source(text):
+    """sim3_verify.cu with thread 0 of block 0 of the refinement adding the
+    cycles of each phase (K18_PHASES) up over the launch, written to a
+    buffer set by set_stamp_buf."""
+    st = ("#define STAMP(k) if (stamp_on_) { long long t_ = clock64(); "
+          "ph_[k] += t_ - last_; last_ = t_; }\n")
+    return _patch(text, [
+        ("namespace cg = cooperative_groups;\n",
+         "namespace cg = cooperative_groups;\n"
+         "__device__ long long* k18_stamps;\n"
+         "extern \"C\" int set_stamp_buf(void* p) {\n"
+         "    return (int)cudaMemcpyToSymbol(k18_stamps, &p, sizeof(p));\n}\n"
+         + st),
+        ("    const int tid = threadIdx.x, lane = tid & 31;\n",
+         "    const int tid = threadIdx.x, lane = tid & 31;\n"
+         "    const bool stamp_on_ = k18_stamps && tid == 0 && b == 0;\n"
+         "    long long ph_[16];\n"
+         "    for (int q = 0; q < 16; ++q) ph_[q] = 0;\n"
+         "    long long last_ = clock64();\n"),
+        ("            if (gn ? tid < 8 : tid == 7) sim3_duals(tid, S.x, sim, "
+         "S.T[tid]);\n            __syncthreads();\n",
+         "            if (gn ? tid < 8 : tid == 7) sim3_duals(tid, S.x, sim, "
+         "S.T[tid]);\n            STAMP(0);\n            __syncthreads();\n"
+         "            STAMP(1);\n"),
+        ("                __syncthreads();\n                continue;\n",
+         "                STAMP(12);\n                __syncthreads();\n"
+         "                STAMP(13);\n                continue;\n"),
+        ("                __syncthreads();\n                // each (slot, "
+         "entry) adds",
+         "                STAMP(2);\n                __syncthreads();\n"
+         "                STAMP(3);\n                // each (slot, entry) "
+         "adds"),
+        ("                __syncthreads();\n            }\n"
+         "            if (ch0.j < SLOTS)",
+         "                STAMP(4);\n                __syncthreads();\n"
+         "                STAMP(5);\n            }\n"
+         "            if (ch0.j < SLOTS)"),
+        ("            cluster.sync();\n            // every block sums",
+         "            STAMP(6);\n            cluster.sync();\n"
+         "            STAMP(7);\n            // every block sums"),
+        ("            __syncthreads();\n            if (tid < NENT) {",
+         "            STAMP(8);\n            __syncthreads();\n"
+         "            STAMP(9);\n            if (tid < NENT) {"),
+        ("            __syncthreads();\n            if (tid == 0) "
+         "cholesky_step(S);\n            __syncthreads();\n",
+         "            STAMP(10);\n            __syncthreads();\n"
+         "            STAMP(11);\n            if (tid == 0) "
+         "cholesky_step(S);\n            STAMP(14);\n"
+         "            __syncthreads();\n            STAMP(15);\n"),
+        ("    // every block's count\n    cluster.sync();\n",
+         "    // every block's count\n    cluster.sync();\n"
+         "    if (stamp_on_)\n"
+         "        for (int q = 0; q < 16; ++q) k18_stamps[q] = ph_[q];\n"),
+    ])
+
+
+def _k18_stamps(tmp, args):
+    """This tree's refinement with thread 0 of block 0 stamping its phases
+    (clock64 cycles summed over the launch), on one call's inputs."""
+    from morb_slam_tpu_torch.pipeline import loop_closing as lc
+    d = tempfile.mkdtemp(dir=tmp)
+    text = open(os.path.join(cuda_build.CSRC, "sim3_verify.cu")).read()
+    lib, ptx = _k18_lib(d, None, _k18_stamped_source(text))
+    want = lc.sim3_refine(*args)
+    got, c = _stamp_run(lib, "sim3_verify", lambda: lc.sim3_refine(*args),
+                        16)
+    return dict(bits=_equal_fields(got, want, ("s", "R", "t", "n_good")),
+                cycles=dict(zip(K18_PHASES, c)), total_cycles=float(sum(c)),
+                ptxas=ptx.strip())
+
+
+K18_EARLIER_PHASES = ["duals", "wait: the duals",
+                      "feature loop (evaluations and sums; reclassification)",
+                      "wait: the loop", "partials and the 35 sums (with syncs)",
+                      "Cholesky and substitutions (thread 0)",
+                      "wait: the solve", "reclassification count"]
+
+
+def _k18_earlier_stamped_source(text):
+    """The earlier sim3_verify.cu (commit 08f7233, one block) with thread 0
+    adding the cycles of each phase (K18_EARLIER_PHASES) up over the
+    launch, written to a buffer set by set_stamp_buf."""
+    st = ("#define STAMP(k) if (stamp_on_) { long long t_ = clock64(); "
+          "ph_[k] += t_ - last_; last_ = t_; }\n")
+    return _patch(text, [
+        ("#include <stdint.h>\n",
+         "#include <stdint.h>\n__device__ long long* k18_stamps;\n"
+         "extern \"C\" int set_stamp_buf(void* p) {\n"
+         "    return (int)cudaMemcpyToSymbol(k18_stamps, &p, sizeof(p));\n}\n"
+         + st),
+        ("    const int tid = threadIdx.x;\n    uint8_t* act_f = act;\n",
+         "    const int tid = threadIdx.x;\n    uint8_t* act_f = act;\n"
+         "    const bool stamp_on_ = k18_stamps && tid == 0;\n"
+         "    long long ph_[8];\n    for (int q = 0; q < 8; ++q) ph_[q] = 0;\n"
+         "    long long last_ = clock64();\n"),
+        ("            if (tid < 8) sim3_duals(tid, x, sim, T[tid]);\n"
+         "            __syncthreads();\n",
+         "            if (tid < 8) sim3_duals(tid, x, sim, T[tid]);\n"
+         "            STAMP(0);\n            __syncthreads();\n"
+         "            STAMP(1);\n"),
+        ("            __syncthreads();   // every T read before the next "
+         "step's write\n",
+         "            STAMP(2);\n            __syncthreads();   // every T "
+         "read before the next step's write\n            STAMP(3);\n"),
+        ("                __syncthreads();\n                continue;\n",
+         "                __syncthreads();\n                STAMP(7);\n"
+         "                continue;\n"),
+        ("            if (tid == 0) {\n                // (H + 1e-4 I) dx = g "
+         "by Cholesky",
+         "            STAMP(4);\n            if (tid == 0) {\n"
+         "                // (H + 1e-4 I) dx = g by Cholesky"),
+        ("                for (int i = 0; i < 7; ++i) x[i] = x[i] - y[i];\n"
+         "            }\n            __syncthreads();\n",
+         "                for (int i = 0; i < 7; ++i) x[i] = x[i] - y[i];\n"
+         "            }\n            STAMP(5);\n            __syncthreads();\n"
+         "            STAMP(6);\n"),
+        ("    if (tid == 0) {\n        sim3_duals(7, x, sim, T[0]);",
+         "    if (stamp_on_)\n"
+         "        for (int q = 0; q < 8; ++q) k18_stamps[q] = ph_[q];\n"
+         "    if (tid == 0) {\n        sim3_duals(7, x, sim, T[0]);"),
+    ])
+
+
+K7_TAIL_PHASES = ["first pass (L2 reads, keys, counts, top byte's bins)",
+                  "count sum", "three radix passes and scans",
+                  "writes (L2 reads, depth, stores)"]
+
+
+def _k7_stamped_source(text):
+    """stereo_sad.cu with thread 0 of the last block adding the cycles of
+    each phase of its tail (K7_TAIL_PHASES), written to a buffer set by
+    set_stamp_buf."""
+    st = ("#define STAMP(k) if (stamp_on_) { long long t_ = clock64(); "
+          "ph_[k] += t_ - last_; last_ = t_; }\n")
+    return _patch(text, [
+        ("#define INF_BITS 0x7f800000u\n",
+         "#define INF_BITS 0x7f800000u\n__device__ long long* k7_stamps;\n"
+         "extern \"C\" int set_stamp_buf(void* p) {\n"
+         "    return (int)cudaMemcpyToSymbol(k7_stamps, &p, sizeof(p));\n}\n"
+         + st),
+        ("    const int tid = threadIdx.x;\n    // the median",
+         "    const int tid = threadIdx.x;\n"
+         "    const bool stamp_on_ = k7_stamps && tid == 0;\n"
+         "    long long ph_[4] = {0, 0, 0, 0};\n"
+         "    long long last_ = clock64();\n    // the median"),
+        ("    const unsigned n_m = block_sum(c, s_warp);\n",
+         "    STAMP(0);\n    const unsigned n_m = block_sum(c, s_warp);\n"
+         "    STAMP(1);\n"),
+        ("    const float thr = __fmul_rn(disp_coef, "
+         "__uint_as_float(prefix));\n",
+         "    STAMP(2);\n    const float thr = __fmul_rn(disp_coef, "
+         "__uint_as_float(prefix));\n"),
+        ("    if (tid == 0) *ticket = 0u;\n",
+         "    STAMP(3);\n    if (stamp_on_)\n"
+         "        for (int q = 0; q < 4; ++q) k7_stamps[q] = ph_[q];\n"
+         "    if (tid == 0) *ticket = 0u;\n"),
+    ])
+
+
+def _stamp_run(lib, name, call, n):
+    """Cycles by phase of one call() through `lib` in place of this tree's
+    build of `name` (its stamp buffer set for that call only)."""
+    lib.set_stamp_buf.argtypes = [ctypes.c_void_p]
+    lib.set_stamp_buf.restype = ctypes.c_int
+    buf = torch.zeros(n, dtype=torch.int64, device="cuda")
+    old = _swap_lib(name, lib)
+    try:
+        call()
+        cuda_build.check(lib.set_stamp_buf(buf.data_ptr()), "stamps")
+        got = call()
+        torch.cuda.synchronize()
+        cuda_build.check(lib.set_stamp_buf(None), "stamps")
+    finally:
+        _restore_lib(name, old)
+    return got, buf.cpu().numpy().astype(float).tolist()
+
+
+def _k7_stamps(tmp, args):
+    """This tree's K7 with thread 0 of the last block stamping its tail
+    (clock64 cycles), on one call's inputs."""
+    from morb_slam_tpu_torch.ops import stereo
+    d = tempfile.mkdtemp(dir=tmp)
+    text = open(os.path.join(cuda_build.CSRC, "stereo_sad.cu")).read()
+    lib, _ = _build(d, "stereo_sad", _k7_stamped_source(text))
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.stereo_sad.argtypes = [P, P, I, I, P, P, P, P, I, P, Fl, Fl, Fl,
+                               I] + [P] * 8
+    lib.stereo_sad.restype = I
+    want = stereo.refine_and_filter(*args)
+    got, c = _stamp_run(lib, "stereo_sad",
+                        lambda: stereo.refine_and_filter(*args), 4)
+    return dict(bits=_equal_fields(got, want, got._fields),
+                cycles=dict(zip(K7_TAIL_PHASES, c)))
+
+
+def _k18_earlier_stamps(tmp, csrc, args):
+    """The earlier refinement (one block) with thread 0 stamping its
+    phases (clock64 cycles summed over the launch), on one call's
+    inputs."""
+    from morb_slam_tpu_torch.pipeline import loop_closing as lc
+    d = tempfile.mkdtemp(dir=tmp)
+    text = open(os.path.join(csrc, "sim3_verify.cu")).read()
+    lib, _ = _k18_lib(d, None, _k18_earlier_stamped_source(text))
+    _, c = _stamp_run(lib, "sim3_verify", lambda: lc.sim3_refine(*args), 8)
+    return dict(cycles=dict(zip(K18_EARLIER_PHASES, c)),
+                total_cycles=float(sum(c)))
+
+
+class _Compare7_18:
+    """Every K7 launch of match_stereo (`stereo.refine_and_filter`) and
+    every K18 refinement (`loop_closing.sim3_refine`) on CUDA tensors also
+    run through the earlier kernels on the same inputs: calls and
+    bitwise-equal calls, the first unequal call's fields, and the last
+    call's inputs (K18: every call's) kept for the timings."""
+
+    def __init__(self, lib7, lib18):
+        from morb_slam_tpu_torch.ops import stereo
+        from morb_slam_tpu_torch.pipeline import loop_closing as lc
+        self.stereo, self.lc, self.lib7, self.lib18 = stereo, lc, lib7, lib18
+        self.stats, self.last, self.k18_args = {}, {}, []
 
     def _count(self, mode, eq):
         st = self.stats.setdefault(mode, dict(calls=0, bitwise_equal=0))
@@ -1024,296 +1236,146 @@ class _Compare:
             st["first_unequal"] = eq
 
     def __enter__(self):
-        ba = self.ba
-        self.saved = (ba.assemble, vi_ba.inertial_terms)
-        a4, t13 = self.saved
+        stereo, lc = self.stereo, self.lc
+        self.saved = (stereo.refine_and_filter, stereo.match_stereo,
+                      lc.sim3_refine)
+        k7, ms, k18 = self.saved
 
-        def assemble(p, R, t, X, order=None, body=False, per_obs=False):
-            got = a4(p, R, t, X, order, body, per_obs)
-            old = _k4_old(self.lib4, p, R, t, X, order, body, per_obs)
-            mode = "per_obs" if per_obs else ("local, body tangent" if body
-                                              else "local, camera tangent")
-            self._count(mode, _equal_fields(got, old, got._fields))
-            self.last[mode] = (p, R, t, X, order, body, per_obs)
+        def refine_and_filter(*a):
+            got = k7(*a)
+            if a[0].is_cuda:
+                old = _k7_old(self.lib7, *a)
+                self._count("K7 match_stereo tail",
+                            _equal_fields(got, old, got._fields))
+                self.last["K7"] = a
             return got
 
-        def terms(p, R_wb, p_wb, v, bias, Hpp, bp, system=True):
-            got = t13(p, R_wb, p_wb, v, bias, Hpp, bp, system)
-            old = _k13_old(self.lib13, p, R_wb, p_wb, v, bias, Hpp, bp)
-            self._count("inertial_terms", _equal_fields(
-                got, old, ("H", "b", "cost")))
-            self.last["inertial_terms"] = (p, R_wb, p_wb, v, bias, Hpp, bp)
+        def match_stereo(*a, **kw):
+            self.last["match_stereo"] = (a, kw)
+            return ms(*a, **kw)
+
+        def sim3_refine(*a):
+            got = k18(*a)
+            if a[0].is_cuda:
+                old = _k18_with(self.lib18, a, k18)
+                self._count("K18 sim3_refine", _equal_fields(
+                    got, old, ("s", "R", "t", "n_good")))
+                self.k18_args.append(_clone_args(a))
             return got
-        ba.assemble, vi_ba.inertial_terms = assemble, terms
+        stereo.refine_and_filter = refine_and_filter
+        stereo.match_stereo = match_stereo
+        lc.sim3_refine = sim3_refine
         return self
 
     def __exit__(self, *exc):
-        self.ba.assemble, vi_ba.inertial_terms = self.saved
+        (self.stereo.refine_and_filter, self.stereo.match_stereo,
+         self.lc.sim3_refine) = self.saved
 
 
-def _k4_times(lib_old, args, reps):
-    """This tree's K4 against the earlier one on one problem: bits,
-    kernel device ms, kernels and call ms per call."""
-    from morb_slam_tpu_torch.optim import ba
-    p, R, t, X, order, body, per_obs = args
-    order = ba.obs_order(p) if order is None else order
-    new = lambda: ba.assemble(p, R, t, X, order, body, per_obs)  # noqa
-    old = lambda: _k4_old(lib_old, p, R, t, X, order, body,  # noqa: E731
-                          per_obs)
-    got = new()
-    return dict(
-        K=R.shape[0], L=X.shape[0], O=p.obs_uv.shape[0],
-        active_obs=int(p.obs_mask.sum()), body=body, per_obs=per_obs,
-        bitwise_equal_earlier=_equal_fields(got, old(), got._fields),
-        repeat_bitwise_equal=all(torch.equal(a, b)
-                                 for a, b in zip(got, new())),
-        ms=cs.device_ms(new, "ba_assemble_kernel", reps),
-        ms_earlier=cs.device_ms(old, "ba_assemble_kernel", reps),
-        ms_earlier_all_kernels=cs.device_ms(old, None, reps),
-        ms_earlier_all_kernels_is="the kernel, its zero fills and copies",
-        ms_all_kernels=cs.device_ms(new, None, reps),
-        kernels_per_call=cs.kernels_per_call(new),
-        kernels_per_call_earlier=cs.kernels_per_call(old),
-        call_ms=cs.time_ms(new), call_ms_earlier=cs.time_ms(old),
-        bound_ms=cs._ba_bound(p, per_obs)[0][0])
+def _clone_args(a):
+    return tuple(x.clone() if torch.is_tensor(x) else x for x in a)
 
 
-def _k13_times(lib_old, args, reps):
-    """This tree's K13 against the earlier one on one window problem."""
-    new = lambda: vi_ba.inertial_terms(*args)              # noqa: E731
-    old = lambda: _k13_old(lib_old, *args)                 # noqa: E731
-    got = new()
-    p = args[0]
-    return dict(
-        W=p.R_wb.shape[0], valid_edges=int(p.e_valid.sum()),
-        bitwise_equal_earlier=_equal_fields(got, old(), ("H", "b", "cost")),
-        repeat_bitwise_equal=all(torch.equal(a, b)
-                                 for a, b in zip(got, new())),
-        ms=cs.device_ms(new, "vi_terms_kernel", reps),
-        ms_is="its one cooperative launch",
-        ms_earlier=cs.span_ms(old, "vi_edge_kernel", "vi_cost_kernel", reps),
-        ms_earlier_is="from its edge kernel's start to its cost kernel's "
-                      "end (system and cost: three launches)",
-        ms_parts_earlier={k: cs.device_ms(old, k, reps) for k in (
-            "vi_edge_kernel", "vi_assemble_kernel", "vi_cost_kernel")},
-        kernels_per_call=cs.kernels_per_call(new),
-        kernels_per_call_earlier=cs.kernels_per_call(old),
-        call_ms=cs.time_ms(new), call_ms_earlier=cs.time_ms(old))
+def _k7_times(lib7, args, match, reps):
+    """This tree's K7 launch against the earlier tail (the gather, the
+    earlier kernel, filter_matches) on one call's inputs, and both trees'
+    whole match_stereo (the row search, then the tail): bits, device ms of
+    the K7 kernel and of every kernel, kernels and event ms per call."""
+    from morb_slam_tpu_torch.ops import stereo
+    new = lambda: stereo.refine_and_filter(*args)    # noqa: E731
+    old = lambda: _k7_old(lib7, *args)               # noqa: E731
+    got, want = new(), old()
+    a, kw = match
+    m = dict(zip(("feats_l", "feats_r", "img_l", "img_r", "scale_factors",
+                  "bf", "min_z"), a), **kw)
+    feats_l, feats_r, img_l, img_r = (m[k] for k in ("feats_l", "feats_r",
+                                                     "img_l", "img_r"))
+    sf, bf = m["scale_factors"], m["bf"]
+    max_d = bf / m["min_z"]
+
+    def match_old():
+        best_idx, matched = stereo.row_search(feats_l, feats_r, sf, max_d)
+        return _k7_old(lib7, img_l, img_r, feats_l.uv, feats_r.uv, best_idx,
+                       matched, bf, max_d)
+    match_new = lambda: stereo.match_stereo(*a, **kw)   # noqa: E731
+    res = dict(bits=_equal_fields(got, want, got._fields),
+               match_stereo_bits=_equal_fields(match_new(), match_old(),
+                                               got._fields),
+               n=args[2].shape[0], kept=int(got.valid.sum()))
+    # earlier, this tree, this tree, earlier
+    for tag, fn in (("earlier", old), ("new", new), ("new", new),
+                    ("earlier", old)):
+        r = res.setdefault(tag, dict(k7_kernel_ms=[], device_ms=[],
+                                     call_ms=[]))
+        r["k7_kernel_ms"].append(cs.device_ms(fn, "stereo_sad_kernel",
+                                              reps=reps))
+        r["device_ms"].append(cs.device_ms(fn, None, reps=reps))
+        r["call_ms"].append(cs.time_ms(fn))
+    for tag, fn in (("earlier", old), ("new", new)):
+        res[tag]["kernels_per_call"] = cs.kernels_per_call(fn)
+    for tag, fn in (("earlier", match_old), ("new", match_new),
+                    ("new", match_new), ("earlier", match_old)):
+        r = res[tag].setdefault("match_stereo", dict(device_ms=[],
+                                                     call_ms=[]))
+        r["device_ms"].append(cs.device_ms(fn, None, reps=reps))
+        r["call_ms"].append(cs.time_ms(fn))
+    for tag, fn in (("earlier", match_old), ("new", match_new)):
+        res[tag]["match_stereo"]["kernels_per_call"] = \
+            cs.kernels_per_call(fn)
+    return res
 
 
-def _k4_part(text, part):
-    """ba_assemble.cu (either tree's) with every block but one kind's
-    returning at once: `kf` the keyframe blocks, `lm` the landmark blocks,
-    `slot` the slot blocks (this tree's per-observation mode) alone."""
-    kf = "    if ((int)blockIdx.x < K) {\n"
-    if part == "kf":
-        after = "    const int b0 = blockIdx.x - K;\n"
-        if after not in text:
-            after = "    // ---- landmark l"
-        return _replace_once(text, after, "    return;\n" + after)
-    if part == "lm":
-        text = _replace_once(text, kf, kf + "        if (K >= 0) return;\n")
-        if "// ---- per-observation mode" in text:
-            text = _replace_once(text, "    // ---- per-observation mode",
-                                 "    return;\n    // ---- per-observation "
-                                 "mode")
-        return text
-    text = _replace_once(text, kf, kf + "        if (K >= 0) return;\n")
-    return _replace_once(text, "    if (b0 < lm_blocks) {\n",
-                         "    if (b0 < lm_blocks) {\n        return;\n")
+def _k18_times(lib18, libs, args, reps):
+    """The refinement on one call's inputs: the earlier kernel, this
+    tree's and this tree's variants (`libs`: {name: lib}), bits against
+    the earlier result and device ms of refine_kernel, in the order
+    earlier, this tree, variants, this tree, earlier."""
+    from morb_slam_tpu_torch.pipeline import loop_closing as lc
+    want = _k18_with(lib18, args)
+    res = dict(pairs=int(args[5].sum()), backward=int(args[6].sum()),
+               n=args[0].shape[0])
+    calls = [("earlier", lambda: _k18_with(lib18, args)),
+             ("new", lambda: lc.sim3_refine(*args))] + [
+        (k, lambda v=v: _k18_with(v, args)) for k, v in libs.items()]
+    for tag, fn in calls + calls[1::-1]:
+        r = res.setdefault(tag, dict(refine_ms=[]))
+        r["refine_ms"].append(cs.device_ms(fn, "refine_kernel", reps=reps))
+        r["bits"] = _equal_fields(fn(), want, ("s", "R", "t", "n_good"))
+    return res
 
 
-def _k4_parts(tmp, csrc, args, reps):
-    """Device ms of each kind of block alone, in both trees' K4, on one
-    problem (the others return at once; outputs not checked)."""
-    from morb_slam_tpu_torch.optim import ba
-    p, R, t, X, order, body, per_obs = args
-    order = ba.obs_order(p) if order is None else order
-    out = {}
-    parts = ("kf", "lm") + (("slot",) if per_obs else ())
-    for part in parts:
-        d = os.path.join(tmp, f"new_{part}_{int(per_obs)}")
-        os.makedirs(d, exist_ok=True)
-        lib, _ = _k4_old_lib(d, cuda_build.CSRC,
-                             lambda x, part=part: _k4_part(x, part))
-        out[part] = cs.device_ms(lambda: _k4_old(
-            lib, p, R, t, X, order, body, per_obs), "ba_assemble_kernel",
-            reps)
-        if part == "slot":
-            continue
-        d = os.path.join(tmp, f"old_{part}_{int(per_obs)}")
-        os.makedirs(d, exist_ok=True)
-        lib, _ = _k4_old_lib(d, csrc, lambda x, part=part: _k4_part(x, part))
-        out[f"earlier {part}"] = cs.device_ms(lambda: _k4_old(
-            lib, p, R, t, X, order, body, per_obs), "ba_assemble_kernel",
-            reps)
-    return out
-
-
-def _k4_per_block(tmp, named_args, reps):
-    """This tree's K4 built at 32, 64, 128 and 256 landmarks a landmark
-    block: bits against the default build and device ms on each problem."""
-    from morb_slam_tpu_torch.optim import ba
-    text = open(os.path.join(cuda_build.CSRC, "ba_assemble.cu")).read()
-    out = {}
-    for n in (32, 64, 128, 256):
-        d = os.path.join(tmp, f"lm_per_block_{n}")
-        os.makedirs(d)
-        lib, ptx = _build(d, "ba_assemble", _define(text, "LM_PER_BLOCK", n))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        n_p, n_i, n_q = K4_OLD_ARGS
-        lib.ba_assemble.argtypes = [P] * n_p + [I] * n_i + [P] * n_q
-        lib.ba_assemble.restype = I
-        res = {"ptxas": ptx.strip()}
-        for name, (p, R, t, X, order, body, per_obs) in named_args.items():
-            order = ba.obs_order(p) if order is None else order
-            want = ba.assemble(p, R, t, X, order, body, per_obs)
-            old = _swap_lib("ba_assemble", lib)
-            try:
-                call = lambda: ba.assemble(p, R, t, X, order, body,  # noqa
-                                           per_obs)
-                res[name] = dict(
-                    bitwise_equal=all(torch.equal(a, b)
-                                      for a, b in zip(call(), want)),
-                    ms=cs.device_ms(call, "ba_assemble_kernel", reps))
-            finally:
-                _restore_lib("ba_assemble", old)
-        out[n] = res
-    return out
-
-
-def _k13_threads(tmp, args, reps):
-    """This tree's K13 built at 128 and 256 threads a block (the edge
-    blocks' products and the assembly's grid stride): bits against the
-    default build and device ms of a call."""
-    from morb_slam_tpu_torch.optim import vi_ba as vb
-    text = open(os.path.join(cuda_build.CSRC, "vi_edges.cu")).read()
-    want = vb.inertial_terms(*args)
-    out = {}
-    for n in (128, 256):
-        d = os.path.join(tmp, f"k13_threads_{n}")
-        os.makedirs(d)
-        for h in ("imu_edge.cuh", "dual.cuh"):
-            shutil.copy(os.path.join(cuda_build.CSRC, h), d)
-        lib, ptx = _build(d, "vi_edges", _define(text, "THREADS", n))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.vi_terms.argtypes = [P] * 6 + [I] + [P] * 7
-        lib.vi_terms.restype = I
-        old = _swap_lib("vi_edges", lib)
-        try:
-            call = lambda: vb.inertial_terms(*args)          # noqa: E731
-            got = call()
-            out[n] = dict(
-                bitwise_equal=all(torch.equal(a, b)
-                                  for a, b in zip(got, want)),
-                ms=cs.device_ms(call, "vi_terms_kernel", reps),
-                ptxas=ptx.strip())
-        finally:
-            _restore_lib("vi_edges", old)
-    return out
-
-
-K13_PHASES = ["edge terms and lists (edge blocks), lists and dead chunks' "
-              "zeros (the others)", "(none)", "grid barrier",
-              "live chunks, b and the cost"]
-
-
-def _k13_stamped_source(text):
-    """vi_edges.cu with thread 0 of every block writing the cycles of its
-    four phases (K13_PHASES) to a buffer set by set_stamp_buf."""
-    text = _patch(text, [
-        ("    cooperative_groups::grid_group grid = "
-         "cooperative_groups::this_grid();\n",
-         "    cooperative_groups::grid_group grid = "
-         "cooperative_groups::this_grid();\n"
-         "    const long long t0_ = clock64();\n"),
-        ("    const Window w{W, NW, smem, (const unsigned*)(smem + W),\n"
-         "                   (const unsigned*)(smem + W) + W * NW};\n"
-         "    grid.sync();\n",
-         "    const long long t1_ = clock64();\n"
-         "    const Window w{W, NW, smem, (const unsigned*)(smem + W),\n"
-         "                   (const unsigned*)(smem + W) + W * NW};\n"
-         "    grid.sync();\n"),
-        ("    grid.sync();\n    if (blockIdx.x",
-         "    const long long t2_ = clock64();\n    grid.sync();\n"
-         "    const long long t3_ = clock64();\n    if (blockIdx.x"),
-        ("            for (int t = 0; f + t < nH; ++t) H[f + t] = v[t];\n    }\n}\n",
-         "            for (int t = 0; f + t < nH; ++t) H[f + t] = v[t];\n    }\n"
-         "    if (k13_stamps && tid == 0) {\n"
-         "        long long* o_ = k13_stamps + 4 * blockIdx.x;\n"
-         "        o_[0] = t1_ - t0_; o_[1] = t2_ - t1_; o_[2] = t3_ - t2_;\n"
-         "        o_[3] = clock64() - t3_;\n    }\n}\n"),
-        ("#define THREADS 256\n",
-         "#define THREADS 256\n__device__ long long* k13_stamps;\n"
-         "extern \"C\" int set_stamp_buf(void* p) {\n"
-         "    return (int)cudaMemcpyToSymbol(k13_stamps, &p, sizeof(p));\n}\n"),
-    ])
-    return text
-
-
-def _k13_stamps(tmp, args):
-    """This tree's K13 with thread 0 of every block stamping its phases
-    (clock64 cycles): edge blocks and assembly blocks summarized apart."""
-    from morb_slam_tpu_torch.optim import vi_ba as vb
-    d = os.path.join(tmp, "k13_stamped")
-    os.makedirs(d)
-    for h in ("imu_edge.cuh", "dual.cuh"):
-        shutil.copy(os.path.join(cuda_build.CSRC, h), d)
-    text = open(os.path.join(cuda_build.CSRC, "vi_edges.cu")).read()
-    lib, ptx = _build(d, "vi_edges", _k13_stamped_source(text))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.vi_terms.argtypes = [P] * 6 + [I] + [P] * 7
-    lib.vi_terms.restype = I
-    lib.set_stamp_buf.argtypes = [P]
-    lib.set_stamp_buf.restype = I
-    buf = torch.zeros(4 * 1024, dtype=torch.int64, device="cuda")
-    want = vb.inertial_terms(*args)
-    old = _swap_lib("vi_edges", lib)
-    try:
-        vb.inertial_terms(*args)
-        cuda_build.check(lib.set_stamp_buf(buf.data_ptr()), "stamps")
-        got = vb.inertial_terms(*args)
-        torch.cuda.synchronize()
-        cuda_build.check(lib.set_stamp_buf(None), "stamps")
-    finally:
-        _restore_lib("vi_edges", old)
-    W = args[0].R_wb.shape[0]
-    c = buf.view(-1, 4).cpu().numpy().astype(float)
-    n = int((c.sum(1) > 0).sum())
-    return dict(bitwise_equal_unstamped=all(
-        torch.equal(a, b) for a, b in zip(got, want)), blocks=n,
-        edge_blocks=_phase_summary(c[:W], K13_PHASES),
-        assembly_blocks=_phase_summary(c[W:n], K13_PHASES),
-        ptxas=ptx.strip())
-
-
-def _k4_k13(csrc, reps):
-    """This tree's K4 and K13 against the earlier ones (commit 001dca8),
-    built beside them: the stereo, vi and loop paths with every K4 and K13
-    call also run through the earlier kernels (bitwise-equal calls by
-    mode), then both trees' times on each mode's last problem of the paths
-    and on the loop phase's global BA problem at its capacities, the
-    device time of each kind of K4 block alone, K4 at other landmark-block
-    sizes and K13 at other block sizes."""
-    from morb_slam_tpu_torch.optim import ba
+def _k7_k18(csrc, reps):
+    """This tree's K7 and K18 against the earlier ones (commit 08f7233),
+    built beside them: the stereo, vi, loop and vi_loop paths with every
+    K7 launch and every K18 refinement also run through the earlier
+    kernels (bitwise-equal calls), then both trees' times on the stereo
+    path's last K7 call and match_stereo and on every K18 call, with this
+    tree's refinement also at 16 blocks a cluster."""
+    cuda_build.build(("stereo_sad", "sim3_verify"))
     res = dict(card=cs.nvidia_smi(), sources=csrc,
-               ptxas=dict(ba_assemble=cuda_build.ptxas_report(
-                   "ba_assemble").strip(), vi_edges=cuda_build.ptxas_report(
-                   "vi_edges").strip()))
+               ptxas=dict(stereo_sad=cuda_build.ptxas_report(
+                   "stereo_sad").strip(), sim3_verify=cuda_build.ptxas_report(
+                   "sim3_verify").strip()))
     with tempfile.TemporaryDirectory() as tmp:
-        d4, d13 = os.path.join(tmp, "old4"), os.path.join(tmp, "old13")
-        os.makedirs(d4)
-        os.makedirs(d13)
-        lib4, ptx4 = _k4_old_lib(d4, csrc)
-        lib13, ptx13 = _k13_old_lib(d13, csrc)
-        res["ptxas_earlier"] = dict(ba_assemble=ptx4.strip(),
-                                    vi_edges=ptx13.strip())
+        d7, d18, d16 = (os.path.join(tmp, d) for d in ("old7", "old18",
+                                                       "new16"))
+        for d in (d7, d18, d16):
+            os.makedirs(d)
+        lib7, ptx7 = _k7_old_lib(d7, csrc)
+        lib18, ptx18 = _k18_lib(d18, csrc)
+        text = open(os.path.join(cuda_build.CSRC, "sim3_verify.cu")).read()
+        lib16, ptx16 = _k18_lib(d16, None, _non_portable(_define(_define(
+            text, "CL", 16), "MR", 20)))
+        res["ptxas_earlier"] = dict(stereo_sad=ptx7.strip(),
+                                    sim3_verify=ptx18.strip())
+        res["ptxas_16_blocks"] = ptx16.strip()
         state = {"profile_out": None, "plain_rows": []}
         cs.phase_device(state)
-        last = {}
+        last, k18_args = {}, []
         for name, phase in (("stereo", cs.phase_stereo),
-                            ("vi", cs.phase_vi), ("loop", cs.phase_loop)):
-            with _Compare(lib4, lib13) as cmp:
+                            ("vi", cs.phase_vi), ("loop", cs.phase_loop),
+                            ("vi_loop", cs.phase_vi_loop)):
+            with _Compare7_18(lib7, lib18) as cmp:
                 try:
                     phase(state)
                 except AssertionError as e:
@@ -1321,39 +1383,33 @@ def _k4_k13(csrc, reps):
                     # comparisons up to it stand), the tool exits non-zero
                     res.setdefault("gates_missed", {})[name] = repr(e)
             res[f"{name} path"] = cmp.stats
-            last.update({f"{name}: {k}": v for k, v in cmp.last.items()})
-            _write(res, "kernel_phases_k4_k13.json")
-        torch.cuda.empty_cache()
-        times = {k: (_k13_times(lib13, v, reps) if "inertial_terms" in k
-                     else _k4_times(lib4, v, reps)) for k, v in last.items()}
-        p = cs._global_problem()
-        gargs = (p, p.R, p.t, p.X, ba.obs_order(p), False, True)
-        times["capacities: per_obs"] = _k4_times(lib4, gargs, reps)
-        res["times"] = times
-        _write(res, "kernel_phases_k4_k13.json")
-        parts = {}
-        for k in ("stereo: local, camera tangent", "loop: per_obs"):
-            if k in last:
-                parts[k] = _k4_parts(tmp, csrc, last[k], reps)
-        parts["capacities: per_obs"] = _k4_parts(tmp, csrc, gargs, reps)
-        res["k4_parts_ms"] = parts
-        res["k4_landmarks_per_block"] = _k4_per_block(tmp, {
-            k: v for k, v in list(last.items()) + [
-                ("capacities: per_obs", gargs)]
-            if k in ("stereo: local, camera tangent", "vi: local, body tangent",
-                     "loop: per_obs", "capacities: per_obs")}, reps)
-        _write(res, "kernel_phases_k4_k13.json")
-        if "vi: inertial_terms" in last:
-            res["k13_threads"] = _k13_threads(tmp, last["vi: inertial_terms"],
-                                              reps)
-            res["k13_stamps"] = _k13_stamps(tmp, last["vi: inertial_terms"])
+            if name == "stereo":
+                last = dict(cmp.last)
+            k18_args += [(name, a) for a in cmp.k18_args]
+            _write(res, "kernel_phases_k7_k18.json")
+            torch.cuda.empty_cache()
+        if "K7" in last and "match_stereo" in last:
+            res["k7_times"] = _k7_times(lib7, last["K7"],
+                                        last["match_stereo"], reps)
+        _write(res, "kernel_phases_k7_k18.json")
+        res["k18_times"] = [dict(path=name, **_k18_times(
+            lib18, {"new_16_blocks": lib16}, a, reps))
+            for name, a in k18_args]
+        _write(res, "kernel_phases_k7_k18.json")
+        res["k18_stamps"] = [dict(path=name, **_k18_stamps(tmp, a))
+                             for name, a in k18_args[:1] + k18_args[-1:]]
+        res["k18_stamps_earlier"] = [
+            dict(path=name, **_k18_earlier_stamps(tmp, csrc, a))
+            for name, a in k18_args[:1] + k18_args[-1:]]
+        if "K7" in last:
+            res["k7_stamps"] = _k7_stamps(tmp, last["K7"])
     return res
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--csrc", help="morb_slam_tpu_torch/csrc of commit "
-                    "001dca8 (the earlier K4 and K13; with --k4 --k13)")
+                    "08f7233 (the earlier K7 and K18; with --k7 --k18)")
     ap.add_argument("--new", action="store_true",
                     help="stamp this tree's kernels (K12 unless --k5, --k1, "
                     "--k3 or --k6 is given)")
@@ -1363,27 +1419,30 @@ def main():
                     help="stamp K3's gated mode instead")
     ap.add_argument("--k6", action="store_true",
                     help="stamp K6's one launch instead")
-    ap.add_argument("--k4", action="store_true",
-                    help="with --k13 and --csrc: this tree's K4 and K13 "
-                    "against the earlier ones on the paths' problems")
-    ap.add_argument("--k13", action="store_true",
-                    help="with --k4 and --csrc (see --k4)")
+    ap.add_argument("--k7", action="store_true",
+                    help="with --k18 and --csrc: this tree's K7 and K18 "
+                    "against the earlier ones on the paths' calls")
+    ap.add_argument("--k18", action="store_true",
+                    help="with --k7 and --csrc (see --k7)")
     ap.add_argument("--reps", type=int, default=20)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     if a.new == bool(a.csrc):
         raise SystemExit("give --csrc or --new")
-    if a.k4 or a.k13:
-        if not (a.k4 and a.k13 and a.csrc) or a.k3 or a.k6 or a.k5 or a.k1:
-            raise SystemExit("--k4 --k13 go with --csrc alone")
-        res = _k4_k13(a.csrc, a.reps)
-        _write(res, "kernel_phases_k4_k13.json")
-        if "gates_missed" in res:
-            raise SystemExit(f"gates missed: {res['gates_missed']}")
+    if a.k7 or a.k18:
+        if not (a.k7 and a.k18 and a.csrc) or a.k3 or a.k6 or a.k5 or a.k1:
+            raise SystemExit("--k7 --k18 go with --csrc alone")
+        res = _k7_k18(a.csrc, a.reps)
+        _write(res, "kernel_phases_k7_k18.json")
+        bad = {p: st for p, v in res.items() if p.endswith(" path")
+               for st in v.values() if st["bitwise_equal"] != st["calls"]}
+        if "gates_missed" in res or bad:
+            raise SystemExit(f"gates missed: {res.get('gates_missed')}; "
+                             f"unequal calls: {bad}")
         return
     if a.csrc:
-        raise SystemExit("--csrc goes with --k4 --k13 only")
+        raise SystemExit("--csrc goes with --k7 --k18 only")
     if a.k3 or a.k6:
         res = dict(card=cs.nvidia_smi(), sources="this tree")
         if a.k3:
