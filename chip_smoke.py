@@ -289,7 +289,7 @@ RANGES = ("K4 ba_solve", "K4 ba_assemble", "K5 optimize_pose",
 # NVIDIA's H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12             # float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12            # bf16 tensor cores, dense
+INT8_OPS_PER_S = 1979e12           # int8 tensor cores, dense
 
 
 def log(*a):
@@ -939,16 +939,6 @@ def phase_kernels(state):
         gated[mode] = _k3_gated_numbers(args, mode, max_d, time_plain=(
             mode == "window"))
     g = gated["window"]
-    n, mm = big_desc.shape[0], f0.desc.shape[0]
-    # hamming_matrix_mxu (ops/hamming.py:40) computes the whole (n, m) int32
-    # distance matrix as a +-1 product over 256 bits: the descriptors in,
-    # the matrix out once; 2 * 256 operations per pair at the dense bf16
-    # tensor-core rate
-    mxu_b = n * mm * 4 + (n + mm) * 32
-    mxu_t = (mxu_b / HBM_BYTES_PER_S * 1e3,
-             2 * 256 * n * mm / BF16_OPS_PER_S * 1e3)
-    mxu_bound = (max(mxu_t), "bytes" if mxu_t[0] >= mxu_t[1]
-                 else "operations")
     rows.append(dict(name="hamming_top2", route="cuda",
                      source="morb_slam_tpu_torch/csrc/hamming_top2.cu",
                      replaces="morb_slam_tpu/ops/hamming.py:53",
@@ -963,10 +953,9 @@ def phase_kernels(state):
                      before_is="the dense gate composition + the masked "
                                "K3, the same function before this design",
                      gated=gated, masked_mode=masked,
-                     hamming_matrix_mxu_bound_ms=mxu_bound[0],
-                     hamming_matrix_mxu_bound_by=mxu_bound[1],
                      ptxas=_ptxas("hamming_top2"),
                      shape="4096x1200 (one launch)"))
+    rows.append(_k19_row(big_desc.contiguous(), f0.desc))
     rows.append(_k6_row(frames[0], cfg))
     _stereo_kernels(state, rows)
     _reloc_kernels(state, rows)
@@ -979,6 +968,74 @@ def phase_kernels(state):
             f"{r['call_ms']:.4f} ms per call by events (plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
             f"{r['bound_by']})")
+
+
+def _k19_row(a, b):
+    """K19 (hamming_matrix_mxu) on the main path's frame descriptors at
+    4096x1200 and on random ones at a ragged 1000x777: bitwise equal to its
+    plain version and to K3's hamming_matrix. ms by the profiler, call_ms
+    and plain_ms by CUDA events, library_ms torch._int_mm on the +-1 int8
+    matrices, their unpacking included."""
+    from morb_slam_tpu_torch.ops import hamming
+    from morb_slam_tpu_torch.ops.orb_descriptor import unpack_bits
+    g = torch.Generator(device=DEV).manual_seed(19)
+    ra, rb = (torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 8), generator=g,
+                            device=DEV, dtype=torch.int64).to(torch.int32)
+              for n in (1000, 777))
+    for name, (x, y) in (("4096x1200 frame descriptors", (a, b)),
+                         ("1000x777 random", (ra, rb))):
+        n0 = hamming.MXU_LAUNCHES["kernel"]
+        got = hamming.hamming_matrix_mxu(x, y)
+        check(hamming.MXU_LAUNCHES["kernel"] == n0 + 1,
+              ("K19 launches counted per call", name))
+        plain = hamming.hamming_matrix_mxu_plain(x, y)
+        ref = hamming.hamming_matrix(x, y)
+        check(torch.equal(got, plain) and torch.equal(got, ref),
+              (f"K19 hamming_matrix_mxu {name}: differs from its plain "
+               f"version ({int((got != plain).sum())} entries) or "
+               f"hamming_matrix ({int((got != ref).sum())})"))
+        log(f"K19 hamming_matrix_mxu {name}: bitwise equal to its plain "
+            f"version and to hamming_matrix")
+
+    def call():
+        return hamming.hamming_matrix_mxu(a, b)
+
+    def library():
+        sa = unpack_bits(a).to(torch.int8) * 2 - 1
+        sb = unpack_bits(b).to(torch.int8) * 2 - 1
+        return torch._int_mm(sa, sb.T)
+    check(torch.equal((256 - library()) // 2, call()),
+          "K19: torch._int_mm's +-1 product gives another matrix")
+    n, m = a.shape[0], b.shape[0]
+    # the descriptors in, the whole int32 matrix out once; 2 x 256
+    # operations a pair at the dense int8 tensor-core rate
+    t_b = (n * m * 4 + (n + m) * 32) / HBM_BYTES_PER_S * 1e3
+    t_o = 2 * 256 * n * m / INT8_OPS_PER_S * 1e3
+    row = dict(name="hamming_mxu", route="cuda",
+               source="morb_slam_tpu_torch/csrc/hamming_mxu.cu",
+               replaces="morb_slam_tpu/ops/hamming.py:40", max_abs_err=0.0,
+               ms=device_ms(call, "hamming_mxu_kernel"),
+               call_ms=time_ms(call),
+               plain_ms=time_ms(lambda: hamming.hamming_matrix_mxu_plain(
+                   a, b), reps=10),
+               hamming_matrix_ms=time_ms(lambda: hamming.hamming_matrix(
+                   a, b), reps=10),
+               bound_ms=max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations",
+               bound_ms_bytes=t_b, bound_ms_int8_ops=t_o,
+               library_ms=device_ms(library, None),
+               library_call_ms=time_ms(library),
+               library="torch._int_mm on the +-1 int8 matrices, the "
+                       "unpacking included (device time, as ms)",
+               counters=["hamming_mxu"], ptxas=_ptxas("hamming_mxu"),
+               shape=f"{n}x{m} frame descriptors (one launch); bitwise "
+                     f"also at 1000x777")
+    log(f"K19 hamming_matrix_mxu {n}x{m}: {row['ms']:.4f} ms on the card, "
+        f"call {row['call_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+        f"torch._int_mm {row['library_ms']:.4f} ms; bound "
+        f"{row['bound_ms']:.5f} ms by {row['bound_by']} (int8 operations "
+        f"{t_o:.5f}); ptxas {row['ptxas']}")
+    return row
 
 
 def k3_gate_inputs(feats, cfg):
@@ -1007,7 +1064,9 @@ def k3_gate_inputs(feats, cfg):
 def _k3_gated_numbers(args, mode, max_d=0.0, time_plain=False):
     """K3's gated mode on one call's inputs (a, b, then the row and column
     gate inputs): best, index and second bitwise equal to its plain
-    version (the dense gate, then hamming_top2_plain) and to the masked
+    version (the gate on the flagged rows and columns, then the distances
+    of the gated pairs alone, `hamming.hamming_top2_gated_plain`, which
+    `plain_ms` times) and to the masked
     kernel on that gate; the kernel's device ms and call ms, and the same
     function before this design (the dense gate composition + the masked
     K3) timed alike; the bound recounted for what the gated kernel reads
@@ -1213,7 +1272,13 @@ def _kernel_counters():
             "stereo_general": stereo.GENERAL_LAUNCHES,
             "inertial_init": inertial.INIT_LAUNCHES,
             "sim3_window": loop_closing.WINDOW_LAUNCHES,
-            "sim3_refine": loop_closing.REFINE_LAUNCHES}
+            "sim3_refine": loop_closing.REFINE_LAUNCHES,
+            "hamming_mxu": hamming.MXU_LAUNCHES}
+
+
+# kernels that no pipeline path calls, as in the reference: each path's
+# count of them is read and must be 0
+NO_PATH_KERNELS = ("hamming_mxu",)
 
 
 def _reset_counters():
@@ -1235,6 +1300,8 @@ def _read_counters(names, path, state, allow_plain=()):
         check(launches[k] > 0, f"{k} never launched on the {path} path")
     check(not any(plain.values()), f"a plain version ran on the {path} path")
     state.setdefault("launches_by_path", {})[path] = launches
+    state.setdefault("all_launches_by_path", {})[path] = {
+        k: c["kernel"] for k, c in counters.items()}
     return launches
 
 
@@ -5255,6 +5322,249 @@ def phase_new_kernels(state):
             f"{r['bound_by']})")
 
 
+def _device_by_kernel(fn, reps=3):
+    """Device milliseconds per fn() by kernel name (the profiler), the
+    profiler's ranges left out."""
+    fn()
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        for _ in range(reps):
+            fn()
+    return {ev.key: ev.self_device_time_total / reps / 1e3
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.key not in RANGES and ev.self_device_time_total > 0}
+
+
+def _close(got, want, atol, what, rtol=0.0):
+    """Fail unless |got - want| <= atol + rtol |want| everywhere (numpy's
+    assert_allclose); returns the largest |got - want|."""
+    d = (got - want).abs()
+    check(bool((d <= atol + rtol * want.abs()).all()),
+          (what, float(d.max()), atol, rtol))
+    return float(d.max())
+
+
+def phase_sharded(state):
+    """The multi-device slice (`parallel/`, `top_candidates_sharded`) on one
+    rank of an nccl group, the card's: the mesh from `global_obs_mesh()`;
+    `pad_problem_for_mesh` and `partition_problem_by_lm` at the loop
+    phase's capacities; `ba_solve_sharded` on a local window (20
+    keyframes, 1,200 landmarks, 24,000 observations) against `ba_solve` at
+    tests/test_sharded_ba.py's tolerances; `ba_solve_pcg_sharded` and
+    `ba_solve_pcg_lm_sharded` at the capacities against `ba_solve_pcg`:
+    one LM step within testing.PCG_TOL of the step's max-abs, four steps'
+    costs within 1e-3 relative; `top_candidates_sharded` on a 256 x 10^4
+    database against `top_candidates`; `global_ba_distributed` and
+    `ba_scaling_efficiency` (a one-rank figure). The counted run shows K4
+    (both modes), K14's passes and K10 launched and no plain version;
+    then the device ms of a CG iteration of the observation-sharded solve
+    and the all_reduces' share of it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from morb_slam_tpu_torch import testing
+    from morb_slam_tpu_torch.optim import ba
+    from morb_slam_tpu_torch.parallel import distributed, sharded_ba
+    from morb_slam_tpu_torch.vocab import database as kfdb
+    t0 = time.perf_counter()
+    mesh = distributed.global_obs_mesh()
+    check(dist.get_backend() == "nccl" and mesh.size() == 1 and
+          mesh.device_type == "cuda", ("sharded: the mesh", mesh))
+    kf_mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("kf",))
+    pad = sharded_ba.pad_problem_for_mesh
+    pl, pg = _window_problem(), _global_problem()
+    O = pg.obs_uv.shape[0]
+    p7 = pad(pg, 7)
+    n_pad = p7.obs_uv.shape[0] - O
+    check(n_pad == (-O) % 7 and not bool(p7.obs_mask[O:].any()) and
+          bool(torch.isnan(p7.obs_ur[O:]).all()) and
+          not bool(p7.obs_info[O:].any()), "sharded: the padding")
+    pn, new2old = sharded_ba.partition_problem_by_lm(pg, 1)
+    n_act = int(pg.obs_mask.sum())
+    check(int(pn.obs_mask.sum()) == n_act and
+          pn.obs_uv.shape[0] == -(-n_act // 8) * 8 and
+          bool((new2old == torch.arange(pg.X.shape[0], device=DEV)).all()),
+          "sharded: the one-block partition")
+    rng = np.random.default_rng(5)
+    bow = rng.random((256, 10 ** 4)) * (rng.random((256, 10 ** 4)) < 0.05)
+    bow = torch.from_numpy((bow / bow.sum(1, keepdims=True))
+                           .astype(np.float32)).to(DEV)
+    db = kfdb.KeyframeDatabase(bow=bow, valid=torch.from_numpy(
+        rng.random(256) < 0.8).to(DEV))
+    q = bow[31]
+    # the single-device references, outside the counted run
+    ref_d = ba.ba_solve(pl, n_iters=6)
+    ref_p = ba.ba_solve_pcg(pg, n_iters=4, cg_iters=40)
+    ref_q = kfdb.top_candidates(db, q, 5)
+    torch.cuda.synchronize()
+
+    _reset_counters()
+    got_d = sharded_ba.ba_solve_sharded(pad(pl, 1), mesh, n_iters=6)
+    got_p = sharded_ba.ba_solve_pcg_sharded(pad(pg, 1), mesh, n_iters=4,
+                                            cg_iters=40)
+    got_l = sharded_ba.ba_solve_pcg_lm_sharded(pn, mesh, n_iters=4,
+                                               cg_iters=40)
+    got_q = kfdb.top_candidates_sharded(db, q, 5, kf_mesh)
+    gba = distributed.global_ba_distributed(pg, mesh, n_iters=2,
+                                            cg_iters=24)
+    eff = distributed.ba_scaling_efficiency(pg, n_iters=1, cg_iters=12,
+                                            mesh=mesh)
+    torch.cuda.synchronize()
+    launches = _read_counters(["ba_assemble", "ba_assemble_per_obs",
+                               "schur_passes", "bow_l1"], "sharded", state)
+    check(_kernel_counters()["schur_pcg"]["kernel"] == 0,
+          "sharded: K14's one-launch solve ran in the sharded solvers")
+
+    out = {"launches": launches, "backend": dist.get_backend(),
+           "mesh_size": mesh.size()}
+    R1, t1, X1, i1 = ref_d
+    R, t, X, info = got_d
+    out["dense_bitwise"] = all(torch.equal(a, b) for a, b in
+                               ((R, R1), (t, t1), (X, X1)))
+    out["dense_err"] = dict(
+        R=_close(R, R1, 1e-5, "ba_solve_sharded R"),
+        t=_close(t, t1, 1e-5, "ba_solve_sharded t"),
+        X=_close(X, X1, 1e-4, "ba_solve_sharded X"),
+        costs=_close(info["costs"], i1["costs"], 0.0, "costs", rtol=1e-4))
+    # the PCG forms: one LM step against the single-device step within
+    # testing.PCG_TOL of the step's max-abs (as K14's solve is held to its
+    # plain version: weakly seen landmarks make later steps differ by more
+    # than the rounding of one), the 4-step costs within 1e-3 relative
+    Rp, tp, Xp, ip = ref_p
+    for name, (R, t, X, info) in (("ba_solve_pcg_sharded", got_p),
+                                  ("ba_solve_pcg_lm_sharded", got_l)):
+        out[f"{name}_costs_rel"] = float(
+            ((info["costs"] - ip["costs"]).abs() / ip["costs"]).max())
+        check(out[f"{name}_costs_rel"] <= 1e-3 and
+              float(info["costs"][-1]) < 0.8 * float(info["cost0"]),
+              (name, "costs", info["costs"].tolist(), ip["costs"].tolist()))
+    Rs, ts, Xs, _ = ba.ba_solve_pcg(pg, n_iters=1, cg_iters=40)
+    keep = new2old >= 0
+    for name, (R, t, X, _) in (
+            ("ba_solve_pcg_sharded", sharded_ba.ba_solve_pcg_sharded(
+                pad(pg, 1), mesh, n_iters=1, cg_iters=40)),
+            ("ba_solve_pcg_lm_sharded", sharded_ba.ba_solve_pcg_lm_sharded(
+                pn, mesh, n_iters=1, cg_iters=40))):
+        if name.endswith("lm_sharded"):
+            X_back = torch.zeros_like(Xs)
+            X_back[new2old[keep]] = X[keep]
+            X = X_back
+        rel = {k: float((a - b).abs().max()) / max(
+            float((b - s0).abs().max()), 1e-30)
+            for k, a, b, s0 in (("R", R, Rs, pg.R), ("t", t, ts, pg.t),
+                                ("X", X, Xs, pg.X))}
+        out[f"{name}_step_rel"] = rel
+        check(max(rel.values()) <= testing.PCG_TOL, (name, "one step", rel))
+    check(torch.equal(got_q[0], ref_q[0]) and torch.equal(got_q[2], ref_q[2]),
+          ("top_candidates_sharded ids", got_q, ref_q))
+    out["place_recognition_err"] = _close(got_q[1], ref_q[1], 1e-5,
+                                          "top_candidates_sharded scores")
+    costs = gba[3]["costs"]
+    check(float(costs[-1]) < 0.8 * float(gba[3]["cost0"]),
+          ("global_ba_distributed cost", gba[3]))
+    out["efficiency_one_rank"] = dict(zip(("ips_full", "ips_1",
+                                           "efficiency"), eff))
+    log(f"sharded: one nccl rank; ba_solve_sharded vs ba_solve "
+        f"{out['dense_err']} (bitwise {out['dense_bitwise']}); "
+        f"against ba_solve_pcg, one LM step relative to the step: "
+        f"ba_solve_pcg_sharded {out['ba_solve_pcg_sharded_step_rel']}, "
+        f"ba_solve_pcg_lm_sharded "
+        f"{out['ba_solve_pcg_lm_sharded_step_rel']}; 4 steps' costs "
+        f"{out['ba_solve_pcg_sharded_costs_rel']:.1e}, "
+        f"{out['ba_solve_pcg_lm_sharded_costs_rel']:.1e} relative; "
+        f"top_candidates_sharded ids equal, scores within "
+        f"{out['place_recognition_err']:.1e}; ba_scaling_efficiency (one "
+        f"rank) {out['efficiency_one_rank']}")
+
+    # device ms a CG iteration of the observation-sharded solve: one LM
+    # step at 8 and at 40 CG iterations, the difference over 32
+    p1 = pad(pg, 1)
+    by = {c: _device_by_kernel(lambda c=c: sharded_ba.ba_solve_pcg_sharded(
+        p1, mesh, n_iters=1, cg_iters=c)) for c in (8, 40)}
+
+    def per_iter(match):
+        return sum(v for k, v in by[40].items() if match(k)) / 32 - \
+            sum(v for k, v in by[8].items() if match(k)) / 32
+    cg = per_iter(lambda k: True)
+    nccl = per_iter(lambda k: "nccl" in k.lower())
+    passes = per_iter(lambda k: "schur_lm_kernel" in k or
+                      "schur_kf_kernel" in k)
+    out["cg_iteration_device_ms"] = cg
+    out["cg_iteration_all_reduce_ms"] = nccl
+    out["cg_iteration_all_reduce_share"] = nccl / cg if cg > 0 else None
+    out["cg_iteration_k14_passes_ms"] = passes
+    out["step_kernels_ms_40_cg"] = by[40]
+    # a CG iteration's two all_reduces, by CUDA events (a one-rank nccl
+    # group may run them without a kernel of their own)
+    group = mesh.get_group()
+    bufs = [torch.zeros(pg.X.shape[0] * 3, device=DEV),
+            torch.zeros(pg.R.shape[0] * 6, device=DEV)]
+    out["all_reduce_call_ms"] = {
+        n: time_ms(lambda b=b: dist.all_reduce(b, group=group))
+        for n, b in zip(("(L, 3)", "(K, 6)"), bufs)}
+    out["cg_iteration_call_ms"] = (time_ms(
+        lambda: sharded_ba.ba_solve_pcg_sharded(p1, mesh, n_iters=1,
+                                                cg_iters=40), reps=3,
+        inner=1) - time_ms(lambda: sharded_ba.ba_solve_pcg_sharded(
+            p1, mesh, n_iters=1, cg_iters=8), reps=3, inner=1)) / 32
+    out["solve_call_ms"] = time_ms(lambda: sharded_ba.ba_solve_pcg_sharded(
+        p1, mesh, n_iters=1, cg_iters=40), reps=3, inner=1)
+    out["shape"] = (f"window K 20, L 1,200, O 24,000; global K {LOOP_K}, L "
+                    f"{LOOP_L}, O {O} ({n_act} active); database 256 x "
+                    f"10^4")
+    log(f"sharded: a CG iteration {cg:.4f} ms of device time, the "
+        f"all_reduces' kernels {nccl:.4f} ms of it, K14's passes "
+        f"{passes:.4f} ms; by events a CG iteration "
+        f"{out['cg_iteration_call_ms']:.4f} ms, an all_reduce "
+        f"{out['all_reduce_call_ms']} ms; a one-step solve (40 CG "
+        f"iterations) {out['solve_call_ms']:.2f} ms; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    state["sharded"] = out
+    dist.destroy_process_group()
+
+
+def _window_problem(seed=40, n_kfs=20, n_pts=1200):
+    """tests/test_optim.py's `build_problem` at a local window's size: 20
+    keyframes over 2 m along x (the first two fixed), each seeing all
+    1,200 landmarks (24,000 observations) with 0.5 px of noise, 30% of
+    them in stereo (0.11 m), the poses and points perturbed from a second
+    seed."""
+    from morb_slam_tpu_torch import lie
+    from morb_slam_tpu_torch.optim import ba
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,  # noqa
+                                  device=DEV)
+    X = f(rng.uniform([-3, -2, 4], [3, 2, 10], (n_pts, 3)))
+    xi = np.zeros((n_kfs, 6))
+    xi[:, 0] = 2.0 * np.arange(n_kfs) / (n_kfs - 1)
+    xi[:, 3:] = rng.normal(0, 0.02, (n_kfs, 3))
+    R, t = lie.se3_exp(f(xi))
+    Xc = lie.se3_apply(R[:, None], t[:, None], X[None])
+    uv = Xc[..., :2] / Xc[..., 2:3] + f(rng.normal(0, 0.5 / FX, (n_kfs,
+                                                               n_pts, 2)))
+    r2 = np.random.default_rng(99)
+    dxi = f(np.concatenate([np.zeros((2, 6)),
+                            r2.normal(0, 0.01, (n_kfs - 2, 6))]))
+    dR, dt = lie.se3_exp(dxi)
+    R0, t0 = lie.se3_mul(dR, dt, R, t)
+    O = n_kfs * n_pts
+    ur = (Xc[..., 0] - 0.11) / Xc[..., 2] + f(rng.normal(0, 0.5 / FX, (
+        n_kfs, n_pts)))
+    ur = torch.where(f(rng.random((n_kfs, n_pts))) < 0.3, ur,
+                     torch.full_like(ur, float("nan")))
+    kf_opt = torch.ones(n_kfs, dtype=torch.bool, device=DEV)
+    kf_opt[:2] = False
+    return ba.make_problem(
+        R0, t0, X + f(r2.normal(0, 0.05, (n_pts, 3))),
+        torch.arange(n_kfs, dtype=torch.int32,
+                     device=DEV).repeat_interleave(n_pts),
+        torch.arange(n_pts, dtype=torch.int32, device=DEV).repeat(n_kfs),
+        uv.reshape(O, 2), torch.full((O,), FX ** 2, device=DEV),
+        torch.ones(O, dtype=torch.bool, device=DEV), kf_opt,
+        torch.ones(n_pts, dtype=torch.bool, device=DEV),
+        obs_ur=ur.reshape(O), baseline=0.11)
+
+
 def ba_iters_row():
     """bench.py:398's ba_iters_per_s problem (K 20, L 6,144, O 24,000, 10
     LM iterations, seed 0) through the port's ba_solve on the card."""
@@ -5341,7 +5651,8 @@ def main():
               ("loop", phase_loop), ("merge", phase_merge),
               ("vi_loop", phase_vi_loop), ("fisheye", phase_fisheye),
               ("persist", phase_persist), ("euroc_synth", phase_euroc_synth),
-              ("rig", phase_rig), ("new_kernels", phase_new_kernels))
+              ("rig", phase_rig), ("new_kernels", phase_new_kernels),
+              ("sharded", phase_sharded))
     only = args.only and ["device"] + args.only.split(",")
     state["plain_rows"] = []
     for name, phase in phases:
@@ -5358,24 +5669,34 @@ def main():
     state["plain_rows"].append(ba_iters_row())
     rows = state["kernel_rows"]
     by_path = state["launches_by_path"]
+    all_by_path = state["all_launches_by_path"]
     for r in rows:
-        # the count of this slice's rig paths for the kernels they run,
-        # else of the first earlier path that runs the kernel
-        names = r.get("counters", [r["name"]])
-        r["launches_from"] = next(
-            p for p in ("rig", "rig_vi", "persist", "loop", "vi_loop", "vi",
-                        "fisheye", "reloc") if names[0] in by_path[p])
-        r["launches"] = by_path[r["launches_from"]][names[0]]
-        r["launches_by_path"] = {p: sum(c.get(k, 0) for k in names)
-                                 for p, c in by_path.items()}
         r.setdefault("ms_by", "cuda events" if f"{r['name']}_kernel"
                      in EVENT_TIMED else "profiler")
+        names = r.get("counters", [r["name"]])
+        r["launches_by_path"] = {p: sum(c[k] for k in names)
+                                 for p, c in all_by_path.items()}
+        if r["name"] in NO_PATH_KERNELS:
+            check(not any(r["launches_by_path"].values()),
+                  f"{r['name']} launched on a path: "
+                  f"{r['launches_by_path']}")
+            r["launches_from"] = None
+            r["launches"] = sum(r["launches_by_path"].values())
+            continue
+        # the count of this slice's rig paths for the kernels they run,
+        # else of the first earlier path that runs the kernel
+        r["launches_from"] = next(
+            p for p in ("rig", "rig_vi", "persist", "loop", "vi_loop", "vi",
+                        "fisheye", "reloc", "sharded")
+            if names[0] in by_path[p])
+        r["launches"] = by_path[r["launches_from"]][names[0]]
     log(json.dumps({"plain_kernel_targets": state["plain_rows"]}))
     for name in ("main", "stereo", "rgbd", "reloc", "vi", "loop", "merge",
                  "vi_loop", "fisheye", "persist", "euroc_synth"):
         key = "main_path" if name == "main" else f"{name}_path"
         log(json.dumps({key: state[name]}))
     log(json.dumps({"rig_path": state["rig_path"]}))
+    log(json.dumps({"sharded_path": state["sharded"]}))
     log(json.dumps({"kernels": rows}))
     log(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -161,9 +161,17 @@ def so3_left_jacobian_inv(w):
 # ---------------------------------------------------------------------------
 
 def se3_exp(xi):
-    """(..., 6) [rho, phi] -> (R (..., 3, 3), t (..., 3))."""
+    """(..., 6) [rho, phi] -> (R (..., 3, 3), t (..., 3)): so3_exp(phi)
+    and so3_left_jacobian(phi) rho, their common terms computed once."""
     rho, phi = xi[..., :3], xi[..., 3:]
-    return so3_exp(phi), matvec(so3_left_jacobian(phi), rho)
+    theta = _safe_norm(phi)
+    W = so3_hat(phi)
+    W2 = _hat_sq(phi)
+    eye = _eye(phi, W.shape)
+    b = _cosc(theta)[..., None, None]
+    R = eye + _sinc(theta)[..., None, None] * W + b * W2
+    J = eye + b * W + _sinc3(theta)[..., None, None] * W2
+    return R, matvec(J, rho)
 
 
 def se3_log(R, t):

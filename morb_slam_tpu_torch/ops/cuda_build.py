@@ -24,7 +24,7 @@ SOURCES = ("fast_select", "orb_describe", "hamming_top2", "stereo_sad",
            "remap_bilinear", "pose_opt", "vocab_transform", "bow_l1",
            "ba_assemble", "preintegrate", "pose_inertial", "schur_pcg",
            "vi_edges", "pose_graph", "pyramid_blur", "stereo_general",
-           "inertial_init", "sim3_verify")
+           "inertial_init", "sim3_verify", "hamming_mxu")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # sources whose float work repeats a plain version's operations in its

@@ -6,10 +6,13 @@ Descriptors are (N, 8) int32, the bit view of the reference's uint32 words.
 `hamming_top2` is kernel K3: on CUDA tensors it launches
 `csrc/hamming_top2.cu`, which keeps the N x M distance matrix out of device
 memory; on CPU tensors it runs the plain version (`hamming_matrix` +
-`top2_min`). `hamming_top2_gated` is K3's gated mode: it takes the searches'
+`top2_min`, or at a sparse mask the same result from the masked-in pairs
+alone). `hamming_top2_gated` is K3's gated mode: it takes the searches'
 per-row and per-column window inputs instead of an (N, M) mask and tests
 each pair in the kernel's registers (`gate_mask` is the plain gate, the
-dense composition the searches built before).
+dense composition the searches built before). `hamming_matrix_mxu` is
+kernel K19 (`csrc/hamming_mxu.cu`): the whole distance matrix as a +-1
+product on the int8 tensor cores; no pipeline code calls it.
 """
 from __future__ import annotations
 
@@ -26,10 +29,14 @@ TH_LOW = 50
 BIG = 1 << 20
 
 LAUNCHES = {"kernel": 0, "plain": 0}
+MXU_LAUNCHES = {"kernel": 0, "plain": 0}     # K19
 # the gated mode's pair tests (csrc/hamming_top2.cu GATE_*)
 GATE_MODES = {"window": 0, "window_nan": 1, "row_band": 2}
 
 _ROW_CHUNK = 1024
+# the number of set bits of each byte value
+_POPCOUNT8 = torch.tensor([bin(v).count("1") for v in range(256)],
+                          dtype=torch.int32)
 
 
 def hamming_matrix(a, b):
@@ -49,6 +56,42 @@ def hamming_matrix(a, b):
     return torch.cat(out)
 
 
+def hamming_matrix_mxu_plain(a, b):
+    """`hamming_matrix_mxu`'s function: the bits unpacked to +-1 float32
+    and one product, d = (256 - <sa, sb>) / 2. Every partial sum is an
+    integer of magnitude <= 256, so the float32 product is exact."""
+    MXU_LAUNCHES["plain"] += 1
+    sa = unpack_bits(a).to(torch.float32) * 2 - 1
+    sb = unpack_bits(b).to(torch.float32) * 2 - 1
+    return ((256 - sa @ sb.T) * 0.5).to(torch.int32)
+
+
+def hamming_matrix_mxu(a, b):
+    """K19: (N, 8) x (M, 8) int32 words -> (N, M) int32 Hamming distances,
+    equal to `hamming_matrix`, as a +-1 product over the 256 bits. CUDA
+    tensors: one launch of the int8 tensor-core kernel; CPU tensors: the
+    plain version."""
+    if a.device.type == "cpu":
+        return hamming_matrix_mxu_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"hamming_matrix_mxu: unsupported device {a.device}")
+    if a.dtype != torch.int32 or b.dtype != torch.int32 or \
+            a.dim() != 2 or b.dim() != 2 or a.shape[1] != 8 or \
+            b.shape[1] != 8 or b.device != a.device:
+        raise ValueError("hamming_matrix_mxu: needs int32 (N, 8) and (M, 8) "
+                         "on one card")
+    n, m = a.shape[0], b.shape[0]
+    out = torch.empty((n, m), dtype=torch.int32, device=a.device)
+    if n == 0 or m == 0:
+        return out
+    a, b = _aligned(a), _aligned(b)
+    rc = _mxu_lib().hamming_mxu(a.data_ptr(), b.data_ptr(), n, m,
+                                out.data_ptr(), cuda_build.stream_ptr(a))
+    cuda_build.check(rc, "hamming_mxu")
+    MXU_LAUNCHES["kernel"] += 1
+    return out
+
+
 def top2_min(d, big: int = BIG):
     """Row-wise best, best index (first on ties) and second best, the
     minimum over the other columns."""
@@ -60,11 +103,56 @@ def top2_min(d, big: int = BIG):
     return best, best_idx, second
 
 
+def _masked_top2(a, b, mask):
+    """top2_min of the Hamming matrix with BIG where `mask` is False: the
+    dense composition."""
+    return top2_min(torch.where(mask, hamming_matrix(a, b), torch.full(
+        (), BIG, dtype=torch.int32, device=a.device)))
+
+
+def _sparse_top2(a, b, i, j):
+    """`_masked_top2` on the mask that is True at the distinct pairs (i, j)
+    alone, from those pairs' distances (XOR and a byte popcount, exact as
+    the product); the matrix is never formed. Needs M > 0."""
+    n, m = a.shape[0], b.shape[0]
+    dev = a.device
+    i = i.long()
+    x = (a[i] ^ b[j]).contiguous().view(torch.uint8)          # (P, 32)
+    d = _POPCOUNT8.to(dev)[x.long()].sum(1, dtype=torch.int32)
+    big = torch.full((n,), BIG, dtype=torch.int32, device=dev)
+    best = big.scatter_reduce(0, i, d, "amin")
+    # the row's first column at its best (column 0 in a row of no pair)
+    at = d == best[i]
+    idx = torch.full((n,), m, dtype=torch.int64, device=dev).scatter_reduce(
+        0, i[at], j[at].long(), "amin")
+    idx = torch.where(idx == m, torch.zeros_like(idx), idx)
+    # the minimum over the row's other columns: its other pairs, or BIG
+    other = j.long() != idx[i]
+    second = big.scatter_reduce(0, i[other], d[other], "amin")
+    return best, idx.to(torch.int32), second
+
+
+def _pair_top2(a, b, i, j, mask=None):
+    """top2_min of the (N, M) matrix holding the Hamming distance at the
+    distinct pairs (i, j) and BIG elsewhere: `_sparse_top2` where the pairs
+    are at most a 16th of the matrix, else `_masked_top2` on `mask` (built
+    from the pairs if not given). A 16th is where the two cross on the CPU
+    (tests/k3_plain_crossover.py); the searches by projection and the
+    triangulation search fall below it, the initializer's, relocalization's
+    and the merge check's all-pairs matches above."""
+    n, m = a.shape[0], b.shape[0]
+    if m > 0 and 16 * i.numel() <= n * m:
+        return _sparse_top2(a, b, i, j)
+    if mask is None:
+        mask = torch.zeros((n, m), dtype=torch.bool, device=a.device)
+        mask[i, j] = True
+    return _masked_top2(a, b, mask)
+
+
 def hamming_top2_plain(a, b, mask):
     LAUNCHES["plain"] += 1
-    d = torch.where(mask, hamming_matrix(a, b),
-                    torch.full((), BIG, dtype=torch.int32, device=a.device))
-    return top2_min(d)
+    i, j = torch.nonzero(mask, as_tuple=True)
+    return _pair_top2(a, b, i, j, mask)
 
 
 def hamming_top2(a, b, mask):
@@ -125,9 +213,15 @@ def gate_mask(row_uv, row_r, row_oct, row_ok, col_uv, col_oct, col_ok,
 
 def hamming_top2_gated_plain(a, b, row_uv, row_r, row_oct, row_ok, col_uv,
                              col_oct, col_ok, mode: str, max_d: float = 0.0):
-    return hamming_top2_plain(a, b, gate_mask(row_uv, row_r, row_oct, row_ok,
-                                              col_uv, col_oct, col_ok, mode,
-                                              max_d))
+    """`hamming_top2_plain` on `gate_mask`'s gate, the gate evaluated on the
+    flagged rows and columns alone (it is False elsewhere)."""
+    LAUNCHES["plain"] += 1
+    rows = torch.nonzero(row_ok)[:, 0]
+    cols = torch.nonzero(col_ok)[:, 0]
+    ii, jj = torch.nonzero(gate_mask(
+        row_uv[rows], row_r[rows], row_oct[rows], row_ok[rows], col_uv[cols],
+        col_oct[cols], col_ok[cols], mode, max_d), as_tuple=True)
+    return _pair_top2(a, b, rows[ii], cols[jj])
 
 
 def hamming_top2_gated(a, b, row_uv, row_r, row_oct, row_ok, col_uv, col_oct,
@@ -184,6 +278,15 @@ def _lib():
         lib.hamming_top2_gated.argtypes = [P] * 9 + [I, I, I,
                                                      ctypes.c_float, P, P]
         lib.hamming_top2_gated.restype = I
+    return lib
+
+
+def _mxu_lib():
+    lib = cuda_build.library("hamming_mxu")
+    if lib.hamming_mxu.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.hamming_mxu.argtypes = [P, P, I, I, P, P]
+        lib.hamming_mxu.restype = I
     return lib
 
 

@@ -35,6 +35,7 @@ from torch.profiler import record_function
 
 from .. import lie
 from ..ops import cuda_build
+from ..tensor_ops import einsum
 from . import linalg
 from .robust import huber_weight
 
@@ -192,12 +193,12 @@ def assemble_plain(p: BAProblem, R, t, X, body: bool = False) -> BlockSums:
                     torch.full_like(kf_idx, L * K))
     lm_opt_obs = p.lm_opt.to(f32)[p.obs_lm.long()] * p.obs_mask.to(f32)
     Hpp = torch.zeros((K, 6, 6), dtype=f32, device=dev).index_add(
-        0, kf_idx, torch.einsum('oia,o,oib->oab', Jp, w, Jp))
+        0, kf_idx, einsum('oia,o,oib->oab', Jp, w, Jp))
     bp = -torch.zeros((K, 6), dtype=f32, device=dev).index_add(
-        0, kf_idx, torch.einsum('oia,o,oi->oa', Jp, w, r))
-    Wpl = torch.einsum('oia,o,oib->oab', Jp, w * lm_opt_obs, Jl)
-    hll = torch.einsum('oia,o,oib->oab', Jl, w, Jl)
-    gl = torch.einsum('oia,o,oi->oa', Jl, w, r)
+        0, kf_idx, einsum('oia,o,oi->oa', Jp, w, r))
+    Wpl = einsum('oia,o,oib->oab', Jp, w * lm_opt_obs, Jl)
+    hll = einsum('oia,o,oib->oab', Jl, w, Jl)
+    gl = einsum('oia,o,oi->oa', Jl, w, r)
     payload = torch.cat([Wpl.reshape(-1, 18), hll.reshape(-1, 9), gl], dim=1)
     seg = torch.zeros((L * K + 1, 30), dtype=f32, device=dev).index_add(
         0, j, payload)[:L * K].reshape(L, K, 30)
@@ -219,14 +220,14 @@ def assemble_obs_plain(p: BAProblem, R, t, X,
     r, Jp, Jl, w, _ = _obs_terms(p, R, t, X, body=body)
     kf_idx, lm_idx = p.obs_kf.long(), p.obs_lm.long()
     Hpp = torch.zeros((K, 6, 6), dtype=f32, device=dev).index_add(
-        0, kf_idx, torch.einsum('oia,o,oib->oab', Jp, w, Jp))
+        0, kf_idx, einsum('oia,o,oib->oab', Jp, w, Jp))
     bp = -torch.zeros((K, 6), dtype=f32, device=dev).index_add(
-        0, kf_idx, torch.einsum('oia,o,oi->oa', Jp, w, r))
+        0, kf_idx, einsum('oia,o,oi->oa', Jp, w, r))
     Hll = torch.zeros((L, 3, 3), dtype=f32, device=dev).index_add(
-        0, lm_idx, torch.einsum('oia,o,oib->oab', Jl, w, Jl))
+        0, lm_idx, einsum('oia,o,oib->oab', Jl, w, Jl))
     bl = -torch.zeros((L, 3), dtype=f32, device=dev).index_add(
-        0, lm_idx, torch.einsum('oia,o,oi->oa', Jl, w, r))
-    Wpl = torch.einsum('oia,o,oib->oab', Jp, w, Jl) * \
+        0, lm_idx, einsum('oia,o,oi->oa', Jl, w, r))
+    Wpl = einsum('oia,o,oib->oab', Jp, w, Jl) * \
         p.obs_mask.to(f32)[:, None, None]
     return ObsBlocks(Hpp=Hpp, bp=bp, Wpl=Wpl, Hll=Hll, bl=bl,
                      cost=torch.sum(w * torch.sum(r * r, dim=-1)))
@@ -307,55 +308,15 @@ def _where(ok, new, old):
     return type(old)(*(torch.where(ok, a, b) for a, b in zip(new, old)))
 
 
-@record_function("K4 ba_solve")
-def ba_solve(p: BAProblem, n_iters: int = 10, lambda0: float = 1e-4):
-    """Levenberg-Marquardt with dense-window Schur reduction. Returns
-    (R, t, X, info) with info["costs"] the per-iteration cost and
-    info["accepted"] the accept / reject sequence. K4 assembles the blocks
-    once at the initial state and once per iteration at the candidate
-    state; a rejected candidate's blocks are dropped."""
-    K = p.R.shape[0]
-    L = p.X.shape[0]
-    dev, f32 = p.obs_uv.device, p.obs_uv.dtype
-    kf_opt_f = p.kf_opt.to(f32)
-    lm_opt_f = p.lm_opt.to(f32)
-    eyeL = torch.eye(3, dtype=f32, device=dev)
-    order = obs_order(p) if dev.type == "cuda" else None
-
-    def lm_step(bs: BlockSums, R, t, X, lam):
-        Hpp = _damp(bs.Hpp, lam)
-        Hll_d = torch.where(p.lm_opt[:, None, None], _damp(bs.Hll, lam),
-                            eyeL.expand(bs.Hll.shape))
-        bl = bs.bl * lm_opt_f[:, None]
-        Hll_inv = linalg.inv3x3(Hll_d)
-
-        B = bs.Bt.permute(1, 2, 0, 3).reshape(K * 6, L, 3)
-        BC = torch.einsum('mlb,lbc->mlc', B, Hll_inv)             # (6K, L, 3)
-        S_off = BC.reshape(K * 6, L * 3) @ B.reshape(K * 6, L * 3).T
-        S = torch.block_diag(*Hpp) - S_off
-        b_schur = bs.bp.reshape(K * 6) - BC.reshape(K * 6, L * 3) @ \
-            bl.reshape(L * 3)
-        free = kf_opt_f.repeat_interleave(6)
-        S = S * free[:, None] * free[None, :] + torch.diag(1.0 - free)
-        b_schur = b_schur * free
-
-        dxp = linalg.solve_spd(S, b_schur)
-        Btdxp = torch.einsum('mlc,m->lc', B, dxp)
-        dxl = torch.einsum('lab,lb->la', Hll_inv, bl - Btdxp) * \
-            lm_opt_f[:, None]
-        dxp = dxp.reshape(K, 6) * kf_opt_f[:, None]
-        dR, dt = lie.se3_exp(dxp)
-        R_new, t_new = lie.se3_mul(dR, dt, R, t)
-        return R_new, t_new, X + dxl
-
-    R, t, X = p.R, p.t, p.X
-    bs = assemble(p, R, t, X, order)
-    cost0 = cost = bs.cost
-    lam = torch.tensor(lambda0, dtype=f32, device=dev)
+def _lm_loop(blocks, step, R, t, X, bs, lam, cost, n_iters: int):
+    """The LM loop every solver shares: `step(bs, R, t, X, lam)` proposes a
+    candidate from the accepted state's blocks, `blocks(R, t, X)` gives the
+    candidate's (with its cost); a rejected candidate's blocks are dropped.
+    Returns (R, t, X, bs, lam, cost, costs, accepted)."""
     costs, accepted = [], []
     for _ in range(n_iters):
-        R_c, t_c, X_c = lm_step(bs, R, t, X, lam)
-        bs_c = assemble(p, R_c, t_c, X_c, order)
+        R_c, t_c, X_c = step(bs, R, t, X, lam)
+        bs_c = blocks(R_c, t_c, X_c)
         accept = bs_c.cost < cost
         R = torch.where(accept, R_c, R)
         t = torch.where(accept, t_c, t)
@@ -366,7 +327,71 @@ def ba_solve(p: BAProblem, n_iters: int = 10, lambda0: float = 1e-4):
                           1e-9, 1e4)
         costs.append(cost)
         accepted.append(accept)
-    return R, t, X, {"cost0": cost0, "costs": torch.stack(costs),
+    return R, t, X, bs, lam, cost, costs, accepted
+
+
+def dense_step(p: BAProblem, bs: BlockSums, R, t, X, lam):
+    """One LM step of `ba_solve` from the block sums bs: the damped Schur
+    system over the window's poses solved densely, then the landmarks'
+    back-substitution. Returns the candidate (R, t, X)."""
+    K = p.R.shape[0]
+    L = p.X.shape[0]
+    dev, f32 = p.obs_uv.device, p.obs_uv.dtype
+    kf_opt_f = p.kf_opt.to(f32)
+    lm_opt_f = p.lm_opt.to(f32)
+    eyeL = torch.eye(3, dtype=f32, device=dev)
+    Hpp = _damp(bs.Hpp, lam)
+    Hll_d = torch.where(p.lm_opt[:, None, None], _damp(bs.Hll, lam),
+                        eyeL.expand(bs.Hll.shape))
+    bl = bs.bl * lm_opt_f[:, None]
+    Hll_inv = linalg.inv3x3(Hll_d)
+
+    B = bs.Bt.permute(1, 2, 0, 3).reshape(K * 6, L, 3)
+    BC = torch.einsum('mlb,lbc->mlc', B, Hll_inv)             # (6K, L, 3)
+    S_off = BC.reshape(K * 6, L * 3) @ B.reshape(K * 6, L * 3).T
+    S = torch.block_diag(*Hpp) - S_off
+    b_schur = bs.bp.reshape(K * 6) - BC.reshape(K * 6, L * 3) @ \
+        bl.reshape(L * 3)
+    free = kf_opt_f.repeat_interleave(6)
+    S = S * free[:, None] * free[None, :] + torch.diag(1.0 - free)
+    b_schur = b_schur * free
+
+    dxp = linalg.solve_spd(S, b_schur)
+    Btdxp = torch.einsum('mlc,m->lc', B, dxp)
+    dxl = torch.einsum('lab,lb->la', Hll_inv, bl - Btdxp) * \
+        lm_opt_f[:, None]
+    dxp = dxp.reshape(K, 6) * kf_opt_f[:, None]
+    return apply_step(dxp, dxl, R, t, X)
+
+
+def apply_step(dxp, dxl, R, t, X):
+    """The pose and landmark update: T <- exp(dxp) T, X <- X + dxl."""
+    dR, dt = lie.se3_exp(dxp)
+    R_new, t_new = lie.se3_mul(dR, dt, R, t)
+    return R_new, t_new, X + dxl
+
+
+@record_function("K4 ba_solve")
+def ba_solve(p: BAProblem, n_iters: int = 10, lambda0: float = 1e-4):
+    """Levenberg-Marquardt with dense-window Schur reduction. Returns
+    (R, t, X, info) with info["costs"] the per-iteration cost and
+    info["accepted"] the accept / reject sequence. K4 assembles the blocks
+    once at the initial state and once per iteration at the candidate
+    state; a rejected candidate's blocks are dropped."""
+    dev, f32 = p.obs_uv.device, p.obs_uv.dtype
+    order = obs_order(p) if dev.type == "cuda" else None
+
+    def blocks(R, t, X):
+        return assemble(p, R, t, X, order)
+
+    def step(bs, R, t, X, lam):
+        return dense_step(p, bs, R, t, X, lam)
+
+    bs = blocks(p.R, p.t, p.X)
+    lam = torch.tensor(lambda0, dtype=f32, device=dev)
+    R, t, X, _, lam, _, costs, accepted = _lm_loop(
+        blocks, step, p.R, p.t, p.X, bs, lam, bs.cost, n_iters)
+    return R, t, X, {"cost0": bs.cost, "costs": torch.stack(costs),
                      "accepted": torch.stack(accepted), "lambda": lam}
 
 
@@ -637,38 +662,26 @@ def ba_solve_pcg(p: BAProblem, n_iters: int = 8, cg_iters: int = 40,
     dev, f32 = p.obs_uv.device, p.obs_uv.dtype
     order = obs_order(p) if dev.type == "cuda" else None
 
-    def lm_step(ob: ObsBlocks, R, t, X, lam):
+    def blocks(R, t, X):
+        return assemble(p, R, t, X, order, per_obs=True)
+
+    def step(ob: ObsBlocks, R, t, X, lam):
         dxp, dxl = pcg_solve(*pcg_args(p, ob, lam, order), cg_iters)
-        dR, dt = lie.se3_exp(dxp)
-        R_new, t_new = lie.se3_mul(dR, dt, R, t)
-        return R_new, t_new, X + dxl
+        return apply_step(dxp, dxl, R, t, X)
 
     if carry is None:
         R, t, X = p.R, p.t, p.X
-        ob = assemble(p, R, t, X, order, per_obs=True)
+        ob = blocks(R, t, X)
         lam = torch.tensor(lambda0, dtype=f32, device=dev)
         cost = ob.cost
     else:
         R, t, X, lam, cost = carry
-        ob = assemble(p, R, t, X, order, per_obs=True)
-    cost0 = cost
-    costs, accepted = [], []
-    for _ in range(n_iters):
-        R_c, t_c, X_c = lm_step(ob, R, t, X, lam)
-        ob_c = assemble(p, R_c, t_c, X_c, order, per_obs=True)
-        accept = ob_c.cost < cost
-        R = torch.where(accept, R_c, R)
-        t = torch.where(accept, t_c, t)
-        X = torch.where(accept, X_c, X)
-        ob = _where(accept, ob_c, ob)
-        cost = torch.where(accept, ob_c.cost, cost)
-        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0),
-                          1e-9, 1e4)
-        costs.append(cost)
-        accepted.append(accept)
-    return R, t, X, {"cost0": cost0, "costs": torch.stack(costs),
+        ob = blocks(R, t, X)
+    R, t, X, _, lam, cost_n, costs, accepted = _lm_loop(
+        blocks, step, R, t, X, ob, lam, cost, n_iters)
+    return R, t, X, {"cost0": cost, "costs": torch.stack(costs),
                      "accepted": torch.stack(accepted), "lambda": lam,
-                     "carry": (R, t, X, lam, cost)}
+                     "carry": (R, t, X, lam, cost_n)}
 
 
 def classify_outliers(p: BAProblem, R, t, X):

@@ -19,9 +19,11 @@ from typing import NamedTuple
 import torch
 from torch.profiler import record_function
 
+from .. import dual
 from .. import imu as imu_mod
 from .. import lie
 from ..ops import cuda_build
+from ..tensor_ops import einsum
 
 G = 9.81
 
@@ -157,8 +159,8 @@ def compose_preintegration(dt1, dR1, dV1, dP1, J1, info1, rw1,
     eps = 1e-9 * torch.eye(9, dtype=f32, device=dev)
     C1 = torch.linalg.inv_ex(info1 + eps).inverse
     C2 = torch.linalg.inv_ex(info2 + eps).inverse
-    C = (torch.einsum('ab,bc,dc->ad', A, C1, A)
-         + torch.einsum('ab,bc,dc->ad', T, C2, T))
+    C = (einsum('ab,bc,dc->ad', A, C1, A)
+         + einsum('ab,bc,dc->ad', T, C2, T))
     info = torch.linalg.inv_ex(C + eps).inverse
     info = 0.5 * (info + info.T)
     rw = 1.0 / (1.0 / torch.clamp(rw1, min=1e-12)
@@ -301,12 +303,42 @@ def init_problem(ki: KfImu, R_wb, p_wb, kf_valid, opt_scale: bool = True,
                        float(prior_gyro), float(prior_acc), cst)
 
 
+def _residuals(ki: KfImu, R_wb, pi, pj, vi, vj, bg, ba, g_w):
+    """(K, 9) [r_R, r_v, r_p] of every keyframe pair (zero where the entry
+    is invalid): the bias-corrected preintegration (biases bg, ba) against
+    the positions pi, pj and velocities vi, vj of each pair's ends, under
+    gravity g_w; each argument (K, 3) or broadcast to it."""
+    prev = torch.clamp(ki.prev, min=0).long()
+    dbg = bg - ki.bias0[:, :3]
+    dba = ba - ki.bias0[:, 3:]
+    dR = lie.matmat(ki.dR, lie.so3_exp(lie.matvec(ki.J_Rg, dbg)))
+    dV = ki.dV + lie.matvec(ki.J_Vg, dbg) + lie.matvec(ki.J_Va, dba)
+    dP = ki.dP + lie.matvec(ki.J_Pg, dbg) + lie.matvec(ki.J_Pa, dba)
+    Ri, Rj = R_wb[prev], R_wb
+    dt = ki.dt[:, None]
+    RiT = Ri.transpose(-1, -2)
+    r_R = lie.so3_log(lie.matmat(dR.transpose(-1, -2), lie.matmat(RiT, Rj)))
+    r_v = lie.matvec(RiT, vj - vi - g_w * dt) - dV
+    r_p = lie.matvec(RiT, pj - pi - vi * dt - 0.5 * g_w * dt * dt) - dP
+    r = torch.cat([r_R, r_v, r_p], dim=-1)
+    return torch.where(ki.valid[:, None], r, torch.zeros_like(r))
+
+
+def inertial_residuals(ki: KfImu, R_wb, p_wb, v, bg, ba, g_world, scale):
+    """9-dim preintegration residuals of every keyframe pair (the reference
+    package's `inertial_residuals`): R_wb (K, 3, 3) body-to-world, p_wb
+    (K, 3) the visual map's body positions (scaled by `scale` here), v
+    (K, 3), the biases bg, ba (3,) and gravity g_world (3,)."""
+    prev = torch.clamp(ki.prev, min=0).long()
+    return _residuals(ki, R_wb, p_wb[prev] * scale, p_wb * scale, v[prev], v,
+                      bg[None, :], ba[None, :], g_world[None, :])
+
+
 def _edge_residuals(p: InitProblem, XL):
     """(K, 9) residual of every keyframe pair at its 15 local parameters
     XL (K, 15) = [phi_g (2), log s, bg (3), ba (3), v_prev (3), v_k (3)]
-    (zero where the entry is invalid): [r_R, r_v, r_p] of the
-    bias-corrected preintegration against the scaled visual poses, the
-    reference package's `inertial_residuals` with the globals per edge."""
+    (zero where the entry is invalid): `inertial_residuals` with the
+    globals per edge."""
     ki = p.ki
     K = XL.shape[0]
     f32, dev = XL.dtype, XL.device
@@ -319,21 +351,8 @@ def _edge_residuals(p: InitProblem, XL):
     g_w = lie.matvec(R_wg, g0)
     s = torch.exp(XL[:, 2:3]) if p.opt_scale else \
         torch.ones((K, 1), dtype=f32, device=dev)
-    dbg = XL[:, 3:6] - ki.bias0[:, :3]
-    dba = XL[:, 6:9] - ki.bias0[:, 3:]
-    dR = lie.matmat(ki.dR, lie.so3_exp(lie.matvec(ki.J_Rg, dbg)))
-    dV = ki.dV + lie.matvec(ki.J_Vg, dbg) + lie.matvec(ki.J_Va, dba)
-    dP = ki.dP + lie.matvec(ki.J_Pg, dbg) + lie.matvec(ki.J_Pa, dba)
-    Ri, Rj = p.R_wb[prev], p.R_wb
-    pi, pj = p.p_wb[prev] * s, p.p_wb * s
-    vi, vj = XL[:, 9:12], XL[:, 12:15]
-    dt = ki.dt[:, None]
-    RiT = Ri.transpose(-1, -2)
-    r_R = lie.so3_log(lie.matmat(dR.transpose(-1, -2), lie.matmat(RiT, Rj)))
-    r_v = lie.matvec(RiT, vj - vi - g_w * dt) - dV
-    r_p = lie.matvec(RiT, pj - pi - vi * dt - 0.5 * g_w * dt * dt) - dP
-    r = torch.cat([r_R, r_v, r_p], dim=-1)
-    return torch.where(ki.valid[:, None], r, torch.zeros_like(r))
+    return _residuals(ki, p.R_wb, p.p_wb[prev] * s, p.p_wb * s, XL[:, 9:12],
+                      XL[:, 12:15], XL[:, 3:6], XL[:, 6:9], g_w)
 
 
 def _local_index(p: InitProblem):
@@ -357,11 +376,12 @@ def _edge_terms(p: InitProblem, x):
     prev = torch.clamp(p.ki.prev, min=0).long()
     v = x[9:].reshape(K, 3)
     XL = torch.cat([x[:9].expand(K, 9), v[prev], v], dim=1)
-    f = lambda xl: _edge_residuals(p, xl)           # noqa: E731
+    # the 15 jvps along each local column at once (dual.jvp: torch.func.jvp's
+    # values and dtypes, without its per-operation dispatch)
     eye = torch.eye(15, dtype=f32, device=dev)
-    J = torch.stack([torch.func.jvp(f, (XL,), (eye[d].expand(K, 15),))[1]
-                     for d in range(15)], dim=-1).to(f32)     # (K, 9, 15)
-    return f(XL), J, p.info_eff * p.w[:, None, None]
+    r, J = dual.jvp(lambda xl: _edge_residuals(p, xl), XL,
+                    eye[:, None].expand(15, K, 15))
+    return r, J.movedim(0, -1).to(f32), p.info_eff * p.w[:, None, None]
 
 
 def _assemble(p: InitProblem, r, J, W, x):
@@ -373,8 +393,8 @@ def _assemble(p: InitProblem, r, J, W, x):
     idx = _local_index(p)
     sg = torch.tensor([0.0] * 3 + [p.prior_gyro] * 3 + [p.prior_acc] * 3,
                       dtype=f32, device=dev)
-    He = torch.einsum('kap,kab,kbq->kpq', J, W, J)
-    ge = torch.einsum('kap,kab,kb->kp', J, W, r)
+    He = einsum('kap,kab,kbq->kpq', J, W, J)
+    ge = einsum('kap,kab,kb->kp', J, W, r)
     H = torch.zeros((n, n), dtype=f32, device=dev).index_put_(
         (idx[:, :, None], idx[:, None, :]), He, accumulate=True)
     g = torch.zeros(n, dtype=f32, device=dev).index_put_(
@@ -382,7 +402,7 @@ def _assemble(p: InitProblem, r, J, W, x):
     ar9 = torch.arange(9, device=dev)
     H[ar9, ar9] += sg
     g[:9] += sg * x[:9]
-    cost = torch.sum(torch.einsum('ka,kab,kb->k', r, W, r)) + \
+    cost = torch.sum(einsum('ka,kab,kb->k', r, W, r)) + \
         torch.sum(sg * x[:9] * x[:9])
     return H, g, cost
 

@@ -51,11 +51,11 @@ def inv6x6(M):
     C = M[..., 3:, :3]
     D = M[..., 3:, 3:]
     Ai = inv3x3(A)
-    Si = inv3x3(D - _mm(C, _mm(Ai, B)))
     AiB = _mm(Ai, B)
-    CAi = _mm(C, Ai)
-    top = torch.cat([Ai + _mm(AiB, _mm(Si, CAi)), -_mm(AiB, Si)], dim=-1)
-    bot = torch.cat([-_mm(Si, CAi), Si], dim=-1)
+    Si = inv3x3(D - _mm(C, AiB))
+    SiCAi = _mm(Si, _mm(C, Ai))
+    top = torch.cat([Ai + _mm(AiB, SiCAi), -_mm(AiB, Si)], dim=-1)
+    bot = torch.cat([-SiCAi, Si], dim=-1)
     return torch.cat([top, bot], dim=-2)
 
 

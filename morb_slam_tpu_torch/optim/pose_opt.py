@@ -19,6 +19,7 @@ from torch.profiler import record_function
 
 from .. import lie
 from ..ops import cuda_build
+from ..tensor_ops import einsum
 from . import linalg
 from .robust import huber_weight
 
@@ -79,10 +80,10 @@ def optimize_pose_plain(R0, t0, Xw, obs, info, valid, obs_ur=None,
         w = info * huber_weight(chi2, chi2_th) * active
         w = torch.where(z > 0, w, torch.zeros_like(w))
         ws = w * st_f
-        H = (torch.einsum('nia,n,nib->ab', J2, w, J2)
-             + torch.einsum('na,n,nb->ab', Jr, ws, Jr)) + eye6
-        g = (torch.einsum('nia,n,ni->a', J2, w, r2)
-             + torch.einsum('na,n,n->a', Jr, ws, r_ur))
+        H = (einsum('nia,n,nib->ab', J2, w, J2)
+             + einsum('na,n,nb->ab', Jr, ws, Jr)) + eye6
+        g = (einsum('nia,n,ni->a', J2, w, r2)
+             + einsum('na,n,n->a', Jr, ws, r_ur))
         dx = -linalg.solve_6x6(H, g)
         dR, dt = lie.se3_exp(dx)
         return lie.se3_mul(dR, dt, R, t), chi2

@@ -11,17 +11,19 @@ random walk and the bias priors assembled into that system, and the
 inertial cost of the accept test, are kernel K13 (`inertial_terms`: the
 system and the cost at one state in one call of `csrc/vi_edges.cu` on CUDA
 tensors; on CPU tensors `inertial_terms_plain`, which composes
-`inertial_system_plain`, whose Jacobian is `torch.func.vmap(jacfwd)`, and
-`inertial_cost_plain`). `vi_ba_solve` calls it once at the start state and
-once at each candidate, keeping the accepted state's system for the next
-step.
+`inertial_system_plain`, whose Jacobian is `torch.func.vmap(jacfwd)`'s as
+`dual.jvp` computes it, and `inertial_cost_plain`). `vi_ba_solve` calls it
+once at the start state and once at each candidate, keeping the accepted
+state's system for the next step.
 
 `optimize_pose_inertial` is kernel K12: on CUDA tensors one launch of
 `csrc/pose_inertial.cu` runs every Gauss-Newton step and reclassification
 round of one call over the current state's 15 dims (the anchor keyframe is
 fixed, so the 30-dim system is diag(I, H_cc)) and writes H_cc as the
 marginal; on CPU tensors it runs `optimize_pose_inertial_plain`, the 30-dim
-form of the reference.
+form of the reference, whose edge Jacobian (the current state's 15
+columns) is `dual.jvp`'s: jacfwd's values, bit for bit, without
+functorch's per-operation dispatch.
 """
 from __future__ import annotations
 
@@ -29,12 +31,12 @@ import ctypes
 from typing import NamedTuple
 
 import torch
-from torch.func import jacfwd, vmap
 from torch.profiler import record_function
 
-from .. import lie
+from .. import dual, lie
 from ..imu import gravity
 from ..ops import cuda_build
+from ..tensor_ops import einsum
 from . import ba, linalg
 
 HUBER2_MONO = 5.991
@@ -120,32 +122,46 @@ def _visual_terms(p: VIBAProblem, R_wb, p_wb, X, robust: bool):
                          body=True)
 
 
-def _edge_residual(x30, Ri, pi, vi, bi, Rj, pj, vj, dt, dR, dV, dP,
-                   JRg, JVg, JVa, JPg, JPa, bias0, g):
-    """9-dof preintegration residual [r_R, r_v, r_p] of one edge as a
-    function of the 30-dim (state_i, state_j) perturbation; batches over
-    leading dims."""
-    xi, xj = x30[..., :15], x30[..., 15:]
+def _anchor_side(xi, Ri, pi, vi, bi, dR, dV, dP, JRg, JVg, JVa, JPg, JPa,
+                 bias0):
+    """The state_i side of `_edge_residual` at the 15-dim perturbation xi:
+    Ri_^T, pi_, vi_ and the bias-corrected dR^T, dV, dP."""
     Ri_ = lie.matmat(Ri, lie.so3_exp(xi[..., 3:6]))
     pi_ = pi + lie.matvec(Ri, xi[..., 0:3])
     vi_ = vi + xi[..., 6:9]
     bg = bi[..., :3] + xi[..., 9:12]
     ba_ = bi[..., 3:] + xi[..., 12:15]
-    Rj_ = lie.matmat(Rj, lie.so3_exp(xj[..., 3:6]))
-    pj_ = pj + lie.matvec(Rj, xj[..., 0:3])
-    vj_ = vj + xj[..., 6:9]
     dbg = bg - bias0[..., :3]
     dba = ba_ - bias0[..., 3:]
     dR_c = lie.matmat(dR, lie.so3_exp(lie.matvec(JRg, dbg)))
     dV_c = dV + lie.matvec(JVg, dbg) + lie.matvec(JVa, dba)
     dP_c = dP + lie.matvec(JPg, dbg) + lie.matvec(JPa, dba)
-    RiT = Ri_.transpose(-1, -2)
+    return (Ri_.transpose(-1, -2), pi_, vi_, dR_c.transpose(-1, -2), dV_c,
+            dP_c)
+
+
+def _current_side(xj, RiT, pi_, vi_, dR_cT, dV_c, dP_c, Rj, pj, vj, dt, g):
+    """[r_R, r_v, r_p] from `_anchor_side`'s terms and state_j at the
+    15-dim perturbation xj."""
+    Rj_ = lie.matmat(Rj, lie.so3_exp(xj[..., 3:6]))
+    pj_ = pj + lie.matvec(Rj, xj[..., 0:3])
+    vj_ = vj + xj[..., 6:9]
     dt = dt[..., None]
-    r_R = lie.so3_log(lie.matmat(dR_c.transpose(-1, -2),
-                                 lie.matmat(RiT, Rj_)))
+    r_R = lie.so3_log(lie.matmat(dR_cT, lie.matmat(RiT, Rj_)))
     r_v = lie.matvec(RiT, vj_ - vi_ - g * dt) - dV_c
     r_p = lie.matvec(RiT, pj_ - pi_ - vi_ * dt - 0.5 * g * dt * dt) - dP_c
     return torch.cat([r_R, r_v, r_p], dim=-1)
+
+
+def _edge_residual(x30, Ri, pi, vi, bi, Rj, pj, vj, dt, dR, dV, dP,
+                   JRg, JVg, JVa, JPg, JPa, bias0, g):
+    """9-dof preintegration residual [r_R, r_v, r_p] of one edge as a
+    function of the 30-dim (state_i, state_j) perturbation; batches over
+    leading dims."""
+    return _current_side(
+        x30[..., 15:], *_anchor_side(x30[..., :15], Ri, pi, vi, bi, dR, dV,
+                                     dP, JRg, JVg, JVa, JPg, JPa, bias0),
+        Rj, pj, vj, dt, g)
 
 
 def _edge_args(p: VIBAProblem, R_wb, p_wb, v, bias):
@@ -159,15 +175,14 @@ def _edge_terms(p: VIBAProblem, R_wb, p_wb, v, bias):
     """Residual (W, 9) and (W, 9, 30) Jacobian of every inertial edge, zero
     for invalid edges."""
     g = gravity(p_wb)
-    z = torch.zeros(30, dtype=p_wb.dtype, device=p_wb.device)
-
-    def one(*a):
-        def f(x):
-            return _edge_residual(x, *a, g)
-        return f(z), jacfwd(f)(z)
-    r, J = vmap(one)(*_edge_args(p, R_wb, p_wb, v, bias))
-    # (torch's forward mode carries some tangents in float64)
-    J = J.to(p_wb.dtype)
+    f32, dev = p_wb.dtype, p_wb.device
+    # vmap over the edges of jacfwd at zero: dual.jvp along the 30 unit
+    # directions with the edge dim as a vmap's (its values and dtypes:
+    # torch's forward mode carries some tangents in float64)
+    r, J = dual.jvp(_edge_residual, torch.zeros(30, dtype=f32, device=dev),
+                    torch.eye(30, dtype=f32, device=dev),
+                    *_edge_args(p, R_wb, p_wb, v, bias), g, lead=1)
+    J = J.movedim(0, -1).to(f32)
     w = p.e_valid.to(p_wb.dtype)
     return r * w[:, None], J * w[:, None, None]
 
@@ -183,7 +198,7 @@ def _edge_residuals(p: VIBAProblem, R_wb, p_wb, v, bias):
 def inertial_cost_plain(p: VIBAProblem, R_wb, p_wb, v, bias):
     """Inertial + bias random walk + bias prior costs (K13's cost)."""
     r = _edge_residuals(p, R_wb, p_wb, v, bias)
-    c_in = torch.sum(torch.einsum('ei,eij,ej->e', r, p.e_info, r))
+    c_in = torch.sum(einsum('ei,eij,ej->e', r, p.e_info, r))
     prev = torch.clamp(p.e_prev, min=0).long()
     r_rw = (bias - bias[prev]) * p.e_valid.to(bias.dtype)[:, None]
     c_rw = torch.sum(r_rw * r_rw * p.e_rw_info)
@@ -497,9 +512,13 @@ def optimize_pose_inertial_plain(R0_cw, t0_cw, v0, bias0, Xw, obs, info,
                           HUBER2_MONO).to(f32)
     eye30 = torch.eye(30, dtype=f32, device=dev)
     g = gravity(t0_cw)
-    z30 = torch.zeros(30, dtype=f32, device=dev)
+    z15 = torch.zeros(15, dtype=f32, device=dev)
+    eye15 = torch.eye(15, dtype=f32, device=dev)
     tail = (e_dt, e_dR, e_dV, e_dP, e_JRg, e_JVg, e_JVa, e_JPg, e_JPa,
             e_bias0)
+    # the dtypes jacfwd gives the anchor side's (zero) tangents
+    side_dt = [x.tdt for x in _anchor_side(dual.zero(z15), R_a_wb, p_a, v_a,
+                                           bias_a, *tail[1:])]
     mask = torch.cat([torch.zeros(15, dtype=f32, device=dev),
                       torch.ones(15, dtype=f32, device=dev)])
     # the frame's observations as a one-keyframe BA problem (K4's terms)
@@ -517,14 +536,19 @@ def optimize_pose_inertial_plain(R0_cw, t0_cw, v0, bias0, Xw, obs, info,
         r, Jp, _, w, chi2 = ba._obs_terms(frame._replace(obs_mask=active),
                                           R_cw[None], t_cw[None], Xw,
                                           body=True)
-        Hv = torch.einsum('nia,n,nib->ab', Jp, w, Jp)
-        gv = -torch.einsum('nia,n,ni->a', Jp, w, r)
+        Hv = einsum('nia,n,nib->ab', Jp, w, Jp)
+        gv = -einsum('nia,n,ni->a', Jp, w, r)
 
-        def f(x):
-            return _edge_residual(x, Ra, pa, va, ba_, R_wb, p_wb, v, *tail,
-                                  g)
-        re = f(z30)
-        Je = jacfwd(f)(z30).to(f32)                          # (9, 30)
+        # the current state's 15 columns (the anchor's reach only the
+        # entries the mask replaces), jacfwd's values and dtypes without its
+        # per-operation dispatch, in the 30-dim system; the anchor's side,
+        # whose tangents vanish, as constants that keep their dtypes
+        side = [dual.zero(x, dt) for x, dt in zip(
+            _anchor_side(z15, Ra, pa, va, ba_, *tail[1:]), side_dt)]
+        re, Jc = dual.jvp(_current_side, z15, eye15, *side, R_wb, p_wb, v,
+                          e_dt, g)
+        Je = torch.cat([torch.zeros((9, 15), dtype=f32, device=dev),
+                        Jc.T.to(f32)], dim=1)                # (9, 30)
         JtW = torch.einsum('ai,ab->bi', Je, e_info)
         H = torch.einsum('bi,bj->ij', JtW, Je)
         gg = -torch.einsum('bi,b->i', JtW, re)

@@ -6,10 +6,16 @@ of range dropped, and (as XLA runs the scatter in order on the CPU) the last
 of several writes to one index wins. `put` does the same on a copy, with no
 host synchronisation and the same result on every device. `topk` is
 `jax.lax.top_k`: a stable descending sort, so ties keep the lower index.
+`einsum` is `torch.einsum` with the contraction path of three or more
+operands cached.
 """
 from __future__ import annotations
 
+import functools
+import itertools
+
 import torch
+from torch import _VF
 
 
 def put(x, idx, vals):
@@ -94,3 +100,24 @@ def segment_max(vals, seg, n: int):
         else float("-inf")
     out = torch.full((n,), fill, dtype=vals.dtype, device=vals.device)
     return out.scatter_reduce(0, seg.long(), vals, "amax", include_self=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _einsum_path(equation, strategy, shapes):
+    oe = torch.backends.opt_einsum.get_opt_einsum()
+    path = oe.contract_path(equation, *shapes, optimize=strategy,
+                            shapes=True)[0]
+    return list(itertools.chain.from_iterable(path))
+
+
+def einsum(equation, *operands):
+    """torch.einsum(equation, *operands), the contraction path that
+    opt_einsum gives three or more operands cached by equation and shapes:
+    the path and the kernels torch.einsum runs (so the same bits), without
+    the path search it repeats on every call (~0.15 ms on the CPU)."""
+    oe = torch.backends.opt_einsum
+    if len(operands) <= 2 or not oe.enabled or not oe.is_available():
+        return torch.einsum(equation, *operands)
+    path = _einsum_path(equation, oe.strategy,
+                        tuple(tuple(o.shape) for o in operands))
+    return _VF.einsum(equation, operands, path=path)

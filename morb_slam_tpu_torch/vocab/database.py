@@ -3,7 +3,9 @@ scored in one pass (counterpart of `morb_slam_tpu/vocab/database.py`).
 
 `query` is K10 (`tree.l1_score` with the row mask fused in); the top-n
 selection stays `tensor_ops.topk`. `top_candidates_grouped` is the
-covisibility-group scoring that loop closing uses.
+covisibility-group scoring that loop closing uses;
+`top_candidates_sharded` splits the scoring over the ranks of a
+`torch.distributed` mesh (nothing in the pipeline calls it).
 """
 from __future__ import annotations
 
@@ -95,3 +97,34 @@ def top_candidates_grouped(db: KeyframeDatabase, bow_q, n: int, covis,
     winner = torch.clamp(winner, min=-1.0)
     vals, ids = topk(winner, n)
     return ids, s[ids], (vals > 0) & (s[ids] > min_score)
+
+
+def top_candidates_sharded(db: KeyframeDatabase, bow_q, n: int, mesh,
+                           exclude=None, min_score: float = 0.0,
+                           axis: str = "kf"):
+    """Multi-device place-recognition scoring: the (K, n_words) BoW matrix
+    split into contiguous keyframe blocks over the ranks of `mesh` (a 1-D
+    DeviceMesh whose dimension is named `axis`; every rank holds the whole
+    database). Each rank scores its block (K10, through `query`) and takes
+    its top n; one all_gather of the n scores and global ids a rank, then
+    the global top n, ties to the lower id. K must divide by the mesh size.
+    Returns (ids (n,), scores (n,), ok (n,)) on every rank."""
+    import torch.distributed as dist
+    K = db.bow.shape[0]
+    size, rank = mesh.size(), mesh.get_local_rank()
+    if K % size:
+        raise ValueError(f"top_candidates_sharded: {K} keyframes do not "
+                         f"divide into {size} blocks")
+    kb = K // size
+    lo = rank * kb
+    blk = KeyframeDatabase(bow=db.bow[lo:lo + kb].contiguous(),
+                           valid=db.valid[lo:lo + kb].contiguous())
+    exc = None if exclude is None else exclude[lo:lo + kb].contiguous()
+    vals, ids = topk(query(blk, bow_q, exc), n)
+    group = mesh.get_group(axis)
+    all_vals = [torch.empty_like(vals) for _ in range(size)]
+    all_ids = [torch.empty_like(ids) for _ in range(size)]
+    dist.all_gather(all_vals, vals.contiguous(), group=group)
+    dist.all_gather(all_ids, (ids + lo).contiguous(), group=group)
+    best, sel = topk(torch.cat(all_vals), n)
+    return torch.cat(all_ids)[sel], best, best > min_score

@@ -97,6 +97,23 @@ def test_lie_parity(case):
         _close(a.numpy(), b)
 
 
+@pytest.mark.parametrize("scale", [0.0, 1e-6, 1e-4, 0.3, 3.0])
+def test_se3_exp_equals_so3_composition_bitwise(scale):
+    """se3_exp, which shares its terms between the rotation and the left
+    Jacobian, bit for bit against so3_exp(phi) and
+    matvec(so3_left_jacobian(phi), rho), on both sides of the small-angle
+    branch and with rows of zero rotation."""
+    rng = np.random.default_rng(int(scale * 1e6) + 3)
+    xi = torch.from_numpy((rng.normal(size=(64, 6)) * scale).astype(
+        np.float32))
+    xi[::5, 3:] = 0.0
+    R, t = t_lie.se3_exp(xi)
+    R0 = t_lie.so3_exp(xi[:, 3:])
+    t0 = t_lie.matvec(t_lie.so3_left_jacobian(xi[:, 3:]), xi[:, :3])
+    assert torch.equal(R.view(torch.int32), R0.view(torch.int32))
+    assert torch.equal(t.view(torch.int32), t0.view(torch.int32))
+
+
 def test_se3_group_ops_parity():
     rng = np.random.default_rng(1)
     xa = (rng.normal(size=(16, 6)) * 0.5).astype(np.float32)

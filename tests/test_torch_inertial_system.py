@@ -127,6 +127,37 @@ def test_inertial_system_plain_matches_reference(problem, opt_scale, point):
     assert abs(float(c) - cj) <= 1e-4 * float(ca), (float(c), cj)
 
 
+@pytest.mark.parametrize("opt_scale", [True, False])
+def test_edge_jacobian_equals_func_jvp_bitwise(problem, opt_scale):
+    """`_edge_terms`' residuals and Jacobian (`dual.jvp`) bit for bit and
+    dtype for dtype against the form they replaced: one `torch.func.jvp`
+    of `_edge_residuals` along each of the 15 local columns."""
+    P, K = problem, problem["K"]
+    x = np.random.default_rng(5).normal(0, 0.1, 9 + 3 * K).astype(
+        np.float32)
+    x[2] = np.log(2.2)
+    base = Rot.from_rotvec([0.25, -0.15, 0.1]).as_matrix().astype(np.float32)
+    p = inertial.init_problem(P["ki"], torch.from_numpy(P["R_wb"]),
+                              torch.from_numpy(P["p_wb"]),
+                              torch.from_numpy(P["valid"]), opt_scale, 1e2,
+                              1e5, torch.from_numpy(base))
+    x = torch.from_numpy(x)
+    r, J, _ = inertial._edge_terms(p, x)
+    prev = torch.clamp(p.ki.prev, min=0).long()
+    v = x[9:].reshape(K, 3)
+    XL = torch.cat([x[:9].expand(K, 9), v[prev], v], dim=1)
+    eye = torch.eye(15, dtype=torch.float32)
+
+    def f(xl):
+        return inertial._edge_residuals(p, xl)
+    J0 = torch.stack([torch.func.jvp(f, (XL,), (eye[d].expand(K, 15),))[1]
+                      for d in range(15)], dim=-1).to(torch.float32)
+    r0 = f(XL)
+    assert r.dtype == r0.dtype and J.dtype == J0.dtype
+    assert torch.equal(r, r0)
+    assert torch.equal(J, J0)
+
+
 def test_inertial_only_optimize_matches_reference(problem):
     P = problem
     valid = P["valid"]

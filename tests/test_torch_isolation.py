@@ -13,8 +13,11 @@ loop-closing slice's `solvers/sim3.py`, `optim/pose_graph.py`,
 wrapper (`optim/vi_ba.py` inertial_terms, with and without the system),
 K15's
 (`optim/pose_graph.py` normal_equations), K6's (`ops/image.py`
-pyramid_blur, build_pyramid, blur_levels) and K3's gated mode
-(`ops/hamming.py` hamming_top2_gated) are held to the same device rules. The native
+pyramid_blur, build_pyramid, blur_levels), K3's gated mode
+(`ops/hamming.py` hamming_top2_gated) and K19's (`ops/hamming.py`
+hamming_matrix_mxu) are held to the same device rules, and the
+multi-device slice's mesh (`parallel/distributed.py` global_obs_mesh)
+defaults to the card. The native
 image loader builds only from the port's own
 `morb_slam_tpu_torch/native/loader.cc` and reads nothing of the repository's
 `native/` directory."""
@@ -69,7 +72,8 @@ def test_imports_without_jax_or_reference_package():
                      "io.trajectory", "io.datasets", "io.native_loader",
                      "eval.ate", "utils.profiling", "utils.verbose", "viz",
                      "examples.run_dataset", "examples.run_live",
-                     "tools.process_imu"):
+                     "tools.process_imu", "parallel.sharded_ba",
+                     "parallel.distributed"):
             assert "morb_slam_tpu_torch." + need in names, need
         print(len(names))
     """)
@@ -125,7 +129,8 @@ def _counts():
                               tree.LAUNCHES["bow_l1"], ba.LAUNCHES,
                               imu.LAUNCHES, vi_ba.LAUNCHES,
                               ba.SCHUR_LAUNCHES, vi_ba.INERTIAL_LAUNCHES,
-                              pose_graph.LAUNCHES, image.LAUNCHES)]
+                              pose_graph.LAUNCHES, image.LAUNCHES,
+                              hamming.MXU_LAUNCHES)]
 
 
 def _voc(device):
@@ -220,7 +225,7 @@ def _graph_args(device, K=3):
                                     "normal_equations", "build_pyramid",
                                     "blur_levels", "orb_describe_levels",
                                     "fast_select_levels", "pyramid_blur",
-                                    "hamming_top2_gated"])
+                                    "hamming_top2_gated", "hamming_mxu"])
 def test_wrappers_refuse_other_devices(kernel):
     meta = torch.device("meta")
     before = _counts()
@@ -288,6 +293,9 @@ def test_wrappers_refuse_other_devices(kernel):
             f = torch.ones(4, dtype=torch.bool, device=meta)
             hamming.hamming_top2_gated(d, d, uv, uv[:, 0], o, f, uv, o, f,
                                        "window")
+        elif kernel == "hamming_mxu":
+            d = torch.empty((4, 8), dtype=torch.int32, device=meta)
+            hamming.hamming_matrix_mxu(d, d[:3])
         elif kernel == "fast_select_levels":
             fast.fast_select_levels([torch.empty((48, 64), device=meta)],
                                     [10], frontend.OrbConfig())
@@ -327,6 +335,7 @@ def test_wrappers_use_plain_versions_on_cpu():
     assert H.shape == (21, 21) and b.shape == (21,) and c.dim() == 0
     levels = image.build_pyramid(img, 3, 1.2)
     assert [tuple(l.shape) for l in levels] == [(48, 64), (40, 53), (33, 44)]
+    assert hamming.hamming_matrix_mxu(d, d[:2]).tolist() == [[0, 0]] * 3
     after = _counts()
     for b, a in zip(before, after):
         assert a["plain"] == b["plain"] + 1
@@ -376,6 +385,24 @@ def test_k6_blur_uses_plain_version_on_cpu():
                               "plain": before["plain"] + 3}
     for o, l in zip(out, levels):
         assert torch.equal(o, image.gaussian_blur_plain(l))
+
+
+def test_global_obs_mesh_defaults_to_cuda():
+    """The multi-device slice's mesh is a card mesh unless the caller asks
+    for the CPU: without a card the default refuses before any process
+    group is made."""
+    import inspect
+    import torch.distributed as dist
+    from morb_slam_tpu_torch.parallel import distributed
+    sig = inspect.signature(distributed.global_obs_mesh)
+    assert sig.parameters["device_type"].default == "cuda"
+    assert inspect.signature(distributed.initialize).parameters[
+        "device_type"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the refusal needs a host without one")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.global_obs_mesh()
+    assert not dist.is_initialized()
 
 
 def test_native_loader_builds_from_the_ports_source(tmp_path):

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K18 of the PyTorch port against their plain
+"""The CUDA kernels K1-K19 of the PyTorch port against their plain
 PyTorch versions on the card, on shapes and inputs the main path does
 not reach: image sizes that are no multiple of the 16-px cell, flat images
 where every key ties, empty keypoint and row sets, a single column, fully
@@ -49,7 +49,9 @@ blocks) on one feature, 300, no active pair, backward pairs alone and
 2,000 features; K7's one launch (the sweep and the median filter) of 1,
 333, 1,200 and 4,000 keypoints, none or one matched, tied SADs at the
 median and disparities at 0 and max_d; and every new wrapper refusing bad
-dtypes and shapes.
+dtypes and shapes; K19 (the whole Hamming matrix on the int8 tensor
+cores) at 4096x1200 and at sizes that are no multiple of its tile, and the
+observation-sharded PCG of `parallel/` on one nccl rank.
 
 Marked `gpu`: each test skips without a CUDA card. On a machine with one
 (and without JAX, so without tests/conftest.py):
@@ -2231,3 +2233,74 @@ def test_k16_k17_k18_refuse_bad_inputs_on_the_card(cuda):
         lc.sim3_refine(*r)
     assert (stereo.GENERAL_LAUNCHES, inertial.INIT_LAUNCHES,
             lc.WINDOW_LAUNCHES, lc.REFINE_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("n,m", [(4096, 1200), (1000, 777), (65, 1)])
+def test_hamming_mxu_matches_plain(cuda, n, m):
+    """K19 bitwise equal to its plain version and to hamming_matrix, at the
+    main path's 4096x1200 and at sizes that are no multiple of its 64 x 64
+    tile, with near-duplicate and identical descriptors among them."""
+    g = torch.Generator(device=cuda).manual_seed(n + m)
+    a, b = (torch.randint(-2 ** 31, 2 ** 31 - 1, (k, 8), generator=g,
+                          device=cuda, dtype=torch.int64).to(torch.int32)
+            for k in (n, m))
+    k = min(n, m) // 2
+    a[:k] = b[:k] ^ (1 << torch.randint(0, 31, (k, 8), generator=g,
+                                        device=cuda, dtype=torch.int32))
+    a[-1] = b[0]
+    before = dict(hamming.MXU_LAUNCHES)
+    got = hamming.hamming_matrix_mxu(a, b)
+    assert hamming.MXU_LAUNCHES["kernel"] == before["kernel"] + 1
+    assert got.dtype == torch.int32 and got.shape == (n, m)
+    assert torch.equal(got, hamming.hamming_matrix_mxu_plain(a, b))
+    assert torch.equal(got, hamming.hamming_matrix(a, b))
+    assert int(got[-1, 0]) == 0
+    # a view 4 bytes off the 16-byte alignment: the wrapper copies it
+    v = a.view(-1)[1:1 + 8 * (n - 1)].view(n - 1, 8)
+    assert torch.equal(hamming.hamming_matrix_mxu(v, b),
+                       hamming.hamming_matrix_mxu_plain(v, b))
+    assert hamming.hamming_matrix_mxu(a[:0], b).shape == (0, m)
+
+
+def test_hamming_mxu_refuses_bad_inputs_on_the_card(cuda):
+    d = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    before = dict(hamming.MXU_LAUNCHES)
+    for a, b in ((d.long(), d), (d, d[:, :4]), (d, d.cpu())):
+        with pytest.raises(ValueError):
+            hamming.hamming_matrix_mxu(a, b)
+    assert hamming.MXU_LAUNCHES == before
+
+
+def test_ba_solve_pcg_sharded_one_nccl_rank(cuda):
+    """The observation-sharded PCG on one nccl rank (global_obs_mesh's
+    one-rank group) against the single-device PCG over K14's solve: one LM
+    step within testing.PCG_TOL of the step's max-abs (K14's solve against
+    its plain loop), four steps' costs within 1e-3 relative; K4's
+    per-observation mode and K14's passes launched, no plain version."""
+    import torch.distributed as dist
+    from morb_slam_tpu_torch.parallel import distributed, sharded_ba
+    p = _ba_problem(cuda, 8, 600, 300, seed=7, dup=0.0)
+    dR = lie.so3_exp(torch.tensor([0.01, -0.01, 0.005], device=cuda))
+    p = p._replace(R=dR @ p.R, t=p.t + 0.02)
+    want = [ba.ba_solve_pcg(p, n_iters=n, cg_iters=40) for n in (1, 4)]
+    mesh = distributed.global_obs_mesh()
+    try:
+        assert dist.get_backend() == "nccl" and mesh.size() == 1
+        n0 = [dict(c) for c in (ba.OBS_LAUNCHES, ba.SCHUR_LAUNCHES,
+                                ba.PCG_LAUNCHES)]
+        got = [sharded_ba.ba_solve_pcg_sharded(
+            sharded_ba.pad_problem_for_mesh(p, 1), mesh, n_iters=n,
+            cg_iters=40) for n in (1, 4)]
+        n1 = [dict(c) for c in (ba.OBS_LAUNCHES, ba.SCHUR_LAUNCHES,
+                                ba.PCG_LAUNCHES)]
+    finally:
+        dist.destroy_process_group()
+    assert n1[0]["kernel"] == n0[0]["kernel"] + 2 + 5
+    assert n1[1]["kernel"] > n0[1]["kernel"] and n1[2] == n0[2]
+    assert all(n1[i]["plain"] == n0[i]["plain"] for i in range(3))
+    assert set(got[1][3]) == {"cost0", "costs", "lambda"}
+    for a, b, s0 in zip(got[0][:3], want[0][:3], (p.R, p.t, p.X)):
+        assert float((a - b).abs().max()) <= \
+            testing.PCG_TOL * float((b - s0).abs().max())
+    assert _rel(got[1][3]["costs"], want[1][3]["costs"]) <= 1e-3
+    assert float(got[1][3]["costs"][-1]) < float(got[1][3]["cost0"])

@@ -74,6 +74,37 @@ def test_top2_and_hamming_top2_exact(density):
         np.testing.assert_array_equal(g.numpy(), r)
 
 
+def _dense_top2(a, b, mask):
+    """K3's plain function as first written: the whole distance matrix,
+    BIG off the mask, then top2_min."""
+    return t_ham.top2_min(torch.where(mask, t_ham.hamming_matrix(a, b),
+                                      torch.tensor(t_ham.BIG)))
+
+
+@pytest.mark.parametrize("n,m,density", [(300, 200, 0.0), (300, 200, 0.01),
+                                         (300, 200, 0.06), (300, 200, 0.07),
+                                         (300, 200, 0.3), (300, 200, 1.0),
+                                         (40, 1, 0.5), (1, 40, 1.0)])
+def test_hamming_top2_plain_equals_dense_composition(n, m, density):
+    """hamming_top2_plain (the masked-in pairs alone at a sparse mask, the
+    dense composition above a 16th) bitwise against the whole matrix's
+    composition, on seeded masks on both sides of the threshold, with
+    repeated descriptors for tied distances and rows with no pair."""
+    rng = np.random.default_rng(n + m + int(1000 * density))
+    a, b = _rand_desc(rng, n), _rand_desc(rng, m)
+    a[n // 2:] = a[:n - n // 2]
+    b[m // 2:] = b[:m - m // 2]
+    a[::7] = b[0]
+    mask = _t(rng.random((n, m)) < density)
+    want = _dense_top2(_t(a), _t(b), mask)
+    got = t_ham.hamming_top2_plain(_t(a), _t(b), mask)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    i, j = torch.nonzero(mask, as_tuple=True)
+    for g, w in zip(t_ham._sparse_top2(_t(a), _t(b), i, j), want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
 @pytest.mark.parametrize("max_dist,ratio,cross", [(50, 1.0, True),
                                                   (100, 0.8, True),
                                                   (64, 0.9, False)])
@@ -292,7 +323,7 @@ def test_gated_plain_equals_old_gate_composition(mode):
     candidate, NaN / inf rows and tied distances among the cases."""
     c = _gate_case(mode)
     mask = _old_gate(c, mode)
-    want = t_ham.hamming_top2_plain(_t(c["a"]), _t(c["b"]), mask)
+    want = _dense_top2(_t(c["a"]), _t(c["b"]), mask)
     got = _gated(c, mode)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)

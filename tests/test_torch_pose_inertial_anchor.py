@@ -10,7 +10,15 @@ holds it against the plain version on the card.
 Inputs: `test_torch_vi_ba.py`'s pose-inertial case (made from a seed with
 numpy), cut to its first 60 observations, mono and half stereo. The JAX
 function is traced anew with `jnp.linalg.solve` wrapped so that the
-arguments of its last solve (the marginal's) come back to the host."""
+arguments of its last solve (the marginal's) come back to the host.
+
+The plain version is also held bit for bit against its earlier form, whose
+edge Jacobian came from `torch.func.jacfwd` (tests/k12_reference.py), on
+three calls recorded from tests/test_torch_faults.py's stereo-inertial
+recycling scenario (tests/data/k12_recycling_calls.npz) and on the two
+seeded cases."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +28,7 @@ import torch
 from morb_slam_tpu.optim import vi_ba as j_vi_ba
 from morb_slam_tpu_torch.optim import vi_ba
 
+import k12_reference
 from test_torch_vi_ba import _pose_inertial_case
 
 torch.set_num_threads(1)
@@ -85,3 +94,36 @@ def test_anchor_fixed_hessian_is_block_diagonal(stereo, monkeypatch):
     Hj = np.asarray(jo.H_marg)
     np.testing.assert_allclose(res.H_marg.numpy() / np.abs(Hj).max(),
                                Hj / np.abs(Hj).max(), atol=1e-4)
+
+
+# K12's plain version against its jacfwd form (tests/k12_reference.py), bit
+# for bit: three calls recorded from tests/test_torch_faults.py's
+# stereo-inertial recycling scenario (its plain K12 calls 1, 80 and 158 of
+# 158; tests/k12_scenario_bitwise.py checks all of them and writes the
+# file anew), then this file's two seeded cases
+_RECORDED = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                         "k12_recycling_calls.npz")
+_ARGS = ("R0_cw", "t0_cw", "v0", "bias0", "Xw", "obs", "info", "valid",
+         "obs_ur", "baseline", "R_a_wb", "p_a", "v_a", "bias_a", "e_dt",
+         "e_dR", "e_dV", "e_dP", "e_JRg", "e_JVg", "e_JVa", "e_JPg", "e_JPa",
+         "e_info", "e_bias0", "e_rw_info")
+
+
+def _recorded(i):
+    with np.load(_RECORDED) as d:
+        return [torch.from_numpy(d[f"c{i}_{n}"]) for n in _ARGS]
+
+
+@pytest.mark.parametrize("case", ["recorded0", "recorded1", "recorded2",
+                                  "mono", "stereo"])
+def test_plain_matches_jacfwd_form_bitwise(case):
+    if case.startswith("recorded"):
+        args, n_iters = _recorded(int(case[-1])), 6
+    else:
+        args, n_iters = _port_args(_case(case == "stereo")), 4
+    got = vi_ba.optimize_pose_inertial_plain(*args, n_iters=n_iters)
+    want = k12_reference.optimize_pose_inertial_jacfwd(*args,
+                                                       n_iters=n_iters)
+    for name, a, b in zip(got._fields, got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert int(got.n_inliers) > 30

@@ -126,6 +126,31 @@ def test_inertial_system_and_cost_match_reference(W, skip, invalid, seed):
     assert abs(c - c0) <= 1e-4 * abs(c0), (c, c0)
 
 
+def test_edge_jacobian_equals_vmap_jacfwd_bitwise():
+    """`_edge_terms`' residuals and Jacobian (`dual.jvp`) bit for bit and
+    dtype for dtype against the form they replaced: `torch.func.vmap` over
+    the edges of `jacfwd` of `_edge_residual` at zero (the W = 14 window,
+    with its skipped and invalid edges)."""
+    from torch.func import jacfwd, vmap
+    from morb_slam_tpu_torch.imu import gravity
+    tp = _port(_window_case(14, 6, (9,), 14))
+    st = (tp.R_wb, tp.p_wb, tp.v, tp.bias)
+    r, J = vi_ba._edge_terms(tp, *st)
+    g = gravity(tp.p_wb)
+    z = torch.zeros(30, dtype=torch.float32)
+
+    def one(*a):
+        def f(x):
+            return vi_ba._edge_residual(x, *a, g)
+        return f(z), jacfwd(f)(z)
+    r0, J0 = vmap(one)(*vi_ba._edge_args(tp, *st))
+    w = tp.e_valid.to(torch.float32)
+    r0, J0 = r0 * w[:, None], J0.to(torch.float32) * w[:, None, None]
+    assert r.dtype == r0.dtype and J.dtype == J0.dtype
+    assert torch.equal(r, r0)
+    assert torch.equal(J, J0)
+
+
 def test_vi_ba_solve_window32_matches_reference():
     prob = _window_case(32, None, (20,), 7)
     jo = j_vi_ba.vi_ba_solve(prob, n_iters=6)
